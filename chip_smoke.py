@@ -10,12 +10,17 @@ non-zero without the final result line:
 
 1. device  — the card's name, count and power limit (``nvidia-smi``).
 2. build   — compile the three flash-attention kernels from
-   ``grit_tpu_torch/ops/csrc`` (one ``nvcc`` per source, in parallel).
+   ``grit_tpu_torch/ops/csrc`` (one ``nvcc`` per source, in parallel) and
+   print each one's ptxas registers, spills and static shared memory; a
+   spill fails.
 3. kernels — at the flagship attention shape (B 2, S 2048, 20 heads,
    hd 128, bf16) and at a GQA shape (20 q heads on 4 kv heads), each
-   kernel against its plain PyTorch version; timings of kernel, plain
-   version and ``scaled_dot_product_attention`` (the yardstick, never
-   used by the port); the bound; dq run twice must be bitwise equal.
+   kernel against its plain PyTorch version, over the whole tensor and
+   within every 128-row tile (a planted fault, one zeroed dK/dV tile,
+   must fail the tile rule); timings of kernel, plain version and
+   ``scaled_dot_product_attention`` (the yardstick, never used by the
+   port); the bound; each kernel run twice on the same inputs must give
+   bitwise equal outputs.
 4. train   — the main path: a ``Trainer`` at the flagship widths (dim
    2560, 20 heads of 128, hidden 6912, vocab 32000, 13 layers, S 2048,
    batch 2, bf16) takes a few steps; losses finite and falling, and every
@@ -92,22 +97,62 @@ def phase_device(torch) -> dict:
     return {"name": name, "count": count, "smi": smi}
 
 
+# -- phase 2 -------------------------------------------------------------------
+
+
+def ptxas_report(build) -> dict:
+    """Each kernel's registers a thread at launch, spill bytes and static
+    shared memory, as ptxas reported them when the library was built
+    (``<stem>.ptxas.log`` beside it). The Hopper kernels move registers
+    from their producer to their consumer warpgroups with setmaxnreg after
+    launch, and size their shared memory at launch; a spill fails."""
+    out = {}
+    for stem in build.SOURCES:
+        text = (build.BUILD_DIR / f"{stem}.ptxas.log").read_text()
+        regs = re.search(r"Used (\d+) registers", text)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          text)
+        smem = re.search(r"(\d+) bytes smem", text)
+        if regs is None or spill is None:
+            raise RuntimeError(f"no ptxas report for {stem}:\n{text}")
+        rep = {"registers": int(regs.group(1)),
+               "spill_stores": int(spill.group(1)),
+               "spill_loads": int(spill.group(2)),
+               "static_smem": int(smem.group(1)) if smem else 0}
+        warnings = [ln.strip() for ln in text.splitlines()
+                    if "warning" in ln.lower()]
+        log("build", f"ptxas {stem}: {rep['registers']} registers a thread at "
+                     f"launch, spill stores {rep['spill_stores']} B, spill "
+                     f"loads {rep['spill_loads']} B, static smem "
+                     f"{rep['static_smem']} B"
+                     + (f"; warnings: {warnings}" if warnings else ""))
+        if rep["spill_stores"] or rep["spill_loads"]:
+            raise AssertionError(f"{stem} spills registers")
+        out[stem] = rep
+    return out
+
+
 # -- phase 3 helpers ---------------------------------------------------------------
 
 
-def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
-    """Mean device time of ``fn()`` over ``iters`` back-to-back calls."""
+def cuda_ms(torch, fn, iters: int, warmup: int = 2, windows: int = 1) -> float:
+    """Device time of one ``fn()``: the mean over ``iters`` back-to-back
+    calls, the median of ``windows`` such windows (one slow window, as a
+    clock ramp or another process gives, does not move it)."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    times = []
+    for _ in range(windows):
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return sorted(times)[len(times) // 2]
 
 
 def bounds(B, S, H, KVH, hd) -> dict:
@@ -148,18 +193,86 @@ def max_err(a, b) -> tuple[float, float]:
 # FlashAttention-2 does, and write bf16; the plain versions compute in
 # fp32 and round once. Both effects are bf16 rounding (relative spacing
 # 2^-8), so outputs must agree to a few bf16 ulps of their own scale:
-# 2^-6 of the reference's largest magnitude. LSE is an fp32 output whose
-# only difference is summation order and exp2 vs exp: 1e-3 absolute.
+# 2^-6 of the reference's largest magnitude, over the whole tensor and
+# again within every 128-row tile of every head. The tile rule is the one
+# that sees a tile the kernel got wrong: under causal attention dV and dK
+# of the last keys are some 100 times smaller than the first key's, so
+# zeros in their place stay inside the whole tensor's limit. LSE is an
+# fp32 output whose only difference is summation order and exp2 vs exp:
+# 1e-3 absolute.
 REL_TOL = 2.0 ** -6
 LSE_TOL = 1e-3
+TILE = 128
 
 
-def check_close(label: str, got, want) -> float:
+def tile_ratio(got, want) -> float:
+    """The worst, over 128-row tiles of each (batch, head), of max |err|
+    in the tile over ``REL_TOL`` times max |want| in it: at most 1 passes.
+    ``got`` and ``want`` are (B, S, heads, hd) with S a multiple of 128."""
+    B, S, NH, hd = want.shape
+    shape = (B, S // TILE, TILE, NH, hd)
+    err = (got.float() - want.float()).abs().reshape(shape).amax(dim=(2, 4))
+    scale = want.float().abs().reshape(shape).amax(dim=(2, 4))
+    ratio = err / (REL_TOL * scale)
+    return ratio.nan_to_num(nan=0.0).max().item()  # 0/0: an exact zero tile
+
+
+def check_close(label: str, got, want) -> tuple[float, float]:
+    """(max |err|, worst tile ratio); raises unless both rules hold."""
     err, scale = max_err(got, want)
     tol = REL_TOL * max(1.0, scale)
     if not err <= tol:
         raise AssertionError(f"{label}: max |err| {err} > {tol} (scale {scale})")
-    return err
+    ratio = tile_ratio(got, want)
+    if not ratio <= 1.0:
+        raise AssertionError(f"{label}: a 128-row tile's max |err| is {ratio} "
+                             f"times 2^-6 of that tile's max |want|")
+    return err, ratio
+
+
+def planted_fault(label: str, got, want) -> tuple[float, float]:
+    """The checks' own check: ``got`` with its last 128-row tile of the
+    last (batch 0) head zeroed, as a kernel that dropped its last work
+    item would leave it. Returns the whole-tensor rule's err / tol and
+    the tile rule's worst ratio (each passes at <= 1); raises unless the
+    tile rule rejects the fault."""
+    bad = got.clone()
+    bad[0, -TILE:, -1] = 0
+    err, scale = max_err(bad, want)
+    whole = err / (REL_TOL * max(1.0, scale))
+    ratio = tile_ratio(bad, want)
+    if not ratio > 1.0:
+        raise AssertionError(f"{label}: the tile check passes a zeroed last "
+                             f"tile (ratio {ratio})")
+    return whole, ratio
+
+
+def launch_resources(torch, calls: dict) -> dict:
+    """Shared memory and registers a thread of one launch of each kernel,
+    as the CUDA profiler recorded the launch (ptxas knows only static
+    shared memory; the kernels size theirs at launch)."""
+    from torch.profiler import ProfilerActivity, profile  # noqa: PLC0415
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for fn in calls.values():
+            fn()
+        torch.cuda.synchronize()
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        os.unlink(path)
+    out = {}
+    for ev in events:
+        for name in calls:
+            if ev.get("cat") == "kernel" and f"{name}_kernel" in ev["name"]:
+                out[name] = {"smem": ev["args"].get("shared memory"),
+                             "registers": ev["args"].get(
+                                 "registers per thread")}
+    return out
 
 
 def phase_kernels(torch, fa, card: str) -> dict:
@@ -179,9 +292,13 @@ def phase_kernels(torch, fa, card: str) -> dict:
                 .to(torch.bfloat16) for _ in range(2))
 
         o, lse = fa.flash_fwd(q, k, v)
+        o_again, lse_again = fa.flash_fwd(q, k, v)
         po, plse = fa.flash_fwd_plain(q, k, v)
         torch.cuda.synchronize()
-        err = {"flash_fwd": check_close(f"{tag} O", o, po)}
+        if not (torch.equal(o, o_again) and torch.equal(lse, lse_again)):
+            raise AssertionError(f"{tag}: forward kernel is not deterministic")
+        err, tiles = {}, {}
+        err["flash_fwd"], tiles["flash_fwd"] = check_close(f"{tag} O", o, po)
         lse_err = (lse - plse).abs().max().item()
         if not lse_err <= LSE_TOL:
             raise AssertionError(f"{tag} LSE: max |err| {lse_err} > {LSE_TOL}")
@@ -193,26 +310,45 @@ def phase_kernels(torch, fa, card: str) -> dict:
         dq = fa.flash_bwd_dq(q, k, v, do, lse3, delta)
         dq_again = fa.flash_bwd_dq(q, k, v, do, lse3, delta)
         dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse3, delta)
+        dk_again, dv_again = fa.flash_bwd_dkv(q, k, v, do, lse3, delta)
         pdq = fa.flash_bwd_dq_plain(q, k, v, do, lse3, delta)
         pdk, pdv = fa.flash_bwd_dkv_plain(q, k, v, do, lse3, delta)
         torch.cuda.synchronize()
         if not torch.equal(dq, dq_again):
             raise AssertionError(f"{tag}: dq kernel is not deterministic")
-        err["flash_bwd_dq"] = check_close(f"{tag} dq", dq, pdq)
-        err["flash_bwd_dkv"] = max(check_close(f"{tag} dk", dk, pdk),
-                                   check_close(f"{tag} dv", dv, pdv))
+        if not (torch.equal(dk, dk_again) and torch.equal(dv, dv_again)):
+            raise AssertionError(f"{tag}: dk/dv kernel is not deterministic")
+        err["flash_bwd_dq"], tiles["flash_bwd_dq"] = check_close(
+            f"{tag} dq", dq, pdq)
+        (dk_err, dk_tile), (dv_err, dv_tile) = (
+            check_close(f"{tag} dk", dk, pdk), check_close(f"{tag} dv", dv, pdv))
+        err["flash_bwd_dkv"] = max(dk_err, dv_err)
+        tiles["flash_bwd_dkv"] = max(dk_tile, dv_tile)
         log("kernels", f"{tag}: max|err| O {err['flash_fwd']:.3g} "
                        f"LSE {lse_err:.3g} dq {err['flash_bwd_dq']:.3g} "
-                       f"dk/dv {err['flash_bwd_dkv']:.3g}; dq bitwise "
-                       f"deterministic")
+                       f"dk/dv {err['flash_bwd_dkv']:.3g}; worst 128-row tile "
+                       f"err / (2^-6 tile max) O {tiles['flash_fwd']:.4f} dq "
+                       f"{tiles['flash_bwd_dq']:.4f} dk {dk_tile:.4f} dv "
+                       f"{dv_tile:.4f}; all three bitwise deterministic on "
+                       f"repeat")
+        faults = {n: planted_fault(f"{tag} {n}", g, w)
+                  for n, g, w in (("dk", dk, pdk), ("dv", dv, pdv))}
+        log("kernels", f"{tag}: planted fault, the last kv tile of one kv "
+                       f"head zeroed: " + "; ".join(
+                           f"{n} whole-tensor err/tol {w:.4f}, worst tile "
+                           f"{t:.4f}" for n, (w, t) in faults.items())
+                       + " (each passes at <= 1): the tile check rejects it")
 
-        ms = {
-            "flash_fwd": cuda_ms(torch, lambda: fa.flash_fwd(q, k, v), 20),
-            "flash_bwd_dq": cuda_ms(
-                torch, lambda: fa.flash_bwd_dq(q, k, v, do, lse3, delta), 20),
-            "flash_bwd_dkv": cuda_ms(
-                torch, lambda: fa.flash_bwd_dkv(q, k, v, do, lse3, delta), 20),
+        calls = {
+            "flash_fwd": lambda: fa.flash_fwd(q, k, v),
+            "flash_bwd_dq": lambda: fa.flash_bwd_dq(q, k, v, do, lse3, delta),
+            "flash_bwd_dkv": lambda: fa.flash_bwd_dkv(q, k, v, do, lse3, delta),
         }
+        ms = {name: cuda_ms(torch, fn, 20, 5, 5) for name, fn in calls.items()}
+        res = launch_resources(torch, calls)
+        log("kernels", f"{tag} launch resources (profiler): " + "; ".join(
+            f"{name} {r['registers']} registers a thread, {r['smem']} B "
+            f"shared memory" for name, r in res.items()))
         plain_ms = {
             "flash_fwd": cuda_ms(torch, lambda: fa.flash_fwd_plain(q, k, v), 3, 1),
             "flash_bwd_dq": cuda_ms(torch, lambda: fa.flash_bwd_dq_plain(
@@ -229,11 +365,11 @@ def phase_kernels(torch, fa, card: str) -> dict:
         ks = k.transpose(1, 2).repeat_interleave(groups, 1).detach().requires_grad_(True)
         vs = v.transpose(1, 2).repeat_interleave(groups, 1).detach().requires_grad_(True)
         sdpa_fwd = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-            qs, ks, vs, is_causal=True), 20)
+            qs, ks, vs, is_causal=True), 20, 5, 5)
         out_s = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
         g_s = do.transpose(1, 2)
         sdpa_bwd = cuda_ms(torch, lambda: torch.autograd.grad(
-            out_s, (qs, ks, vs), g_s, retain_graph=True), 20)
+            out_s, (qs, ks, vs), g_s, retain_graph=True), 20, 5, 5)
         bnd = bounds(B, S, H, KVH, hd)
         for name in ms:
             tflops = bnd[name]["flops"] / (ms[name] * 1e-3) / 1e12
@@ -245,7 +381,7 @@ def phase_kernels(torch, fa, card: str) -> dict:
                        f"{sdpa_bwd:.4f} ms vs dq+dkv kernels "
                        f"{ms['flash_bwd_dq'] + ms['flash_bwd_dkv']:.4f} ms "
                        f"[{card}]")
-        results[tag] = {"err": err, "ms": ms, "plain_ms": plain_ms,
+        results[tag] = {"err": err, "tiles": tiles, "ms": ms, "plain_ms": plain_ms, "res": res,
                         "bounds": bnd, "sdpa_fwd_ms": sdpa_fwd,
                         "sdpa_bwd_ms": sdpa_bwd}
         del qs, ks, vs, out_s
@@ -540,6 +676,7 @@ def main() -> int:
     build.build_all()
     log("build", f"3 kernels built in {time.perf_counter() - t0:.2f} s "
                  f"into {os.path.relpath(build.BUILD_DIR, REPO)}")
+    ptxas_report(build)
     kern = phase_kernels(torch, fa, device["smi"])
     train = phase_train(torch, fa)
     work = tempfile.mkdtemp(prefix="chip-smoke-")
@@ -557,6 +694,7 @@ def main() -> int:
         "replaces": replaces,
         "launches": train["launches"][name],
         "max_abs_err": main_shape["err"][name],
+        "worst_tile_err_ratio": main_shape["tiles"][name],
         "ms": main_shape["ms"][name],
         "plain_ms": main_shape["plain_ms"][name],
         "bound_ms": main_shape["bounds"][name]["bound_ms"],
@@ -565,6 +703,7 @@ def main() -> int:
         # yardstick of the two backward kernels together, not of either.
         "library_ms": main_shape["sdpa_fwd_ms" if name == "flash_fwd"
                                  else "sdpa_bwd_ms"],
+        "smem_bytes": main_shape["res"].get(name, {}).get("smem"),
         "library_covers": ("scaled_dot_product_attention forward"
                            if name == "flash_fwd" else
                            "scaled_dot_product_attention backward: dq, dk "

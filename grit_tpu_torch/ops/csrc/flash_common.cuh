@@ -5,10 +5,12 @@
 // wrapper never materialises the (B, H, S, hd) transposes the Pallas
 // wrapper makes. lse/delta are (B, H, S) fp32.
 //
-// Products run on the tensor cores through mma.sync.m16n8k16 (bf16 in,
-// fp32 accumulate). Tiles live in shared memory with rows padded by 8
-// bf16 (272-byte rows), which spreads every fragment load below over all
-// 32 banks.
+// Constants and small helpers of all three kernels, and the mma.sync
+// pieces of the dQ kernel: its products run on the tensor cores through
+// mma.sync.m16n8k16 (bf16 in, fp32 accumulate) from tiles in shared
+// memory with rows padded by 8 bf16 (272-byte rows), which spreads every
+// fragment load below over all 32 banks. The forward and dK/dV kernels
+// use the wgmma/TMA pieces of hopper.cuh instead.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -174,3 +174,34 @@ def test_a_cuda_request_without_a_kernel_raises(monkeypatch, tmp_path):
     with pytest.raises(build.KernelBuildError, match="nvcc"):
         fa.flash_fwd(q, k, v)
     assert fa.LAUNCHES["flash_fwd"] == 0
+
+
+def test_chip_smoke_tile_rule_rejects_a_dropped_kv_tile():
+    """``chip_smoke.py`` holds each kernel's bf16 output to 2^-6 of the
+    plain version's max over the whole tensor and within every 128-row
+    tile. Here a CPU emulation of the dK/dV kernel (P and dS rounded to
+    bf16 before their second product, bf16 outputs) at the flagship's
+    S 2048 passes both rules, and the same outputs with the last kv tile
+    of one head left at zero fail the tile rule: under causal attention
+    the first key's gradient sets the whole-tensor limit, the last keys'
+    are some 100 times smaller. ``-s`` prints the readings."""
+    import chip_smoke
+
+    B, S, H, hd = 1, 2048, 2, 128
+    q, k, v, do = (t.bfloat16() for t in _t(*_inputs(B, S, H, H, seed=11)))
+    po, plse = fa.flash_fwd_plain(q, k, v)
+    lse = plse.reshape(B, H, S)
+    delta = fa.attention_delta(do, po)
+    pdk, pdv = fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta)
+    qf, kf, vf, dof = (t.float().transpose(1, 2) for t in (q, k, v, do))
+    scale = hd ** -0.5
+    p = torch.exp(qf @ kf.transpose(-1, -2) * scale - lse[..., None]).tril()
+    ds = p * (dof @ vf.transpose(-1, -2) - delta.reshape(B, H, S)[..., None])
+    dv = (p.bfloat16().float().transpose(-1, -2) @ dof).transpose(1, 2)
+    dk = (ds.bfloat16().float().transpose(-1, -2) @ qf * scale).transpose(1, 2)
+    for name, got, want in (("dk", dk.bfloat16(), pdk), ("dv", dv.bfloat16(), pdv)):
+        _, tile = chip_smoke.check_close(name, got, want)
+        whole, faulty = chip_smoke.planted_fault(name, got, want)
+        print(f"{name}: sound worst tile ratio {tile:.4f}; zeroed last tile: "
+              f"whole-tensor err/tol {whole:.4f}, worst tile {faulty:.4f}")
+        assert tile <= 1.0 < faulty
