@@ -16,8 +16,10 @@ non-zero without the final result line:
 3. kernels — at the flagship attention shape (B 2, S 2048, 20 heads,
    hd 128, bf16) and at a GQA shape (20 q heads on 4 kv heads), each
    kernel against its plain PyTorch version, over the whole tensor and
-   within every 128-row tile (a planted fault, one zeroed dK/dV tile,
-   must fail the tile rule); timings of kernel, plain version and
+   within every 128-row tile (planted faults, one zeroed dK/dV tile and
+   one dQ tile without the term of its last 64-row kv tile, one stage of
+   the dQ kernel's ring, must fail the tile rule); timings of kernel,
+   plain version and
    ``scaled_dot_product_attention`` (the yardstick, never used by the
    port); the bound; each kernel run twice on the same inputs must give
    bitwise equal outputs.
@@ -230,21 +232,50 @@ def check_close(label: str, got, want) -> tuple[float, float]:
     return err, ratio
 
 
-def planted_fault(label: str, got, want) -> tuple[float, float]:
-    """The checks' own check: ``got`` with its last 128-row tile of the
-    last (batch 0) head zeroed, as a kernel that dropped its last work
-    item would leave it. Returns the whole-tensor rule's err / tol and
-    the tile rule's worst ratio (each passes at <= 1); raises unless the
-    tile rule rejects the fault."""
-    bad = got.clone()
-    bad[0, -TILE:, -1] = 0
+def fault_ratios(label: str, bad, want) -> tuple[float, float]:
+    """The checks' own check: ``bad`` is an output with a planted fault.
+    Returns the whole-tensor rule's err / tol and the tile rule's worst
+    ratio (each passes at <= 1); raises unless the tile rule rejects the
+    fault."""
     err, scale = max_err(bad, want)
     whole = err / (REL_TOL * max(1.0, scale))
     ratio = tile_ratio(bad, want)
     if not ratio > 1.0:
-        raise AssertionError(f"{label}: the tile check passes a zeroed last "
-                             f"tile (ratio {ratio})")
+        raise AssertionError(f"{label}: the tile check passes a planted "
+                             f"fault (ratio {ratio})")
     return whole, ratio
+
+
+def planted_fault(label: str, got, want) -> tuple[float, float]:
+    """``got`` with its last 128-row tile of the last (batch 0) head
+    zeroed, as a kernel that dropped its last work item would leave it,
+    through :func:`fault_ratios`."""
+    bad = got.clone()
+    bad[0, -TILE:, -1] = 0
+    return fault_ratios(label, bad, want)
+
+
+DQ_KV_TILE = 64  # key rows of one stage of the dQ kernel's K/V ring
+
+
+def drop_diagonal_kv_tile(dq, q, k, v, do, lse, delta):
+    """A copy of ``dq`` whose last 128-row q tile of the last (batch 0)
+    head lacks the term of its last 64-row kv tile, scale.dS.K over keys
+    S-64..S — what a dQ kernel whose K/V ring lost one stage would leave.
+    That tile is the diagonal tile of the q tile's second half, rows
+    S-64..S, the only rows that see those keys. ``lse`` and ``delta`` are
+    (B, H, S) fp32."""
+    _, S, H, hd = q.shape
+    h, rows = H - 1, slice(S - DQ_KV_TILE, S)
+    kvh = h // (H // k.shape[2])
+    qf, dof = q[0, rows, h].float(), do[0, rows, h].float()
+    kf, vf = k[0, rows, kvh].float(), v[0, rows, kvh].float()
+    scale = hd ** -0.5
+    p = (qf @ kf.T * scale - lse[0, h, rows, None]).exp().tril()
+    ds = p * (dof @ vf.T - delta[0, h, rows, None])
+    bad = dq.clone()
+    bad[0, rows, h] = (dq[0, rows, h].float() - ds @ kf * scale).to(dq.dtype)
+    return bad
 
 
 def launch_resources(torch, calls: dict) -> dict:
@@ -338,6 +369,13 @@ def phase_kernels(torch, fa, card: str) -> dict:
                            f"{n} whole-tensor err/tol {w:.4f}, worst tile "
                            f"{t:.4f}" for n, (w, t) in faults.items())
                        + " (each passes at <= 1): the tile check rejects it")
+        w, t = fault_ratios(f"{tag} dq", drop_diagonal_kv_tile(
+            pdq, q, k, v, do, lse3, delta), pdq)
+        log("kernels", f"{tag}: planted fault, the plain dq's last q tile of "
+                       f"one head without its last {DQ_KV_TILE}-row kv "
+                       f"tile's term: "
+                       f"whole-tensor err/tol {w:.4f}, worst tile {t:.4f} "
+                       f"(each passes at <= 1): the tile check rejects it")
 
         calls = {
             "flash_fwd": lambda: fa.flash_fwd(q, k, v),

@@ -37,6 +37,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from grit_tpu_torch.device.placement import resolve_device
 from grit_tpu_torch.metadata import (
     SNAPSHOT_FORMAT,
     atomic_write_json,
@@ -234,14 +235,16 @@ def _read_array(directory: str, rec: dict) -> torch.Tensor:
 
 
 def restore_snapshot(directory: str, *, like: Any = None,
-                     device: torch.device | str = "cpu") -> Any:
+                     device: torch.device | str | None = None) -> Any:
     """Load a committed snapshot.
 
     ``like``: a tree of the wanted structure. A tensor leaf on the meta
-    device is loaded onto ``device``; any other tensor leaf onto its own
-    device; a Python int/float leaf comes back as that type. Dtypes and
-    shapes must match the manifest. Without ``like`` the result is a
-    flat ``{keystr name: CPU tensor}`` dict.
+    device is loaded onto ``device``, by default the current CUDA device
+    (with no GPU that raises: pass ``device="cpu"`` to restore onto the
+    CPU); any other tensor leaf onto its own device; a Python int/float
+    leaf comes back as that type. Dtypes and shapes must match the
+    manifest. Without ``like`` the result is a flat ``{keystr name: CPU
+    tensor}`` dict.
 
     Reading (and checksumming) the next array from disk overlaps the
     host→device copy of the current one."""
@@ -253,10 +256,14 @@ def restore_snapshot(directory: str, *, like: Any = None,
     if like is None:
         names = list(by_name)
     else:
-        names = [n for n, _ in flatten_with_names(like)]
+        leaves = flatten_with_names(like)
+        names = [n for n, _ in leaves]
         missing = [n for n in names if n not in by_name]
         if missing:
             raise KeyError(f"snapshot {directory} lacks arrays: {missing[:5]}")
+        if any(isinstance(x, torch.Tensor) and x.device.type == "meta"
+               for _, x in leaves):
+            device = resolve_device(device)
 
     def place(name: str, leaf, host: torch.Tensor):
         if isinstance(leaf, torch.Tensor):

@@ -114,18 +114,6 @@ __device__ __forceinline__ void online_softmax(float (&sc)[64], float (&m_run)[2
                ((sum[r][0] + sum[r][1]) + (sum[r][2] + sum[r][3]));
 }
 
-// Work item w: (q tile, head, batch), q tiles longest first, so the
-// heaviest items start first (see snake_item for the order blocks take
-// them in).
-struct Work {
-  int qt, h, b;
-};
-
-__device__ __forceinline__ Work work_item(int w, int nqt, int H, int B) {
-  const int rem = w % (H * B);
-  return {nqt - 1 - w / (H * B), rem % H, rem / H};
-}
-
 __global__ void __launch_bounds__(NTHREADS_FWD, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                  const __grid_constant__ CUtensorMap tm_k,
@@ -170,7 +158,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (threadIdx.x == 0) {
       int it = 0;
       for (int r = 0, w; (w = snake_item(r, cta, G)) < n_work; ++r) {
-        const Work wk = work_item(w, nqt, H, B);
+        const QWork wk = q_work_item(w, nqt, H, B);
         const int kvh = wk.h / groups;
         mbar_wait(q_empty, (r & 1) ^ 1);
         mbar_expect_tx(q_full, TILE_BYTES);
@@ -221,7 +209,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
     // n kv tiles is n + 1 turns.
     int n_turns = 0;
     for (int r = 0, w; (w = snake_item(r, cta, G)) < n_work; ++r)
-      n_turns += work_item(w, nqt, H, B).qt + 2;
+      n_turns += q_work_item(w, nqt, H, B).qt + 2;
     int turn = 0;
     auto my_turn = [&]() { named_sync(1 + c, 256); };
     auto pass_turn = [&]() {
@@ -231,7 +219,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
 
     int it = 0;
     for (int r = 0, w; (w = snake_item(r, cta, G)) < n_work; ++r) {
-      const Work wk = work_item(w, nqt, H, B);
+      const QWork wk = q_work_item(w, nqt, H, B);
       const int qt = wk.qt;
 #pragma unroll
       for (int i = 0; i < 64; ++i) acc[i] = 0.f;

@@ -1,5 +1,5 @@
-// Hopper pieces of the forward and dK/dV flash-attention kernels (sm_90a):
-// TMA tile loads into 128-byte-swizzled shared memory, mbarriers, wgmma
+// Hopper pieces of the three flash-attention kernels (sm_90a): TMA tile
+// loads into 128-byte-swizzled shared memory, mbarriers, wgmma
 // products read from that memory through matrix descriptors, and the
 // register hand-over between producer and consumer warpgroups.
 //
@@ -12,14 +12,14 @@
 //
 // The same memory serves wgmma two ways:
 //  - K-major (rows are the M or N dimension, the head dim is the
-//    reduction): Q and K in Q.K^T, K and Q in K.Q^T, V and dO in V.dO^T.
-//    One k16 step is 32 bytes further into the row; steps 4-7 read the
-//    second half.
-//  - MN-major (rows are the reduction, the head dim is N): V in P.V, dO
-//    and Q in P^T.dO and dS^T.Q. One k16 step is 16 rows (2048 bytes)
-//    further; the two halves are the two 64-wide atoms along N, R * 128
-//    bytes apart (the descriptor's leading byte offset), and 8-row groups
-//    are 1024 bytes apart (its stride byte offset).
+//    reduction): Q and K in Q.K^T, dO and V in dO.V^T, K and Q in K.Q^T,
+//    V and dO in V.dO^T. One k16 step is 32 bytes further into the row;
+//    steps 4-7 read the second half.
+//  - MN-major (rows are the reduction, the head dim is N): V in P.V, K in
+//    dS.K, dO and Q in P^T.dO and dS^T.Q. One k16 step is 16 rows (2048
+//    bytes) further; the two halves are the two 64-wide atoms along N,
+//    R * 128 bytes apart (the descriptor's leading byte offset), and 8-row
+//    groups are 1024 bytes apart (its stride byte offset).
 #pragma once
 
 #include <cuda.h>
@@ -252,7 +252,7 @@ __device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32], uint64_t da,
 }
 
 // D[64 x 128] (+)= A.B: A (64 x 16 bf16) in registers in the accumulator
-// fragment layout (see acc_to_a), B (16 x 128) MN-major in shared memory
+// fragment layout (see acc_to_a_flat), B (16 x 128) MN-major in shared memory
 // (transpose flag set), described by a 128B-swizzle descriptor.
 __device__ __forceinline__ void wgmma_rs_m64n128_mn(float (&d)[64],
                                                    const uint32_t (&a)[4],
@@ -310,6 +310,17 @@ __device__ __forceinline__ void store_acc_rows(bf16* dst, long ld, int row0,
 // whichever block takes it.
 __device__ __forceinline__ int snake_item(int r, int cta, int G) {
   return r * G + ((r & 1) ? G - 1 - cta : cta);
+}
+
+// Work item w of the forward and dQ kernels: (q tile, head, batch), q
+// tiles longest first, so the heaviest items start first.
+struct QWork {
+  int qt, h, b;
+};
+
+__device__ __forceinline__ QWork q_work_item(int w, int nqt, int H, int B) {
+  const int rem = w % (H * B);
+  return {nqt - 1 - w / (H * B), rem % H, rem / H};
 }
 
 // Blocks of a persistent kernel that fits once per SM: one per SM, or

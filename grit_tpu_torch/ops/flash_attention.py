@@ -13,6 +13,11 @@ flash_bwd_dq  ``csrc/flash_bwd_dq.cu``     ``_bwd_dq_kernel``
 flash_bwd_dkv ``csrc/flash_bwd_dkv.cu``    ``_bwd_dkv_kernel``
 ============  ===========================  =================================
 
+All three are persistent, warp-specialised Hopper kernels: a producer
+warp feeds mbarrier-guarded shared-memory rings through TMA and two
+consumer warpgroups run ``wgmma`` on them (``csrc/hopper.cuh``; each
+source's note gives its design).
+
 Dispatch is by the tensors' device and nothing else: a CPU tensor runs
 the kernel's plain version (the CPU tests), a CUDA tensor launches the
 kernel or raises. There is no fallback from a CUDA tensor to the plain

@@ -31,20 +31,10 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from grit_tpu_torch.device.hook import restore_dir_from_env
+from grit_tpu_torch.device.placement import resolve_device
 from grit_tpu_torch.device.quiesce import quiesce
 from grit_tpu_torch.device.snapshot import restore_snapshot, write_snapshot
 from grit_tpu_torch.tree import flatten_with_names, map_with_names, tree_map
-
-
-def resolve_device(device: torch.device | str | None = None) -> torch.device:
-    """``device`` as given, else the current CUDA device. Never a silent
-    CPU: with no GPU the caller must ask for the CPU explicitly."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; pass device='cpu' "
-                           "to run on the CPU explicitly")
-    return torch.device("cuda", torch.cuda.current_device())
 
 
 def enable_determinism() -> None:

@@ -106,6 +106,26 @@ def test_close_rejects_a_dropped_last_kv_tile(cuda_device):
         assert not _close(bad, want)
 
 
+def test_close_rejects_a_dq_tile_without_its_diagonal_kv_tile(cuda_device):
+    """A dQ kernel whose K/V ring lost one stage leaves that 64-row kv
+    tile's term out of a q tile's rows. The kernel's dq passes the
+    comparison; the plain dq with the last q tile of one head lacking the
+    term of its last 64-row kv tile does not: the tile rule rejects it."""
+    import chip_smoke  # noqa: PLC0415
+
+    B, S, H, KVH = 1, 2048, 2, 2
+    q, k, v, do = _inputs(B, S, H, KVH, cuda_device, seed=3)
+    po, plse = fa.flash_fwd_plain(q, k, v)
+    lse3 = plse.reshape(B, H, S).contiguous()
+    delta = fa.attention_delta(do, po)
+    pdq = fa.flash_bwd_dq_plain(q, k, v, do, lse3, delta)
+    assert _close(fa.flash_bwd_dq(q, k, v, do, lse3, delta), pdq)
+    bad = chip_smoke.drop_diagonal_kv_tile(pdq, q, k, v, do, lse3, delta)
+    assert not _close(bad, pdq)
+    _, tile = chip_smoke.fault_ratios("dq", bad, pdq)
+    assert tile > 1.0
+
+
 # One warpgroup runs one product helper of csrc/hopper.cuh on tiles that
 # TMA loads exactly as the kernels load theirs; the fp32 accumulator is
 # written out through its fragment layout.
@@ -159,10 +179,10 @@ __global__ void __launch_bounds__(128) probe(
     for (int i = 0; i < 64; ++i) d[i] = 0.f;
     const int warp = tid / 32, g = (tid % 32) / 4, t = tid % 4;
     wgmma_fence(); fence_regs(d);
+    auto ld = [](const bf16* p) { return *reinterpret_cast<const uint32_t*>(p); };
     for (int kk = 0; kk < brows / 16; ++kk) {
       const bf16* p = a + (warp * 16 + g) * brows + kk * 16 + 2 * t;
-      uint32_t f[4] = {ld_u32(p), ld_u32(p + 8 * brows), ld_u32(p + 8),
-                       ld_u32(p + 8 * brows + 8)};
+      uint32_t f[4] = {ld(p), ld(p + 8 * brows), ld(p + 8), ld(p + 8 * brows + 8)};
       wgmma_rs_m64n128_mn(d, f, mnmajor_desc(sB, brows, kk), 1);
     }
     wgmma_commit(); wgmma_wait<0>(); fence_regs(d);

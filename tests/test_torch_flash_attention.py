@@ -205,3 +205,32 @@ def test_chip_smoke_tile_rule_rejects_a_dropped_kv_tile():
         print(f"{name}: sound worst tile ratio {tile:.4f}; zeroed last tile: "
               f"whole-tensor err/tol {whole:.4f}, worst tile {faulty:.4f}")
         assert tile <= 1.0 < faulty
+
+
+def test_chip_smoke_tile_rule_rejects_a_dq_tile_without_its_diagonal_kv_tile():
+    """The dQ counterpart: a CPU emulation of the dQ kernel (dS rounded to
+    bf16 before dS.K, bf16 output) at the flagship's S 2048 passes both
+    rules of ``chip_smoke.py``, and the plain dQ whose last q tile of one
+    head lacks the term of its last 64-row kv tile — the fault of a K/V
+    ring that lost one stage — fails the tile rule, which is the rule that
+    must reject it. ``-s`` prints the readings."""
+    import chip_smoke
+
+    B, S, H, hd = 1, 2048, 2, 128
+    q, k, v, do = (t.bfloat16() for t in _t(*_inputs(B, S, H, H, seed=11)))
+    po, plse = fa.flash_fwd_plain(q, k, v)
+    lse = plse.reshape(B, H, S)
+    delta = fa.attention_delta(do, po)
+    pdq = fa.flash_bwd_dq_plain(q, k, v, do, lse, delta)
+    qf, kf, vf, dof = (t.float().transpose(1, 2) for t in (q, k, v, do))
+    scale = hd ** -0.5
+    p = torch.exp(qf @ kf.transpose(-1, -2) * scale - lse[..., None]).tril()
+    ds = p * (dof @ vf.transpose(-1, -2) - delta[..., None])
+    dq = (ds.bfloat16().float() @ kf * scale).transpose(1, 2).bfloat16()
+    _, tile = chip_smoke.check_close("dq", dq, pdq)
+    bad = chip_smoke.drop_diagonal_kv_tile(pdq, q, k, v, do, lse, delta)
+    whole, faulty = chip_smoke.fault_ratios("dq", bad, pdq)
+    print(f"dq: sound worst tile ratio {tile:.4f}; last 64-row kv tile's "
+          f"term dropped: whole-tensor err/tol {whole:.4f}, worst tile "
+          f"{faulty:.4f}")
+    assert tile <= 1.0 < faulty

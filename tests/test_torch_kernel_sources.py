@@ -19,7 +19,7 @@ REPO = Path(__file__).resolve().parent.parent
 PALLAS = REPO / "grit_tpu" / "ops" / "flash_attention.py"
 SOURCES = sorted(build.CSRC.glob("*.cu"))
 HEADERS = sorted(build.CSRC.glob("*.cuh"))
-HOPPER = ("flash_fwd", "flash_bwd_dkv")
+HOPPER = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 
 
 def _code(path: Path) -> str:

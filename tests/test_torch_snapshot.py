@@ -93,6 +93,22 @@ def test_jax_written_snapshot_restores_through_port(tmp_path, python_chunks):
         assert _bytes(b) == _bytes(a), name
 
 
+def test_meta_leaves_restore_onto_the_gpu_unless_told_otherwise(
+        tmp_path, monkeypatch):
+    """A meta ``like`` leaf with no device lands on the current CUDA
+    device, as the reference restores onto the accelerator: with no GPU
+    that raises instead of landing on the CPU. Leaves with a device of
+    their own, and the flat form, still come back without a GPU."""
+    d = str(tmp_path / "snap")
+    psnap.write_snapshot(d, {"w": torch.arange(6.0).reshape(2, 3)})
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        psnap.restore_snapshot(d, like={"w": torch.empty(2, 3, device="meta")})
+    got = psnap.restore_snapshot(d, like={"w": torch.empty(2, 3)})
+    assert torch.equal(got["w"], torch.arange(6.0).reshape(2, 3))
+    assert psnap.restore_snapshot(d)["['w']"].device.type == "cpu"
+
+
 def test_sharded_and_delta_jax_snapshots_restore_through_port(
         tmp_path, python_chunks):
     """A JAX array sharded over the test mesh's devices is dumped as one
