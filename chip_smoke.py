@@ -31,12 +31,26 @@ non-zero without the final result line:
    trains, is quiesced and dumped through its agentlet, SIGKILLed, and a
    fresh process restores from the snapshot; its losses after the cut
    must equal an uninterrupted run's bit for bit.
-6. io      — rates of the stages a dump and restore are made of
+6. serve   — the serving path at the flagship widths: a continuous-
+   batching engine (4 slots of 4096 positions, temperature 1.0) serves
+   Zipf prompts of 1000, 700, 230 and 40 tokens and a fifth of 500 in a
+   reused slot, is quiesced and dumped through its serving agentlet after
+   24 rounds, and a second engine restores the snapshot and decodes 32
+   rounds: tokens and final state bitwise equal to an uninterrupted
+   engine's (a planted wrong position must fail that check); a lock-step
+   engine snapshots and continues bit-identically. Prefill and decode
+   times, a decode-round profile, snapshot size, the tag's zeroed share,
+   quiesce, dump, restore and blackout. The serving path launches none
+   of the three kernels (its attention is the plain one, as the
+   reference's), and the phase fails if one launched.
+7. io      — rates of the stages a dump and restore are made of
    (device-host copies, crc32, file write and read) on a buffer the size
    of the flagship's largest leaf.
 
-The second-to-last lines are the kernels' JSON record and the card's
-``name, power limit``; the last line is the result JSON. The script
+The second-to-last lines are the kernels' JSON record (with the serving
+phase's numbers under ``serving``) and the card's ``name, power limit``;
+the last line is the result JSON. ``--seed`` seeds the serving phase's
+weights and prompts (default 0). The script
 imports nothing of JAX or of the JAX package.
 """
 
@@ -637,6 +651,337 @@ def phase_migrate(work: str) -> dict:
     return {"cut": cut, "bytes": nbytes}
 
 
+# -- phase 6 -------------------------------------------------------------------
+
+SERVE_SLOTS = 4
+SERVE_MAX_LEN = 4096
+SERVE_PROMPTS = (1000, 700, 230, 40)  # the 1024, 1024, 256 and 64 buckets
+SERVE_SWAP = (12, 3, 500)  # after round 12, slot 3 leaves; 500 tokens join
+SERVE_CUT = 24             # rounds before the migration
+SERVE_AFTER = 32           # rounds the restored engine decodes
+LOCKSTEP = (2, 512, 16)    # batch, prompt tokens, tokens generated
+PROFILE_ROUNDS = 4
+
+
+def zipf_tokens(torch, n: int, vocab: int, gen) -> "torch.Tensor":
+    """``n`` token ids drawn from a Zipf law over the vocabulary (as the
+    training workload draws its batches)."""
+    zipf = 1.0 / torch.arange(1, vocab + 1, dtype=torch.float64)
+    return torch.multinomial(zipf, n, replacement=True,
+                             generator=gen).to(torch.int32)
+
+
+class ServingTraffic:
+    """The serving phase's request schedule, the same for every engine
+    that runs it: four prompts admitted before round 1 and, after round
+    ``SERVE_SWAP[0]``, the release of slot ``SERVE_SWAP[1]`` and the
+    admission of a fifth prompt into it. Every event falls before the
+    migration's cut, so the restored engine only decodes."""
+
+    def __init__(self, torch, vocab: int, seed: int, sync,
+                 buckets: tuple[int, ...]) -> None:
+        gen = torch.Generator().manual_seed(seed)
+        self.prompts = [zipf_tokens(torch, n, vocab, gen)
+                        for n in (*SERVE_PROMPTS, SERVE_SWAP[2])]
+        self.sync = sync
+        self.buckets = buckets
+
+    def _admit(self, submit, prompt, times: dict) -> int:
+        """``submit(prompt)``, its time recorded under the prompt's
+        prefill bucket."""
+        t0 = time.perf_counter()
+        slot = submit(prompt)
+        self.sync()
+        bucket = next(b for b in self.buckets if len(prompt) <= b)
+        times.setdefault(bucket, []).append((time.perf_counter() - t0) * 1e3)
+        return slot
+
+    def start(self, submit, times: dict) -> list[int]:
+        return [self._admit(submit, p, times) for p in self.prompts[:4]]
+
+    def after_round(self, r: int, submit, release, slots: list[int],
+                    times: dict) -> None:
+        if r == SERVE_SWAP[0]:
+            release(slots[SERVE_SWAP[1]])
+            slot = self._admit(submit, self.prompts[4], times)
+            if slot != slots[SERVE_SWAP[1]]:
+                raise AssertionError(f"the freed slot {slots[SERVE_SWAP[1]]} "
+                                     f"was not reused (got {slot})")
+
+
+def serving_mismatch(torch, got: dict, want: dict, eng, ref) -> str | None:
+    """The first difference between a restored engine's run and the
+    uninterrupted one: tokens of each round after the cut, the
+    bookkeeping leaves, then the KV cache at every position a slot has
+    written (positions below its length; the rest holds prefill padding
+    in an engine that never went through a snapshot and zeros in one
+    restored from the tagged dump, and is written before any read)."""
+    for r in sorted(got):
+        if got[r] != want[r]:
+            return f"round {r}: tokens {got[r]} vs {want[r]}"
+    a, b = eng.state, ref.state
+    for name in ("lengths", "active", "last_token", "rngs", "n_generated"):
+        if not torch.equal(a[name], b[name]):
+            return f"state leaf {name} differs"
+    dev = a["cache"]["k"].device
+    pos = torch.arange(a["cache"]["k"].shape[2], device=dev)
+    written = (b["active"].to(dev)[:, None]
+               & (pos[None, :] < b["lengths"].to(dev)[:, None]))
+    written = written[None, :, :, None, None]
+    for leaf in ("k", "v"):
+        x, y = a["cache"][leaf], b["cache"][leaf]
+        if not torch.equal(torch.where(written, x, 0), torch.where(written, y, 0)):
+            return f"KV cache {leaf} differs at a written position"
+    return None
+
+
+def profile_decode(torch, eng, rounds: int) -> dict:
+    """Device time by operator over ``rounds`` decode rounds of ``eng``
+    (torch.profiler): each operator's kernels' time a round, their sum
+    (the device's busy time), and the wall time of the profiled rounds."""
+    from torch.autograd import DeviceType  # noqa: PLC0415
+    from torch.profiler import ProfilerActivity, profile  # noqa: PLC0415
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(rounds):
+            eng.step()
+        wall = time.perf_counter() - t0
+    ops = []
+    for ev in prof.key_averages():
+        # Host-side operators, each with the device time of the kernels
+        # it launched itself (kernel events would count them twice).
+        if ev.device_type != DeviceType.CPU:
+            continue
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = ev.self_cuda_time_total
+        if dev_us > 0:
+            ops.append((ev.key, dev_us / rounds / 1e3))
+    ops.sort(key=lambda x: -x[1])
+    return {"wall_ms": wall / rounds * 1e3,
+            "device_ms": sum(ms for _, ms in ops), "top": ops[:8]}
+
+
+def phase_serving(torch, fa, work: str, card: str, *, seed: int,
+                  cfg=None, device: str = "cuda") -> dict:
+    """The serving path: a continuous-batching engine at the flagship
+    widths (``cfg`` and ``device`` other than the defaults only to
+    rehearse the phase at a small size on the CPU) serves four requests
+    and a fifth in a reused slot, is quiesced and dumped through its
+    serving agentlet after ``SERVE_CUT`` rounds, and a second engine built
+    from the same seed restores the snapshot and decodes ``SERVE_AFTER``
+    rounds: its tokens and final state must equal an uninterrupted
+    engine's over the same schedule, and a restored state with one slot's
+    position one higher must not. Then a lock-step engine snapshots and
+    continues in process."""
+    import threading  # noqa: PLC0415
+
+    from grit_tpu_torch.device.agentlet import ToggleClient  # noqa: PLC0415
+    from grit_tpu_torch.device.snapshot import snapshot_nbytes  # noqa: PLC0415
+    from grit_tpu_torch.models import llama  # noqa: PLC0415
+    from grit_tpu_torch.models import serving  # noqa: PLC0415
+    from grit_tpu_torch.serving import ServingAgentlet  # noqa: PLC0415
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    cfg = cfg or llama.LlamaConfig.flagship(n_layers=LAYERS)
+    bcfg = serving.BatchingConfig(n_slots=SERVE_SLOTS,
+                                  max_seq_len=SERVE_MAX_LEN, temperature=1.0,
+                                  seed=seed)
+    traffic = ServingTraffic(torch, cfg.vocab_size, seed, sync,
+                             bcfg.prefill_buckets)
+    total = SERVE_CUT + SERVE_AFTER
+
+    def engine():
+        """An engine with its own params from the seed (weights ship with
+        the pod image, never with the snapshot)."""
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return serving.ContinuousBatchingEngine(
+            cfg, llama.init_params(cfg, gen, dev), bcfg, device=dev)
+
+    if on_card:
+        torch.cuda.empty_cache()
+    fa.reset_launch_counts()
+
+    # The uninterrupted run, round by round.
+    ref = engine()
+    slots = traffic.start(ref.submit, {})
+    want, round_ms = {}, []
+    for r in range(1, total + 1):
+        t0 = time.perf_counter()
+        want[r] = ref.step()
+        round_ms.append((time.perf_counter() - t0) * 1e3)
+        traffic.after_round(r, ref.submit, ref.release, slots, {})
+    if not all(len(want[r]) == SERVE_SLOTS for r in want):
+        raise AssertionError("a round emitted for fewer than every slot")
+    if not all(0 <= t < cfg.vocab_size for r in want for t in want[r].values()):
+        raise AssertionError("a token outside the vocabulary")
+
+    # The source serves behind its agentlet on a loop thread; the
+    # destination is set up beforehand, as a destination pod is.
+    src, dst = engine(), engine()
+    prefill_ms: dict = {}
+    adapter = ServingAgentlet(src, drain_mode="serialize",
+                              path=os.path.join(work, "serve.sock"))
+    at_cut = threading.Event()
+    box: dict = {"error": None, "tokens": {}}
+
+    def serve_loop() -> None:
+        try:
+            s = traffic.start(adapter.submit, prefill_ms)
+            for r in range(1, SERVE_CUT + 1):
+                box["tokens"][r] = adapter.step()
+                traffic.after_round(r, adapter.submit, src.release, s,
+                                    prefill_ms)
+                if r < SERVE_CUT:
+                    adapter.batch_boundary()
+            at_cut.set()
+            deadline = time.monotonic() + 300
+            while not adapter.agentlet.quiesce_pending:
+                if time.monotonic() > deadline:
+                    raise TimeoutError("no quiesce arrived at the cut")
+                time.sleep(0.001)
+            adapter.batch_boundary()  # drains (serialize), parks, resumes
+        except BaseException as exc:  # noqa: BLE001 — re-raised below
+            box["error"] = exc
+            at_cut.set()
+
+    snap = os.path.join(work, "serve-snap")
+    loop = threading.Thread(target=serve_loop, name="serve-loop", daemon=True)
+    with adapter:
+        loop.start()
+        if not at_cut.wait(600) or box["error"] is not None:
+            raise RuntimeError(f"serving loop failed: {box['error']!r}")
+        # The blackout: quiesce, dump, restore into the destination, its
+        # first token. The source stays parked meanwhile, as a migrated
+        # pod's source does until it is killed.
+        with ToggleClient(0, path=adapter.agentlet.path, timeout=600) as client:
+            t_quiesce = time.perf_counter()
+            cut = client.quiesce()
+            t_dump = time.perf_counter()
+            client.dump(snap)
+            t_restore = time.perf_counter()
+            dst.restore(snap)
+            sync()
+            t_restored = time.perf_counter()
+            got = {SERVE_CUT + 1: dst.step()}
+            t_first = time.perf_counter()
+            client.resume()
+        loop.join(timeout=120)
+    if loop.is_alive() or box["error"] is not None:
+        raise RuntimeError(f"serving loop failed: {box['error']!r}")
+    if cut != SERVE_CUT or box["tokens"] != {r: want[r] for r in box["tokens"]}:
+        raise AssertionError(f"the source diverged from the uninterrupted "
+                             f"run before the cut (cut at round {cut})")
+    nbytes = snapshot_nbytes(snap)
+    for r in range(SERVE_CUT + 2, total + 1):
+        got[r] = dst.step()
+    # The share of the dumped KV bytes the tag zeroed: the source still
+    # holds the cut's state (its loop ended at the park).
+    tagged = src.snapshot_state()["cache"]
+    zeroed = 1 - (int(torch.count_nonzero(tagged["k"]))
+                  + int(torch.count_nonzero(tagged["v"]))) / (
+                      2 * tagged["k"].numel())
+    live = int(((src.state["lengths"] + 1) * src.state["active"]).sum())
+    expect_zeroed = 1 - live / (SERVE_SLOTS * SERVE_MAX_LEN)
+    del tagged
+    bad = serving_mismatch(torch, got, want, dst, ref)
+    if bad is not None:
+        raise AssertionError(f"the restored engine diverged: {bad}")
+
+    # Planted fault: the same snapshot with one active slot one position
+    # further on must fail the same check.
+    dst.restore(snap)
+    fault_slot = int(torch.nonzero(dst.state["active"])[0])
+    dst.state["lengths"][fault_slot] += 1
+    planted = serving_mismatch(
+        torch, {r: dst.step() for r in range(SERVE_CUT + 1, total + 1)},
+        want, dst, ref)
+    if planted is None:
+        raise AssertionError("the continuation check passed a restored "
+                             "state with a wrong position")
+
+    # Lock-step engine: snapshot mid-generation, continue in a second one.
+    B, S, n_tok = LOCKSTEP
+    lcfg = serving.ServingConfig(batch_size=B, max_seq_len=1024,
+                                 temperature=1.0, seed=seed)
+    prompt = zipf_tokens(torch, B * S, cfg.vocab_size,
+                         torch.Generator().manual_seed(seed + 1)).reshape(B, S)
+    lock = serving.InferenceEngine(cfg, ref.params, lcfg, device=dev)
+    lock.prefill(prompt)
+    lock.generate(n_tok // 2 - 1)
+    lsnap = os.path.join(work, "lockstep-snap")
+    lock.snapshot(lsnap)
+    lwant = lock.generate(n_tok // 2)
+    lock2 = serving.InferenceEngine(cfg, src.params, lcfg, device=dev)
+    if lock2.restore(lsnap) != n_tok // 2:
+        raise AssertionError("lock-step restore lost its n_generated")
+    lgot = lock2.generate(n_tok // 2)
+    if not (torch.equal(lgot, lwant) and torch.equal(
+            lock2.state["cache"]["k"], lock.state["cache"]["k"])):
+        raise AssertionError("the lock-step engine did not continue "
+                             "bit-identically")
+    launches = dict(fa.LAUNCHES)
+    if any(launches.values()):
+        raise AssertionError(f"the serving path launched flash kernels "
+                             f"{launches}; its attention is the plain one")
+
+    prof = profile_decode(torch, ref, PROFILE_ROUNDS) if on_card else None
+    steady = sorted(round_ms[2:])[len(round_ms[2:]) // 2]
+    kv_bytes = 2 * ref.state["cache"]["k"].numel() * ref.state["cache"]["k"].element_size()
+    quiesce_s, dump_s = t_dump - t_quiesce, t_restore - t_dump
+    restore_s = t_restored - t_restore
+    log("serve", f"flagship widths, {cfg.n_layers} layers, {SERVE_SLOTS} "
+                 f"slots x {SERVE_MAX_LEN} positions (KV cache {kv_bytes} "
+                 f"bytes), buckets {bcfg.prefill_buckets}, temperature 1.0; "
+                 f"prompts {SERVE_PROMPTS}, then {SERVE_SWAP[2]} tokens into "
+                 f"slot {SERVE_SWAP[1]} after round {SERVE_SWAP[0]}")
+    log("serve", "prefill ms by bucket (source engine; prompts "
+                 f"{[len(p) for p in traffic.prompts]}): " + "; ".join(
+                     f"{b}: {[round(x, 3) for x in ms]}"
+                     for b, ms in sorted(prefill_ms.items())) + f" [{card}]")
+    log("serve", f"decode round ms (uninterrupted run, {total} rounds): "
+                 f"median after the first two {steady:.3f} = "
+                 f"{SERVE_SLOTS / steady * 1e3:.1f} tokens/s; first two "
+                 f"{[round(x, 3) for x in round_ms[:2]]} [{card}]")
+    if prof is not None:
+        log("serve", f"decode round profile ({PROFILE_ROUNDS} rounds under "
+                     f"torch.profiler): wall {prof['wall_ms']:.3f} ms a round, "
+                     f"device busy {prof['device_ms']:.3f} ms (idle share "
+                     f"{1 - prof['device_ms'] / prof['wall_ms']:.3f}; of the "
+                     f"unprofiled median round "
+                     f"{1 - prof['device_ms'] / steady:.3f}); kernel time by "
+                     f"operator, ms a round: " + "; ".join(
+                         f"{k} {ms:.3f}" for k, ms in prof["top"]))
+    log("serve", f"snapshot {nbytes} bytes; KV bytes the tag zeroed "
+                 f"{zeroed:.4f} (expected from the positions "
+                 f"{expect_zeroed:.4f}); quiesce {quiesce_s:.4f} s; dump "
+                 f"{dump_s:.3f} s = {nbytes / dump_s / 1e9:.3f} GB/s; restore "
+                 f"{restore_s:.3f} s = {nbytes / restore_s / 1e9:.3f} GB/s; "
+                 f"first token of the restored engine {t_first - t_restored:.3f}"
+                 f" s; blackout (quiesce → that token) "
+                 f"{t_first - t_quiesce:.3f} s [{card}]")
+    log("serve", f"migrated after round {cut}: rounds {SERVE_CUT + 1}.."
+                 f"{total} bitwise equal to the uninterrupted run, final "
+                 f"state (positions, RNG words, counts, the KV cache at every "
+                 f"written position) torch.equal; planted fault (slot {fault_slot} one position "
+                 f"on) rejected: {planted}")
+    log("serve", f"lock-step: batch {B}, {S}-token prompt, {n_tok} tokens, "
+                 f"snapshot after {n_tok // 2}: continues bit-identically; "
+                 f"flash kernel launches on the serving path {launches}")
+    return {"flash_launches": launches, "decode_round_ms": steady,
+            "tokens_per_s": SERVE_SLOTS / steady * 1e3,
+            "prefill_ms": {str(b): ms for b, ms in prefill_ms.items()},
+            "snapshot_bytes": nbytes, "kv_zeroed_fraction": zeroed,
+            "quiesce_s": quiesce_s, "dump_s": dump_s, "restore_s": restore_s,
+            "blackout_s": t_first - t_quiesce,
+            "device_busy_ms": None if prof is None else prof["device_ms"]}
+
+
 def phase_io(torch, work: str, card: str) -> None:
     """Rates of the stages the dump and restore are made of, on a buffer
     the size of the flagship's largest leaf (the stacked MLP weights),
@@ -692,9 +1037,15 @@ def phase_io(torch, work: str, card: str) -> None:
 # -- main ----------------------------------------------------------------------
 
 
-def main() -> int:
+def main(argv: list[str] | None = None) -> int:
+    import argparse  # noqa: PLC0415
+
     import torch  # noqa: PLC0415
 
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--seed", type=int, default=0,
+                   help="seed of the serving phase's weights and prompts")
+    args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -720,6 +1071,7 @@ def main() -> int:
     work = tempfile.mkdtemp(prefix="chip-smoke-")
     try:
         phase_migrate(work)
+        serve = phase_serving(torch, fa, work, device["smi"], seed=args.seed)
         phase_io(torch, work, device["smi"])
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -746,7 +1098,10 @@ def main() -> int:
                            if name == "flash_fwd" else
                            "scaled_dot_product_attention backward: dq, dk "
                            "and dv in one call (flash_bwd_dq + flash_bwd_dkv)"),
-    } for name, (src, replaces) in KERNELS.items()]}
+    } for name, (src, replaces) in KERNELS.items()],
+        # The serving path runs no kernel of the list (its attention is
+        # the plain one, as the reference's); its launches and numbers.
+        "serving": serve}
     print(json.dumps(record), flush=True)
     print(device["smi"], flush=True)
     print(json.dumps({"ok": True, "device": {

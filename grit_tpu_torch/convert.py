@@ -1,4 +1,5 @@
-"""Carry weights and trainer state between the JAX package and the port.
+"""Carry weights, trainer state and serving state between the JAX package
+and the port.
 
 Both sides speak numpy: the JAX side converts its pytree with
 ``jax.tree.map(np.asarray, tree)``, and these functions turn such a tree
@@ -55,6 +56,22 @@ def state_from_jax(state: Any, *, seed: int,
         "step": tensor_from_numpy(state["step"]),
         "rng": torch.tensor(seed, dtype=torch.int64),
     }
+
+
+def serving_state_from_jax(state: Any,
+                           device: torch.device | str = "cpu") -> dict:
+    """A JAX serving engine's state (numpy leaves; lock-step or
+    continuous batching) → the port engine's state: the KV cache on
+    ``device``, and the lock-step engine's ``last_token``, which its next
+    step feeds back; the bookkeeping on the host. The RNG leaves carry
+    over as their uint32 words; the port reads them in its own encoding
+    (:mod:`grit_tpu_torch.models.serving`)."""
+    out = tree_map(tensor_from_numpy, state)
+    out["cache"] = {**out["cache"], "k": out["cache"]["k"].to(device),
+                    "v": out["cache"]["v"].to(device)}
+    if "rng" in out:  # the lock-step engine
+        out["last_token"] = out["last_token"].to(device)
+    return out
 
 
 def state_to_numpy(state: Any) -> Any:

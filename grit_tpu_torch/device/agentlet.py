@@ -63,20 +63,38 @@ class Agentlet:
 
     Args:
       state_fn: returns the *current* migratable state tree (a getter:
-        the trainer rebinds its state).
+        the trainer rebinds its state); the dump writes it.
       step_fn: returns the current step for status/acks.
-
-    The socket is :func:`socket_path` of this process.
+      meta_fn: extra manifest metadata at dump time, beside ``step``.
+      path: the socket path (default :func:`socket_path` of this process).
+      quiesce_state_fn: what the park's device drain blocks on (default
+        ``state_fn``). A caller whose ``state_fn`` derives a transformed
+        dump view (the serving adapter's tagged KV grid) passes the raw
+        state here, so the park does not build and discard a copy.
+      pre_park_fn: runs once per quiesce round, on the loop thread, after
+        the pause request is seen and before the device drain and the
+        park (the serving adapter's request-drain policy). Hooked here,
+        not before the caller's ``checkpoint_point``, so a quiesce landing
+        between the caller's own check and the park still drains. A raise
+        aborts the park attempt; the request stays pending for the
+        agent's error path.
     """
 
     def __init__(
         self,
         state_fn: Callable[[], Any],
         step_fn: Callable[[], int] = lambda: -1,
+        meta_fn: Callable[[], dict] | None = None,
+        path: str | None = None,
+        quiesce_state_fn: Callable[[], Any] | None = None,
+        pre_park_fn: Callable[[], None] | None = None,
     ) -> None:
         self.state_fn = state_fn
         self.step_fn = step_fn
-        self.path = socket_path()
+        self.meta_fn = meta_fn or (lambda: {})
+        self.quiesce_state_fn = quiesce_state_fn or state_fn
+        self.pre_park_fn = pre_park_fn
+        self.path = path or socket_path()
         # One condition guards the pause protocol. _want_pause is the
         # request (set by quiesce, cleared by resume/stop); _is_parked is
         # the loop's acknowledgment. The loop stays parked exactly while
@@ -144,9 +162,11 @@ class Agentlet:
         with self._cond:
             if not self._want_pause:
                 return
+        if self.pre_park_fn is not None:
+            self.pre_park_fn()
         # Drain device work outside the lock; re-check the request after —
         # it may have been cancelled meanwhile.
-        quiesce(self.state_fn())
+        quiesce(self.quiesce_state_fn())
         with self._cond:
             if not self._want_pause:
                 return
@@ -161,6 +181,13 @@ class Agentlet:
     def paused(self) -> bool:
         with self._cond:
             return self._is_parked
+
+    @property
+    def quiesce_pending(self) -> bool:
+        """A quiesce request is waiting for the loop to park (the serving
+        adapter closes admission on it)."""
+        with self._cond:
+            return self._want_pause and not self._is_parked
 
     # -- server side ------------------------------------------------------------
 
@@ -247,7 +274,8 @@ class Agentlet:
                             _NOT_IN_SLICE)
             with self._dump_lock:
                 write_snapshot(directory, self.state_fn(),
-                               meta={"step": int(self.step_fn())})
+                               meta={"step": int(self.step_fn()),
+                                     **self.meta_fn()})
         finally:
             with self._cond:
                 self._dumps_in_flight -= 1

@@ -60,7 +60,8 @@ _DTYPE_NAMES = {
     torch.float32: "float32", torch.float64: "float64",
     torch.float16: "float16", torch.bfloat16: "bfloat16",
     torch.int8: "int8", torch.int16: "int16", torch.int32: "int32",
-    torch.int64: "int64", torch.uint8: "uint8", torch.bool: "bool",
+    torch.int64: "int64", torch.uint8: "uint8", torch.uint32: "uint32",
+    torch.bool: "bool",
 }
 _NAME_DTYPES = {v: k for k, v in _DTYPE_NAMES.items()}
 

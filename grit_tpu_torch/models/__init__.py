@@ -1,1 +1,2 @@
-"""Model families ported so far: llama (training subset)."""
+"""Model families ported so far: llama (training and serving) and the
+serving engines."""

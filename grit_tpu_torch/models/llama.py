@@ -1,4 +1,4 @@
-"""Llama-family decoder transformer, training subset, in PyTorch.
+"""Llama-family decoder transformer in PyTorch: training and serving.
 
 Counterpart of ``grit_tpu/models/llama.py``. Parameters are the same
 nested dict of **stacked** leaves with a leading ``n_layers`` axis, under
@@ -12,8 +12,16 @@ zero gradient in every layer's backward).
 
 Attention runs through :func:`grit_tpu_torch.ops.attention.causal_attention`:
 the CUDA flash kernels on the card at the training shape, plain tensor
-ops elsewhere. Decode, the KV cache and chunked cross-entropy come with
-the serving slice.
+ops elsewhere. Serving (:func:`decode`, :func:`decode_ragged`) always
+passes ``kv_len``, so it runs the plain path, as the reference's does.
+
+The serving functions write new K/V into the cache's tensors in place
+(the JAX functions return new arrays; a copy of a multi-GB cache per
+token buys nothing here) and return the cache dict with the new
+``length``. ``length`` is a host-side int32 scalar, as the trainer keeps
+its step: every cache write is bounds-checked on the host, with no device
+sync, and an out-of-range write raises where ``lax.dynamic_update_slice``
+would clamp.
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ from dataclasses import dataclass, replace
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from grit_tpu_torch.ops.attention import causal_attention
 
@@ -145,9 +154,34 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     return out.to(x.dtype)
 
 
+def _ragged_cache_write(cache: torch.Tensor, new: torch.Tensor,
+                        starts: torch.Tensor, active: torch.Tensor) -> None:
+    """Write row ``b``'s ``new[b]`` (S positions) into ``cache[b]`` at its
+    own offset ``starts[b]``, in place; inactive rows are left
+    byte-identical (their current content at positions 0..S-1 is written
+    back). One B-row scatter, never a full-cache rewrite. The caller
+    keeps active rows' writes in range (:func:`decode_ragged`)."""
+    B, S = new.shape[:2]
+    span = torch.arange(S, device=cache.device)
+    rows = torch.arange(B, device=cache.device)[:, None]
+    pos = torch.where(active[:, None], starts[:, None] + span, span)
+    cur = cache[rows, pos]
+    cache[rows, pos] = torch.where(active[:, None, None, None], new, cur)
+
+
 def _attn_block(cfg: LlamaConfig, p: dict, x: torch.Tensor,
-                positions: torch.Tensor) -> torch.Tensor:
-    """Self-attention without a cache (the training path)."""
+                positions: torch.Tensor,
+                cache: tuple | None = None,
+                active: torch.Tensor | None = None) -> torch.Tensor:
+    """Self-attention; with ``cache=(k_cache, v_cache, cur_len)`` it runs
+    the serving path: write the new K/V at ``cur_len`` into the caches
+    (in place) and attend into them.
+
+    ``cur_len`` is a Python int (lock-step batch: every row at the same
+    position) or a per-row ``(B,)`` tensor on the cache's device
+    (continuous batching, with ``active`` (B,): released slots' rows stay
+    untouched). One implementation of projections, RoPE and output for
+    training and both serving cases, so the paths cannot drift."""
     B, S, _ = x.shape
     hd = cfg.head_dim
     q = (x @ p["wq"].to(cfg.dtype)).reshape(B, S, cfg.n_heads, hd)
@@ -155,7 +189,23 @@ def _attn_block(cfg: LlamaConfig, p: dict, x: torch.Tensor,
     v = (x @ p["wv"].to(cfg.dtype)).reshape(B, S, cfg.n_kv_heads, hd)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    out = causal_attention(q, k, v).reshape(B, S, cfg.n_heads * hd)
+    if cache is None:
+        out = causal_attention(q, k, v)
+    else:
+        k_cache, v_cache, cur_len = cache
+        if isinstance(cur_len, int):
+            if not 0 <= cur_len <= k_cache.shape[1] - S:
+                raise ValueError(
+                    f"KV cache write of {S} positions at {cur_len} overruns "
+                    f"max_len={k_cache.shape[1]}")
+            k_cache[:, cur_len:cur_len + S] = k
+            v_cache[:, cur_len:cur_len + S] = v
+        else:
+            _ragged_cache_write(k_cache, k, cur_len, active)
+            _ragged_cache_write(v_cache, v, cur_len, active)
+        out = causal_attention(q, k_cache, v_cache, q_offset=cur_len,
+                               kv_len=cur_len + S)
+    out = out.reshape(B, S, cfg.n_heads * hd)
     return out @ p["wo"].to(cfg.dtype)
 
 
@@ -166,12 +216,13 @@ def _mlp_block(cfg: LlamaConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def layer_body(cfg: LlamaConfig, layer_params: dict, x: torch.Tensor,
-               positions: torch.Tensor) -> torch.Tensor:
+               positions: torch.Tensor, cache=None, active=None) -> torch.Tensor:
     """One transformer layer (attn_norm → attn → residual → mlp_norm →
-    FFN → residual)."""
+    FFN → residual), the single copy of the layer math for training and
+    serving (``cache``/``active`` as :func:`_attn_block` takes them)."""
     h = x + _attn_block(cfg, layer_params["attn"],
                         rms_norm(x, layer_params["attn_norm"], cfg.norm_eps),
-                        positions)
+                        positions, cache=cache, active=active)
     normed = rms_norm(h, layer_params["mlp_norm"], cfg.norm_eps)
     return h + _mlp_block(cfg, layer_params["mlp"], normed).to(h.dtype)
 
@@ -210,6 +261,84 @@ def forward(cfg: LlamaConfig, params: dict, tokens: torch.Tensor) -> torch.Tenso
     return forward_trunk(cfg, params, tokens)
 
 
+# -- serving ---------------------------------------------------------------------
+
+
+def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int | None = None, *,
+                  device: torch.device | str) -> dict:
+    """An all-layers KV cache: ``k``/``v`` (L, batch, max_len, kv_heads, hd)
+    zeros in ``cfg.dtype`` on ``device`` (``"meta"`` for a restore's
+    ``like`` tree), ``length`` an int32 scalar on the host."""
+    max_len = max_len or cfg.max_seq_len
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+            "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
+            "length": torch.zeros((), dtype=torch.int32)}
+
+
+def _cached_trunk(cfg: LlamaConfig, params: dict, tokens: torch.Tensor,
+                  cache: dict, positions: torch.Tensor, cur_len,
+                  active: torch.Tensor | None = None) -> torch.Tensor:
+    """Embedding, the layer stack against the cache (in place), final norm
+    and ``lm_head``: fp32 logits. The single copy of the serving trunk for
+    :func:`decode` and :func:`decode_ragged`."""
+    x = F.embedding(tokens, params["tok_emb"]).to(cfg.dtype)
+    layers = zip(_unstack(params["layers"], cfg.n_layers),
+                 torch.unbind(cache["k"], 0), torch.unbind(cache["v"], 0))
+    for layer_params, kc, vc in layers:
+        x = layer_body(cfg, layer_params, x, positions,
+                       cache=(kc, vc, cur_len), active=active)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return (x @ params["lm_head"].to(cfg.dtype)).float()
+
+
+@torch.no_grad()
+def decode(cfg: LlamaConfig, params: dict, tokens: torch.Tensor,
+           cache: dict) -> tuple[torch.Tensor, dict]:
+    """Serving step: append ``tokens`` (B, S) at ``cache['length']``,
+    attend into the cache, return (logits (B, S, vocab) fp32, the cache
+    with ``length`` advanced by S). Prefill (S = prompt length) and
+    autoregressive decode (S = 1) alike. A write past the cache's end
+    raises ``ValueError`` before anything is written."""
+    B, S = tokens.shape
+    cur_len = int(cache["length"])
+    positions = (cur_len + torch.arange(S, device=tokens.device)).expand(B, S)
+    logits = _cached_trunk(cfg, params, tokens, cache, positions, cur_len)
+    return logits, {**cache, "length": torch.tensor(cur_len + S,
+                                                    dtype=torch.int32)}
+
+
+@torch.no_grad()
+def decode_ragged(cfg: LlamaConfig, params: dict, tokens: torch.Tensor,
+                  cache: dict, lengths: torch.Tensor, active: torch.Tensor
+                  ) -> tuple[torch.Tensor, dict]:
+    """Continuous-batching serving step: one new token per slot, each slot
+    at its own position in the cache.
+
+    ``tokens`` (B, 1): each slot's last token. ``lengths`` (B,) int: valid
+    KV entries per slot (the position of the token being decoded).
+    ``active`` (B,) bool: inactive slots compute (the batch is the step's
+    shape) but their cache rows stay byte-identical. ``cache['length']``
+    is ignored and returned as is. An active slot at the cache's end
+    raises ``ValueError`` before anything is written. Returns (logits
+    (B, 1, vocab) fp32, cache)."""
+    B, S = tokens.shape
+    if S != 1:
+        raise ValueError("decode_ragged is the per-token step; use "
+                         "decode() for prefill")
+    max_len = cache["k"].shape[2]
+    over = active & (lengths >= max_len)
+    if bool(over.any()):
+        raise ValueError(f"KV cache write at {lengths.tolist()} overruns "
+                         f"max_len={max_len} in active slots "
+                         f"{over.nonzero().flatten().tolist()}")
+    dev = cache["k"].device
+    lengths, active = lengths.to(dev), active.to(dev)
+    logits = _cached_trunk(cfg, params, tokens.to(dev), cache,
+                           lengths[:, None], lengths, active)
+    return logits, cache
+
+
 def token_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
                         mask: torch.Tensor | None = None) -> torch.Tensor:
     """Mean next-token cross-entropy in fp32. ``nll_loss`` (not a gather)
@@ -224,6 +353,50 @@ def token_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
 
 
 def loss_fn(cfg: LlamaConfig, params: dict, tokens: torch.Tensor,
-            targets: torch.Tensor, mask: torch.Tensor | None = None
-            ) -> torch.Tensor:
-    return token_cross_entropy(forward(cfg, params, tokens), targets, mask)
+            targets: torch.Tensor, mask: torch.Tensor | None = None,
+            ce_chunk: int | None = None) -> torch.Tensor:
+    """Mean next-token cross-entropy (fp32 accumulation). ``ce_chunk``
+    switches to :func:`chunked_token_cross_entropy`, which bounds the fp32
+    logits to (ce_chunk, vocab) at a time instead of (B, S, vocab): the
+    same value up to summation order."""
+    if ce_chunk is None:
+        return token_cross_entropy(forward(cfg, params, tokens), targets, mask)
+    return chunked_token_cross_entropy(
+        forward_hidden(cfg, params, tokens), params["lm_head"].to(cfg.dtype),
+        targets, mask, chunk=ce_chunk)
+
+
+def _nll_sum(rows: torch.Tensor, lm_head: torch.Tensor, targets: torch.Tensor,
+             mask: torch.Tensor) -> torch.Tensor:
+    """The masked NLL sum of ``rows`` projected through ``lm_head`` (fp32)."""
+    logp = F.log_softmax((rows @ lm_head).float(), dim=-1)
+    return (F.nll_loss(logp, targets, reduction="none") * mask).sum()
+
+
+def chunked_token_cross_entropy(
+    hidden: torch.Tensor, lm_head: torch.Tensor, targets: torch.Tensor,
+    mask: torch.Tensor | None = None, chunk: int = 4096,
+) -> torch.Tensor:
+    """CE over chunks of the flattened (B·S, dim) rows: each chunk is
+    projected to logits and reduced to its NLL sum, accumulated in fp32 in
+    chunk order; each chunk runs under activation checkpointing, so the
+    backward recomputes its logits instead of holding (B·S, vocab) of
+    them. When ``chunk`` does not divide B·S, the whole projection runs at
+    once, as the reference falls back."""
+    B, S, D = hidden.shape
+    N = B * S
+    rows = hidden.reshape(N, D)
+    t_flat = targets.reshape(N).long()
+    m_flat = (torch.ones(N, dtype=torch.float32, device=hidden.device)
+              if mask is None else mask.reshape(N).float())
+    if N % chunk != 0:
+        return (_nll_sum(rows, lm_head, t_flat, m_flat)
+                / torch.clamp(m_flat.sum(), min=1.0))
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    count = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for start in range(0, N, chunk):
+        sl = slice(start, start + chunk)
+        total = total + checkpoint(_nll_sum, rows[sl], lm_head, t_flat[sl],
+                                   m_flat[sl], use_reentrant=False)
+        count = count + m_flat[sl].sum()
+    return total / torch.clamp(count, min=1.0)

@@ -1,5 +1,6 @@
-"""The port on the card: its CUDA kernels against their plain versions and
-a short flagship-width training and snapshot round trip. Every test is
+"""The port on the card: its CUDA kernels against their plain versions, a
+short flagship-width training and snapshot round trip, and a flagship-width
+decode round against its CPU copy. Every test is
 ``cuda``-marked and skips without a GPU. This file imports neither JAX nor
 the JAX package, so it also runs on a GPU machine without them:
 
@@ -12,8 +13,15 @@ import pytest
 import torch
 
 from grit_tpu_torch.models import llama
+from grit_tpu_torch.models.serving import (
+    BatchingConfig,
+    ContinuousBatchingEngine,
+    InferenceEngine,
+    ServingConfig,
+)
 from grit_tpu_torch.ops import attention
 from grit_tpu_torch.ops import flash_attention as fa
+from grit_tpu_torch.tree import tree_map
 from grit_tpu_torch.workload import llama_trainer
 
 pytestmark = pytest.mark.cuda
@@ -283,3 +291,82 @@ def test_flagship_width_steps_snapshot_and_resume(cuda_device, tmp_path):
     assert b.restore(d) == 2
     assert b.state["params"]["lm_head"].is_cuda
     assert b.run(2) == want
+
+
+def _rel_l2(got, want) -> float:
+    got, want = got.float().cpu(), want.float().cpu()
+    return ((got - want).norm() / want.norm()).item()
+
+
+def test_flagship_decode_round_matches_its_cpu_copy(cuda_device):
+    """One continuous-batching decode round at the flagship widths (2
+    layers, 4 slots, one free) on the card and on a CPU copy of the same
+    params and state: logits and the cache within 2^-6 relative L2 (the
+    two devices round bf16 activations at different places; a wrong
+    position or mask is off by O(1)), the free slot's rows untouched, and
+    no flash kernel launched (serving attention is the plain path)."""
+    cfg = llama.LlamaConfig.flagship(n_layers=2)
+    params = llama.init_params(
+        cfg, torch.Generator(device=cuda_device).manual_seed(0), cuda_device)
+    eng = ContinuousBatchingEngine(cfg, params, BatchingConfig(
+        n_slots=4, max_seq_len=1024), device=cuda_device)
+    gen = torch.Generator().manual_seed(1)
+    for n in (100, 37, 5):
+        eng.submit(torch.randint(0, cfg.vocab_size, (n,), generator=gen))
+    st = eng.state
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    cpu_cache = tree_map(lambda t: t.cpu(), st["cache"])
+    fa.reset_launch_counts()
+    logits, cache = llama.decode_ragged(cfg, params, st["last_token"],
+                                        st["cache"], st["lengths"],
+                                        st["active"])
+    assert logits.is_cuda and fa.LAUNCHES == {n: 0 for n in fa.LAUNCHES}
+    want, want_cache = llama.decode_ragged(cfg, cpu_params, st["last_token"],
+                                           cpu_cache, st["lengths"],
+                                           st["active"])
+    assert _rel_l2(logits[:3], want[:3]) <= 2.0 ** -6
+    for leaf in ("k", "v"):
+        assert _rel_l2(cache[leaf], want_cache[leaf]) <= 2.0 ** -6
+        assert not cache[leaf][:, 3].any()
+    emitted = eng.step()
+    assert sorted(emitted) == [0, 1, 2]
+    assert all(0 <= t < cfg.vocab_size for t in emitted.values())
+
+
+def test_ragged_cache_write_is_deterministic_in_deterministic_mode(
+        cuda_device):
+    """The per-row cache write (``index_put_``) under
+    ``torch.use_deterministic_algorithms(True)`` equals the CPU's, twice."""
+    gen = torch.Generator().manual_seed(2)
+    cache = torch.randn(4, 64, 2, 128, generator=gen).to(torch.bfloat16)
+    new = torch.randn(4, 1, 2, 128, generator=gen).to(torch.bfloat16)
+    starts = torch.tensor([0, 63, 5, 9])
+    active = torch.tensor([True, True, False, True])
+    want = cache.clone()
+    llama._ragged_cache_write(want, new, starts, active)
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        for _ in range(2):
+            got = cache.to(cuda_device)
+            llama._ragged_cache_write(got, new.to(cuda_device),
+                                      starts.to(cuda_device),
+                                      active.to(cuda_device))
+            assert torch.equal(got.cpu(), want)
+    finally:
+        torch.use_deterministic_algorithms(was)
+    assert torch.equal(want[2], cache[2])
+
+
+def test_serving_engines_given_no_device_land_on_the_card(cuda_device):
+    cfg = llama.LlamaConfig.tiny(dim=256, n_heads=2, n_kv_heads=2)
+    params = llama.init_params(
+        cfg, torch.Generator(device=cuda_device).manual_seed(0), cuda_device)
+    cb = ContinuousBatchingEngine(cfg, params, BatchingConfig(
+        n_slots=2, max_seq_len=128))
+    assert cb.device.type == "cuda" and cb.state["cache"]["k"].is_cuda
+    slot = cb.submit([3, 17, 42, 7])
+    assert slot in cb.step()
+    lock = InferenceEngine(cfg, params, ServingConfig(batch_size=2))
+    assert lock.state["cache"]["k"].is_cuda
+    assert lock.prefill([[1, 2, 3], [4, 5, 6]]).is_cuda
