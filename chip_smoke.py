@@ -30,7 +30,9 @@ non-zero without the final result line:
 5. migrate — the system's path: ``python -m grit_tpu_torch.workload``
    trains, is quiesced and dumped through its agentlet, SIGKILLed, and a
    fresh process restores from the snapshot; its losses after the cut
-   must equal an uninterrupted run's bit for bit.
+   must equal an uninterrupted run's bit for bit. The dump's and the
+   restore's data path (pinned staging ring, restore readers) and their
+   legs are printed.
 6. serve   — the serving path at the flagship widths: a continuous-
    batching engine (4 slots of 4096 positions, temperature 1.0) serves
    Zipf prompts of 1000, 700, 230 and 40 tokens and a fifth of 500 in a
@@ -44,11 +46,26 @@ non-zero without the final result line:
    of the three kernels (its attention is the plain one, as the
    reference's), and the phase fails if one launched.
 7. io      — rates of the stages a dump and restore are made of
-   (device-host copies, crc32, file write and read) on a buffer the size
-   of the flagship's largest leaf.
+   (device-host copies, crc32, sha256, file write and read) on a buffer
+   the size of the flagship's largest leaf.
+8. precopy — the reference agent's pre-copy and streamed-stage migration
+   of phase 5's flagship, driven as the agent drives it: a live pass at
+   step 2 (quiesce, hashed dump mirrored to a PVC directory, resume), the
+   blackout at step 3 (quiesce with a dump spec, a delta against the live
+   pass, mirrored), a re-dump of the parked state against the delta that
+   must write nothing, both mirrors' COMMIT identities against the
+   primaries' manifests, then a streamed stage in the agent's journal
+   format: metadata staged, a destination spawned, the data streamed in
+   64 MiB pieces only once it prints ``RESTORE_BEGIN``. Its losses after
+   the cut must equal phase 5's uninterrupted run's bit for bit, its
+   restore must have waited on the stream, and a second stage whose
+   journal fails mid-stream must make the destination exit non-zero with
+   ``SnapshotIntegrityError``. Tree sizes, dirty shares, dump and restore
+   legs and the blackout split print as ``[precopy]`` lines.
 
 The second-to-last lines are the kernels' JSON record (with the serving
-phase's numbers under ``serving``) and the card's ``name, power limit``;
+phase's numbers under ``serving`` and phase 8's under ``precopy``) and the
+card's ``name, power limit``;
 the last line is the result JSON. ``--seed`` seeds the serving phase's
 weights and prompts (default 0). The script
 imports nothing of JAX or of the JAX package.
@@ -56,6 +73,7 @@ imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import math
 import os
@@ -532,17 +550,28 @@ def _leaves(tree):
 # -- phase 5 -------------------------------------------------------------------
 
 
+# The flagship workload of phases 5 and 8 (a rehearsal on the CPU sets
+# ["--config", "tiny", "--device", "cpu", "--seq", "128"]).
+WORKLOAD_ARGS = ["--layers", str(LAYERS), "--seq", str(SEQ),
+                 "--batch", str(BATCH)]
+
+
 class Workload:
     """One ``python -m grit_tpu_torch.workload`` process, its stdout read
     line by line; ``started`` is the host clock at the spawn."""
 
-    def __init__(self, n_steps: int, env: dict) -> None:
-        self.proc = subprocess.Popen(
-            [sys.executable, "-m", "grit_tpu_torch.workload",
-             "--layers", str(LAYERS), "--seq", str(SEQ),
-             "--batch", str(BATCH)],
-            cwd=REPO, env={**os.environ, **env, "N_STEPS": str(n_steps)},
-            stdout=subprocess.PIPE, text=True)
+    def __init__(self, n_steps: int, env: dict,
+                 stderr_path: str | None = None) -> None:
+        stderr = open(stderr_path, "w") if stderr_path else None
+        try:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m", "grit_tpu_torch.workload",
+                 *WORKLOAD_ARGS],
+                cwd=REPO, env={**os.environ, **env, "N_STEPS": str(n_steps)},
+                stdout=subprocess.PIPE, stderr=stderr, text=True)
+        finally:
+            if stderr is not None:
+                stderr.close()
         self.started = time.perf_counter()
         self.lines: list[str] = []
 
@@ -581,7 +610,17 @@ class Workload:
         self.proc.wait()
 
 
-def phase_migrate(work: str) -> dict:
+def fmt_legs(legs: dict, keys: tuple[str, ...]) -> str:
+    return ", ".join(f"{k} {legs[k]:.3f}" for k in keys)
+
+
+DUMP_LEGS = ("copy_wait", "crc", "sha256", "compare", "write", "tee", "wall")
+RESTORE_LEGS = ("pin", "stage_wait", "read", "place", "wall")
+
+
+def phase_migrate(work: str, card: str) -> dict:
+    """Returns the uninterrupted run's losses (``ref_losses``) beside the
+    migration's numbers; the snapshot is removed."""
     from grit_tpu_torch.device.agentlet import ToggleClient  # noqa: PLC0415
     from grit_tpu_torch.device.snapshot import snapshot_nbytes  # noqa: PLC0415
 
@@ -605,7 +644,7 @@ def phase_migrate(work: str) -> dict:
         t_quiesce = time.perf_counter()
         cut = client.quiesce()
         t_dump = time.perf_counter()
-        client.dump(snap)
+        dump_legs = client.dump(snap)["legs"]
         t_dumped = time.perf_counter()
         client.close()
         src.kill()
@@ -616,6 +655,7 @@ def phase_migrate(work: str) -> dict:
         restored = int(dst.wait_for(r"RESTORED (\d+)").group(1))
         t_restored = time.perf_counter()
         restore_s = float(dst.wait_for(r"RESTORE_SECONDS (\S+)").group(1))
+        pipe = json.loads(dst.wait_for(r"RESTORE_PIPELINE (.+)").group(1))
         init_s = float(dst.wait_for(r"INIT_SECONDS (\S+)").group(1))
         dst.wait_for("READY")
         t_ready = time.perf_counter()
@@ -625,6 +665,7 @@ def phase_migrate(work: str) -> dict:
     finally:
         for p in procs:
             p.kill()
+        shutil.rmtree(os.path.dirname(snap), ignore_errors=True)
     got = dst.losses()
     if restored != cut:
         raise AssertionError(f"restored step {restored}, quiesced at {cut}")
@@ -639,7 +680,13 @@ def phase_migrate(work: str) -> dict:
                    f"dump {dump_s:.3f} s = {nbytes / dump_s / 1e9:.3f} GB/s; "
                    f"restore {restore_s:.3f} s = "
                    f"{nbytes / restore_s / 1e9:.3f} GB/s; blackout (quiesce → "
-                   f"first post-restore step) {t_first - t_quiesce:.3f} s")
+                   f"first post-restore step) {t_first - t_quiesce:.3f} s "
+                   f"[{card}]")
+    log("migrate", f"data path: dump through {dump_legs['staging']}, "
+                   f"seconds {fmt_legs(dump_legs, DUMP_LEGS)}; restore "
+                   f"through {pipe['staging']} with {pipe['workers']} "
+                   f"readers, seconds {fmt_legs(pipe, RESTORE_LEGS)}, "
+                   f"overlap fraction {pipe['overlap_fraction']:.3f} [{card}]")
     log("migrate", f"restart: kill + spawn {dst.started - t_dumped:.3f} s; "
                    f"spawn → RESTORED {t_restored - dst.started:.3f} s = "
                    f"interpreter and imports "
@@ -648,7 +695,10 @@ def phase_migrate(work: str) -> dict:
                    f"{restore_s:.3f} s; RESTORED → READY "
                    f"{t_ready - t_restored:.3f} s; READY → first step "
                    f"{t_first - t_ready:.3f} s")
-    return {"cut": cut, "bytes": nbytes}
+    return {"cut": cut, "bytes": nbytes, "ref_losses": ref_losses,
+            "dump_s": dump_s, "restore_s": restore_s,
+            "dump_legs": dump_legs, "restore_legs": pipe,
+            "blackout_s": t_first - t_quiesce}
 
 
 # -- phase 6 -------------------------------------------------------------------
@@ -925,6 +975,8 @@ def phase_serving(torch, fa, work: str, card: str, *, seed: int,
             lock2.state["cache"]["k"], lock.state["cache"]["k"])):
         raise AssertionError("the lock-step engine did not continue "
                              "bit-identically")
+    shutil.rmtree(snap)
+    shutil.rmtree(lsnap)
     launches = dict(fa.LAUNCHES)
     if any(launches.values()):
         raise AssertionError(f"the serving path launched flash kernels "
@@ -985,9 +1037,11 @@ def phase_serving(torch, fa, work: str, card: str, *, seed: int,
 def phase_io(torch, work: str, card: str) -> None:
     """Rates of the stages the dump and restore are made of, on a buffer
     the size of the flagship's largest leaf (the stacked MLP weights),
-    fastest of three calls after a warm-up: device-host copies (pageable,
-    as the snapshot code makes them, and pinned), ``zlib.crc32``, and file
-    write and read through the page cache beside the snapshot."""
+    fastest of three calls after a warm-up: device-host copies (pageable
+    and pinned; the snapshot stages through pinned buffers), ``zlib.crc32``
+    and ``hashlib.sha256`` (the chunk checksum and the pre-copy chunk
+    identity), and file write and read through the page cache beside the
+    snapshot."""
     import numpy as np  # noqa: PLC0415
 
     n = LAYERS * 2560 * 6912 * 2
@@ -1017,6 +1071,7 @@ def phase_io(torch, work: str, card: str) -> None:
         ("H2D pageable", synced(lambda: torch.from_numpy(host).to(dev))),
         ("H2D pinned", synced(lambda: src.copy_(pinned, non_blocking=True))),
         ("zlib.crc32", lambda: zlib.crc32(host)),
+        ("hashlib.sha256", lambda: hashlib.sha256(host).digest()),
         ("file write", write),
         ("file read", read),
     ]
@@ -1032,6 +1087,337 @@ def phase_io(torch, work: str, card: str) -> None:
     os.unlink(path)
     log("io", f"stage rates on {n} bytes ({os.cpu_count()} CPUs): "
               f"{'; '.join(rates)} [{card}]")
+
+
+# -- phase 8 -------------------------------------------------------------------
+
+PRECOPY_LIVE = 2          # step of the live pre-copy pass
+STAGE_PIECE = 64 << 20    # bytes of each streamed piece of a data file
+
+
+class Stager:
+    """A streamed stage in the reference agent's journal format
+    (``grit_tpu/agent/copy.py:81-153``): files copied from ``src`` into
+    ``dst``, one flushed JSON line per event in ``dst``'s stage journal —
+    ``{"file", "staged", "done"}`` for a whole file, ``{"file", "staged"}``
+    for each waterline advance of a streamed one, then ``{"complete":
+    true}`` or ``{"failed": msg}``."""
+
+    def __init__(self, src: str, dst: str) -> None:
+        from grit_tpu_torch.metadata import STAGE_JOURNAL_FILE  # noqa: PLC0415
+
+        import threading  # noqa: PLC0415
+
+        self.src, self.dst = src, dst
+        os.makedirs(dst, exist_ok=True)
+        self.journal = open(os.path.join(dst, STAGE_JOURNAL_FILE), "w")
+        self.bytes = 0
+        self._lock = threading.Lock()  # files stream on threads of their own
+
+    def _emit(self, rec: dict, nbytes: int = 0) -> None:
+        with self._lock:
+            self.bytes += nbytes
+            self.journal.write(json.dumps(rec) + "\n")
+            self.journal.flush()
+
+    def stage_file(self, rel: str) -> None:
+        os.makedirs(os.path.dirname(os.path.join(self.dst, rel)), exist_ok=True)
+        shutil.copyfile(os.path.join(self.src, rel), os.path.join(self.dst, rel))
+        size = os.path.getsize(os.path.join(self.dst, rel))
+        self._emit({"file": rel, "staged": size, "done": True}, size)
+
+    def preallocate(self, rel: str) -> None:
+        """The destination file at its full size, as a chunked transfer
+        leaves it: a read the journal does not gate would see zeros."""
+        os.makedirs(os.path.dirname(os.path.join(self.dst, rel)), exist_ok=True)
+        with open(os.path.join(self.dst, rel), "wb") as f:
+            f.truncate(os.path.getsize(os.path.join(self.src, rel)))
+
+    def stream_file(self, rel: str, limit: int | None = None) -> None:
+        """Copy ``rel`` piece by piece, a waterline line after each; with
+        ``limit``, stop after that many bytes (no ``done`` line)."""
+        size = os.path.getsize(os.path.join(self.src, rel))
+        end = size if limit is None else min(limit, size)
+        with open(os.path.join(self.src, rel), "rb") as fin, \
+                open(os.path.join(self.dst, rel), "r+b") as fout:
+            water = 0
+            while water < end:
+                piece = fin.read(min(STAGE_PIECE, end - water))
+                fout.write(piece)
+                fout.flush()
+                water += len(piece)
+                self._emit({"file": rel, "staged": water}
+                           | ({"done": True} if water >= size else {}),
+                           len(piece))
+
+    def stream_files(self, rels: list[str]) -> None:
+        """Each file on a thread of its own, as the agent's transfer
+        copies files in parallel."""
+        from concurrent.futures import ThreadPoolExecutor  # noqa: PLC0415
+
+        with ThreadPoolExecutor(max_workers=len(rels)) as pool:
+            for fut in [pool.submit(self.stream_file, rel) for rel in rels]:
+                fut.result()
+
+    def complete(self) -> None:
+        self._emit({"complete": True})
+        self.journal.close()
+
+    def fail(self, msg: str) -> None:
+        self._emit({"failed": msg})
+        self.journal.close()
+
+
+def mirror_commit_files(d: str) -> dict:
+    """The ``{"files": ...}`` identity map of a mirror COMMIT's second line."""
+    with open(os.path.join(d, "COMMIT")) as f:
+        f.readline()
+        return json.loads(f.readline())["files"]
+
+
+def phase_precopy(work: str, card: str, ref_losses: dict) -> dict:
+    """The reference agent's pre-copy and streamed-stage migration of the
+    flagship trainer, driven here as the agent drives it: a live pass
+    (quiesce, hashed dump mirrored to the PVC, resume), the blackout delta
+    against it (mirrored), a zero-dirty re-dump, the mirrors' COMMIT
+    identities, then a destination that restores while the data files
+    still stream in, and a planted ``failed`` journal line it must
+    refuse."""
+    from grit_tpu_torch.device.agentlet import ToggleClient  # noqa: PLC0415
+    from grit_tpu_torch.device.snapshot import (  # noqa: PLC0415
+        DATA_FILE, INDEX_FILE, MANIFEST_FILE, SnapshotManifest,
+        snapshot_delta_nbytes, snapshot_exists, snapshot_nbytes)
+    from grit_tpu_torch.metadata import manifest_data_file_signature  # noqa: PLC0415
+
+    log("precopy", f"free disk beside the trees "
+                   f"{shutil.disk_usage(work).free / 1e9:.1f} GB")
+    socks = os.path.join(work, "socks-precopy")
+    os.makedirs(socks)
+    host, pvc, dst_root = (os.path.join(work, n) for n in ("host", "pvc", "dst"))
+    trees = {"base": "main-precopy/hbm", "delta": "main/hbm",
+             "redump": "main-redump/hbm"}
+    at = {k: os.path.join(host, rel) for k, rel in trees.items()}
+    env = {"GRIT_TPU_SOCKET_DIR": socks}
+    procs: list[Workload] = []
+    try:
+        src = Workload(1000, env)
+        procs.append(src)
+        src.wait_for("READY")
+        src.wait_for(rf"STEP {PRECOPY_LIVE} ")
+        client = ToggleClient(src.proc.pid, path=os.path.join(
+            socks, f"grit-tpu-{src.proc.pid}.sock"), timeout=600)
+        # The live pass, as the agent's predump parks it.
+        t0 = time.perf_counter()
+        live_step = client.quiesce()
+        t1 = time.perf_counter()
+        live = client.dump(at["base"], hashes=True,
+                           mirror=os.path.join(pvc, trees["base"]))["legs"]
+        t2 = time.perf_counter()
+        client.resume()
+        live_s = t2 - t1
+        src.wait_for(rf"STEP {MIGRATE_CUT} ")
+        # The blackout: quiesce with a dump spec, the delta dump mirrored.
+        t_quiesce = time.perf_counter()
+        cut = client.quiesce(dump_spec={
+            "dir": at["delta"], "base": at["base"],
+            "mirror": os.path.join(pvc, trees["delta"])})
+        t_dump = time.perf_counter()
+        resp = client.dump(at["delta"], base=at["base"],
+                           mirror=os.path.join(pvc, trees["delta"]))
+        t_dumped = time.perf_counter()
+        if resp.get("speculative", {}).get("outcome") != "degraded":
+            raise AssertionError(f"quiesce with a dump spec: {resp}")
+        blackout_legs = resp["legs"]
+        # Reuse-path check while the source is still parked (outside the
+        # blackout's account).
+        redump = client.dump(at["redump"], base=at["delta"])["legs"]
+        t_redumped = time.perf_counter()
+        client.close()
+        src.kill()
+        t_killed = time.perf_counter()
+    finally:
+        for p in procs:
+            p.kill()
+
+    sizes = {k: snapshot_nbytes(d) for k, d in at.items()}
+    dirty = {k: json.load(open(os.path.join(at[k], MANIFEST_FILE))).get("dirty")
+             for k in ("delta", "redump")}
+    re_chunks = [c for rec in SnapshotManifest.load(at["redump"]).arrays
+                 for c in rec["chunks"]]
+    if dirty["redump"]["bytes"] != 0 or not all(c.get("ref_dir")
+                                                for c in re_chunks):
+        raise AssertionError(f"the re-dump of a parked state wrote bytes: "
+                             f"{dirty['redump']}")
+    if snapshot_delta_nbytes(at["delta"]) != dirty["delta"]["bytes"]:
+        raise AssertionError("the delta's dirty block disagrees with its chunks")
+    mirrors = {}
+    for k in ("base", "delta"):
+        mirror = os.path.join(pvc, trees[k])
+        if not snapshot_exists(mirror):
+            raise AssertionError(f"the {k} mirror did not commit")
+        manifest = json.load(open(os.path.join(at[k], MANIFEST_FILE)))
+        want = {"size": snapshot_delta_nbytes(at[k]),
+                "sig": manifest_data_file_signature(manifest, DATA_FILE)}
+        got = mirror_commit_files(mirror)[DATA_FILE]
+        if got != want:
+            raise AssertionError(f"the {k} mirror records {got}, the primary "
+                                 f"{want}")
+        mirrors[k] = got["size"]
+    shutil.rmtree(host)  # the agent's upload would skip every mirrored file
+
+    # The streamed stage: metadata first, the destination spawned, the
+    # data streamed only once it has begun its restore.
+    metas = [f"{trees[k]}/{n}" for k in ("delta", "base")
+             for n in ("COMMIT", MANIFEST_FILE, INDEX_FILE)]
+    datas = [f"{trees[k]}/{DATA_FILE}" for k in ("delta", "base")]
+
+    def stage(stderr_path=None, prestaged=()):
+        """The destination spawned over a fresh stage. ``prestaged`` data
+        files are staged whole first, outside the blackout's account, as
+        the agent's prestage ships the base before the blackout."""
+        stager = Stager(pvc, dst_root)
+        for rel in prestaged:
+            stager.stage_file(rel)
+        t_stage = time.perf_counter()
+        for rel in metas:
+            stager.stage_file(rel)
+        for rel in datas:
+            if rel not in prestaged:
+                stager.preallocate(rel)
+        dst = Workload(MIGRATE_STEPS, {
+            **env, "GRIT_TPU_RESTORE_DIR": os.path.join(dst_root, trees["delta"])},
+            stderr_path=stderr_path)
+        procs.append(dst)
+        dst.wait_for("RESTORE_BEGIN")
+        return stager, dst, t_stage, time.perf_counter()
+
+    def migrate_in(prestaged=()) -> dict:
+        """Stage, restore while the rest streams, run to the end; the
+        destination's numbers, from the stage's start."""
+        stager, dst, t_stage, t_begin = stage(prestaged=prestaged)
+        stager.stream_files([rel for rel in datas if rel not in prestaged])
+        stager.complete()
+        t_streamed = time.perf_counter()
+        run = {"restored": int(dst.wait_for(r"RESTORED (\d+)").group(1))}
+        t_restored = time.perf_counter()
+        run["restore_s"] = float(dst.wait_for(r"RESTORE_SECONDS (\S+)").group(1))
+        run["pipe"] = json.loads(dst.wait_for(r"RESTORE_PIPELINE (.+)").group(1))
+        run["init_s"] = float(dst.wait_for(r"INIT_SECONDS (\S+)").group(1))
+        dst.wait_for("READY")
+        t_ready = time.perf_counter()
+        dst.wait_for(r"STEP \d+ ")
+        t_first = time.perf_counter()
+        dst.finish()
+        run.update(losses=dst.losses(), staged_bytes=stager.bytes,
+                   spawn_s=dst.started - t_stage,
+                   begin_s=t_begin - dst.started,
+                   streamed_s=t_streamed - t_begin,
+                   first_s=t_first - t_restored, ready_s=t_first - t_ready,
+                   stage_to_first_s=t_first - t_stage)
+        return run
+
+    try:
+        runs = {"streamed": migrate_in(),
+                "base prestaged": migrate_in(prestaged=(datas[1],))}
+
+        # Planted fault: the stage again, its stager dying a quarter of
+        # the way through the delta's data, must be refused.
+        err_path = os.path.join(work, "precopy-fault.stderr")
+        fstager, fdst, _, _ = stage(err_path)
+        fstager.stream_file(datas[0], limit=os.path.getsize(
+            os.path.join(pvc, datas[0])) // 4)
+        fstager.fail("planted: the stager died mid-stream")
+        while fdst.proc.stdout.readline():
+            pass
+        frc = fdst.proc.wait(timeout=300)
+        with open(err_path) as f:
+            ferr = f.read()
+    finally:
+        for p in procs:
+            p.kill()
+        shutil.rmtree(pvc, ignore_errors=True)
+        shutil.rmtree(dst_root, ignore_errors=True)
+
+    want = {s: x for s, x in ref_losses.items() if s > cut}
+    for label, run in runs.items():
+        if run["restored"] != cut:
+            raise AssertionError(f"{label}: restored step {run['restored']}, "
+                                 f"quiesced at {cut}")
+        if not want or run["losses"] != want:
+            raise AssertionError(f"{label}: losses after the cut differ from "
+                                 f"the uninterrupted run: {run['losses']} vs "
+                                 f"{want}")
+    # stage_wait counts only reads that found their bytes not yet staged:
+    # a restore that began after the stream had ended shows 0. (With the
+    # base prestaged, a small delta may land before the reads need it.)
+    pipe = runs["streamed"]["pipe"]
+    if not pipe["stage_wait"] > 0 or not pipe["streamed"]:
+        raise AssertionError(f"the restore never waited on the stream: {pipe}")
+    if frc == 0 or "SnapshotIntegrityError" not in ferr \
+            or "mid-transfer" not in ferr:
+        raise AssertionError(f"a failed journal line was not refused (rc "
+                             f"{frc}): {ferr[-2000:]}")
+
+    dump_s, redump_s = t_dumped - t_dump, t_redumped - t_dumped
+    kill_s = t_killed - t_redumped
+    # The re-dump check and the tree checks between kill and stage are
+    # this script's, not the migration's.
+    for run in runs.values():
+        run["blackout_s"] = (t_dumped - t_quiesce) + kill_s + run["stage_to_first_s"]
+    log("precopy", f"trees: base {sizes['base']} B (live pass at step "
+                   f"{live_step}, sha256 per chunk), delta {sizes['delta']} B "
+                   f"with {dirty['delta']['bytes']} dirty "
+                   f"({dirty['delta']['bytes'] / dirty['delta']['totalBytes']:.4f}"
+                   f", {dirty['delta']['chunks']} of "
+                   f"{dirty['delta']['totalChunks']} chunks), re-dump "
+                   f"{sizes['redump']} B with {dirty['redump']['bytes']} dirty "
+                   f"(every chunk a reference)")
+    for label, secs, legs in (("live pass", live_s, live),
+                              ("blackout dump", dump_s, blackout_legs),
+                              ("re-dump", redump_s, redump)):
+        log("precopy", f"{label}: {secs:.3f} s = "
+                       f"{legs['total_bytes'] / secs / 1e9:.3f} GB/s of state "
+                       f"({legs['bytes']} B written); seconds "
+                       f"{fmt_legs(legs, DUMP_LEGS)}; through {legs['staging']}; "
+                       f"mirror committed {legs['mirror']} [{card}]")
+    log("precopy", f"mirrors: base {mirrors['base']} B, delta "
+                   f"{mirrors['delta']} B, both committed; each COMMIT's "
+                   f"data-h0000.bin size and signature equal the primary "
+                   f"MANIFEST's")
+    for label, run in runs.items():
+        pipe = run["pipe"]
+        log("precopy", f"restore, {label}: {run['restore_s']:.3f} s = "
+                       f"{pipe['bytes'] / run['restore_s'] / 1e9:.3f} GB/s "
+                       f"through {pipe['staging']} with {pipe['workers']} "
+                       f"readers, seconds {fmt_legs(pipe, RESTORE_LEGS)}, "
+                       f"overlap fraction {pipe['overlap_fraction']:.3f}; "
+                       f"stager {run['staged_bytes']} B in all, data streamed "
+                       f"{run['streamed_s']:.3f} s after RESTORE_BEGIN [{card}]")
+        log("precopy", f"blackout, {label} (quiesce → first post-restore "
+                       f"step, the script's checks left out) "
+                       f"{run['blackout_s']:.3f} s = quiesce "
+                       f"{t_dump - t_quiesce:.4f} + dump {dump_s:.3f} + kill "
+                       f"{kill_s:.3f} + metadata stage and spawn "
+                       f"{run['spawn_s']:.3f} + spawn → RESTORE_BEGIN "
+                       f"{run['begin_s']:.3f} (set-up {run['init_s']:.3f}) + "
+                       f"restore {run['restore_s']:.3f} + RESTORED → first "
+                       f"step {run['first_s']:.3f} (READY → first step "
+                       f"{run['ready_s']:.3f}) [{card}]")
+    log("precopy", f"cut at step {cut}; losses after the cut bitwise equal "
+                   f"to the uninterrupted run in both restores: "
+                   f"{runs['streamed']['losses']}; planted failed journal "
+                   f"line refused (rc {frc}, SnapshotIntegrityError) [{card}]")
+    return {"bytes": sizes, "dirty": dirty, "mirror_bytes": mirrors,
+            "live_s": live_s, "dump_s": dump_s, "redump_s": redump_s,
+            "legs": {"live": live, "blackout": blackout_legs,
+                     "redump": redump,
+                     "restore": runs["streamed"]["pipe"],
+                     "restore_base_prestaged": runs["base prestaged"]["pipe"]},
+            "restore_s": runs["streamed"]["restore_s"],
+            "blackout_s": runs["streamed"]["blackout_s"],
+            "restore_base_prestaged_s": runs["base prestaged"]["restore_s"],
+            "blackout_base_prestaged_s": runs["base prestaged"]["blackout_s"],
+            "cut": cut}
 
 
 # -- main ----------------------------------------------------------------------
@@ -1070,9 +1456,11 @@ def main(argv: list[str] | None = None) -> int:
     train = phase_train(torch, fa)
     work = tempfile.mkdtemp(prefix="chip-smoke-")
     try:
-        phase_migrate(work)
+        migrate = phase_migrate(work, device["smi"])
         serve = phase_serving(torch, fa, work, device["smi"], seed=args.seed)
+        torch.cuda.empty_cache()
         phase_io(torch, work, device["smi"])
+        precopy = phase_precopy(work, device["smi"], migrate["ref_losses"])
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1101,7 +1489,9 @@ def main(argv: list[str] | None = None) -> int:
     } for name, (src, replaces) in KERNELS.items()],
         # The serving path runs no kernel of the list (its attention is
         # the plain one, as the reference's); its launches and numbers.
-        "serving": serve}
+        "serving": serve,
+        # The pre-copy migration (phase 8) runs the training step's three.
+        "precopy": precopy}
     print(json.dumps(record), flush=True)
     print(device["smi"], flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,8 @@ package so each port module's counterpart is found at the same path.
 
 What is ported: the llama training-and-migration path — three
 hand-written CUDA flash-attention kernels (``ops``), the llama model
-(``models.llama``), the trainer (``train.trainer``), the snapshot format,
+(``models.llama``), the trainer (``train.trainer``), the snapshot format
+with delta dumps, the mirror tee and the staged, pipelined restore, the
 agentlet and restore hook (``device``) and the migratable workload
 (``workload``) — and serving: decode and the KV cache, the lock-step and
 continuous-batching engines (``models.serving``) and the request-drain

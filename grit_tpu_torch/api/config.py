@@ -7,13 +7,20 @@ so they keep the reference's spelling.
 
 from __future__ import annotations
 
+import logging
 import os
 from dataclasses import dataclass
+
+log = logging.getLogger(__name__)
 
 
 @dataclass(frozen=True)
 class Knob:
-    """One declared string knob; every read goes to ``os.environ``."""
+    """One declared string knob; every read goes to ``os.environ``.
+
+    The typed reads follow the reference registry's policy: an empty value
+    counts as unset, a malformed number logs a warning and reads as the
+    default, and a flag is on unless it is ``"0"``."""
 
     name: str
     default: str
@@ -21,6 +28,27 @@ class Knob:
 
     def get(self) -> str:
         return os.environ.get(self.name, self.default)
+
+    def _raw(self) -> str:
+        return os.environ.get(self.name) or self.default
+
+    def get_int(self) -> int:
+        return int(self._number(int))
+
+    def get_float(self) -> float:
+        return float(self._number(float))
+
+    def get_flag(self) -> bool:
+        return self._raw() != "0"
+
+    def _number(self, kind):
+        raw = self._raw()
+        try:
+            return kind(raw)
+        except ValueError:
+            log.warning("%s=%r is not a valid %s; using default %r",
+                        self.name, raw, kind.__name__, self.default)
+            return kind(self.default)
 
 
 TPU_SOCKET_DIR = Knob(
@@ -45,3 +73,24 @@ SERVE_DRAIN_TIMEOUT_S = Knob(
     "window. Expiry raises ServingDrainTimeout out of the serving loop — "
     "a drain that cannot finish must fail the migration attempt loudly, "
     "never silently serialize or park a half-drained batch.")
+MIRROR_MAX_INFLIGHT_MB = Knob(
+    "GRIT_MIRROR_MAX_INFLIGHT_MB", "256",
+    "Bound on in-flight BYTES queued between the snapshot dump and its "
+    "mirror tee (MiB). Backpressure is by bytes, not item count.")
+TPU_STAGE_TIMEOUT_S = Knob(
+    "GRIT_TPU_STAGE_TIMEOUT_S", "900",
+    "How long a restore waits for streamed-stage bytes that never arrive "
+    "(no progress, no terminal journal line) before failing loud.")
+RESTORE_PIPELINE = Knob(
+    "GRIT_RESTORE_PIPELINE", "1",
+    "Pipelined (read/place overlapped) restore data path; =0 forces the "
+    "serial fallback.")
+TPU_RESTORE_WORKERS = Knob(
+    "GRIT_TPU_RESTORE_WORKERS", "-1",
+    "Read-ahead worker threads on the restore path; -1 (unset) sizes "
+    "from the host's cores, 0 disables read-ahead.")
+SNAPSHOT_CODEC = Knob(
+    "GRIT_SNAPSHOT_CODEC", "none",
+    "Chunk codec of the mirror tee. This package has no codec stage: any "
+    "value but 'none' abandons the mirror loudly (the agent's upload pass "
+    "then ships the bytes).")

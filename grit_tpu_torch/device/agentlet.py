@@ -8,25 +8,31 @@ protocol on the same socket, so the unchanged node agent
 Protocol (newline-delimited JSON, one request per line):
 
     {"op": "quiesce"}                → {"ok": true, "step": N}   toggle off
-    {"op": "dump", "dir": "<path>"}  → {"ok": true, "dir": ...}  device snapshot
+    {"op": "dump", "dir": "<path>",  → {"ok": true, "dir": ...}  device snapshot
+     "base"?, "hashes"?, "mirror"?}
     {"op": "resume"}                 → {"ok": true}              toggle on
     {"op": "status"}                 → {"ok": true, "step": N, "paused": ...}
 
 Socket path: ``{GRIT_TPU_SOCKET_DIR:-/tmp}/grit-tpu-{pid}.sock``.
 
+A dump's ``base`` makes it a delta against that committed snapshot,
+``hashes`` records a sha256 per chunk (the pre-copy live pass), and
+``mirror`` tees the written bytes into a second committed snapshot, the
+agent's upload destination (:func:`~grit_tpu_torch.device.snapshot.write_snapshot`).
+The response also carries ``"legs"``, the writer's seconds by stage.
+
 Parts of the protocol this slice answers on the reference's own failure
 paths (the features arrive with later slices):
 
 - a quiesce carrying a ``dump`` spec (quiesce-free concurrent dump) parks
-  as a plain quiesce; the following dump is the parked full dump and its
-  response says ``"speculative": {"outcome": "degraded", ...}``;
+  as a plain quiesce; the following dump is the parked full dump (or
+  delta) and its response says ``"speculative": {"outcome": "degraded",
+  ...}``;
 - a non-parking ``"speculative": true`` dump is refused (``ok: false``);
   the agent then falls back to its parked pass;
-- a ``mirror`` dir is abandoned (the primary dump commits; the agent's
-  upload pass ships the bytes), a ``wire`` stream answers
-  ``"wire": {"ok": false, ...}`` (the agent falls back to the PVC path);
-- ``base`` (delta dump) is ignored: the dump is full, which a delta
-  reader accepts as is; ``resume`` with ``reload`` is refused.
+- a ``wire`` stream answers ``"wire": {"ok": false, ...}`` (the agent
+  falls back to the PVC path);
+- ``resume`` with ``reload`` is refused.
 
 Wiring: the training loop calls :meth:`Agentlet.checkpoint_point` once
 per step. On a pending quiesce the loop drains device work and parks
@@ -46,7 +52,7 @@ from typing import Any, Callable
 
 from grit_tpu_torch.api import config
 from grit_tpu_torch.device.quiesce import quiesce
-from grit_tpu_torch.device.snapshot import write_snapshot
+from grit_tpu_torch.device.snapshot import last_write, write_snapshot
 
 log = logging.getLogger(__name__)
 
@@ -268,19 +274,19 @@ class Agentlet:
             self._spec_requested = False
         try:
             directory = req["dir"]
-            if req.get("mirror") is not None:
-                log.warning("mirror %s abandoned (%s); the agent's upload "
-                            "pass ships the snapshot", req["mirror"],
-                            _NOT_IN_SLICE)
             with self._dump_lock:
                 write_snapshot(directory, self.state_fn(),
                                meta={"step": int(self.step_fn()),
-                                     **self.meta_fn()})
+                                     **self.meta_fn()},
+                               base=req.get("base"),
+                               hashes=bool(req.get("hashes")),
+                               mirror=req.get("mirror"))
+                legs = last_write()
         finally:
             with self._cond:
                 self._dumps_in_flight -= 1
                 self._cond.notify_all()
-        resp: dict = {"ok": True, "dir": directory}
+        resp: dict = {"ok": True, "dir": directory, "legs": legs}
         if req.get("wire") is not None:
             resp["wire"] = {"ok": False, "error": f"wire stream {_NOT_IN_SLICE}"}
         if spec_requested:
@@ -330,8 +336,25 @@ class ToggleClient:
         fields = {"dump": dump_spec} if dump_spec is not None else {}
         return int(self.request("quiesce", **fields)["step"])
 
-    def dump(self, directory: str) -> dict:
-        return self.request("dump", dir=directory)
+    def dump(self, directory: str, base: str | None = None,
+             hashes: bool = False, mirror: str | None = None,
+             wire: dict | None = None, speculative: bool = False) -> dict:
+        """The dump response. ``base``, ``hashes`` and ``mirror`` as
+        :func:`~grit_tpu_torch.device.snapshot.write_snapshot` takes them;
+        ``wire`` and ``speculative`` as the reference client sends them
+        (this agentlet answers both on their failure paths)."""
+        fields: dict = {"dir": directory}
+        if base is not None:
+            fields["base"] = base
+        if hashes:
+            fields["hashes"] = True
+        if mirror is not None:
+            fields["mirror"] = mirror
+        if wire is not None:
+            fields["wire"] = wire
+        if speculative:
+            fields["speculative"] = True
+        return self.request("dump", **fields)
 
     def resume(self) -> None:
         self.request("resume")

@@ -1,12 +1,13 @@
 """Device-state snapshot in the JAX package's on-disk format.
 
-Counterpart of the core of ``grit_tpu/device/snapshot.py``: the same
-self-describing directory, so a snapshot written by either package
-restores through the other::
+Counterpart of ``grit_tpu/device/snapshot.py``: the same self-describing
+directory, so a snapshot written by either package restores through the
+other::
 
     <dir>.work/               everything is written here first
         MANIFEST.json         format tag, meta, per-array dtype/shape/chunks
         data-h0000.bin        the arrays' bytes, concatenated
+        index-h0000.json      this process's array records
         COMMIT                sentinel written last
     → renamed to <dir>        the atomic commit
 
@@ -16,43 +17,96 @@ for bf16, and every array is one chunk with ``{"type": "replicated"}``
 sharding. Chunk checksums are ``zlib.crc32`` (``"algo": "crc32"``). A
 JAX-written snapshot whose chunks carry ``crc32c`` (the JAX package's
 native IO plane) is refused with :class:`SnapshotIntegrityError`: this
-package has no crc32c, and a chunk is never read unverified.
+package has no crc32c, and a chunk is read unverified only when the caller
+passes ``verify=False``.
 
-Delta dumps (``base=``), the mirror tee, the wire sink, staged and
-post-copy restore and speculation belong to later slices of the port;
-reading follows a JAX delta's ``ref_dir`` chunk references.
+Delta dumps (``write_snapshot(base=)``, pre-copy live migration): a chunk
+byte-identical to the base's is recorded as a reference (``"ref_dir"``,
+relative to this snapshot, chains collapsed) instead of being written
+again. Identity is a sha256 match against a hashed base (``hashes=True``
+on the base's dump), else a crc32 match confirmed by a byte compare
+against the base's file — a crc mismatch alone proves a change. The
+manifest then carries ``"base"`` and the ``"dirty"`` accounting the
+agent's pre-copy governors read.
+
+Mirror (``mirror=``): a writer thread tees every physically written chunk
+into a second committed snapshot (the agent's upload destination), whose
+COMMIT records each file's identity so the agent's upload pass skips it
+(``grit_tpu/agent/checkpoint.py:_mirrored_skip``). A failed tee never
+fails the dump.
+
+Restore gates every read on the streamed-staging journal when one governs
+the directory (the agent stages metadata first, data while the restore
+runs), reads and checksums arrays on reader threads ahead of an in-order
+place on the caller's thread, and records that pipeline's legs
+(:func:`last_restore_pipeline`).
+
+The card's data path: a CUDA tensor leaves the device through a ring of
+``_RING_SLOTS`` pinned buffers of ``_PIECE_BYTES``, filled by
+asynchronous copies on a side stream up to a ring ahead of the checksum
+(on a hasher thread) and the file write. A restore's readers read arrays
+bound for the card straight into pinned blocks of ``_PIECE_BYTES``
+(pinned on first need, at most the read-ahead window × the largest
+array, reserved in array order), and the caller copies them to the
+device asynchronously. Host memory stays bounded by the ring and the
+blocks. A CPU target needs neither.
+
+Not in this package yet: the codec container (a data file with a
+``.gritc`` sidecar is refused), crc32c, the wire sink, speculation,
+post-copy and the multi-process index merge.
 """
 
 from __future__ import annotations
 
+import bisect
+import hashlib
 import json
+import logging
 import os
+import queue
 import shutil
+import threading
+import time
 import zlib
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, Callable, Iterator
 
 import numpy as np
 import torch
 
+from grit_tpu_torch.api import config
 from grit_tpu_torch.device.placement import resolve_device
 from grit_tpu_torch.metadata import (
+    CODEC_SIDECAR_SUFFIX,
     SNAPSHOT_FORMAT,
+    STAGE_JOURNAL_FILE,
     atomic_write_json,
     atomic_write_text,
+    chunk_stream_signature,
+    crc32_file,
 )
 from grit_tpu_torch.tree import flatten_with_names, map_with_names
+
+log = logging.getLogger(__name__)
 
 FORMAT = SNAPSHOT_FORMAT
 MANIFEST_FILE = "MANIFEST.json"
 COMMIT_FILE = "COMMIT"
 WORK_SUFFIX = ".work"
 DATA_FILE = "data-h0000.bin"
-# Arrays in flight between the device copy and the disk (both ways):
-# bounds host memory at about this many of the largest array.
-_WINDOW = 2
+INDEX_FILE = "index-h0000.json"
+MIRROR_MARKER = "mirror-ok-h0000"
+
+# The card's staging ring: pieces of at most _PIECE_BYTES (zlib.crc32,
+# sha256 and file IO release the GIL only on large buffers), _RING_SLOTS
+# of them in flight. The piece is also the delta dump's base-compare
+# window (the reference compares 64 MiB at a time).
+_PIECE_BYTES = 64 << 20
+_RING_SLOTS = 4
+# Arrays the restore readers work on ahead of the in-order place.
+_RESTORE_WINDOW = 4
 
 # torch dtype <-> manifest dtype string (numpy's names; bf16 as ml_dtypes
 # spells it, which is what the JAX writer records).
@@ -67,8 +121,9 @@ _NAME_DTYPES = {v: k for k, v in _DTYPE_NAMES.items()}
 
 
 class SnapshotIntegrityError(RuntimeError):
-    """A snapshot's bytes cannot be trusted (checksum, size, coverage) or
-    cannot be verified by this package."""
+    """A snapshot's bytes cannot be trusted (checksum, size, coverage, a
+    failed or stalled stage, a missing base) or cannot be read by this
+    package (crc32c, a codec container)."""
 
 
 @dataclass
@@ -101,33 +156,518 @@ def snapshot_nbytes(directory: str) -> int:
     return sum(c["nbytes"] for rec in manifest.arrays for c in rec["chunks"])
 
 
+def snapshot_delta_nbytes(directory: str) -> int:
+    """Bytes physically stored in ``directory`` itself — chunks referenced
+    from a base are left out. Equals :func:`snapshot_nbytes` for a full
+    dump; the dump and transfer cost of a delta."""
+    manifest = SnapshotManifest.load(directory)
+    return sum(c["nbytes"] for rec in manifest.arrays for c in rec["chunks"]
+               if not c.get("ref_dir"))
+
+
+# Process-level records of the last dump and the last restore (their legs
+# in seconds), read by the workload's RESTORE_PIPELINE line and the
+# agentlet's dump response.
+_RECORD_LOCK = threading.Lock()
+_LAST_WRITE: dict = {}
+_LAST_RESTORE: dict = {}
+
+
+def last_write() -> dict:
+    """Legs of this process's last :func:`write_snapshot`."""
+    with _RECORD_LOCK:
+        return dict(_LAST_WRITE)
+
+
+def last_restore_pipeline() -> dict:
+    """Legs of this process's last :func:`restore_snapshot`: ``stage_wait``
+    (readers blocked on the stage journal), ``pin`` (readers pinning
+    staging blocks), ``read`` (disk and checksum, summed over readers,
+    waits and pinning left out), ``place`` (host to device), ``wall`` and
+    ``overlap_fraction = 1 - wall / (stage_wait + pin + read + place)``."""
+    with _RECORD_LOCK:
+        return dict(_LAST_RESTORE)
+
+
 def _as_tensor(leaf) -> torch.Tensor:
     if isinstance(leaf, torch.Tensor):
         return leaf.detach()
     return torch.as_tensor(np.asarray(leaf))
 
 
-def _host_bytes(t: torch.Tensor) -> np.ndarray:
-    """Device tensor → contiguous host bytes (uint8 view)."""
-    t = t.contiguous().cpu()
-    if t.dtype == torch.bfloat16:
-        t = t.view(torch.int16)
-    return t.numpy().reshape(-1).view(np.uint8)
+def _byte_view(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s bytes as a flat uint8 tensor on its device (a copy only
+    when ``t`` is not contiguous)."""
+    return t.detach().contiguous().reshape(-1).view(torch.uint8)
 
 
-def write_snapshot(directory: str, state: Any, *, meta: dict | None = None) -> str:
+def _spans(n: int) -> list[tuple[int, int]]:
+    return [(o, min(_PIECE_BYTES, n - o)) for o in range(0, n, _PIECE_BYTES)]
+
+
+def _pinned(nbytes: int) -> torch.Tensor:
+    """Page-locked host bytes, the card's staging memory."""
+    return torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+
+
+class _DeviceToHost:
+    """Tensors' bytes on the host, piece by piece in order: the dump's side
+    of the data path. A CPU tensor's pieces are views of its own memory. A
+    CUDA tensor's are views of a ring of pinned buffers: each piece's copy
+    is queued on a side stream, up to the ring's size ahead of the reader,
+    with an event the reader waits on before it sees the bytes; a slot is
+    refilled only once the reader has moved past the piece it held, and a
+    new tensor's copies start only after every copy of the last one has
+    landed (an abandoned pass cannot overwrite a live slot)."""
+
+    def __init__(self) -> None:
+        self._ring: torch.Tensor | None = None
+        self._host: np.ndarray | None = None
+        self._streams: dict[torch.device, torch.cuda.Stream] = {}
+        self._events: list = [None] * _RING_SLOTS
+        self.wait_s = 0.0  # reader time blocked on copies
+
+    def pieces(self, t: torch.Tensor) -> Iterator[np.ndarray]:
+        flat = _byte_view(t)
+        spans = _spans(flat.numel())
+        if not flat.is_cuda:
+            host = flat.numpy()
+            for o, m in spans:
+                yield host[o:o + m]
+            return
+        if self._ring is None:
+            self._ring = _pinned(_RING_SLOTS * _PIECE_BYTES)
+            self._host = self._ring.numpy()
+        for ev in self._events:
+            if ev is not None:
+                ev.synchronize()
+        stream = self._streams.get(flat.device)
+        if stream is None:
+            stream = self._streams[flat.device] = torch.cuda.Stream(flat.device)
+        # The side stream reads what the caller's stream wrote, and the
+        # allocator must not reuse a contiguous copy's memory before the
+        # side stream is done with it.
+        stream.wait_stream(torch.cuda.current_stream(flat.device))
+        flat.record_stream(stream)
+
+        def issue(i: int) -> None:
+            o, m = spans[i]
+            k = i % _RING_SLOTS
+            with torch.cuda.stream(stream):
+                self._ring[k * _PIECE_BYTES:k * _PIECE_BYTES + m].copy_(
+                    flat[o:o + m], non_blocking=True)
+                ev = torch.cuda.Event()
+                ev.record(stream)
+            self._events[k] = ev
+
+        for i in range(min(_RING_SLOTS, len(spans))):
+            issue(i)
+        for i, (_, m) in enumerate(spans):
+            k = i % _RING_SLOTS
+            t0 = time.perf_counter()
+            self._events[k].synchronize()
+            self.wait_s += time.perf_counter() - t0
+            yield self._host[k * _PIECE_BYTES:k * _PIECE_BYTES + m]
+            if i + _RING_SLOTS < len(spans):
+                issue(i + _RING_SLOTS)
+
+
+# -- delta dumps -----------------------------------------------------------------
+
+
+def _load_base_chunks(directory: str, base: str) -> tuple[dict, str | None,
+                                                          str | None]:
+    """Index a committed base snapshot for a delta write:
+    ``({(name, index, nbytes, dtype): chunk}, relpath, abspath)``, the
+    relpath from the *final* target directory to the base (what reused
+    chunks record). A missing or uncommitted base degrades to a full dump
+    (an empty index): pre-copy is an optimization."""
+    target = os.path.abspath(directory)
+    base_abs = os.path.abspath(base)
+    if base_abs == target:
+        raise ValueError("delta snapshot cannot use itself as base")
+    if not snapshot_exists(base_abs):
+        return {}, None, None
+    index: dict = {}
+    for rec in SnapshotManifest.load(base_abs).arrays:
+        for c in rec["chunks"]:
+            index[(rec["name"], tuple(map(tuple, c["index"])), c["nbytes"],
+                   rec["dtype"])] = c
+    return index, os.path.relpath(base_abs, target), base_abs
+
+
+class _DumpLegs:
+    """Seconds the dump spends in each stage of its byte loop (the hash
+    legs run on the hasher thread, the rest on the dump's)."""
+
+    def __init__(self) -> None:
+        self.s = {"crc": 0.0, "sha256": 0.0, "write": 0.0, "compare": 0.0,
+                  "tee": 0.0}
+        self._lock = threading.Lock()
+
+    def timed(self, leg: str, fn, *args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            with self._lock:
+                self.s[leg] += time.perf_counter() - t0
+
+
+class _Digest:
+    """A running crc32 and, optionally, sha256 of a byte stream, fed one
+    piece at a time on the hasher thread (both release the GIL on large
+    buffers) while the dump's thread writes or compares the same piece."""
+
+    def __init__(self, hasher: ThreadPoolExecutor, legs: _DumpLegs, *,
+                 crc: bool, sha256: bool) -> None:
+        self._hasher, self._legs = hasher, legs
+        self.crc = 0 if crc else None
+        self._sha = hashlib.sha256() if sha256 else None
+
+    def feed(self, piece: np.ndarray):
+        """Start hashing ``piece``; the caller waits on the returned
+        future before the piece's buffer is reused."""
+        return self._hasher.submit(self._update, piece)
+
+    def _update(self, piece: np.ndarray) -> None:
+        if self.crc is not None:
+            self.crc = self._legs.timed("crc", zlib.crc32, piece, self.crc)
+        if self._sha is not None:
+            self._legs.timed("sha256", self._sha.update, piece)
+
+    def sha256(self) -> str | None:
+        return None if self._sha is None else self._sha.hexdigest()
+
+
+def _match_base_chunk(base_abs: str, base_rel: str, bc: dict, index: list,
+                      pieces: Callable[[], Iterator[np.ndarray]],
+                      hasher: ThreadPoolExecutor,
+                      legs: _DumpLegs) -> tuple[dict | None, dict]:
+    """The reference chunk for this array if its bytes equal the base
+    chunk ``bc``'s, else None, plus what the passes learned of the bytes
+    (``crc``, ``sha256``) for the write that follows a miss.
+
+    A hashed base compares sha256 (no read of the base; the crc32 is
+    computed beside it for the write). Otherwise a crc32 mismatch proves a
+    change; a match is only a hint, confirmed by a byte compare against
+    the base file, one piece at a time. A base chunk whose algo this
+    package cannot compute (crc32c) goes straight to the byte compare. An
+    OSError on the base means a fresh write."""
+    known: dict = {}
+    if "sha256" in bc:
+        digest = _Digest(hasher, legs, crc=False, sha256=True)
+        crc = 0
+        for piece in pieces():
+            fut = digest.feed(piece)
+            crc = legs.timed("crc", zlib.crc32, piece, crc)
+            fut.result()
+        known.update(crc=crc, sha256=digest.sha256())
+        same = known["sha256"] == bc["sha256"]
+    else:
+        if bc.get("algo", "crc32") == "crc32":
+            crc = 0
+            for piece in pieces():
+                crc = legs.timed("crc", zlib.crc32, piece, crc)
+            known["crc"] = crc
+            if crc != bc.get("crc", bc.get("crc32")):
+                return None, known
+        d = base_abs
+        if bc.get("ref_dir"):  # the base is itself a delta: follow the chain
+            d = os.path.normpath(os.path.join(base_abs, bc["ref_dir"]))
+        same = legs.timed("compare", _same_bytes, os.path.join(d, bc["file"]),
+                          bc["offset"], bc["nbytes"], pieces())
+    if not same:
+        return None, known
+    chunk = {
+        "file": bc["file"], "offset": bc["offset"], "nbytes": bc["nbytes"],
+        "index": index, "crc": bc.get("crc", bc.get("crc32")),
+        "algo": bc.get("algo", "crc32"),
+        # Relative to THIS snapshot; a base that is itself a delta points
+        # further back, and the chain collapses to where the bytes live.
+        "ref_dir": os.path.normpath(os.path.join(base_rel,
+                                                 bc.get("ref_dir", "."))),
+    }
+    if "sha256" in bc:
+        chunk["sha256"] = bc["sha256"]
+    return chunk, known
+
+
+# Sub-window of the byte compare: its temporaries stay small enough for
+# the allocator to reuse, where a piece-sized one is mapped fresh each time.
+_COMPARE_WINDOW = 1 << 20
+
+
+def _same_bytes(path: str, offset: int, nbytes: int,
+                pieces: Iterator[np.ndarray]) -> bool:
+    """Whether ``pieces`` equal ``nbytes`` of ``path`` at ``offset``, read
+    into one reused buffer a piece at a time."""
+    buf = None
+    seen = 0
+    try:
+        with open(path, "rb") as f:
+            f.seek(offset)
+            for piece in pieces:
+                if buf is None or buf.nbytes < piece.nbytes:
+                    buf = np.empty(piece.nbytes, np.uint8)
+                raw = buf[:piece.nbytes]
+                if f.readinto(memoryview(raw)) != piece.nbytes:
+                    return False
+                for o in range(0, piece.nbytes, _COMPARE_WINDOW):
+                    if not np.array_equal(piece[o:o + _COMPARE_WINDOW],
+                                          raw[o:o + _COMPARE_WINDOW]):
+                        return False
+                seen += piece.nbytes
+    except OSError:
+        return False
+    return seen == nbytes
+
+
+# -- mirror tee ------------------------------------------------------------------
+
+
+class _ByteBoundedQueue:
+    """FIFO bounded by in-flight *bytes*: producers block once ``max_bytes``
+    is queued; one item is always admitted, so a piece larger than the
+    bound cannot deadlock the dump. The ``None`` sentinel is free. Raises
+    ``queue.Full`` / ``queue.Empty`` on timeout, as ``queue.Queue`` does."""
+
+    def __init__(self, max_bytes: int) -> None:
+        self._max = max(1, max_bytes)
+        self._items: deque = deque()
+        self._bytes = 0
+        self._cond = threading.Condition()
+
+    def put(self, item, nbytes: int = 0, timeout: float = 1.0) -> None:
+        deadline = time.monotonic() + timeout
+        with self._cond:
+            while self._items and self._bytes + nbytes > self._max:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    raise queue.Full
+                self._cond.wait(remaining)
+            self._items.append((item, nbytes))
+            self._bytes += nbytes
+            self._cond.notify_all()
+
+    def get(self, timeout: float = 1.0):
+        deadline = time.monotonic() + timeout
+        with self._cond:
+            while not self._items:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    raise queue.Empty
+                self._cond.wait(remaining)
+            item, nbytes = self._items.popleft()
+            self._bytes -= nbytes
+            self._cond.notify_all()
+            return item
+
+
+class _MirrorWriter:
+    """Background raw tee of the dump's physically written bytes into
+    ``path``, in the primary's write order, behind a queue bounded by
+    ``GRIT_MIRROR_MAX_INFLIGHT_MB``. A piece whose memory the dump reuses
+    (a pinned ring slot) is queued as a copy in a buffer the writer hands
+    back once written, so copies never fault in fresh pages. Any failure
+    only disables the mirror (the agent's upload pass then ships the
+    bytes); it never fails or hangs the dump."""
+
+    def __init__(self, path: str) -> None:
+        self._q = _ByteBoundedQueue(config.MIRROR_MAX_INFLIGHT_MB.get_int() << 20)
+        self._ok = True
+        self._err: str | None = None
+        self._path = path
+        self.raw_written = 0
+        self._spare: queue.SimpleQueue = queue.SimpleQueue()
+        self._thread = threading.Thread(target=self._run,
+                                        name="grit-snapshot-mirror", daemon=True)
+        self._thread.start()
+
+    def _run(self) -> None:
+        try:
+            with open(self._path, "wb") as f:
+                idle = 0
+                while True:
+                    try:
+                        # Long gaps are legitimate (a delta dump feeds
+                        # nothing for reused chunks): silence only warns.
+                        item = self._q.get(timeout=1.0)
+                    except queue.Empty:
+                        idle += 1
+                        if idle % 60 == 0:
+                            log.warning("snapshot mirror %s: no bytes and no "
+                                        "terminator for %ds (still waiting)",
+                                        self._path, idle)
+                        continue
+                    idle = 0
+                    if item is None:
+                        return
+                    buf, spare = item
+                    f.write(buf)
+                    self.raw_written += buf.nbytes
+                    if spare is not None:
+                        self._spare.put(spare)
+        except Exception as exc:  # noqa: BLE001 — the tee never fails the dump
+            self._ok = False
+            self._err = f"{type(exc).__name__}: {exc}"
+            # Drain so the producer never blocks on a dead tee; bounded,
+            # in case the producer went away without its terminator.
+            idle = 0
+            while idle < 60:
+                try:
+                    if self._q.get(timeout=1.0) is None:
+                        break
+                    idle = 0
+                except queue.Empty:
+                    idle += 1
+
+    def put(self, buf: np.ndarray, *, borrowed: bool = False) -> None:
+        """Queue ``buf``, which the caller does not write again; a
+        ``borrowed`` one, whose memory the caller reuses, as a copy."""
+        spare = None
+        if borrowed and self._ok:
+            try:
+                spare = self._spare.get_nowait()
+            except queue.Empty:
+                pass
+            if spare is None or spare.nbytes < buf.nbytes:
+                spare = np.empty(max(buf.nbytes, _PIECE_BYTES), np.uint8)
+            np.copyto(spare[:buf.nbytes], buf)
+            buf = spare[:buf.nbytes]
+        while self._ok:
+            if not self._thread.is_alive():
+                self._ok = False
+                self._err = self._err or "mirror thread died"
+                return
+            try:
+                self._q.put((buf, spare), buf.nbytes, timeout=1.0)
+                return
+            except queue.Full:
+                continue
+
+    def finish(self, dump_ok: bool = True) -> bool:
+        """Terminate and join; False when the mirror is unusable."""
+        while self._thread.is_alive():
+            try:
+                self._q.put(None, 0, timeout=1.0)
+                break
+            except queue.Full:
+                continue
+        self._thread.join(timeout=120.0)
+        if self._thread.is_alive():
+            self._ok = False
+            self._err = self._err or "mirror writer wedged at finish"
+        if not self._ok:
+            log.warning("snapshot mirror %s failed (%s); the upload pass "
+                        "ships the bytes instead", self._path, self._err)
+        return self._ok and dump_ok
+
+
+def _open_mirror(mirror: str | None) -> tuple[str | None, _MirrorWriter | None]:
+    """The mirror's work dir and tee, or ``(None, None)`` when the mirror
+    is abandoned up front."""
+    if mirror is None:
+        return None, None
+    codec = config.SNAPSHOT_CODEC.get() or "none"
+    if codec != "none":
+        log.warning("snapshot mirror %s abandoned: %s=%s asks for the codec "
+                    "stage, which this package does not have; the agent's "
+                    "upload pass ships the snapshot", mirror,
+                    config.SNAPSHOT_CODEC.name, codec)
+        return None, None
+    work = mirror + WORK_SUFFIX
+    try:
+        shutil.rmtree(work, ignore_errors=True)
+        os.makedirs(work)
+    except OSError as exc:
+        log.warning("snapshot mirror %s abandoned: %s", mirror, exc)
+        return None, None
+    return work, _MirrorWriter(os.path.join(work, DATA_FILE))
+
+
+def _mark_mirror(mirror_work: str, work: str,
+                 written_pairs: list[tuple[int, int]]) -> None:
+    """Copy the index into the mirror and drop its ``mirror-ok`` marker:
+    the raw size and chunk-stream signature of the data file, size and
+    crc32 of the index. A missing marker abandons the mirror at commit."""
+    index = os.path.join(work, INDEX_FILE)
+    try:
+        shutil.copyfile(index, os.path.join(mirror_work, INDEX_FILE))
+        atomic_write_json(os.path.join(mirror_work, MIRROR_MARKER), {"files": {
+            DATA_FILE: {"size": sum(n for _, n in written_pairs),
+                        "sig": chunk_stream_signature(written_pairs)},
+            INDEX_FILE: {"size": os.path.getsize(index),
+                         "crc": crc32_file(index)},
+        }})
+    except OSError as exc:
+        log.warning("snapshot mirror %s: marker not written (%s)",
+                    mirror_work, exc)
+
+
+def _commit_mirror(mirror: str, committed: str) -> bool:
+    """Seal the mirror: require its marker, copy the committed manifest,
+    write a COMMIT whose second line is ``{"files": {rel: {size, sig|crc}}}``
+    (what the agent's upload-skip pass verifies) and rename it into place.
+    Any gap abandons the mirror — never a half-committed destination.
+    True when the mirror committed."""
+    work = mirror + WORK_SUFFIX
+    if not os.path.isdir(work):
+        return False
+    try:
+        marker = os.path.join(work, MIRROR_MARKER)
+        if not os.path.isfile(marker):
+            raise OSError("mirror marker missing")
+        try:
+            with open(marker) as f:
+                files = dict(json.load(f).get("files", {}))
+        except ValueError as exc:
+            raise OSError(f"mirror marker malformed: {exc}") from exc
+        os.unlink(marker)
+        manifest = os.path.join(work, MANIFEST_FILE)
+        shutil.copyfile(os.path.join(committed, MANIFEST_FILE), manifest)
+        files[MANIFEST_FILE] = {"size": os.path.getsize(manifest),
+                                "crc": crc32_file(manifest)}
+        atomic_write_text(os.path.join(work, COMMIT_FILE),
+                          FORMAT + "\n" + json.dumps({"files": files}) + "\n")
+        if os.path.isdir(mirror):
+            shutil.rmtree(mirror)
+        os.rename(work, mirror)
+    except OSError as exc:
+        log.warning("abandoning snapshot mirror %s: %s", mirror, exc)
+        shutil.rmtree(work, ignore_errors=True)
+        return False
+    return True
+
+
+# -- write -----------------------------------------------------------------------
+
+
+def write_snapshot(directory: str, state: Any, *, meta: dict | None = None,
+                   base: str | None = None, hashes: bool = False,
+                   mirror: str | None = None) -> str:
     """Serialize the tree ``state`` to ``directory`` atomically; returns it.
 
-    Device→host copies of the next array overlap the checksum and file
-    write of the current one (one writer thread). The caller quiesces
-    first (:func:`grit_tpu_torch.device.quiesce.quiesce`) so the arrays
-    are a consistent cut.
+    ``base``: a committed snapshot; chunks byte-identical to its are
+    recorded as references into it (delta dump, see the module
+    docstring). A missing or uncommitted base degrades to a full dump; the
+    base must not be ``directory``. The delta restores next to its base,
+    at the same relative location.
 
-    The data file is not fsynced, as in the JAX package's default: every
-    chunk is CRC-verified on restore, so a torn write is detected, and the
-    upload to the checkpoint volume is the durability boundary — a
-    multi-GB flush inside the blackout buys nothing. The manifest and
-    COMMIT are fsynced before the rename that commits."""
+    ``hashes``: record a sha256 per chunk, so that a later delta against
+    this snapshot decides by hash instead of reading these bytes back (the
+    pre-copy live pass pays it outside the blackout).
+
+    ``mirror``: a second directory that receives a committed copy of the
+    physically written bytes while the dump runs; failures only abandon
+    it.
+
+    The caller quiesces first (:func:`grit_tpu_torch.device.quiesce.quiesce`)
+    so the arrays are a consistent cut. The data file is not fsynced, as
+    in the JAX package's default: every chunk is crc-verified on restore,
+    and the upload to the checkpoint volume is the durability boundary.
+    The manifest and COMMIT are fsynced before the rename that commits."""
+    t_start = time.perf_counter()
     work = directory + WORK_SUFFIX
     old = directory + ".old"
     # Crash recovery: a leftover .old from a crash mid-commit holds the
@@ -140,103 +680,388 @@ def write_snapshot(directory: str, state: Any, *, meta: dict | None = None) -> s
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
 
+    base_chunks: dict = {}
+    base_rel = base_abs = None
+    if base is not None:
+        base_chunks, base_rel, base_abs = _load_base_chunks(directory, base)
     leaves = [(name, _as_tensor(leaf))
               for name, leaf in flatten_with_names(state)]
+    mirror_work, tee = _open_mirror(mirror)
+    d2h = _DeviceToHost()
+    legs = _DumpLegs()
     records: list[dict] = []
+    # (crc, nbytes) of every physically appended chunk in write order —
+    # the byte stream the mirror tees, folded into its COMMIT signature.
+    written_pairs: list[tuple[int, int]] = []
     offset = 0
-    with open(os.path.join(work, DATA_FILE), "wb") as f, \
-            ThreadPoolExecutor(max_workers=1) as writer:
+    try:
+        with open(os.path.join(work, DATA_FILE), "wb") as f, \
+                ThreadPoolExecutor(max_workers=1) as hasher:
+            for name, t in leaves:
+                if t.dtype not in _DTYPE_NAMES:
+                    raise ValueError(f"{name}: unsupported dtype {t.dtype}")
+                dtype = _DTYPE_NAMES[t.dtype]
+                nbytes = t.numel() * t.element_size()
+                index = [[0, int(d)] for d in t.shape]
+                bc = base_chunks.get((name, tuple(map(tuple, index)), nbytes,
+                                      dtype))
+                chunk, known = None, {}
+                if bc is not None:
+                    chunk, known = _match_base_chunk(
+                        base_abs, base_rel, bc, index,
+                        lambda t=t: d2h.pieces(t), hasher, legs)
+                if chunk is None:
+                    chunk = _append(f, offset, nbytes, index, d2h.pieces(t),
+                                    hashes=hashes, known=known, hasher=hasher,
+                                    legs=legs, tee=tee, borrowed=t.is_cuda)
+                    written_pairs.append((chunk["crc"], nbytes))
+                    offset += nbytes
+                records.append({"name": name, "dtype": dtype,
+                                "shape": list(t.shape),
+                                "sharding": {"type": "replicated"},
+                                "chunks": [chunk]})
+    except BaseException:
+        # The tee must never be left blocked, nor its work dir survive.
+        if tee is not None:
+            tee.finish(dump_ok=False)
+            shutil.rmtree(mirror_work, ignore_errors=True)
+        raise
 
-        def append(buf: np.ndarray) -> int:
-            f.write(buf)
-            return zlib.crc32(buf) & 0xFFFFFFFF
-
-        pending = []
-        for name, t in leaves:
-            if len(pending) >= _WINDOW:
-                pending[-_WINDOW].result()
-            buf = _host_bytes(t)
-            pending.append(writer.submit(append, buf))
-            records.append({
-                "name": name,
-                "dtype": _DTYPE_NAMES[t.dtype],
-                "shape": list(t.shape),
-                "sharding": {"type": "replicated"},
-                "chunks": [{
-                    "file": DATA_FILE, "offset": offset,
-                    "nbytes": int(buf.nbytes),
-                    "index": [[0, int(d)] for d in t.shape],
-                    "algo": "crc32",
-                }],
-            })
-            offset += buf.nbytes
-        for rec, fut in zip(records, pending):
-            rec["chunks"][0]["crc"] = fut.result()
-
-    atomic_write_json(os.path.join(work, MANIFEST_FILE), {
-        "format": FORMAT, "process_count": 1, "meta": meta or {},
-        "arrays": records,
-    })
+    with open(os.path.join(work, INDEX_FILE), "w") as f:
+        json.dump(records, f)
+    if tee is not None and tee.finish():
+        _mark_mirror(mirror_work, work, written_pairs)
+    manifest = {"format": FORMAT, "process_count": 1, "meta": meta or {},
+                "arrays": records}
+    if base_rel is not None:
+        manifest["base"] = base_rel  # informational; chunks carry ref_dir
+        chunks = [c for rec in records for c in rec["chunks"]]
+        dirty = [c for c in chunks if not c.get("ref_dir")]
+        manifest["dirty"] = {
+            "bytes": sum(int(c["nbytes"]) for c in dirty),
+            "totalBytes": sum(int(c["nbytes"]) for c in chunks),
+            "chunks": len(dirty), "totalChunks": len(chunks)}
+    atomic_write_json(os.path.join(work, MANIFEST_FILE), manifest)
     atomic_write_text(os.path.join(work, COMMIT_FILE), FORMAT + "\n")
     if os.path.isdir(directory):
         os.rename(directory, old)
     os.rename(work, directory)
     shutil.rmtree(old, ignore_errors=True)
+    mirrored = mirror is not None and _commit_mirror(mirror, directory)
+    with _RECORD_LOCK:
+        _LAST_WRITE.clear()
+        _LAST_WRITE.update(
+            wall=time.perf_counter() - t_start, copy_wait=d2h.wait_s,
+            **legs.s, bytes=sum(n for _, n in written_pairs),
+            total_bytes=sum(c["nbytes"] for rec in records
+                            for c in rec["chunks"]),
+            staging=(f"pinned ring {_RING_SLOTS} x {_PIECE_BYTES >> 20} MiB, "
+                     "side-stream D2H" if d2h._ring is not None else "host")
+            + ", hashing beside the write",
+            mirror=mirrored)
     return directory
 
 
-def _read_chunk(directory: str, chunk: dict) -> np.ndarray:
+def _append(f, offset: int, nbytes: int, index: list,
+            pieces: Iterator[np.ndarray], *, hashes: bool, known: dict,
+            hasher: ThreadPoolExecutor, legs: _DumpLegs,
+            tee: _MirrorWriter | None, borrowed: bool) -> dict:
+    """Write one array's bytes at ``offset`` of the data file ``f`` (and
+    into the tee) while the hasher thread checksums them; returns its
+    chunk record. ``known`` holds the crc or sha256 a failed base match
+    already computed over these bytes. ``borrowed``: the pieces are ring
+    slots, reused once the next piece is asked for."""
+    digest = _Digest(hasher, legs, crc="crc" not in known,
+                     sha256=hashes and "sha256" not in known)
+    for piece in pieces:
+        fut = digest.feed(piece)
+        legs.timed("write", f.write, piece)
+        if tee is not None:  # copying the piece, or waiting for the tee
+            legs.timed("tee", tee.put, piece, borrowed=borrowed)
+        fut.result()
+    chunk = {"file": DATA_FILE, "offset": offset, "nbytes": nbytes,
+             "index": index, "crc": known.get("crc", digest.crc),
+             "algo": "crc32"}
+    if hashes:
+        chunk["sha256"] = known.get("sha256") or digest.sha256()
+    return chunk
+
+
+# -- streamed stage ----------------------------------------------------------------
+
+
+class _StageMonitor:
+    """Reader side of the streamed-staging journal
+    (``grit_tpu/agent/copy.py:StageJournal``): tails
+    ``<staging root>/.grit-stage-journal`` by byte offset so a read blocks
+    on exactly the byte range it needs while later bytes still cross.
+
+    A terminal ``{"failed": msg}`` line, or a wait past
+    ``GRIT_TPU_STAGE_TIMEOUT_S``, raises :class:`SnapshotIntegrityError`
+    out of every waiter: a torn stage is never half-consumed, and never
+    hangs."""
+
+    _POLL_S = 0.02
+
+    def __init__(self, journal_path: str, root: str) -> None:
+        self.root = root
+        self.path = journal_path
+        self._pos = 0  # byte offset of the next unread journal line
+        self._buf = b""
+        self._water: dict[str, int] = {}
+        self._done: set[str] = set()
+        self._complete = False
+        self._failed: str | None = None
+        self._lock = threading.Lock()
+        # Seconds restore threads spent blocked on staging (the
+        # stage_wait leg).
+        self.stage_wait_s = 0.0
+
+    @classmethod
+    def find(cls, directory: str) -> "_StageMonitor | None":
+        """The journal governing ``directory``: it sits at the staging
+        root, a few levels above ``<root>/<container>/hbm``. None → not a
+        streamed stage, every read proceeds ungated."""
+        d = os.path.abspath(directory)
+        for _ in range(4):
+            p = os.path.join(d, STAGE_JOURNAL_FILE)
+            if os.path.isfile(p):
+                return cls(p, d)
+            parent = os.path.dirname(d)
+            if parent == d:
+                break
+            d = parent
+        return None
+
+    def _poll_locked(self) -> None:
+        # No held handle: each poll reads what the stager appended since.
+        # A torn trailing line stays buffered until its newline lands.
+        try:
+            with open(self.path, "rb") as f:
+                f.seek(self._pos)
+                data = f.read()
+        except OSError:
+            return
+        self._pos += len(data)
+        self._buf += data
+        while b"\n" in self._buf:
+            raw, self._buf = self._buf.split(b"\n", 1)
+            if not raw.strip():
+                continue
+            try:
+                rec = json.loads(raw)
+            except ValueError:
+                continue  # terminal markers are whole lines
+            if rec.get("complete"):
+                self._complete = True
+            elif "failed" in rec:
+                self._failed = str(rec["failed"])
+            elif "file" in rec:
+                rel = os.path.normpath(rec["file"])
+                self._water[rel] = max(self._water.get(rel, 0),
+                                       int(rec.get("staged", 0)))
+                if rec.get("done"):
+                    self._done.add(rel)
+
+    def _ready_locked(self, rel: str, nbytes: int | None) -> bool:
+        if rel in self._done or self._complete:
+            return True
+        return nbytes is not None and self._water.get(rel, 0) >= nbytes
+
+    def wait_ready(self, path: str, nbytes: int | None = None) -> None:
+        """Block until ``path`` has at least ``nbytes`` contiguous bytes
+        from 0 staged (None: the whole file). Paths outside the staging
+        root are not part of this transfer and return at once."""
+        rel = os.path.relpath(os.path.abspath(path), self.root)
+        if rel.startswith(".."):
+            return
+        rel = os.path.normpath(rel)
+        timeout = _stage_timeout()
+        t0 = time.monotonic()
+        deadline = t0 + timeout
+        blocked = False
+        try:
+            while True:
+                with self._lock:
+                    self._poll_locked()
+                    if self._failed is not None:
+                        raise SnapshotIntegrityError(
+                            f"streamed stage failed mid-transfer "
+                            f"({self._failed}); refusing to consume "
+                            f"partially-staged snapshot")
+                    if self._ready_locked(rel, nbytes):
+                        return
+                if time.monotonic() > deadline:
+                    raise SnapshotIntegrityError(
+                        f"timed out after {timeout:.0f}s waiting for staged "
+                        f"bytes of {rel} (need {nbytes}, have "
+                        f"{self._water.get(rel, 0)})")
+                blocked = True
+                time.sleep(self._POLL_S)
+        finally:
+            # Only a read that found its bytes not yet staged waited: a
+            # restore that starts after the stage has ended counts none.
+            if blocked:
+                with self._lock:
+                    self.stage_wait_s += time.monotonic() - t0
+
+
+def _stage_timeout() -> float:
+    return config.TPU_STAGE_TIMEOUT_S.get_float()
+
+
+# -- read ------------------------------------------------------------------------
+
+
+def _chunk_path(directory: str, chunk: dict, *, verify: bool) -> str:
+    """The file holding ``chunk``'s bytes; raises for what this package
+    cannot read as raw verified bytes (a codec container, crc32c)."""
     if chunk.get("ref_dir"):  # delta chunk: the bytes live in the base
         directory = os.path.normpath(os.path.join(directory, chunk["ref_dir"]))
-    where = f"{chunk['file']}@{chunk['offset']}"
-    algo = chunk.get("algo", "crc32")
-    if algo != "crc32":
+    path = os.path.join(directory, chunk["file"])
+    if os.path.exists(path + CODEC_SIDECAR_SUFFIX):
         raise SnapshotIntegrityError(
-            f"chunk {where} carries a {algo!r} checksum, which this package "
-            "cannot verify; re-dump with crc32 chunks")
-    out = np.empty(chunk["nbytes"], dtype=np.uint8)
-    with open(os.path.join(directory, chunk["file"]), "rb") as f:
-        f.seek(chunk["offset"])
-        got = f.readinto(memoryview(out))
-    if got != chunk["nbytes"]:
-        raise SnapshotIntegrityError(f"short read in {where}")
-    if zlib.crc32(out) & 0xFFFFFFFF != chunk.get("crc", chunk.get("crc32")):
+            f"{path} is a codec container (a {CODEC_SIDECAR_SUFFIX} sidecar "
+            "lies beside it); the codec is not ported to this package yet, "
+            "and a container is never read as raw bytes")
+    algo = chunk.get("algo", "crc32")
+    if verify and algo != "crc32":
+        raise SnapshotIntegrityError(
+            f"chunk {chunk['file']}@{chunk['offset']} carries a {algo!r} "
+            "checksum, which this package cannot verify; re-dump with crc32 "
+            "chunks")
+    return path
+
+
+def _read_chunk_into(directory: str, chunk: dict, views: list[np.ndarray], *,
+                     verify: bool, monitor: _StageMonitor | None) -> None:
+    """``chunk``'s bytes read straight into ``views`` (its pieces, in
+    order), each piece waiting only for its own bytes under a streamed
+    stage (the stager preallocates the data file: an ungated read would
+    consume zeros), with a running crc32 checked at the end unless
+    ``verify`` is False."""
+    path = _chunk_path(directory, chunk, verify=verify)
+    where = f"{chunk['file']}@{chunk['offset']}"
+    crc = 0
+    end = chunk["offset"]
+    if monitor is not None and views:
+        # The stager may not have created the file before its first bytes.
+        monitor.wait_ready(path, end + views[0].nbytes)
+    # Unbuffered: a buffered reader would read ahead past the waterline
+    # and later serve those not-yet-staged bytes from its buffer.
+    with open(path, "rb", buffering=0) as f:
+        f.seek(end)
+        for view in views:
+            end += view.nbytes
+            if monitor is not None:
+                monitor.wait_ready(path, end)
+            mv, got = memoryview(view), 0
+            while got < view.nbytes:
+                n = f.readinto(mv[got:])
+                if not n:
+                    raise SnapshotIntegrityError(f"short read in {where}")
+                got += n
+            if verify:
+                crc = zlib.crc32(view, crc)
+    if verify and crc != chunk.get("crc", chunk.get("crc32")):
         raise SnapshotIntegrityError(f"crc mismatch in {where}")
-    return out
 
 
-def _read_array(directory: str, rec: dict) -> torch.Tensor:
-    """One array's bytes from its chunks, as a CPU tensor."""
+def _coverage_complete(shape: list[int], indices: list[list]) -> bool:
+    """Exact union coverage of hyperrectangular chunks: each dimension
+    coordinate-compressed to the chunks' boundaries, cells marked on that
+    grid (at most one cell per chunk tile, never an array-sized mask).
+    Overlapping chunks (replicated leaves) are normal."""
+    if not shape:  # scalar leaf: any chunk covers it
+        return bool(indices)
+    bounds = []
+    for d, size in enumerate(shape):
+        cuts = {0, size}
+        for index in indices:
+            start, stop = index[d]
+            cuts.add(min(max(start, 0), size))
+            cuts.add(min(max(stop, 0), size))
+        bounds.append(sorted(cuts))
+    grid = np.zeros([len(b) - 1 for b in bounds], dtype=bool)
+    if grid.size == 0:  # some dimension has size 0: trivially covered
+        return True
+    for index in indices:
+        sl = []
+        for d in range(len(shape)):
+            start, stop = index[d]
+            i0 = bisect.bisect_left(bounds[d], max(start, 0))
+            i1 = bisect.bisect_left(bounds[d], min(stop, shape[d]))
+            sl.append(slice(i0, i1))
+        grid[tuple(sl)] = True
+    return bool(grid.all())
+
+
+def _read_array_host(directory: str, rec: dict, *, verify: bool,
+                     monitor: _StageMonitor | None) -> torch.Tensor:
+    """Disk phase of one array's restore (runs on a reader thread): its
+    bytes as a CPU tensor of its dtype and shape."""
     dtype = _NAME_DTYPES.get(rec["dtype"])
     if dtype is None:
         raise SnapshotIntegrityError(f"array {rec['name']}: unsupported dtype "
                                      f"{rec['dtype']!r}")
     shape = list(rec["shape"])
     itemsize = torch.empty((), dtype=dtype).element_size()
-    chunks = rec["chunks"]
-    whole = [[0, d] for d in shape]
-    if len(chunks) == 1 and chunks[0]["index"] == whole:
-        raw = _read_chunk(directory, chunks[0])
-        if raw.nbytes != itemsize * int(np.prod(shape, dtype=np.int64)):
-            raise SnapshotIntegrityError(f"array {rec['name']}: size mismatch")
-        return torch.from_numpy(raw).view(dtype).reshape(shape)
-    # Sharded dump: reassemble from the chunks' global indices.
-    full = torch.empty(shape, dtype=dtype)
-    covered = torch.zeros(shape, dtype=torch.bool)
-    for c in chunks:
-        sl = tuple(slice(a, b) for a, b in c["index"])
+
+    def part(c: dict) -> torch.Tensor:
         part_shape = [b - a for a, b in c["index"]]
-        raw = _read_chunk(directory, c)
-        full[sl] = torch.from_numpy(raw).view(dtype).reshape(part_shape)
-        covered[sl] = True
-    if not bool(covered.all()):
+        nbytes = itemsize * int(np.prod(part_shape, dtype=np.int64))
+        if c["nbytes"] != nbytes:
+            raise SnapshotIntegrityError(f"array {rec['name']}: chunk "
+                                         f"{c['file']}@{c['offset']} size "
+                                         "mismatch")
+        raw = np.empty(nbytes, dtype=np.uint8)
+        _read_chunk_into(directory, c, [raw[o:o + m] for o, m in _spans(nbytes)],
+                         verify=verify, monitor=monitor)
+        return torch.from_numpy(raw).view(dtype).reshape(part_shape)
+
+    chunks = rec["chunks"]
+    if len(chunks) == 1 and chunks[0]["index"] == [[0, d] for d in shape]:
+        return part(chunks[0])  # the read buffer is the array
+    full = torch.empty(shape, dtype=dtype)
+    for c in chunks:
+        full[tuple(slice(a, b) for a, b in c["index"])] = part(c)
+    if not _coverage_complete(shape, [c["index"] for c in chunks]):
         raise SnapshotIntegrityError(
             f"array {rec['name']}: chunks leave uncovered elements")
     return full
 
 
+def _begin_restore(directory: str) -> tuple[_StageMonitor | None,
+                                            SnapshotManifest]:
+    """Gate on the stage journal's metadata (a caller racing the stager
+    waits for COMMIT and MANIFEST), check the commit, load the manifest,
+    and fail fast, naming it, on a referenced base that is missing or
+    uncommitted — waiting first on its COMMIT when a journal governs it."""
+    monitor = _StageMonitor.find(directory)
+    if monitor is not None:
+        monitor.wait_ready(os.path.join(directory, COMMIT_FILE))
+        monitor.wait_ready(os.path.join(directory, MANIFEST_FILE))
+    if not snapshot_exists(directory):
+        raise FileNotFoundError(
+            f"{directory} has no {COMMIT_FILE}: snapshot missing or uncommitted")
+    manifest = SnapshotManifest.load(directory)
+    ref_dirs = {c["ref_dir"] for rec in manifest.arrays
+                for c in rec["chunks"] if c.get("ref_dir")}
+    for ref in sorted(ref_dirs):
+        base_dir = os.path.normpath(os.path.join(directory, ref))
+        if monitor is not None:
+            monitor.wait_ready(os.path.join(base_dir, COMMIT_FILE))
+        if not snapshot_exists(base_dir):
+            raise SnapshotIntegrityError(
+                f"delta snapshot {directory} references base {base_dir} "
+                "which is missing or uncommitted — stage the base snapshot "
+                "at the same relative location as on the dump side")
+    return monitor, manifest
+
+
 def restore_snapshot(directory: str, *, like: Any = None,
-                     device: torch.device | str | None = None) -> Any:
+                     device: torch.device | str | None = None,
+                     verify: bool = True) -> Any:
     """Load a committed snapshot.
 
     ``like``: a tree of the wanted structure. A tensor leaf on the meta
@@ -245,56 +1070,276 @@ def restore_snapshot(directory: str, *, like: Any = None,
     CPU); any other tensor leaf onto its own device; a Python int/float
     leaf comes back as that type. Dtypes and shapes must match the
     manifest. Without ``like`` the result is a flat ``{keystr name: CPU
-    tensor}`` dict.
+    tensor}`` dict. ``verify``: check every chunk's crc32.
 
-    Reading (and checksumming) the next array from disk overlaps the
-    host→device copy of the current one."""
-    if not snapshot_exists(directory):
-        raise FileNotFoundError(
-            f"{directory} has no {COMMIT_FILE}: snapshot missing or uncommitted")
-    manifest = SnapshotManifest.load(directory)
+    Reader threads (``GRIT_TPU_RESTORE_WORKERS``; ``GRIT_RESTORE_PIPELINE=0``
+    reads serially) read and checksum arrays ahead of the in-order place on
+    this thread; under a streamed stage each read waits for its bytes."""
+    monitor, manifest = _begin_restore(directory)
     by_name = {rec["name"]: rec for rec in manifest.arrays}
     if like is None:
         names = list(by_name)
-    else:
-        leaves = flatten_with_names(like)
-        names = [n for n, _ in leaves]
-        missing = [n for n in names if n not in by_name]
-        if missing:
-            raise KeyError(f"snapshot {directory} lacks arrays: {missing[:5]}")
-        if any(isinstance(x, torch.Tensor) and x.device.type == "meta"
-               for _, x in leaves):
-            device = resolve_device(device)
-
-    def place(name: str, leaf, host: torch.Tensor):
+        recs = [by_name[n] for n in names]
+        return dict(zip(names, _restore_leaves(
+            directory, _Placer(recs, [None] * len(recs), None),
+            verify=verify, monitor=monitor)))
+    leaves = flatten_with_names(like)
+    names = [n for n, _ in leaves]
+    missing = [n for n in names if n not in by_name]
+    if missing:
+        raise KeyError(f"snapshot {directory} lacks arrays: {missing[:5]}")
+    for name, leaf in leaves:
         if isinstance(leaf, torch.Tensor):
-            if host.dtype != leaf.dtype or list(host.shape) != list(leaf.shape):
+            rec = by_name[name]
+            held = _NAME_DTYPES.get(rec["dtype"], rec["dtype"])
+            if held != leaf.dtype or list(rec["shape"]) != list(leaf.shape):
                 raise ValueError(
-                    f"{name}: snapshot holds {host.dtype} {list(host.shape)}, "
+                    f"{name}: snapshot holds {held} {list(rec['shape'])}, "
                     f"want {leaf.dtype} {list(leaf.shape)}")
-            return host.to(device if leaf.device.type == "meta" else leaf.device)
+    if any(isinstance(x, torch.Tensor) and x.device.type == "meta"
+           for _, x in leaves):
+        device = resolve_device(device)
+    placer = _Placer([by_name[n] for n in names], [x for _, x in leaves],
+                     device)
+    out = iter(_restore_leaves(directory, placer, verify=verify,
+                               monitor=monitor))
+    return map_with_names(lambda _name, _leaf: next(out), like)
+
+
+class _PinnedBlocks:
+    """The restore's pinned staging: blocks of ``_PIECE_BYTES`` that
+    readers read arrays straight into, each pinned when a reader first
+    needs it, at most ``cap`` of them — so pinning runs beside the reads
+    already under way, and a restore pins only as many blocks as its
+    readers hold at once. A reader reserves a whole array's blocks, and
+    readers reserve in array order, so the array the caller places next
+    always gets its blocks while later ones wait; the caller returns them
+    once that array's copies to the device have completed (an event).
+    :meth:`abort` wakes every waiter with an error."""
+
+    def __init__(self, cap: int) -> None:
+        self.cap = cap
+        self.tensors: list[torch.Tensor] = []  # by block id, pinned so far
+        self.host: list[np.ndarray] = []       # the same bytes, as numpy
+        self.pin_s = 0.0
+        self._free: list[int] = []
+        self._turn = 0
+        self._aborted = False
+        self._cond = threading.Condition()
+
+    def reserve(self, order: int, need: int) -> list[int]:
+        """``need`` blocks for the array at ``order`` (every array takes
+        its turn, with ``need`` 0 when it reads elsewhere; ``need`` is at
+        most ``cap``). On its turn a reader pins the blocks the free list
+        lacks while the cap allows, else waits for the caller's release."""
+        while True:
+            with self._cond:
+                while not self._aborted and self._turn != order:
+                    self._cond.wait()
+                if self._aborted:
+                    raise RuntimeError("restore aborted")
+                if len(self._free) >= need:
+                    blocks, self._free = self._free[:need], self._free[need:]
+                    self._turn += 1
+                    self._cond.notify_all()
+                    return blocks
+                if len(self.tensors) >= self.cap:
+                    self._cond.wait()
+                    continue
+            # Only the reader whose turn it is pins, outside the lock, so a
+            # release never waits on it.
+            t0 = time.perf_counter()
+            block = _pinned(_PIECE_BYTES)
+            with self._cond:
+                self.pin_s += time.perf_counter() - t0
+                self._free.append(len(self.tensors))
+                self.tensors.append(block)
+                self.host.append(block.numpy())
+
+    def release(self, blocks: list[int]) -> None:
+        with self._cond:
+            self._free.extend(blocks)
+            self._cond.notify_all()
+
+    def abort(self) -> None:
+        with self._cond:
+            self._aborted = True
+            self._cond.notify_all()
+
+    def pieces(self, blocks: list[int], nbytes: int, *, host: bool) -> list:
+        """Views of ``blocks`` holding ``nbytes``, one a piece, as numpy
+        (``host``) or as the pinned tensors."""
+        of = self.host if host else self.tensors
+        return [of[b][:m] for b, (_, m) in zip(blocks, _spans(nbytes))]
+
+
+class _Placer:
+    """Reads and places a restore's arrays. An array bound for a CUDA
+    device in one chunk is read straight into pinned blocks and placed
+    from them with asynchronous copies; any other target reads into host
+    memory (a CPU target keeps that buffer). Reads run on the reader
+    threads, places on the caller's thread in manifest order."""
+
+    def __init__(self, recs: list[dict], leaves: list,
+                 device: torch.device | None) -> None:
+        self.recs = recs
+        self.leaves = leaves
+        self.targets = [
+            (device if leaf.device.type == "meta" else leaf.device)
+            if isinstance(leaf, torch.Tensor) else None for leaf in leaves]
+        self.need = [
+            -(-rec["chunks"][0]["nbytes"] // _PIECE_BYTES)
+            if t is not None and t.type == "cuda" and len(rec["chunks"]) == 1
+            and rec["chunks"][0]["index"] == [[0, d] for d in rec["shape"]]
+            else 0 for rec, t in zip(recs, self.targets)]
+        self.pool: _PinnedBlocks | None = None
+
+    def open_pool(self, window: int) -> None:
+        """Size the pinned blocks for ``window`` arrays in flight at once
+        (read ahead or being placed): at most window × the largest array,
+        as the reference bounds its host buffers, and never more than the
+        state."""
+        total = sum(self.need)
+        if total:
+            self.pool = _PinnedBlocks(min(total, window * max(self.need)))
+
+    def read(self, i: int, directory: str, *, verify: bool,
+             monitor: _StageMonitor | None):
+        """Array ``i``'s bytes: its pinned blocks, or a CPU tensor."""
+        if self.pool is not None:
+            blocks = self.pool.reserve(i, self.need[i])
+            if blocks:
+                chunk = self.recs[i]["chunks"][0]
+                try:
+                    _read_chunk_into(directory, chunk, self.pool.pieces(
+                        blocks, chunk["nbytes"], host=True),
+                        verify=verify, monitor=monitor)
+                except BaseException:
+                    self.pool.release(blocks)
+                    raise
+                return blocks
+        return _read_array_host(directory, self.recs[i], verify=verify,
+                                monitor=monitor)
+
+    def place(self, i: int, got):
+        target = self.targets[i]
+        if self.need[i]:
+            rec = self.recs[i]
+            out = torch.empty(rec["shape"], dtype=_NAME_DTYPES[rec["dtype"]],
+                              device=target)
+            dst = out.reshape(-1).view(torch.uint8)
+            for (o, m), src in zip(_spans(dst.numel()), self.pool.pieces(
+                    got, dst.numel(), host=False)):
+                dst[o:o + m].copy_(src, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(target))
+            done.synchronize()
+            self.pool.release(got)
+            return out
+        leaf = self.leaves[i]
+        if isinstance(leaf, torch.Tensor):
+            return got.to(target)
         if isinstance(leaf, (int, float)):
-            return type(leaf)(host.item())
-        return host
+            return type(leaf)(got.item())
+        return got
 
-    with ThreadPoolExecutor(max_workers=1) as reader:
-        arrays = _prefetch(
-            reader, lambda n: _read_array(directory, by_name[n]), names)
-        if like is None:
-            return dict(zip(names, arrays))
-        ordered = iter(arrays)
-        return map_with_names(
-            lambda name, leaf: place(name, leaf, next(ordered)), like)
+    def abort(self) -> None:
+        if self.pool is not None:
+            self.pool.abort()
 
 
-def _prefetch(pool: ThreadPoolExecutor, fn, items: list):
-    """``fn(item)`` for each item, in order, computed on ``pool`` up to
-    ``_WINDOW`` items ahead of the consumer."""
-    futs: deque = deque()
-    for item in items:
-        futs.append(pool.submit(fn, item))
-        if len(futs) > _WINDOW:
-            yield futs.popleft().result()
-    while futs:
-        yield futs.popleft().result()
+def _restore_workers() -> int:
+    """Reader threads of the restore: ``GRIT_TPU_RESTORE_WORKERS`` when
+    set (negative clamps to 0, serial), else one per spare core up to
+    ``_RESTORE_WINDOW`` and at least one — a reader overlaps its
+    GIL-released read and crc with the caller's place even on one core."""
+    configured = config.TPU_RESTORE_WORKERS.get_int()
+    if configured != int(config.TPU_RESTORE_WORKERS.default):
+        return max(0, configured)
+    return max(1, min(_RESTORE_WINDOW, (os.cpu_count() or 1) - 1))
 
+
+def _restore_leaves(directory: str, placer: _Placer, *, verify: bool,
+                    monitor: _StageMonitor | None) -> list:
+    """Read workers feed the in-order place; the legs are recorded
+    (:func:`last_restore_pipeline`). With no workers the loop is serial,
+    with the same gating and checks."""
+    workers = _restore_workers() if config.RESTORE_PIPELINE.get_flag() else 0
+    placer.open_pool(workers + 1)
+    wall_t0 = time.monotonic()
+    # Journal waits before this point (COMMIT/MANIFEST gating) are serial
+    # blocking, not a leg of the pipeline.
+    stage_wait0 = monitor.stage_wait_s if monitor is not None else 0.0
+    leg_lock = threading.Lock()
+    legs = {"read": 0.0, "place": 0.0}
+
+    def timed_read(i: int):
+        t0 = time.monotonic()
+        try:
+            return placer.read(i, directory, verify=verify, monitor=monitor)
+        finally:
+            with leg_lock:
+                legs["read"] += time.monotonic() - t0
+
+    def timed_place(i: int, got):
+        t0 = time.monotonic()
+        try:
+            return placer.place(i, got)
+        finally:
+            legs["place"] += time.monotonic() - t0
+
+    out = _run_place(workers, len(placer.recs), timed_read, timed_place,
+                     placer.abort)
+    wall = time.monotonic() - wall_t0
+    stage_wait = (max(0.0, monitor.stage_wait_s - stage_wait0)
+                  if monitor is not None else 0.0)
+    pool = placer.pool
+    pin = pool.pin_s if pool is not None else 0.0
+    # Reads include their stage waits and the pinning of their blocks.
+    read = max(0.0, legs["read"] - stage_wait - pin)
+    serial = stage_wait + pin + read + legs["place"]
+    with _RECORD_LOCK:
+        _LAST_RESTORE.clear()
+        _LAST_RESTORE.update(
+            stage_wait=stage_wait, pin=pin, read=read, place=legs["place"],
+            wall=wall,
+            overlap_fraction=(max(0.0, min(1.0, 1.0 - wall / serial))
+                              if serial > 0 else 0.0),
+            pipelined=workers > 0, workers=workers,
+            streamed=monitor is not None,
+            bytes=sum(c["nbytes"] for rec in placer.recs
+                      for c in rec["chunks"]),
+            pinned_blocks=len(pool.tensors) if pool is not None else 0,
+            staging=(f"readers into pinned blocks of {_PIECE_BYTES >> 20} "
+                     f"MiB pinned on first need ({len(pool.tensors)} of at "
+                     f"most {pool.cap}), H2D on the caller's stream"
+                     if pool is not None else "host"))
+    return out
+
+
+def _run_place(workers: int, n: int, timed_read, timed_place, abort) -> list:
+    """The read → place loop: serial, or ``workers`` readers up to
+    ``workers + 1`` arrays ahead of the in-order place (one more than the
+    readers, so a read is in flight while this thread places). On an
+    error, ``abort`` releases readers blocked on the placer before the
+    pool is joined."""
+    out: list = []
+    if workers == 0 or n <= 1:
+        for i in range(n):
+            out.append(timed_place(i, timed_read(i)))
+        return out
+    window = workers + 1
+    with ThreadPoolExecutor(max_workers=workers) as pool:
+        futures: dict[int, Any] = {}
+        try:
+            for i in range(n):
+                for j in range(i, min(i + window, n)):
+                    if j not in futures:
+                        futures[j] = pool.submit(timed_read, j)
+                out.append(timed_place(i, futures.pop(i).result()))
+        except BaseException:
+            abort()
+            for fut in futures.values():
+                fut.cancel()
+            raise
+    return out

@@ -3,9 +3,11 @@
 Counterpart of the JAX package's harness/bench workload
 (``grit_tpu/harness.py`` ``WORKLOAD``, the bench's flagship): builds a
 llama :class:`~grit_tpu_torch.train.trainer.Trainer`, restores from
-``GRIT_TPU_RESTORE_DIR`` when the shim injected it (printing ``RESTORED
-<step>``, then ``RESTORE_SECONDS <s>`` and ``INIT_SECONDS <s>``, the
-set-up before the restore), serves the toggle protocol through an
+``GRIT_TPU_RESTORE_DIR`` when the shim injected it (printing
+``RESTORE_BEGIN`` just before the restore, then ``RESTORED <step>``,
+``RESTORE_SECONDS <s>``, ``RESTORE_PIPELINE <json>`` with the restore's
+legs, and ``INIT_SECONDS <s>``, the set-up before the restore), serves
+the toggle protocol through an
 :class:`~grit_tpu_torch.device.agentlet.Agentlet` (printing ``READY``),
 then trains, printing ``STEP <n> <loss!r>`` and offering a checkpoint
 point after every step, until ``N_STEPS`` (env, default 10), then
@@ -23,6 +25,7 @@ or at the flagship widths on the card (the default)::
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
 import time
@@ -89,6 +92,8 @@ def llama_trainer(cfg: llama.LlamaConfig, *, batch: int, seq: int,
 
 def main(argv: list[str] | None = None) -> None:
     from grit_tpu_torch.device.agentlet import Agentlet  # noqa: PLC0415
+    from grit_tpu_torch.device.hook import restore_dir_from_env  # noqa: PLC0415
+    from grit_tpu_torch.device.snapshot import last_restore_pipeline  # noqa: PLC0415
 
     t_main = time.perf_counter()
     enable_determinism()
@@ -96,11 +101,17 @@ def main(argv: list[str] | None = None) -> None:
     tr = build_trainer(args)
     if "jax" in sys.modules:
         raise RuntimeError("the PyTorch workload imported jax")
-    t0 = time.perf_counter()
-    restored = tr.maybe_restore_from_env()
-    if restored is not None:
+    restore_dir = restore_dir_from_env()
+    if restore_dir is not None:
+        # A streamed stage may still be writing the data: the line lets
+        # a stager (or a test) act at the moment the restore starts.
+        print("RESTORE_BEGIN", flush=True)
+        t0 = time.perf_counter()
+        restored = tr.restore(restore_dir)
         print(f"RESTORED {restored}", flush=True)
         print(f"RESTORE_SECONDS {time.perf_counter() - t0!r}", flush=True)
+        print(f"RESTORE_PIPELINE {json.dumps(last_restore_pipeline())}",
+              flush=True)
         print(f"INIT_SECONDS {t0 - t_main!r}", flush=True)
     # Materialize the state here, on the loop thread: the agentlet's
     # dispatch thread reads it (status, dump) and must never be the one

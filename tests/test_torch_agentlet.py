@@ -95,7 +95,8 @@ def test_unsupported_requests_take_the_reference_failure_paths(loop, tmp_path):
         assert resp["wire"]["ok"] is False
         assert "speculative" not in resp  # no dump spec was announced
         assert os.path.isfile(os.path.join(d, "COMMIT"))
-        assert not os.path.exists(str(tmp_path / "mirror"))
+        # The mirror is no longer abandoned: it commits beside the dump.
+        assert os.path.isfile(str(tmp_path / "mirror" / "COMMIT"))
         with pytest.raises(RuntimeError, match="reload_fn"):
             c.resume(reload=d)
         c.resume()

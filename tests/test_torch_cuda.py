@@ -370,3 +370,66 @@ def test_serving_engines_given_no_device_land_on_the_card(cuda_device):
     lock = InferenceEngine(cfg, params, ServingConfig(batch_size=2))
     assert lock.state["cache"]["k"].is_cuda
     assert lock.prefill([[1, 2, 3], [4, 5, 6]]).is_cuda
+
+
+def test_pinned_dump_and_restore_round_trip_bitwise(cuda_device, tmp_path,
+                                                    monkeypatch):
+    """The card's snapshot data path, with 1 MiB pieces so that the dump's
+    4-slot pinned ring wraps inside every large leaf and the restore's
+    pinned blocks are reused across 12 leaves: a bf16/fp32/int64 tree
+    (one leaf non-contiguous) dumps to the bytes a CPU dump of the same
+    tree writes, its mirror and a delta on the card agree, and restores
+    onto the card, pipelined and serial, give it back bitwise."""
+    import os
+
+    from grit_tpu_torch.device import snapshot as psnap
+
+    monkeypatch.setattr(psnap, "_PIECE_BYTES", 1 << 20)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    state = {}
+    for i in range(4):
+        state[f"bf{i}"] = torch.randn(1536 + i, 1024, generator=gen,
+                                      device=cuda_device).to(torch.bfloat16)
+        state[f"f{i}"] = torch.randn(1280 + 7 * i, 1024, generator=gen,
+                                     device=cuda_device)
+    state["i64"] = torch.randint(-2 ** 40, 2 ** 40, (700_001,), generator=gen,
+                                 device=cuda_device, dtype=torch.int64)
+    state["t"] = torch.randn(1024, 1536, generator=gen, device=cuda_device).T
+    state["step"] = torch.tensor(5, device=cuda_device)
+    state["tiny"] = torch.ones(3, dtype=torch.bfloat16, device=cuda_device)
+    assert not state["t"].is_contiguous()
+
+    def data(d):
+        with open(os.path.join(d, psnap.DATA_FILE), "rb") as f:
+            return f.read()
+
+    d, mirror, cpu_d = (str(tmp_path / n) for n in ("snap", "pvc", "cpu"))
+    psnap.write_snapshot(d, state, hashes=True, mirror=mirror)
+    assert psnap.last_write()["staging"].startswith("pinned ring")
+    psnap.write_snapshot(cpu_d, {k: v.cpu() for k, v in state.items()},
+                         hashes=True)
+    assert data(d) == data(cpu_d) == data(mirror)
+    assert psnap.SnapshotManifest.load(d).arrays == \
+        psnap.SnapshotManifest.load(cpu_d).arrays
+
+    state2 = dict(state, f1=state["f1"] + 1)
+    delta = str(tmp_path / "delta")
+    psnap.write_snapshot(delta, state2, base=d)
+    assert psnap.snapshot_delta_nbytes(delta) == \
+        state["f1"].numel() * 4
+    like = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+            for k, v in state2.items()}
+    needs = [-(-rec["chunks"][0]["nbytes"] // (1 << 20))
+             for rec in psnap.SnapshotManifest.load(delta).arrays]
+    for pipe in ("1", "0"):
+        monkeypatch.setenv("GRIT_RESTORE_PIPELINE", pipe)
+        got = psnap.restore_snapshot(delta, like=like)
+        rec = psnap.last_restore_pipeline()
+        assert "pinned blocks" in rec["staging"]
+        # At most the window's worth of the largest leaf, well under the
+        # tree's blocks: the same blocks carried several leaves.
+        window = rec["workers"] + 1
+        assert max(needs) <= rec["pinned_blocks"] <= window * max(needs) \
+            < sum(needs), (rec, needs)
+        for k, v in state2.items():
+            assert got[k].is_cuda and torch.equal(got[k], v), (pipe, k)
