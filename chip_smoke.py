@@ -26,7 +26,9 @@ non-zero without the final result line:
 4. train   — the main path: a ``Trainer`` at the flagship widths (dim
    2560, 20 heads of 128, hidden 6912, vocab 32000, 13 layers, S 2048,
    batch 2, bf16) takes a few steps; losses finite and falling, and every
-   kernel's launch count equals layers × steps.
+   kernel's launch count equals layers × steps. Then the same steps with
+   phase 9's frozen-trunk optimizer, timed the same way: losses finite,
+   the forward launched layers × steps times, the backward kernels never.
 5. migrate — the system's path: ``python -m grit_tpu_torch.workload``
    trains, is quiesced and dumped through its agentlet, SIGKILLed, and a
    fresh process restores from the snapshot; its losses after the cut
@@ -62,13 +64,30 @@ non-zero without the final result line:
    journal fails mid-stream must make the destination exit non-zero with
    ``SnapshotIntegrityError``. Tree sizes, dirty shares, dump and restore
    legs and the blackout split print as ``[precopy]`` lines.
+9. frozen  — the fine-tune ``bench.py`` migrates, at phase 5's shape:
+   ``--optimizer frozen-trunk`` (sgd 0.5 on ``final_norm`` and
+   ``lm_head``, the trunk frozen). An uninterrupted run counts each
+   kernel's launches a step (its trunk runs no backward, so only the
+   forward may launch); then it is migrated through the
+   port's node hook, ``TpuDeviceCheckpointHook``, with pre-copy and
+   speculation on: ``predump`` at step 2 (its speculative probe must be
+   refused and fall back, loudly, to the parked pass), the blackout delta
+   after step 3 (its dirty chunks must be exactly ``final_norm``,
+   ``lm_head`` and the step), the kernel libraries the snapshot carries
+   uploaded beside the mirrors, a streamed stage, and a destination with
+   an empty ``GRIT_TPU_COMPILE_CACHE`` that must seed the three libraries,
+   compile none and continue bit-identically. Then the harness's MNIST
+   workload (``--model mnist``) migrated once through ``AutoDeviceHook``,
+   bitwise, and a pid without an agentlet skipped loudly. ``[frozen]``
+   lines.
 
 The second-to-last lines are the kernels' JSON record (with the serving
-phase's numbers under ``serving`` and phase 8's under ``precopy``) and the
-card's ``name, power limit``;
+phase's numbers under ``serving``, phase 8's under ``precopy`` and phase
+9's under ``frozen_trunk``; each kernel's ``launches`` sums phases 4 and
+9) and the card's ``name, power limit``;
 the last line is the result JSON. ``--seed`` seeds the serving phase's
-weights and prompts (default 0). The script
-imports nothing of JAX or of the JAX package.
+weights and prompts (default 0). The script imports nothing of JAX or of
+the JAX package.
 """
 
 from __future__ import annotations
@@ -142,7 +161,7 @@ def ptxas_report(build) -> dict:
     launch, and size their shared memory at launch; a spill fails."""
     out = {}
     for stem in build.SOURCES:
-        text = (build.BUILD_DIR / f"{stem}.ptxas.log").read_text()
+        text = (build.build_dir() / f"{stem}.ptxas.log").read_text()
         regs = re.search(r"Used (\d+) registers", text)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                           text)
@@ -500,18 +519,12 @@ def check_step_against_plain_path(torch, llama) -> None:
                              "plain path's")
 
 
-def phase_train(torch, fa) -> dict:
-    from grit_tpu_torch.models import llama  # noqa: PLC0415
-    from grit_tpu_torch.workload import llama_trainer  # noqa: PLC0415
-
-    check_step_against_plain_path(torch, llama)
-    torch.cuda.empty_cache()
-    cfg = llama.LlamaConfig.flagship(n_layers=LAYERS)
-    tr = llama_trainer(cfg, batch=BATCH, seq=SEQ, device="cuda")
+def timed_steps(torch, fa, tr) -> tuple[list[float], list[float], dict]:
+    """Losses, seconds and kernel launches of :data:`TRAIN_STEPS` steps of
+    ``tr``, each step timed on the host clock up to its loss's readback
+    (which waits for the step's device work)."""
     tr.state  # materialize outside the timed steps
     torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in _leaves(tr.state["params"]))
-    torch.cuda.reset_peak_memory_stats()
     fa.reset_launch_counts()
     losses, step_s = [], []
     for _ in range(TRAIN_STEPS):
@@ -519,9 +532,27 @@ def phase_train(torch, fa) -> dict:
         loss = float(tr.train_step()["loss"])  # float() syncs the step
         step_s.append(time.perf_counter() - t0)
         losses.append(loss)
-    launches = dict(fa.LAUNCHES)
+    return losses, step_s, dict(fa.LAUNCHES)
+
+
+def median_after_first(step_s: list[float]) -> float:
+    return sorted(step_s[1:])[len(step_s[1:]) // 2]
+
+
+def phase_train(torch, fa) -> dict:
+    from grit_tpu_torch.models import llama  # noqa: PLC0415
+    from grit_tpu_torch.train import optim  # noqa: PLC0415
+    from grit_tpu_torch.workload import FROZEN_TRUNK_LR, llama_trainer  # noqa: PLC0415
+
+    check_step_against_plain_path(torch, llama)
+    torch.cuda.empty_cache()
+    cfg = llama.LlamaConfig.flagship(n_layers=LAYERS)
+    tr = llama_trainer(cfg, batch=BATCH, seq=SEQ, device="cuda")
+    n_params = sum(p.numel() for p in _leaves(tr.state["params"]))
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s, launches = timed_steps(torch, fa, tr)
     peak = torch.cuda.max_memory_allocated()
-    steady = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    steady = median_after_first(step_s)
     log("train", f"{n_params / 1e9:.3f} B params, layers {LAYERS}, "
                  f"B {BATCH} S {SEQ}; losses {losses}")
     log("train", f"step seconds {[round(s, 4) for s in step_s]}; median "
@@ -538,7 +569,26 @@ def phase_train(torch, fa) -> dict:
                                  f"want {LAYERS * TRAIN_STEPS}")
     del tr
     torch.cuda.empty_cache()
-    return {"launches": launches, "losses": losses}
+
+    # Phase 9's fine-tune, timed as the Adam steps above were.
+    tr = llama_trainer(cfg, batch=BATCH, seq=SEQ, device="cuda",
+                       optimizer=optim.frozen_trunk(FROZEN_TRUNK_LR))
+    f_losses, f_step_s, f_launches = timed_steps(torch, fa, tr)
+    f_steady = median_after_first(f_step_s)
+    log("train", f"frozen-trunk (sgd {FROZEN_TRUNK_LR} on final_norm and "
+                 f"lm_head): losses {f_losses}; step seconds "
+                 f"{[round(s, 4) for s in f_step_s]}; median after the first "
+                 f"{f_steady:.4f} s (Adam {steady:.4f} s); launches "
+                 f"{f_launches}")
+    if not all(math.isfinite(x) for x in f_losses):
+        raise AssertionError(f"non-finite frozen-trunk loss: {f_losses}")
+    if f_launches != {"flash_fwd": LAYERS * TRAIN_STEPS, "flash_bwd_dq": 0,
+                      "flash_bwd_dkv": 0}:
+        raise AssertionError(f"frozen-trunk launches {f_launches}")
+    del tr
+    torch.cuda.empty_cache()
+    return {"launches": launches, "losses": losses, "step_s": steady,
+            "frozen_step_s": f_steady, "frozen_launches": f_launches}
 
 
 def _leaves(tree):
@@ -557,16 +607,18 @@ WORKLOAD_ARGS = ["--layers", str(LAYERS), "--seq", str(SEQ),
 
 
 class Workload:
-    """One ``python -m grit_tpu_torch.workload`` process, its stdout read
-    line by line; ``started`` is the host clock at the spawn."""
+    """One ``python -m grit_tpu_torch.workload`` process (``args``: its
+    arguments, by default :data:`WORKLOAD_ARGS`), its stdout read line by
+    line; ``started`` is the host clock at the spawn."""
 
     def __init__(self, n_steps: int, env: dict,
-                 stderr_path: str | None = None) -> None:
+                 stderr_path: str | None = None,
+                 args: list[str] | None = None) -> None:
         stderr = open(stderr_path, "w") if stderr_path else None
         try:
             self.proc = subprocess.Popen(
                 [sys.executable, "-m", "grit_tpu_torch.workload",
-                 *WORKLOAD_ARGS],
+                 *(WORKLOAD_ARGS if args is None else args)],
                 cwd=REPO, env={**os.environ, **env, "N_STEPS": str(n_steps)},
                 stdout=subprocess.PIPE, stderr=stderr, text=True)
         finally:
@@ -574,6 +626,7 @@ class Workload:
                 stderr.close()
         self.started = time.perf_counter()
         self.lines: list[str] = []
+        self._drain = None
 
     def readline(self) -> str:
         line = self.proc.stdout.readline()
@@ -584,6 +637,23 @@ class Workload:
         line = line.strip()
         self.lines.append(line)
         return line
+
+    def drain(self) -> None:
+        """Read the rest of stdout on a thread: a fast loop would otherwise
+        fill the pipe and block in a print, short of its checkpoint point."""
+        import threading  # noqa: PLC0415
+
+        def run():
+            for line in self.proc.stdout:
+                self.lines.append(line.strip())
+
+        self._drain = threading.Thread(target=run, daemon=True)
+        self._drain.start()
+
+    def kernels(self) -> dict:
+        """The ``KERNELS`` line: launches, libraries built and loaded."""
+        line = next(x for x in self.lines if x.startswith("KERNELS "))
+        return json.loads(line.split(" ", 1)[1])
 
     def wait_for(self, pattern: str) -> re.Match:
         while True:
@@ -1420,6 +1490,340 @@ def phase_precopy(work: str, card: str, ref_losses: dict) -> dict:
             "cut": cut}
 
 
+# -- phase 9 -------------------------------------------------------------------
+
+FROZEN_STEPS = 8       # the uninterrupted frozen-trunk run and the restored one
+MNIST_ARGS = ["--model", "mnist"]  # the harness workload's twin (rehearsal:
+MNIST_AFTER = 5                    # ... + ["--device", "cpu"])
+TRAINABLE = ("['params']['final_norm']", "['params']['lm_head']")
+
+
+class HookCalls:
+    """The toggle client of a hook's open connection, instrumented: the
+    host clock when the quiesce returned (the park), and the dump's
+    response (the writer's legs, the speculative outcome)."""
+
+    def __init__(self, client) -> None:
+        self.parked_at = None
+        self.dump_resp: dict = {}
+        quiesce, dump = client.quiesce, client.dump
+
+        def timed_quiesce(**kw):
+            out = quiesce(**kw)
+            self.parked_at = time.perf_counter()
+            return out
+
+        def kept_dump(*a, **kw):
+            self.dump_resp = dump(*a, **kw)
+            return self.dump_resp
+
+        client.quiesce, client.dump = timed_quiesce, kept_dump
+
+
+class HookWarnings:
+    """Warnings the port's device hook logs while it is installed."""
+
+    def __init__(self) -> None:
+        import logging  # noqa: PLC0415
+
+        self.messages: list[str] = []
+        self.handler = logging.Handler(logging.WARNING)
+        self.handler.emit = lambda rec: self.messages.append(rec.getMessage())
+        logging.getLogger("grit_tpu_torch.device.hook").addHandler(self.handler)
+
+    def close(self) -> None:
+        import logging  # noqa: PLC0415
+
+        logging.getLogger("grit_tpu_torch.device.hook").removeHandler(
+            self.handler)
+
+
+def phase_frozen(work: str, card: str, *, train: dict) -> dict:
+    """The bench's migrated flagship, the frozen-trunk fine-tune (sgd 0.5
+    on ``final_norm`` and ``lm_head``, the trunk frozen), migrated as the
+    reference agent does with pre-copy on, through the port's
+    ``TpuDeviceCheckpointHook``: ``predump`` at step 2 (speculation on: its
+    probe is refused and the hook falls back to the parked, hashed,
+    mirrored pass), the blackout delta at step 3, the carried kernel
+    libraries uploaded beside the mirrors, a streamed stage into a
+    destination whose ``GRIT_TPU_COMPILE_CACHE`` is empty, which restores
+    and continues; the source's kernel cache is phase 2's build directory.
+    Then the harness's MNIST workload, migrated through ``AutoDeviceHook``.
+    ``train``: phase 4's record, whose step times this phase prints."""
+    from grit_tpu_torch.device.hook import TpuDeviceCheckpointHook  # noqa: PLC0415
+    from grit_tpu_torch.device.snapshot import (  # noqa: PLC0415
+        DATA_FILE, INDEX_FILE, MANIFEST_FILE, SnapshotManifest,
+        snapshot_delta_nbytes, snapshot_exists, snapshot_nbytes)
+    from grit_tpu_torch.ops import build  # noqa: PLC0415
+    from grit_tpu_torch.ops.build import COMPILE_CACHE_SUBDIR  # noqa: PLC0415
+
+    cache_src = str(build.build_dir())
+    libs = sorted(build.library_path(stem).name for stem in build.SOURCES)
+    socks = os.path.join(work, "socks-frozen")
+    host, pvc, dst_root = (os.path.join(work, n)
+                           for n in ("host-f", "pvc-f", "dst-f"))
+    dst_cache = os.path.join(work, "dst-kernel-cache")
+    for d in (socks, dst_cache):
+        os.makedirs(d)
+    env = {"GRIT_TPU_SOCKET_DIR": socks, "GRIT_TPU_COMPILE_CACHE": cache_src,
+           "GRIT_SNAP_SPECULATE": "1"}
+    args = WORKLOAD_ARGS + ["--optimizer", "frozen-trunk"]
+    trees = {"base": "main-precopy/hbm", "delta": "main/hbm"}
+    at = {k: os.path.join(host, rel) for k, rel in trees.items()}
+    saved_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)  # the hook's process: the agent's environment
+    warnings = HookWarnings()
+    procs: list[Workload] = []
+    try:
+        ref = Workload(FROZEN_STEPS, env, args=args)
+        procs.append(ref)
+        ref.finish()
+        ref_losses, ref_kernels = ref.losses(), ref.kernels()
+
+        src = Workload(1000, env, args=args)
+        procs.append(src)
+        src.wait_for("READY")
+        src.wait_for(rf"STEP {PRECOPY_LIVE} ")
+        hook = TpuDeviceCheckpointHook(timeout=600)
+        t0 = time.perf_counter()
+        hook.predump(src.proc.pid, os.path.dirname(at["base"]),
+                     mirror=os.path.join(pvc, os.path.dirname(trees["base"])))
+        live_s = time.perf_counter() - t0
+        fallback = [m for m in warnings.messages
+                    if "falling back to the parked pre-copy pass" in m]
+        src.wait_for(rf"STEP {MIGRATE_CUT} ")
+        calls = HookCalls(hook._client(src.proc.pid))
+        t_quiesce = time.perf_counter()
+        hook.dump(src.proc.pid, os.path.dirname(at["delta"]), base=at["base"],
+                  mirror=os.path.join(pvc, os.path.dirname(trees["delta"])))
+        t_dumped = time.perf_counter()
+        src.kill()
+        # The agent's upload ships what the mirror did not: the carried
+        # libraries (the mirrors hold the snapshot's own files).
+        carried = sorted(os.listdir(os.path.join(at["delta"],
+                                                 COMPILE_CACHE_SUBDIR)))
+        shutil.copytree(os.path.join(at["delta"], COMPILE_CACHE_SUBDIR),
+                        os.path.join(pvc, trees["delta"], COMPILE_CACHE_SUBDIR))
+        t_uploaded = time.perf_counter()
+    finally:
+        warnings.close()
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        for p in procs:
+            p.kill()
+
+    if len(fallback) != 1 or "speculative probe" not in fallback[0]:
+        raise AssertionError(f"the predump's speculative probe did not fall "
+                             f"back loudly: {warnings.messages}")
+    resp = calls.dump_resp
+    if resp.get("speculative", {}).get("outcome") != "degraded":
+        raise AssertionError(f"the blackout quiesce carried no dump spec: {resp}")
+    base_chunks = [c for rec in SnapshotManifest.load(at["base"]).arrays
+                   for c in rec["chunks"]]
+    if not all("sha256" in c for c in base_chunks):
+        raise AssertionError("the live pass was not hashed")
+    manifest = json.load(open(os.path.join(at["delta"], MANIFEST_FILE)))
+    cut = manifest["meta"]["step"]
+    dirty_names = {rec["name"] for rec in manifest["arrays"]
+                   for c in rec["chunks"] if not c.get("ref_dir")}
+    if dirty_names != set(TRAINABLE) | {"['step']"}:
+        raise AssertionError(f"the blackout delta's dirty chunks are "
+                             f"{sorted(dirty_names)}, not the trainable "
+                             f"slice and the step")
+    dirty = manifest["dirty"]
+    if snapshot_delta_nbytes(at["delta"]) != dirty["bytes"]:
+        raise AssertionError("the delta's dirty block disagrees with its chunks")
+    for k in trees:
+        if not snapshot_exists(os.path.join(pvc, trees[k])):
+            raise AssertionError(f"the {k} mirror did not commit")
+    if carried != libs:
+        raise AssertionError(f"the snapshot carried {carried}, not {libs}")
+    sizes = {k: snapshot_nbytes(d) for k, d in at.items()}
+    shutil.rmtree(host)
+
+    # The streamed stage: metadata and the carried libraries first, the
+    # destination spawned, the data streamed once it begins its restore.
+    metas = [f"{trees[k]}/{n}" for k in ("delta", "base")
+             for n in ("COMMIT", MANIFEST_FILE, INDEX_FILE)]
+    metas += [f"{trees['delta']}/{COMPILE_CACHE_SUBDIR}/{n}" for n in libs]
+    datas = [f"{trees[k]}/{DATA_FILE}" for k in ("delta", "base")]
+    dst_env = {**env, "GRIT_TPU_COMPILE_CACHE": dst_cache,
+               "GRIT_TPU_RESTORE_DIR": os.path.join(dst_root, trees["delta"])}
+    try:
+        stager = Stager(pvc, dst_root)
+        t_stage = time.perf_counter()
+        for rel in metas:
+            stager.stage_file(rel)
+        for rel in datas:
+            stager.preallocate(rel)
+        dst = Workload(FROZEN_STEPS, dst_env, args=args)
+        procs.append(dst)
+        dst.wait_for("RESTORE_BEGIN")
+        t_begin = time.perf_counter()
+        stager.stream_files(datas)
+        stager.complete()
+        restored = int(dst.wait_for(r"RESTORED (\d+)").group(1))
+        t_restored = time.perf_counter()
+        restore_s = float(dst.wait_for(r"RESTORE_SECONDS (\S+)").group(1))
+        pipe = json.loads(dst.wait_for(r"RESTORE_PIPELINE (.+)").group(1))
+        seeded = pipe["seeded"]
+        init_s = float(dst.wait_for(r"INIT_SECONDS (\S+)").group(1))
+        dst.wait_for("READY")
+        t_ready = time.perf_counter()
+        dst.wait_for(r"STEP \d+ ")
+        t_first = time.perf_counter()
+        dst.finish()
+        dst_kernels = dst.kernels()
+    finally:
+        for p in procs:
+            p.kill()
+        shutil.rmtree(pvc, ignore_errors=True)
+        shutil.rmtree(dst_root, ignore_errors=True)
+
+    got = dst.losses()
+    want = {s: x for s, x in ref_losses.items() if s > cut}
+    if restored != cut or not want or got != want:
+        raise AssertionError(f"restored step {restored} (cut {cut}); losses "
+                             f"after the cut {got}, uninterrupted {want}")
+    if not all(math.isfinite(x) for x in ref_losses.values()):
+        raise AssertionError(f"non-finite frozen-trunk loss: {ref_losses}")
+    in_cache = sorted(os.listdir(dst_cache))
+    if seeded != len(libs) or in_cache != libs or dst_kernels["built"]:
+        raise AssertionError(
+            f"the destination seeded {seeded} files, holds {in_cache} and "
+            f"compiled {dst_kernels['built']}: want {libs} seeded, none built")
+    per_step = {n: ref_kernels["launches"][n] / FROZEN_STEPS for n in KERNELS}
+    if per_step != {"flash_fwd": LAYERS, "flash_bwd_dq": 0,
+                    "flash_bwd_dkv": 0}:
+        raise AssertionError(f"frozen-trunk launches a step {per_step}")
+    if sorted(dst_kernels["loaded"].values()) != [
+            n for n in libs if n.startswith("libflash_fwd-")]:
+        raise AssertionError(f"the destination loaded "
+                             f"{dst_kernels['loaded']}, not the carried "
+                             f"forward kernel")
+    share = dirty["bytes"] / dirty["totalBytes"]
+    dump_s = t_dumped - calls.parked_at
+    quiesce_s = calls.parked_at - t_quiesce
+    kill_s = t_uploaded - t_dumped
+    first_step_s = t_first - t_ready
+    # The tree checks between the upload and the stage are this script's.
+    blackout_s = (t_uploaded - t_quiesce) + (t_first - t_stage)
+    log("frozen", f"frozen-trunk flagship (sgd 0.5 on final_norm and "
+                  f"lm_head): losses {[ref_losses[s] for s in sorted(ref_losses)]}"
+                  f"; step {train['frozen_step_s']:.4f} s against Adam's "
+                  f"{train['step_s']:.4f} s (both phase 4's, in process, "
+                  f"median after the first) [{card}]")
+    log("frozen", f"launches a step, uninterrupted run: {per_step} "
+                  f"({ref_kernels['launches']} in {FROZEN_STEPS} steps); "
+                  f"destination {dst_kernels['launches']} in "
+                  f"{len(got)} steps")
+    log("frozen", f"live pass (hook predump, probe refused, parked fallback) "
+                  f"{live_s:.3f} s, base {sizes['base']} B hashed and "
+                  f"mirrored [{card}]")
+    log("frozen", f"blackout dump {dump_s:.3f} s (quiesce {quiesce_s:.4f} s): "
+                  f"delta {sizes['delta']} B, dirty {dirty['bytes']} B of "
+                  f"{dirty['totalBytes']} ({share:.4f}; {dirty['chunks']} of "
+                  f"{dirty['totalChunks']} chunks: {sorted(dirty_names)}); "
+                  f"seconds {fmt_legs(resp['legs'], DUMP_LEGS)} [{card}]")
+    log("frozen", f"restore {restore_s:.3f} s = "
+                  f"{pipe['bytes'] / restore_s / 1e9:.3f} GB/s, "
+                  f"{stager.bytes} B staged, seconds "
+                  f"{fmt_legs(pipe, RESTORE_LEGS)}; first step after READY "
+                  f"{first_step_s:.3f} s [{card}]")
+    log("frozen", f"blackout (quiesce → first post-restore step, the "
+                  f"script's checks left out) {blackout_s:.3f} s = quiesce "
+                  f"{quiesce_s:.4f} + dump {dump_s:.3f} + kill and library "
+                  f"upload {kill_s:.3f} + metadata stage and spawn "
+                  f"{dst.started - t_stage:.3f} + spawn → RESTORE_BEGIN "
+                  f"{t_begin - dst.started:.3f} (set-up {init_s:.3f}) + "
+                  f"restore and RESTORED → READY {t_ready - t_begin:.3f} + "
+                  f"first step {first_step_s:.3f} [{card}]")
+    log("frozen", f"kernel libraries: carried {len(carried)} ({carried}); the "
+                  f"destination seeded {seeded} into an empty "
+                  f"GRIT_TPU_COMPILE_CACHE, compiled none, loaded "
+                  f"{dst_kernels['loaded']}")
+    log("frozen", f"cut at step {cut}; losses after the cut bitwise equal to "
+                  f"the uninterrupted frozen-trunk run: {got}")
+    mnist = mnist_twin(work, card)
+    return {"step_s": train["frozen_step_s"],
+            "launches": ref_kernels["launches"],
+            "launches_per_step": per_step,
+            "launches_all": {n: ref_kernels["launches"][n]
+                             + dst_kernels["launches"][n] for n in KERNELS},
+            "bytes": sizes, "dirty": dirty, "dirty_share": share,
+            "live_s": live_s, "quiesce_s": quiesce_s, "dump_s": dump_s,
+            "dump_legs": resp["legs"], "restore_s": restore_s,
+            "restore_legs": pipe, "first_step_s": first_step_s,
+            "blackout_s": blackout_s, "seeded": seeded,
+            "built_on_destination": dst_kernels["built"], "cut": cut,
+            "mnist": mnist}
+
+
+def mnist_twin(work: str, card: str) -> dict:
+    """The harness's MNIST workload migrated once through the port's
+    ``AutoDeviceHook``; with no agentlet (this process), the hook skips
+    loudly."""
+    from grit_tpu_torch.device.hook import HBM_SUBDIR, AutoDeviceHook  # noqa: PLC0415
+
+    socks = os.path.join(work, "socks-mnist")
+    os.makedirs(socks)
+    env = {"GRIT_TPU_SOCKET_DIR": socks}
+    saved = os.environ.get("GRIT_TPU_SOCKET_DIR")
+    os.environ["GRIT_TPU_SOCKET_DIR"] = socks
+    warnings = HookWarnings()
+    procs: list[Workload] = []
+    try:
+        hook = AutoDeviceHook(timeout=300)
+        skipped = hook.dump(os.getpid(), os.path.join(work, "no-agentlet"))
+        src = Workload(10 ** 9, env, args=MNIST_ARGS)
+        procs.append(src)
+        src.wait_for("READY")
+        src.wait_for(r"STEP 3 ")
+        src.drain()  # an MNIST step is far shorter than a pipe's worth
+        ckpt = os.path.join(work, "mnist-ckpt")
+        t0 = time.perf_counter()
+        hook.dump(src.proc.pid, ckpt)
+        dump_s = time.perf_counter() - t0
+        src.kill()
+        snap = os.path.join(ckpt, HBM_SUBDIR)
+        cut = json.load(open(os.path.join(snap, "MANIFEST.json")))["meta"]["step"]
+        ref = Workload(cut + MNIST_AFTER, env, args=MNIST_ARGS)
+        procs.append(ref)
+        ref.finish()
+        dst = Workload(cut + MNIST_AFTER, {**env, "GRIT_TPU_RESTORE_DIR": snap},
+                       args=MNIST_ARGS)
+        procs.append(dst)
+        restored = int(dst.wait_for(r"RESTORED (\d+)").group(1))
+        dst.finish()
+    finally:
+        warnings.close()
+        if saved is None:
+            os.environ.pop("GRIT_TPU_SOCKET_DIR", None)
+        else:
+            os.environ["GRIT_TPU_SOCKET_DIR"] = saved
+        for p in procs:
+            p.kill()
+    got = dst.losses()
+    want = {s: x for s, x in ref.losses().items() if s > cut}
+    if skipped is not None or not any(
+            f"no agentlet socket for pid {os.getpid()}" in m
+            for m in warnings.messages):
+        raise AssertionError(f"no loud skip without an agentlet: "
+                             f"{warnings.messages}")
+    if restored != cut or len(got) != MNIST_AFTER or got != want:
+        raise AssertionError(f"MNIST: restored {restored} (cut {cut}), "
+                             f"losses {got} vs {want}")
+    log("frozen", f"MNIST twin (hidden 16, batch 16, Adam): migrated through "
+                  f"AutoDeviceHook at step {cut} (dump {dump_s:.3f} s), "
+                  f"{MNIST_AFTER} losses after the cut bitwise equal: "
+                  f"{[got[s] for s in sorted(got)]}; a pid without an "
+                  f"agentlet skipped loudly [{card}]")
+    return {"cut": cut, "dump_s": dump_s, "losses": got}
+
+
 # -- main ----------------------------------------------------------------------
 
 
@@ -1450,7 +1854,7 @@ def main(argv: list[str] | None = None) -> int:
     t0 = time.perf_counter()
     build.build_all()
     log("build", f"3 kernels built in {time.perf_counter() - t0:.2f} s "
-                 f"into {os.path.relpath(build.BUILD_DIR, REPO)}")
+                 f"into {os.path.relpath(build.build_dir(), REPO)}")
     ptxas_report(build)
     kern = phase_kernels(torch, fa, device["smi"])
     train = phase_train(torch, fa)
@@ -1461,6 +1865,7 @@ def main(argv: list[str] | None = None) -> int:
         torch.cuda.empty_cache()
         phase_io(torch, work, device["smi"])
         precopy = phase_precopy(work, device["smi"], migrate["ref_losses"])
+        frozen = phase_frozen(work, device["smi"], train=train)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1470,7 +1875,11 @@ def main(argv: list[str] | None = None) -> int:
         "route": "cuda",
         "source": src,
         "replaces": replaces,
-        "launches": train["launches"][name],
+        # Phase 4's steps and phase 9's frozen-trunk runs (the
+        # uninterrupted one and the restored one).
+        "launches": train["launches"][name] + frozen["launches_all"][name],
+        "launches_by_path": {"adam": train["launches"][name],
+                             "frozen_trunk": frozen["launches_all"][name]},
         "max_abs_err": main_shape["err"][name],
         "worst_tile_err_ratio": main_shape["tiles"][name],
         "ms": main_shape["ms"][name],
@@ -1491,7 +1900,9 @@ def main(argv: list[str] | None = None) -> int:
         # the plain one, as the reference's); its launches and numbers.
         "serving": serve,
         # The pre-copy migration (phase 8) runs the training step's three.
-        "precopy": precopy}
+        "precopy": precopy,
+        # The frozen-trunk pre-copy (phase 9) runs the forward only.
+        "frozen_trunk": frozen}
     print(json.dumps(record), flush=True)
     print(device["smi"], flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -27,7 +27,7 @@ class Knob:
     help: str
 
     def get(self) -> str:
-        return os.environ.get(self.name, self.default)
+        return self._raw()
 
     def _raw(self) -> str:
         return os.environ.get(self.name) or self.default
@@ -94,3 +94,22 @@ SNAPSHOT_CODEC = Knob(
     "Chunk codec of the mirror tee. This package has no codec stage: any "
     "value but 'none' abandons the mirror loudly (the agent's upload pass "
     "then ships the bytes).")
+TPU_COMPILE_CACHE = Knob(
+    "GRIT_TPU_COMPILE_CACHE", "",
+    "Directory the CUDA kernel libraries are built into and loaded from "
+    "(default: the package's git-ignored _build). When set, every "
+    "snapshot carries its libraries under compile-cache/, and a restore "
+    "seeds this directory from the snapshot before the first kernel "
+    "build.")
+SNAP_SPECULATE = Knob(
+    "GRIT_SNAP_SPECULATE", "1",
+    "Quiesce-free concurrent dump, as the node agent's device hook asks "
+    "for it: the blackout quiesce pre-announces its dump, and a pre-copy "
+    "pass first tries a non-parking speculative probe (this package's "
+    "agentlet refuses it; the hook then falls back, loudly, to the "
+    "parked pass). =0 turns both off.")
+SLICE_HOSTS = Knob(
+    "GRIT_SLICE_HOSTS", "0",
+    "Host count of the slice an agent leg belongs to. 0/1 is the "
+    "single-host flow; the gang cut above 1 is not in this package, and "
+    "the device hook refuses it.")

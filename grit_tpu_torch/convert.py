@@ -15,7 +15,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from grit_tpu_torch.train.trainer import EmptyState, ScaleByAdamState
+from grit_tpu_torch.train.optim import EmptyState, ScaleByAdamState
 from grit_tpu_torch.tree import tree_map
 
 

@@ -10,7 +10,7 @@ Protocol (newline-delimited JSON, one request per line):
     {"op": "quiesce"}                → {"ok": true, "step": N}   toggle off
     {"op": "dump", "dir": "<path>",  → {"ok": true, "dir": ...}  device snapshot
      "base"?, "hashes"?, "mirror"?}
-    {"op": "resume"}                 → {"ok": true}              toggle on
+    {"op": "resume", "reload"?}      → {"ok": true}              toggle on
     {"op": "status"}                 → {"ok": true, "step": N, "paused": ...}
 
 Socket path: ``{GRIT_TPU_SOCKET_DIR:-/tmp}/grit-tpu-{pid}.sock``.
@@ -31,8 +31,11 @@ paths (the features arrive with later slices):
 - a non-parking ``"speculative": true`` dump is refused (``ok: false``);
   the agent then falls back to its parked pass;
 - a ``wire`` stream answers ``"wire": {"ok": false, ...}`` (the agent
-  falls back to the PVC path);
-- ``resume`` with ``reload`` is refused.
+  falls back to the PVC path).
+
+``resume`` with ``reload`` (the device re-attach after a process
+restore) runs the workload's ``reload_fn`` on the snapshot while still
+parked, then unparks; without a ``reload_fn`` it is refused.
 
 Wiring: the training loop calls :meth:`Agentlet.checkpoint_point` once
 per step. On a pending quiesce the loop drains device work and parks
@@ -84,6 +87,9 @@ class Agentlet:
         between the caller's own check and the park still drains. A raise
         aborts the park attempt; the request stays pending for the
         agent's error path.
+      reload_fn: ``reload_fn(snapshot_dir)`` reloads the device state
+        from a snapshot (a ``resume`` with ``reload``), on the dispatch
+        thread while the loop is parked.
     """
 
     def __init__(
@@ -94,12 +100,14 @@ class Agentlet:
         path: str | None = None,
         quiesce_state_fn: Callable[[], Any] | None = None,
         pre_park_fn: Callable[[], None] | None = None,
+        reload_fn: Callable[[str], Any] | None = None,
     ) -> None:
         self.state_fn = state_fn
         self.step_fn = step_fn
         self.meta_fn = meta_fn or (lambda: {})
         self.quiesce_state_fn = quiesce_state_fn or state_fn
         self.pre_park_fn = pre_park_fn
+        self.reload_fn = reload_fn
         self.path = path or socket_path()
         # One condition guards the pause protocol. _want_pause is the
         # request (set by quiesce, cleared by resume/stop); _is_parked is
@@ -110,6 +118,7 @@ class Agentlet:
         self._want_pause = False
         self._is_parked = False
         self._dumps_in_flight = 0
+        self._reloads_in_flight = 0
         self._spec_requested = False
         self._shutdown = False
         self._dump_lock = threading.Lock()  # one snapshot write at a time
@@ -296,16 +305,33 @@ class Agentlet:
         return resp
 
     def _resume(self, req: dict) -> dict:
-        if req.get("reload") is not None:
-            return {"ok": False, "error": "workload has no reload_fn"}
+        reload_dir = req.get("reload")
+        if reload_dir is not None:
+            # The loop must be parked, so the state is stable while
+            # reload_fn rebinds it; a plain resume meanwhile waits it out.
+            with self._cond:
+                if not (self._is_parked and self._want_pause):
+                    return {"ok": False, "error": "reload requires quiesced"}
+                if self.reload_fn is None:
+                    return {"ok": False, "error": "workload has no reload_fn"}
+                self._reloads_in_flight += 1
+            try:
+                with self._dump_lock:
+                    self.reload_fn(reload_dir)
+            finally:
+                with self._cond:
+                    self._reloads_in_flight -= 1
+                    self._cond.notify_all()
         with self._cond:
-            # A dump in flight must finish before the loop may step again.
-            while self._dumps_in_flight and not self._shutdown:
+            # A dump or reload in flight must finish before the loop may
+            # step again.
+            while (self._dumps_in_flight or self._reloads_in_flight) \
+                    and not self._shutdown:
                 self._cond.wait()
             self._want_pause = False
             self._spec_requested = False
             self._cond.notify_all()
-        return {"ok": True}
+        return {"ok": True, **({"reloaded": reload_dir} if reload_dir else {})}
 
 
 class ToggleClient:
@@ -356,8 +382,11 @@ class ToggleClient:
             fields["speculative"] = True
         return self.request("dump", **fields)
 
-    def resume(self) -> None:
-        self.request("resume")
+    def resume(self, reload: str | None = None) -> None:
+        """Unpark; with ``reload``, have the workload reload its device
+        state from that snapshot first."""
+        fields = {"reload": reload} if reload is not None else {}
+        self.request("resume", **fields)
 
     def status(self) -> dict:
         return self.request("status")

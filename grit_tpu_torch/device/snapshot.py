@@ -41,6 +41,13 @@ runs), reads and checksums arrays on reader threads ahead of an in-order
 place on the caller's thread, and records that pipeline's legs
 (:func:`last_restore_pipeline`).
 
+Kernel-library carry (``GRIT_TPU_COMPILE_CACHE`` set): after its commit a
+dump copies the kernel libraries of that directory into
+``<dir>/compile-cache/``, and a restore seeds the directory from there
+before anything else and records the count (``seeded`` in
+:func:`last_restore_pipeline`); see :mod:`grit_tpu_torch.ops.build`. The
+carry is not part of the commit: a failure to carry only logs.
+
 The card's data path: a CUDA tensor leaves the device through a ring of
 ``_RING_SLOTS`` pinned buffers of ``_PIECE_BYTES``, filled by
 asynchronous copies on a side stream up to a ring ahead of the checksum
@@ -78,6 +85,7 @@ import torch
 
 from grit_tpu_torch.api import config
 from grit_tpu_torch.device.placement import resolve_device
+from grit_tpu_torch.ops import build
 from grit_tpu_torch.metadata import (
     CODEC_SIDECAR_SUFFIX,
     SNAPSHOT_FORMAT,
@@ -183,8 +191,9 @@ def last_restore_pipeline() -> dict:
     """Legs of this process's last :func:`restore_snapshot`: ``stage_wait``
     (readers blocked on the stage journal), ``pin`` (readers pinning
     staging blocks), ``read`` (disk and checksum, summed over readers,
-    waits and pinning left out), ``place`` (host to device), ``wall`` and
-    ``overlap_fraction = 1 - wall / (stage_wait + pin + read + place)``."""
+    waits and pinning left out), ``place`` (host to device), ``wall``,
+    ``overlap_fraction = 1 - wall / (stage_wait + pin + read + place)``,
+    and ``seeded``, the kernel libraries it seeded from the snapshot."""
     with _RECORD_LOCK:
         return dict(_LAST_RESTORE)
 
@@ -748,6 +757,7 @@ def write_snapshot(directory: str, state: Any, *, meta: dict | None = None,
     os.rename(work, directory)
     shutil.rmtree(old, ignore_errors=True)
     mirrored = mirror is not None and _commit_mirror(mirror, directory)
+    _carry_kernels(directory)
     with _RECORD_LOCK:
         _LAST_WRITE.clear()
         _LAST_WRITE.update(
@@ -760,6 +770,14 @@ def write_snapshot(directory: str, state: Any, *, meta: dict | None = None,
             + ", hashing beside the write",
             mirror=mirrored)
     return directory
+
+
+def _carry_kernels(directory: str) -> None:
+    """The kernel-library carry of a committed snapshot (never fails it)."""
+    try:
+        build.save_compile_cache(directory)
+    except OSError as exc:
+        log.warning("kernel libraries not carried into %s: %s", directory, exc)
 
 
 def _append(f, offset: int, nbytes: int, index: list,
@@ -1032,11 +1050,13 @@ def _read_array_host(directory: str, rec: dict, *, verify: bool,
 
 
 def _begin_restore(directory: str) -> tuple[_StageMonitor | None,
-                                            SnapshotManifest]:
+                                            SnapshotManifest, int]:
     """Gate on the stage journal's metadata (a caller racing the stager
-    waits for COMMIT and MANIFEST), check the commit, load the manifest,
-    and fail fast, naming it, on a referenced base that is missing or
-    uncommitted — waiting first on its COMMIT when a journal governs it."""
+    waits for COMMIT and MANIFEST), check the commit, seed the kernel
+    libraries the snapshot carries (returning their count), load the
+    manifest, and fail fast, naming it, on a referenced base that is
+    missing or uncommitted — waiting first on its COMMIT when a journal
+    governs it."""
     monitor = _StageMonitor.find(directory)
     if monitor is not None:
         monitor.wait_ready(os.path.join(directory, COMMIT_FILE))
@@ -1044,6 +1064,9 @@ def _begin_restore(directory: str) -> tuple[_StageMonitor | None,
     if not snapshot_exists(directory):
         raise FileNotFoundError(
             f"{directory} has no {COMMIT_FILE}: snapshot missing or uncommitted")
+    # Before anything can launch a kernel: the carried libraries (if any)
+    # spare the destination its nvcc.
+    seeded = build.seed_compile_cache(directory)
     manifest = SnapshotManifest.load(directory)
     ref_dirs = {c["ref_dir"] for rec in manifest.arrays
                 for c in rec["chunks"] if c.get("ref_dir")}
@@ -1056,7 +1079,7 @@ def _begin_restore(directory: str) -> tuple[_StageMonitor | None,
                 f"delta snapshot {directory} references base {base_dir} "
                 "which is missing or uncommitted — stage the base snapshot "
                 "at the same relative location as on the dump side")
-    return monitor, manifest
+    return monitor, manifest, seeded
 
 
 def restore_snapshot(directory: str, *, like: Any = None,
@@ -1075,14 +1098,14 @@ def restore_snapshot(directory: str, *, like: Any = None,
     Reader threads (``GRIT_TPU_RESTORE_WORKERS``; ``GRIT_RESTORE_PIPELINE=0``
     reads serially) read and checksum arrays ahead of the in-order place on
     this thread; under a streamed stage each read waits for its bytes."""
-    monitor, manifest = _begin_restore(directory)
+    monitor, manifest, seeded = _begin_restore(directory)
     by_name = {rec["name"]: rec for rec in manifest.arrays}
     if like is None:
         names = list(by_name)
         recs = [by_name[n] for n in names]
         return dict(zip(names, _restore_leaves(
             directory, _Placer(recs, [None] * len(recs), None),
-            verify=verify, monitor=monitor)))
+            verify=verify, monitor=monitor, seeded=seeded)))
     leaves = flatten_with_names(like)
     names = [n for n, _ in leaves]
     missing = [n for n in names if n not in by_name]
@@ -1102,7 +1125,7 @@ def restore_snapshot(directory: str, *, like: Any = None,
     placer = _Placer([by_name[n] for n in names], [x for _, x in leaves],
                      device)
     out = iter(_restore_leaves(directory, placer, verify=verify,
-                               monitor=monitor))
+                               monitor=monitor, seeded=seeded))
     return map_with_names(lambda _name, _leaf: next(out), like)
 
 
@@ -1260,7 +1283,7 @@ def _restore_workers() -> int:
 
 
 def _restore_leaves(directory: str, placer: _Placer, *, verify: bool,
-                    monitor: _StageMonitor | None) -> list:
+                    monitor: _StageMonitor | None, seeded: int) -> list:
     """Read workers feed the in-order place; the legs are recorded
     (:func:`last_restore_pipeline`). With no workers the loop is serial,
     with the same gating and checks."""
@@ -1310,6 +1333,7 @@ def _restore_leaves(directory: str, placer: _Placer, *, verify: bool,
             bytes=sum(c["nbytes"] for rec in placer.recs
                       for c in rec["chunks"]),
             pinned_blocks=len(pool.tensors) if pool is not None else 0,
+            seeded=seeded,
             staging=(f"readers into pinned blocks of {_PIECE_BYTES >> 20} "
                      f"MiB pinned on first need ({len(pool.tensors)} of at "
                      f"most {pool.cap}), H2D on the caller's stream"

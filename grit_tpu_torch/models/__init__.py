@@ -1,2 +1,2 @@
-"""Model families ported so far: llama (training and serving) and the
-serving engines."""
+"""Model families ported so far: llama (training and serving), the
+serving engines, and the MNIST-scale MLP."""

@@ -87,7 +87,7 @@ class ServingAgentlet:
             mode = DRAIN_SERIALIZE
         self.drain_mode = mode
         self.drain_timeout_s = (
-            float(config.SERVE_DRAIN_TIMEOUT_S.get())
+            config.SERVE_DRAIN_TIMEOUT_S.get_float()
             if drain_timeout_s is None else float(drain_timeout_s))
         self.emit_fn = emit_fn
         self._rounds = 0  # batch boundaries crossed: the "step" counter

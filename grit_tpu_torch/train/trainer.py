@@ -1,5 +1,5 @@
-"""The Trainer: an eager PyTorch train step with Adam, and snapshot/restore
-at step boundaries.
+"""The Trainer: an eager PyTorch train step through an optax-style
+optimizer, and snapshot/restore at step boundaries.
 
 Counterpart of ``grit_tpu/train/trainer.py``. The migratable state is one
 tree, named as the JAX Trainer's state so snapshots of the two share
@@ -10,10 +10,12 @@ leaf names::
      "step": int32 scalar,
      "rng": int64 scalar}
 
-``opt_state`` mirrors optax's ``adam`` state (``['opt_state'][0].mu[...]``,
-``.nu[...]``, the int32 ``.count``), and :func:`adam_update_` does
-optax's arithmetic in optax's order. ``rng`` is a stated divergence: JAX
-keeps a threefry key, the port keeps the seed. Batches are a pure
+``opt_state`` is the optimizer's state, in optax's classes and names
+(:mod:`grit_tpu_torch.train.optim`): the default ``adam``'s above; the
+frozen-trunk fine-tune's has no array leaf at all. A step asks autograd
+only for the gradients its optimizer reads, and applies the update in
+place. ``rng`` is a stated divergence: JAX keeps a threefry key, the
+port keeps the seed. Batches are a pure
 function of (seed, step) — drawn on the CPU from a ``torch.Generator``
 seeded by both, then moved to the device — so resuming needs no
 dataloader state.
@@ -26,7 +28,7 @@ from __future__ import annotations
 
 import os
 from dataclasses import dataclass
-from typing import Any, Callable, NamedTuple
+from typing import Any, Callable
 
 import torch
 
@@ -34,6 +36,7 @@ from grit_tpu_torch.device.hook import restore_dir_from_env
 from grit_tpu_torch.device.placement import resolve_device
 from grit_tpu_torch.device.quiesce import quiesce
 from grit_tpu_torch.device.snapshot import restore_snapshot, write_snapshot
+from grit_tpu_torch.train.optim import GradientTransformation, adam
 from grit_tpu_torch.tree import flatten_with_names, map_with_names, tree_map
 
 
@@ -44,58 +47,6 @@ def enable_determinism() -> None:
     cuBLAS call, or deterministic mode raises)."""
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     torch.use_deterministic_algorithms(True)
-
-
-class ScaleByAdamState(NamedTuple):
-    """optax's ``ScaleByAdamState``: same fields, same snapshot names."""
-
-    count: torch.Tensor
-    mu: Any
-    nu: Any
-
-
-class EmptyState(NamedTuple):
-    """optax's leafless state of the ``scale_by_learning_rate`` step."""
-
-
-def adam_init(params: Any) -> tuple:
-    """optax ``adam(lr).init``: moments zeros like the params (same dtype),
-    count an int32 scalar (kept on the host: no device sync per step)."""
-    return (ScaleByAdamState(count=torch.zeros((), dtype=torch.int32),
-                             mu=tree_map(torch.zeros_like, params),
-                             nu=tree_map(torch.zeros_like, params)),
-            EmptyState())
-
-
-@torch.no_grad()
-def adam_update_(params: Any, grads: Any, opt_state: tuple, lr: float, *,
-                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> tuple:
-    """One ``optax.adam(lr)`` update, in optax's arithmetic order:
-
-        mu = (1 - b1) g + b1 mu        nu = (1 - b2) g^2 + b2 nu
-        mu_hat = mu / (1 - b1^t)       nu_hat = nu / (1 - b2^t)
-        p = p + (-lr) mu_hat / (sqrt(nu_hat) + eps)
-
-    with the bias corrections computed in fp32 and cast to each moment's
-    dtype. Updates params, mu and nu in place (no second copy of the
-    state on the device); returns the new opt_state."""
-    st = opt_state[0]
-    count = st.count + 1 if st.count < torch.iinfo(torch.int32).max else st.count
-    t = count.float()
-    bc1 = 1 - torch.tensor(b1, dtype=torch.float32) ** t
-    bc2 = 1 - torch.tensor(b2, dtype=torch.float32) ** t
-    p_leaves = [x for _, x in flatten_with_names(params)]
-    g_leaves = [x for _, x in flatten_with_names(grads)]
-    mu_leaves = [x for _, x in flatten_with_names(st.mu)]
-    nu_leaves = [x for _, x in flatten_with_names(st.nu)]
-    for p, g, mu, nu in zip(p_leaves, g_leaves, mu_leaves, nu_leaves):
-        mu.copy_((1 - b1) * g + b1 * mu)
-        nu.copy_((1 - b2) * (g * g) + b2 * nu)
-        mu_hat = mu / bc1.to(mu.dtype)
-        nu_hat = nu / bc2.to(nu.dtype)
-        update = (mu_hat / (torch.sqrt(nu_hat) + eps)) * -lr
-        p.copy_((p + update).to(p.dtype))
-    return (ScaleByAdamState(count=count, mu=st.mu, nu=st.nu),) + opt_state[1:]
 
 
 @dataclass
@@ -119,6 +70,9 @@ class Trainer:
         ``(None, "meta")`` for the shape skeleton a restore loads into.
       batch_fn: ``batch_fn(generator) -> batch`` of CPU tensors, from a
         CPU generator seeded by (seed, step).
+      optimizer: an optax-style transform of
+        :mod:`grit_tpu_torch.train.optim`; ``adam(cfg.learning_rate)`` by
+        default, as the JAX Trainer's.
       device: where params and optimizer state live (default CUDA).
     """
 
@@ -129,8 +83,10 @@ class Trainer:
         batch_fn: Callable[[torch.Generator], Any],
         cfg: TrainerConfig | None = None,
         device: torch.device | str | None = None,
+        optimizer: GradientTransformation | None = None,
     ) -> None:
         self.cfg = cfg or TrainerConfig()
+        self.optimizer = optimizer or adam(self.cfg.learning_rate)
         self.device = resolve_device(device)
         self.loss_fn = loss_fn
         self.batch_fn = batch_fn
@@ -146,7 +102,7 @@ class Trainer:
     def _make_state(self, params: Any) -> dict:
         return {
             "params": params,
-            "opt_state": adam_init(params),
+            "opt_state": self.optimizer.init(params),
             "step": torch.zeros((), dtype=torch.int32),
             "rng": torch.tensor(self.cfg.seed, dtype=torch.int64),
         }
@@ -176,14 +132,25 @@ class Trainer:
     def train_step(self) -> dict:
         state = self.state
         params = state["params"]
-        leaves = [p for _, p in flatten_with_names(params)]
-        for p in leaves:
-            p.requires_grad_(True)
-        loss = self.loss_fn(params, self.batch(int(state["step"])))
-        grads = iter(torch.autograd.grad(loss, leaves))
-        grad_tree = map_with_names(lambda _name, _p: next(grads), params)
-        state["opt_state"] = adam_update_(params, grad_tree, state["opt_state"],
-                                          self.cfg.learning_rate)
+        named = flatten_with_names(params)
+        reads = self.optimizer.reads_grad(params)
+        wanted = [p for name, p in named if reads[name]]
+        for name, p in named:
+            p.requires_grad_(reads[name])
+        batch = self.batch(int(state["step"]))
+        if wanted:
+            loss = self.loss_fn(params, batch)
+            grads = iter(torch.autograd.grad(loss, wanted))
+        else:
+            with torch.no_grad():
+                loss = self.loss_fn(params, batch)
+        # A leaf whose transform reads no gradient gets a zero view of its
+        # shape (stride 0: no memory, no kernel).
+        grad_tree = map_with_names(
+            lambda name, p: next(grads) if reads[name] else torch.zeros(
+                (), dtype=p.dtype, device=p.device).expand(p.shape), params)
+        state["opt_state"] = self.optimizer.apply_(params, grad_tree,
+                                                   state["opt_state"])
         state["step"] = state["step"] + 1
         return {"loss": loss.detach()}
 
@@ -192,10 +159,17 @@ class Trainer:
 
     # -- snapshot / restore -----------------------------------------------------
 
-    def snapshot(self, directory: str) -> str:
-        """Consistent cut at the current step boundary → committed dir."""
+    def snapshot(self, directory: str, *, base: str | None = None,
+                 hashes: bool = False) -> str:
+        """Consistent cut at the current step boundary → committed dir.
+
+        ``base``: delta-dump against an earlier committed snapshot (the
+        pre-copy pattern: dump full while training, delta at the
+        blackout). ``hashes``: record a sha256 per chunk, so a later delta
+        against this dump matches by hash instead of reading it back."""
         quiesce(self.state)
-        return write_snapshot(directory, self.state, meta={"step": self.step})
+        return write_snapshot(directory, self.state, meta={"step": self.step},
+                              base=base, hashes=hashes)
 
     def maybe_restore_from_env(self) -> int | None:
         """Transparent-migration entry: restore from ``GRIT_TPU_RESTORE_DIR``

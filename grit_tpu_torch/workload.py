@@ -1,17 +1,22 @@
-"""The migratable llama training workload: ``python -m grit_tpu_torch.workload``.
+"""The migratable training workload: ``python -m grit_tpu_torch.workload``.
 
-Counterpart of the JAX package's harness/bench workload
-(``grit_tpu/harness.py`` ``WORKLOAD``, the bench's flagship): builds a
-llama :class:`~grit_tpu_torch.train.trainer.Trainer`, restores from
-``GRIT_TPU_RESTORE_DIR`` when the shim injected it (printing
-``RESTORE_BEGIN`` just before the restore, then ``RESTORED <step>``,
-``RESTORE_SECONDS <s>``, ``RESTORE_PIPELINE <json>`` with the restore's
-legs, and ``INIT_SECONDS <s>``, the set-up before the restore), serves
+Counterpart of the JAX package's harness and bench workloads: the llama
+flagship (``bench.py``'s, with ``--optimizer adam``, the default, or
+``--optimizer frozen-trunk``, the fine-tune the bench migrates) and, with
+``--model mnist``, the harness's MNIST trainer (``grit_tpu/harness.py``
+``WORKLOAD``: hidden 16, batch 16, Adam). It builds a
+:class:`~grit_tpu_torch.train.trainer.Trainer`; when the shim injected
+``GRIT_TPU_RESTORE_DIR``, it restores (printing ``RESTORE_BEGIN`` just
+before the restore, then ``RESTORED <step>``, ``RESTORE_SECONDS <s>``,
+``RESTORE_PIPELINE <json>`` with the restore's legs and ``seeded``, the
+kernel libraries seeded from the snapshot, and ``INIT_SECONDS <s>``, the
+set-up before the restore); it serves
 the toggle protocol through an
 :class:`~grit_tpu_torch.device.agentlet.Agentlet` (printing ``READY``),
 then trains, printing ``STEP <n> <loss!r>`` and offering a checkpoint
 point after every step, until ``N_STEPS`` (env, default 10), then
-``DONE``.
+``KERNELS <json>`` (this process's launches of each kernel, the
+libraries it compiled and those it loaded) and ``DONE``.
 
 Run on a tiny config on the CPU (what the tests do)::
 
@@ -33,13 +38,20 @@ from dataclasses import replace
 
 import torch
 
-from grit_tpu_torch.models import llama
+from grit_tpu_torch.models import llama, mnist
+from grit_tpu_torch.train import optim
 from grit_tpu_torch.train.trainer import Trainer, TrainerConfig, enable_determinism
 
 # Adam without warmup moves every weight by about the learning rate on its
 # first steps; at 1e-3 that is ~5% of a flagship weight (std 2560^-0.5)
 # and the loss diverges, at 1e-4 it trains.
 LEARNING_RATE = 1e-4
+# The frozen-trunk fine-tune's rate on its trainable slice (bench.py's).
+FROZEN_TRUNK_LR = 0.5
+# The harness's MNIST workload (grit_tpu/harness.py): MnistConfig(hidden_dim
+# =16), batches of 16, the Trainer's default Adam.
+MNIST = mnist.MnistConfig(hidden_dim=16)
+MNIST_BATCH = 16
 
 CONFIGS = {"flagship": llama.LlamaConfig.flagship,
            "tiny": lambda **kw: llama.LlamaConfig.tiny(
@@ -50,26 +62,50 @@ CONFIGS = {"flagship": llama.LlamaConfig.flagship,
 def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     p = argparse.ArgumentParser(prog="python -m grit_tpu_torch.workload",
                                 description=__doc__.splitlines()[0])
-    p.add_argument("--config", choices=sorted(CONFIGS), default="flagship")
+    p.add_argument("--model", choices=("llama", "mnist"), default="llama")
+    p.add_argument("--config", choices=sorted(CONFIGS), default="flagship",
+                   help="the llama config")
+    p.add_argument("--optimizer", choices=("adam", "frozen-trunk"),
+                   default="adam",
+                   help="llama only: Adam on every leaf, or bench.py's "
+                        "fine-tune (sgd 0.5 on final_norm and lm_head, the "
+                        "rest frozen)")
     p.add_argument("--layers", type=int, default=None,
                    help="cut the depth (widths stay the config's)")
     p.add_argument("--seq", type=int, default=2048)
     p.add_argument("--batch", type=int, default=2)
     p.add_argument("--device", default=None,
                    help="torch device (default: the current CUDA device)")
-    return p.parse_args(argv)
+    args = p.parse_args(argv)
+    if args.model == "mnist" and args.optimizer != "adam":
+        p.error("--optimizer frozen-trunk is llama's fine-tune")
+    return args
 
 
 def build_trainer(args: argparse.Namespace) -> Trainer:
+    if args.model == "mnist":
+        return mnist_trainer(device=args.device)
     cfg = CONFIGS[args.config]()
     if args.layers is not None:
         cfg = replace(cfg, n_layers=args.layers)
+    optimizer = (optim.frozen_trunk(FROZEN_TRUNK_LR)
+                 if args.optimizer == "frozen-trunk" else None)
     return llama_trainer(cfg, batch=args.batch, seq=args.seq,
-                         device=args.device)
+                         optimizer=optimizer, device=args.device)
+
+
+def mnist_trainer(device: torch.device | str | None = None) -> Trainer:
+    """The harness's MNIST trainer."""
+    return Trainer(
+        loss_fn=lambda params, b: mnist.loss_fn(MNIST, params, b),
+        init_params=lambda gen, dev: mnist.init_params(MNIST, gen, dev),
+        batch_fn=lambda gen: mnist.synthetic_batch(MNIST, gen, MNIST_BATCH),
+        device=device)
 
 
 def llama_trainer(cfg: llama.LlamaConfig, *, batch: int, seq: int,
                   tcfg: TrainerConfig | None = None,
+                  optimizer: optim.GradientTransformation | None = None,
                   device: torch.device | str | None = None) -> Trainer:
     """A Trainer of ``cfg`` on synthetic next-token batches ``(batch, seq)``
     whose token ids follow a Zipf law over the vocabulary, as words in
@@ -87,13 +123,15 @@ def llama_trainer(cfg: llama.LlamaConfig, *, batch: int, seq: int,
         init_params=lambda gen, dev: llama.init_params(cfg, gen, dev),
         batch_fn=batch_fn,
         cfg=tcfg or TrainerConfig(learning_rate=LEARNING_RATE),
-        device=device)
+        device=device, optimizer=optimizer)
 
 
 def main(argv: list[str] | None = None) -> None:
     from grit_tpu_torch.device.agentlet import Agentlet  # noqa: PLC0415
     from grit_tpu_torch.device.hook import restore_dir_from_env  # noqa: PLC0415
     from grit_tpu_torch.device.snapshot import last_restore_pipeline  # noqa: PLC0415
+    from grit_tpu_torch.ops import build  # noqa: PLC0415
+    from grit_tpu_torch.ops import flash_attention as fa  # noqa: PLC0415
 
     t_main = time.perf_counter()
     enable_determinism()
@@ -117,7 +155,8 @@ def main(argv: list[str] | None = None) -> None:
     # dispatch thread reads it (status, dump) and must never be the one
     # that initializes it.
     tr.state  # noqa: B018
-    agentlet = Agentlet(lambda: tr.state, step_fn=lambda: tr.step).start()
+    agentlet = Agentlet(lambda: tr.state, step_fn=lambda: tr.step,
+                        reload_fn=tr.restore).start()
     print("READY", flush=True)
     n_steps = int(os.environ.get("N_STEPS", "10"))
     try:
@@ -127,6 +166,9 @@ def main(argv: list[str] | None = None) -> None:
             agentlet.checkpoint_point()
     finally:
         agentlet.stop()
+    print("KERNELS " + json.dumps({"launches": fa.LAUNCHES,
+                                   "built": build.BUILT,
+                                   "loaded": build.LOADED}), flush=True)
     print("DONE", flush=True)
 
 

@@ -25,15 +25,23 @@ from grit_tpu_torch.device.snapshot import SnapshotManifest, restore_snapshot
 class _Loop:
     """A stand-in training loop: bumps a tensor state once per step and
     offers a checkpoint point after each, on its own thread. Its agentlet
-    listens on :func:`socket_path` under ``$GRIT_TPU_SOCKET_DIR``."""
+    listens on :func:`socket_path` under ``$GRIT_TPU_SOCKET_DIR``; with
+    ``reload``, it reloads its state from a snapshot on a ``resume`` with
+    ``reload`` (the directories land in ``reloaded``)."""
 
-    def __init__(self) -> None:
+    def __init__(self, reload: bool = False) -> None:
         self.state = {"w": torch.zeros(4), "step": torch.zeros((), dtype=torch.int32)}
-        self.agentlet = Agentlet(lambda: self.state,
-                                 step_fn=lambda: int(self.state["step"])).start()
+        self.reloaded: list[str] = []
+        self.agentlet = Agentlet(
+            lambda: self.state, step_fn=lambda: int(self.state["step"]),
+            reload_fn=self._reload if reload else None).start()
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._run, daemon=True)
         self._thread.start()
+
+    def _reload(self, directory: str) -> None:
+        self.reloaded.append(directory)
+        self.state = restore_snapshot(directory, like=self.state)
 
     def _run(self) -> None:
         while not self._stop.is_set():

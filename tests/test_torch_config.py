@@ -1,0 +1,55 @@
+"""The port's knob registry read as the reference registry reads it:
+every knob of ``grit_tpu_torch.api.config`` under an unset, an empty, a
+malformed and a valid value gives the value ``grit_tpu.api.config``
+gives (an empty value counts as unset, a malformed number warns and
+reads the default, a flag is on unless it is ``"0"``)."""
+
+from __future__ import annotations
+
+import pytest
+
+from grit_tpu.api import config as ref
+from grit_tpu.device import agentlet as ref_agentlet
+from grit_tpu_torch.api import config as port
+from grit_tpu_torch.device import agentlet as port_agentlet
+
+KNOBS = sorted((k for k in vars(port).values() if isinstance(k, port.Knob)),
+               key=lambda k: k.name)
+
+# The typed read the port uses for each of the reference's knob types.
+READ = {"str": "get", "int": "get_int", "float": "get_float",
+        "bool": "get_flag"}
+MALFORMED = {"str": "not/a-dir name", "int": "2.5", "float": "abc",
+             "bool": "no"}
+VALID = {"str": "/srv/grit", "int": "7", "float": "12.5", "bool": "0"}
+VALUES = {"unset": lambda t: None, "empty": lambda t: "",
+          "malformed": MALFORMED.get, "valid": VALID.get}
+
+
+def test_every_port_knob_is_a_reference_knob():
+    assert len(KNOBS) >= 12
+    for knob in KNOBS:
+        assert knob.name in ref.REGISTRY, knob.name
+        assert ref.REGISTRY[knob.name].type in READ
+
+
+@pytest.mark.parametrize("case", sorted(VALUES))
+@pytest.mark.parametrize("knob", KNOBS, ids=lambda k: k.name)
+def test_knob_reads_as_the_reference_registry(knob, case, monkeypatch):
+    want_knob = ref.REGISTRY[knob.name]
+    raw = VALUES[case](want_knob.type)
+    if raw is None:
+        monkeypatch.delenv(knob.name, raising=False)
+    else:
+        monkeypatch.setenv(knob.name, raw)
+    got = getattr(knob, READ[want_knob.type])()
+    want = want_knob.get()
+    assert type(got) is type(want) and got == want, (knob.name, raw)
+
+
+def test_empty_socket_dir_is_the_default_for_both_packages(monkeypatch):
+    """With ``GRIT_TPU_SOCKET_DIR=""`` the port's agentlet listens where
+    the reference's hook looks: ``/tmp``, not the cwd."""
+    monkeypatch.setenv("GRIT_TPU_SOCKET_DIR", "")
+    assert port_agentlet.socket_path(1) == ref_agentlet.socket_path(1) == \
+        "/tmp/grit-tpu-1.sock"

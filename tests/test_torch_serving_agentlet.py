@@ -252,6 +252,27 @@ def test_unknown_drain_mode_degrades_to_serialize(params, tmp_path,
     assert (adapter.drain_mode, adapter.drain_timeout_s) == ("drain", 2.5)
 
 
+@pytest.mark.parametrize("raw, warns", [("", False), ("abc", True)])
+def test_blank_or_malformed_drain_timeout_reads_the_default(
+        params, tmp_path, monkeypatch, caplog, raw, warns):
+    """The reference registry's read: an empty value is unset, a malformed
+    one warns and reads the default (30.0), never a crash."""
+    from grit_tpu.api import config as ref_config
+
+    monkeypatch.setenv("GRIT_SERVE_DRAIN_TIMEOUT_S", raw)
+    monkeypatch.setenv("GRIT_SERVE_DRAIN_MODE", "")
+    with caplog.at_level("WARNING"):
+        adapter = _adapter(params, tmp_path)
+    assert adapter.drain_timeout_s == 30.0 == \
+        ref_config.SERVE_DRAIN_TIMEOUT_S.get()
+    assert adapter.drain_mode == "serialize"
+    warned = [r for r in caplog.records
+              if "GRIT_SERVE_DRAIN_TIMEOUT_S" in r.getMessage()]
+    assert bool(warned) is warns
+    assert not [r for r in caplog.records
+                if "GRIT_SERVE_DRAIN_MODE" in r.getMessage()]
+
+
 # -- the agentlet hooks --------------------------------------------------------
 
 

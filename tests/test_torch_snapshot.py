@@ -16,7 +16,7 @@ import torch
 from grit_tpu.device import snapshot as jsnap
 from grit_tpu_torch import convert, metadata
 from grit_tpu_torch.device import snapshot as psnap
-from grit_tpu_torch.train.trainer import EmptyState, ScaleByAdamState
+from grit_tpu_torch.train.optim import EmptyState, ScaleByAdamState
 from grit_tpu_torch.tree import flatten_with_names
 
 

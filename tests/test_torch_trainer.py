@@ -1,8 +1,11 @@
 """The port's Trainer: Adam against optax, snapshot/restore, loading a JAX
-Trainer's state, the no-hidden-CPU rule and import hygiene."""
+Trainer's state, the frozen-trunk fine-tune (cross-restore both ways, the
+delta's dirty set, continuation from the delta), the no-hidden-CPU rule
+and import hygiene."""
 
 from __future__ import annotations
 
+import json
 import os
 import subprocess
 import sys
@@ -22,6 +25,7 @@ from grit_tpu.train import Trainer as JaxTrainer
 from grit_tpu_torch import convert
 from grit_tpu_torch.device import snapshot as psnap
 from grit_tpu_torch.models import llama
+from grit_tpu_torch.train import optim
 from grit_tpu_torch.train import trainer as ptrainer
 from grit_tpu_torch.tree import flatten_with_names
 from grit_tpu_torch.workload import llama_trainer
@@ -59,12 +63,12 @@ def test_adam_update_matches_optax():
     jparams = jax.tree.map(jnp.asarray, params)
     jstate = opt.init(jparams)
     pparams = convert.params_from_jax(params)
-    pstate = ptrainer.adam_init(pparams)
+    popt = optim.adam(lr)
+    pstate = popt.init(pparams)
     for g in grads:
         upd, jstate = opt.update(jax.tree.map(jnp.asarray, g), jstate, jparams)
         jparams = optax.apply_updates(jparams, upd)
-        pstate = ptrainer.adam_update_(pparams, convert.params_from_jax(g),
-                                       pstate, lr)
+        pstate = popt.apply_(pparams, convert.params_from_jax(g), pstate)
     for want, got in ((jparams, pparams), (jstate[0].mu, pstate[0].mu),
                       (jstate[0].nu, pstate[0].nu)):
         for (path, a), (name, b) in zip(
@@ -159,7 +163,10 @@ def test_port_imports_nothing_of_jax():
         import grit_tpu_torch
         names = [m.name for m in pkgutil.walk_packages(
             grit_tpu_torch.__path__, "grit_tpu_torch.")]
-        assert "grit_tpu_torch.workload" in names, names
+        for want in ("grit_tpu_torch.workload", "grit_tpu_torch.train.optim",
+                     "grit_tpu_torch.device.hook",
+                     "grit_tpu_torch.models.mnist"):
+            assert want in names, names
         for name in names:
             importlib.import_module(name)
         import chip_smoke
@@ -174,3 +181,110 @@ def test_port_imports_nothing_of_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("clean")
+
+
+# -- the frozen-trunk fine-tune (bench.py's migrated flagship) ---------------------------
+
+
+def _jax_frozen_trunk_trainer(jcfg):
+    def labels(params):
+        return jax.tree_util.tree_map_with_path(
+            lambda path, _: "train" if jax.tree_util.keystr(path).startswith(
+                ("['final_norm']", "['lm_head']")) else "freeze", params)
+
+    def batch_fn(rng):
+        toks = jax.random.randint(rng, (2, 129), 0, jcfg.vocab_size)
+        return toks[:, :-1], toks[:, 1:]
+
+    return JaxTrainer(
+        loss_fn=lambda p, b: jllama.loss_fn(jcfg, p, *b),
+        init_params=partial(jllama.init_params, jcfg), batch_fn=batch_fn,
+        optimizer=optax.multi_transform(
+            {"train": optax.sgd(0.5), "freeze": optax.set_to_zero()}, labels))
+
+
+def _frozen_port(seq=128):
+    return llama_trainer(_tiny(), batch=2, seq=seq, device="cpu",
+                         optimizer=optim.frozen_trunk(0.5))
+
+
+def test_frozen_trunk_snapshot_from_jax_restores_byte_identical(
+        tmp_path, monkeypatch):
+    """A JAX frozen-trunk Trainer's snapshot (params, step; an opt_state
+    without leaves) restores into the port's frozen-trunk Trainer byte for
+    byte, and the port trains on from it."""
+    monkeypatch.setattr(jsnap, "_chunk_writer",
+                        lambda path, durable: jsnap._PyChunkWriter(path, durable))
+    jt = _jax_frozen_trunk_trainer(jllama.LlamaConfig.tiny(
+        dim=256, n_heads=2, n_kv_heads=2, dtype=jnp.float32))
+    jt.run(2)
+    d = str(tmp_path / "jax-frozen")
+    jt.snapshot(d)
+    jstate = jax.tree.map(np.asarray, jt.state)
+    assert jax.tree_util.tree_leaves(jstate["opt_state"]) == []
+
+    pt = _frozen_port()
+    like = pt.abstract_state()
+    like.pop("rng")  # the stated divergence: JAX keeps a threefry key
+    got = psnap.restore_snapshot(d, like=like, device="cpu")
+    assert flatten_with_names(got["opt_state"]) == []
+    want = convert.params_from_jax(jstate["params"])
+    for (name, a), (_, b) in zip(flatten_with_names(got["params"]),
+                                 flatten_with_names(want)):
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+    assert int(got["step"]) == 2
+    pt._state = {**got, "rng": torch.tensor(0, dtype=torch.int64)}
+    assert all(np.isfinite(pt.run(2))) and pt.step == 4
+
+
+def test_frozen_trunk_snapshot_from_port_restores_into_jax(tmp_path):
+    """The other way: the port's frozen-trunk snapshot restores into the
+    JAX Trainer's abstract state (rng aside) byte for byte, and the JAX
+    Trainer steps on from it."""
+    pt = _frozen_port()
+    pt.run(2)
+    d = str(tmp_path / "port-frozen")
+    pt.snapshot(d)
+    jt = _jax_frozen_trunk_trainer(jllama.LlamaConfig.tiny(
+        dim=256, n_heads=2, n_kv_heads=2, dtype=jnp.float32))
+    like = {k: v for k, v in jt._abstract.items() if k != "rng"}
+    got = jsnap.restore_snapshot(d, like=like)
+    assert int(got["step"]) == 2
+    for (path, a), (name, b) in zip(
+            jax.tree_util.tree_flatten_with_path(got["params"])[0],
+            flatten_with_names(pt.state["params"])):
+        assert "['params']" + name == "['params']" + jax.tree_util.keystr(path)
+        assert np.array_equal(np.asarray(a), b.detach().numpy()), name
+    jt.state = {**got, "rng": jax.random.PRNGKey(0)}
+    assert all(np.isfinite(jt.run(1)))
+
+
+@pytest.mark.parametrize("hashes", [True, False], ids=["sha256", "crc-compare"])
+def test_frozen_trunk_delta_dirties_only_the_trainable_slice(tmp_path, hashes):
+    """``snapshot(base=, hashes=)``: the live pass at step 2, the blackout
+    delta at step 3. Its dirty chunks are ``final_norm``, ``lm_head`` and
+    the step counter; every trunk chunk is a reference into the base.
+    A fresh Trainer restored from the delta continues bit-identically."""
+    a = _frozen_port()
+    a.run(2)
+    base = str(tmp_path / "main-precopy")
+    a.snapshot(base, hashes=hashes)
+    a.run(1)
+    delta = str(tmp_path / "main")
+    a.snapshot(delta, base=base)
+    want = a.run(2)
+
+    manifest = json.load(open(os.path.join(delta, "MANIFEST.json")))
+    dirty = {rec["name"] for rec in manifest["arrays"]
+             for c in rec["chunks"] if not c.get("ref_dir")}
+    assert dirty == {"['params']['final_norm']", "['params']['lm_head']",
+                     "['step']"}
+    nbytes = {rec["name"]: sum(c["nbytes"] for c in rec["chunks"])
+              for rec in manifest["arrays"]}
+    assert manifest["dirty"]["bytes"] == sum(nbytes[n] for n in dirty)
+    assert manifest["dirty"]["totalBytes"] == sum(nbytes.values())
+    assert psnap.snapshot_delta_nbytes(delta) == manifest["dirty"]["bytes"]
+
+    b = _frozen_port()
+    assert b.restore(delta) == 3
+    assert b.run(2) == want
