@@ -42,21 +42,29 @@ non-zero without the final result line:
    24 rounds, and a second engine restores the snapshot and decodes 32
    rounds: tokens and final state bitwise equal to an uninterrupted
    engine's (a planted wrong position must fail that check); a lock-step
-   engine snapshots and continues bit-identically. Prefill and decode
-   times, a decode-round profile, snapshot size, the tag's zeroed share,
-   quiesce, dump, restore and blackout. The serving path launches none
-   of the three kernels (its attention is the plain one, as the
-   reference's), and the phase fails if one launched.
+   engine snapshots and continues bit-identically. Then the snapshot
+   fan-out: the source completes one request, is snapshotted, and two
+   clone engines restore that snapshot by post-copy (``fan_out_clones``),
+   each serving a new request on the free slot while its KV cache still
+   lands; after ``absorb_restored`` every stream's tokens equal the
+   source's. Prefill and decode times, a decode-round profile, snapshot
+   size, the tag's zeroed share, quiesce, dump, restore and blackout,
+   each clone's hot set and tail. The serving path launches none of the
+   three kernels (its attention is the plain one, as the reference's),
+   and the phase fails if one launched.
 7. io      — rates of the stages a dump and restore are made of
    (device-host copies, crc32, sha256, file write and read) on a buffer
    the size of the flagship's largest leaf.
 8. precopy — the reference agent's pre-copy and streamed-stage migration
    of phase 5's flagship, driven as the agent drives it: a live pass at
    step 2 (quiesce, hashed dump mirrored to a PVC directory, resume), the
-   blackout at step 3 (quiesce with a dump spec, a delta against the live
-   pass, mirrored), a re-dump of the parked state against the delta that
-   must write nothing, both mirrors' COMMIT identities against the
-   primaries' manifests, then a streamed stage in the agent's journal
+   blackout at step 3 (quiesce with a dump spec: a boundary clone written
+   to ``<hbm>-spec`` as a delta against the live pass while the loop
+   steps on to its park; the dump validates it and re-ships, mirrored,
+   what changed; it must answer ``validated``), a re-dump of the parked
+   state against the delta that must write nothing, the mirrors' COMMIT
+   identities against the primaries' manifests, then a streamed stage of
+   the three trees in the agent's journal
    format: metadata staged, a destination spawned, the data streamed in
    64 MiB pieces only once it prints ``RESTORE_BEGIN``. Its losses after
    the cut must equal phase 5's uninterrupted run's bit for bit, its
@@ -70,16 +78,20 @@ non-zero without the final result line:
    kernel's launches a step (its trunk runs no backward, so only the
    forward may launch); then it is migrated through the
    port's node hook, ``TpuDeviceCheckpointHook``, with pre-copy and
-   speculation on: ``predump`` at step 2 (its speculative probe must be
-   refused and fall back, loudly, to the parked pass), the blackout delta
-   after step 3 (its dirty chunks must be exactly ``final_norm``,
-   ``lm_head`` and the step), the kernel libraries the snapshot carries
-   uploaded beside the mirrors, a streamed stage, and a destination with
-   an empty ``GRIT_TPU_COMPILE_CACHE`` that must seed the three libraries,
-   compile none and continue bit-identically. Then the harness's MNIST
-   workload (``--model mnist``) migrated once through ``AutoDeviceHook``,
-   bitwise, and a pid without an agentlet skipped loudly. ``[frozen]``
-   lines.
+   speculation on: ``predump`` at step 2 (the non-parking probe: it must
+   answer ``probe`` with no fallback, and the steps the source took
+   meanwhile are printed), the blackout (it must answer ``validated``;
+   the leaves written since the live pass must be exactly ``final_norm``,
+   ``lm_head`` and the step, and the re-ship must write those the last
+   step touched), the kernel libraries the snapshot carries uploaded
+   beside the mirrors, a streamed stage, and a destination with an empty
+   ``GRIT_TPU_COMPILE_CACHE`` that must seed the three libraries, compile
+   none and continue bit-identically; a second destination restores the
+   staged tree with ``GRIT_RESTORE_POSTCOPY=1`` and must continue
+   bitwise too (hot set, READY, first step and tail printed). Then the
+   harness's MNIST workload (``--model mnist``) migrated once through
+   ``AutoDeviceHook``, bitwise, and a pid without an agentlet skipped
+   loudly. ``[frozen]`` lines.
 
 The second-to-last lines are the kernels' JSON record (with the serving
 phase's numbers under ``serving``, phase 8's under ``precopy`` and phase
@@ -781,6 +793,10 @@ SERVE_CUT = 24             # rounds before the migration
 SERVE_AFTER = 32           # rounds the restored engine decodes
 LOCKSTEP = (2, 512, 16)    # batch, prompt tokens, tokens generated
 PROFILE_ROUNDS = 4
+FANOUT_CLONES = 2          # post-copy clones of the source's snapshot
+FANOUT_FREE = 2            # the source's slot whose request completes first
+FANOUT_PROMPT = 40         # tokens of the request each clone serves first
+FANOUT_ROUNDS = 8          # tokens of every stream compared after the absorb
 
 
 def zipf_tokens(torch, n: int, vocab: int, gen) -> "torch.Tensor":
@@ -883,6 +899,83 @@ def profile_decode(torch, eng, rounds: int) -> dict:
     ops.sort(key=lambda x: -x[1])
     return {"wall_ms": wall / rounds * 1e3,
             "device_ms": sum(ms for _, ms in ops), "top": ops[:8]}
+
+
+def serving_fanout(torch, serving, src, cfg, bcfg, dev, work: str,
+                   sync) -> dict:
+    """The snapshot fan-out: ``src`` (the migration's source, parked at the
+    cut with every slot in flight) completes one request (slot
+    ``FANOUT_FREE`` is released), is snapshotted, admits a new request into
+    the freed slot and decodes ``FANOUT_ROUNDS`` rounds. Two clone engines
+    restore that snapshot by post-copy (``fan_out_clones``), each serves
+    the same request on the free slot while its KV tail lands, absorbs
+    the restored streams, and decodes: every stream's tokens must equal
+    the source's. The clones are freed before this returns."""
+    from grit_tpu_torch.api import config  # noqa: PLC0415
+    from grit_tpu_torch.device.snapshot import SnapshotManifest  # noqa: PLC0415
+    from grit_tpu_torch.serving import fan_out_clones  # noqa: PLC0415
+
+    src.release(FANOUT_FREE)
+    fan_snap = os.path.join(work, "fanout-snap")
+    src.snapshot(fan_snap)
+    prompt = zipf_tokens(torch, FANOUT_PROMPT, cfg.vocab_size,
+                         torch.Generator().manual_seed(FANOUT_PROMPT))
+    new = src.submit(prompt)
+    if new != FANOUT_FREE:
+        raise AssertionError(f"the new request took slot {new}")
+    want: dict = {s: [] for s in range(SERVE_SLOTS)}
+    for _ in range(FANOUT_ROUNDS):
+        for s, tok in src.step().items():
+            want[s].append(tok)
+    sizes = [sum(c["nbytes"] for c in rec["chunks"])
+             for rec in SnapshotManifest.load(fan_snap).arrays]
+    hot_cut = config.RESTORE_POSTCOPY_HOT_MB.get_float() * 1e6
+    cold = [n for n in sizes if n > hot_cut]
+    clones = [serving.ContinuousBatchingEngine(cfg, src.params, bcfg,
+                                               device=dev)
+              for _ in range(FANOUT_CLONES)]
+    legs = fan_out_clones(fan_snap, clones)
+    out = []
+    try:
+        firsts = []
+        for leg in legs:
+            if leg.error is not None:
+                raise RuntimeError(f"clone {leg.ordinal} failed to restore: "
+                                   f"{leg.error!r}")
+            free = leg.engine.free_slots()
+            if free != [FANOUT_FREE]:
+                raise AssertionError(f"clone {leg.ordinal}: free slots {free} "
+                                     f"while the tail lands, want "
+                                     f"[{FANOUT_FREE}]")
+            firsts.append(leg.serve_first(prompt))
+            sync()
+            if not leg.served_before_tail:
+                raise AssertionError(f"clone {leg.ordinal}: its first token "
+                                     "came after the KV tail had landed")
+        for leg, first in zip(legs, firsts):
+            leg.finish()
+            got: dict = {s: [] for s in range(SERVE_SLOTS)}
+            got[FANOUT_FREE].append(first)
+            while min(len(v) for v in got.values()) < FANOUT_ROUNDS:
+                for s, tok in leg.engine.step().items():
+                    got[s].append(tok)
+            got = {s: v[:FANOUT_ROUNDS] for s, v in got.items()}
+            if got != want:
+                raise AssertionError(f"clone {leg.ordinal} diverged from the "
+                                     f"source: {got} vs {want}")
+            out.append({"ordinal": leg.ordinal,
+                        "hot_placed_s": leg.hot_placed_s,
+                        "first_token_s": leg.first_token_s,
+                        "tail_s": leg.handle.tail_s,
+                        "served_before_tail": leg.served_before_tail})
+    finally:
+        leg = None
+        del clones, legs, leg
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        shutil.rmtree(fan_snap, ignore_errors=True)
+    return {"legs": out, "cold_bytes": sum(cold),
+            "hot_bytes": sum(sizes) - sum(cold)}
 
 
 def phase_serving(torch, fa, work: str, card: str, *, seed: int,
@@ -1047,6 +1140,7 @@ def phase_serving(torch, fa, work: str, card: str, *, seed: int,
                              "bit-identically")
     shutil.rmtree(snap)
     shutil.rmtree(lsnap)
+    fanout = serving_fanout(torch, serving, src, cfg, bcfg, dev, work, sync)
     launches = dict(fa.LAUNCHES)
     if any(launches.values()):
         raise AssertionError(f"the serving path launched flash kernels "
@@ -1095,7 +1189,19 @@ def phase_serving(torch, fa, work: str, card: str, *, seed: int,
     log("serve", f"lock-step: batch {B}, {S}-token prompt, {n_tok} tokens, "
                  f"snapshot after {n_tok // 2}: continues bit-identically; "
                  f"flash kernel launches on the serving path {launches}")
-    return {"flash_launches": launches, "decode_round_ms": steady,
+    for leg in fanout["legs"]:
+        log("serve", f"post-copy clone {leg['ordinal']}: hot set placed "
+                     f"{leg['hot_placed_s']:.4f} s, first token of a new "
+                     f"request {leg['first_token_s']:.4f} s with the KV tail "
+                     f"still landing, tail {leg['tail_s']:.3f} s "
+                     f"({fanout['cold_bytes']} cold bytes) [{card}]")
+    log("serve", f"fan-out of {FANOUT_CLONES} post-copy clones of a snapshot "
+                 f"with slot {FANOUT_FREE} free: after absorb_restored every "
+                 f"stream's next {FANOUT_ROUNDS} tokens (the migrated ones "
+                 f"and the request each clone served on the free slot) "
+                 f"bitwise equal to the source's; hot set "
+                 f"{fanout['hot_bytes']} bytes")
+    return {"flash_launches": launches, "fanout": fanout, "decode_round_ms": steady,
             "tokens_per_s": SERVE_SLOTS / steady * 1e3,
             "prefill_ms": {str(b): ms for b, ms in prefill_ms.items()},
             "snapshot_bytes": nbytes, "kv_zeroed_fraction": zeroed,
@@ -1248,14 +1354,16 @@ def mirror_commit_files(d: str) -> dict:
 def phase_precopy(work: str, card: str, ref_losses: dict) -> dict:
     """The reference agent's pre-copy and streamed-stage migration of the
     flagship trainer, driven here as the agent drives it: a live pass
-    (quiesce, hashed dump mirrored to the PVC, resume), the blackout delta
-    against it (mirrored), a zero-dirty re-dump, the mirrors' COMMIT
-    identities, then a destination that restores while the data files
-    still stream in, and a planted ``failed`` journal line it must
-    refuse."""
+    (quiesce, hashed dump mirrored to the PVC, resume), the blackout (a
+    quiesce with a dump spec, whose concurrent pass writes a boundary
+    clone to ``-spec`` against the live pass; the dump must validate it
+    and re-ship, mirrored, what changed), a zero-dirty re-dump, the
+    mirrors' COMMIT identities, then a destination that restores while
+    the three trees' data files still stream in, and a planted
+    ``failed`` journal line it must refuse."""
     from grit_tpu_torch.device.agentlet import ToggleClient  # noqa: PLC0415
     from grit_tpu_torch.device.snapshot import (  # noqa: PLC0415
-        DATA_FILE, INDEX_FILE, MANIFEST_FILE, SnapshotManifest,
+        DATA_FILE, INDEX_FILE, MANIFEST_FILE, SPEC_SUFFIX, SnapshotManifest,
         snapshot_delta_nbytes, snapshot_exists, snapshot_nbytes)
     from grit_tpu_torch.metadata import manifest_data_file_signature  # noqa: PLC0415
 
@@ -1264,10 +1372,12 @@ def phase_precopy(work: str, card: str, ref_losses: dict) -> dict:
     socks = os.path.join(work, "socks-precopy")
     os.makedirs(socks)
     host, pvc, dst_root = (os.path.join(work, n) for n in ("host", "pvc", "dst"))
+    # Speculation on: the blackout's validated re-ship (delta) references
+    # its concurrent pass (spec), which deltas against the live pass (base).
     trees = {"base": "main-precopy/hbm", "delta": "main/hbm",
-             "redump": "main-redump/hbm"}
+             "spec": "main/hbm" + SPEC_SUFFIX, "redump": "main-redump/hbm"}
     at = {k: os.path.join(host, rel) for k, rel in trees.items()}
-    env = {"GRIT_TPU_SOCKET_DIR": socks}
+    env = {"GRIT_TPU_SOCKET_DIR": socks, "GRIT_SNAP_SPECULATE": "1"}
     procs: list[Workload] = []
     try:
         src = Workload(1000, env)
@@ -1295,8 +1405,10 @@ def phase_precopy(work: str, card: str, ref_losses: dict) -> dict:
         resp = client.dump(at["delta"], base=at["base"],
                            mirror=os.path.join(pvc, trees["delta"]))
         t_dumped = time.perf_counter()
-        if resp.get("speculative", {}).get("outcome") != "degraded":
-            raise AssertionError(f"quiesce with a dump spec: {resp}")
+        spec = resp.get("speculative", {})
+        if spec.get("outcome") != "validated":
+            raise AssertionError(f"the blackout's speculation did not "
+                                 f"validate: {spec}")
         blackout_legs = resp["legs"]
         # Reuse-path check while the source is still parked (outside the
         # blackout's account).
@@ -1311,7 +1423,13 @@ def phase_precopy(work: str, card: str, ref_losses: dict) -> dict:
 
     sizes = {k: snapshot_nbytes(d) for k, d in at.items()}
     dirty = {k: json.load(open(os.path.join(at[k], MANIFEST_FILE))).get("dirty")
-             for k in ("delta", "redump")}
+             for k in ("delta", "spec", "redump")}
+    metas_at = {k: SnapshotManifest.load(at[k]).meta["step"]
+                for k in ("spec", "delta")}
+    if spec["dirty_bytes"] != dirty["delta"]["bytes"] or \
+            spec["clean_bytes"] + spec["dirty_bytes"] != sizes["delta"]:
+        raise AssertionError(f"the speculative accounting {spec} disagrees "
+                             f"with the re-ship's manifest {dirty['delta']}")
     re_chunks = [c for rec in SnapshotManifest.load(at["redump"]).arrays
                  for c in rec["chunks"]]
     if dirty["redump"]["bytes"] != 0 or not all(c.get("ref_dir")
@@ -1321,7 +1439,7 @@ def phase_precopy(work: str, card: str, ref_losses: dict) -> dict:
     if snapshot_delta_nbytes(at["delta"]) != dirty["delta"]["bytes"]:
         raise AssertionError("the delta's dirty block disagrees with its chunks")
     mirrors = {}
-    for k in ("base", "delta"):
+    for k in ("base", "spec", "delta"):
         mirror = os.path.join(pvc, trees[k])
         if not snapshot_exists(mirror):
             raise AssertionError(f"the {k} mirror did not commit")
@@ -1337,9 +1455,10 @@ def phase_precopy(work: str, card: str, ref_losses: dict) -> dict:
 
     # The streamed stage: metadata first, the destination spawned, the
     # data streamed only once it has begun its restore.
-    metas = [f"{trees[k]}/{n}" for k in ("delta", "base")
+    # The -spec sibling ships with the re-ship, as the agent ships it.
+    metas = [f"{trees[k]}/{n}" for k in ("delta", "spec", "base")
              for n in ("COMMIT", MANIFEST_FILE, INDEX_FILE)]
-    datas = [f"{trees[k]}/{DATA_FILE}" for k in ("delta", "base")]
+    datas = [f"{trees[k]}/{DATA_FILE}" for k in ("delta", "spec", "base")]
 
     def stage(stderr_path=None, prestaged=()):
         """The destination spawned over a fresh stage. ``prestaged`` data
@@ -1388,7 +1507,7 @@ def phase_precopy(work: str, card: str, ref_losses: dict) -> dict:
 
     try:
         runs = {"streamed": migrate_in(),
-                "base prestaged": migrate_in(prestaged=(datas[1],))}
+                "base prestaged": migrate_in(prestaged=(datas[2],))}
 
         # Planted fault: the stage again, its stager dying a quarter of
         # the way through the delta's data, must be refused.
@@ -1435,14 +1554,27 @@ def phase_precopy(work: str, card: str, ref_losses: dict) -> dict:
     for run in runs.values():
         run["blackout_s"] = (t_dumped - t_quiesce) + kill_s + run["stage_to_first_s"]
     log("precopy", f"trees: base {sizes['base']} B (live pass at step "
-                   f"{live_step}, sha256 per chunk), delta {sizes['delta']} B "
-                   f"with {dirty['delta']['bytes']} dirty "
-                   f"({dirty['delta']['bytes'] / dirty['delta']['totalBytes']:.4f}"
+                   f"{live_step}, sha256 per chunk); speculative pass "
+                   f"{sizes['spec']} B (clone at step {metas_at['spec']}) with "
+                   f"{dirty['spec']['bytes']} dirty against the base "
+                   f"({dirty['spec']['chunks']} of {dirty['spec']['totalChunks']}"
+                   f" chunks); validated re-ship {sizes['delta']} B (parked at "
+                   f"step {metas_at['delta']}) with {dirty['delta']['bytes']} "
+                   f"dirty ({dirty['delta']['bytes'] / dirty['delta']['totalBytes']:.4f}"
                    f", {dirty['delta']['chunks']} of "
                    f"{dirty['delta']['totalChunks']} chunks), re-dump "
                    f"{sizes['redump']} B with {dirty['redump']['bytes']} dirty "
                    f"(every chunk a reference)")
+    log("precopy", f"speculation: outcome {spec['outcome']}, overlap_s "
+                   f"{spec['overlap_s']}, validate_s {spec['validate_s']}, "
+                   f"clean_bytes {spec['clean_bytes']}, dirty_bytes "
+                   f"{spec['dirty_bytes']}; device memory {spec.get('hbm')}; "
+                   f"blackout dump {dump_s:.3f} s, against 15.652 s for "
+                   f"the blackout delta without speculation in an earlier "
+                   f"run on an NVIDIA H100 80GB HBM3 at 700.00 W [{card}]")
     for label, secs, legs in (("live pass", live_s, live),
+                              ("speculative pass (inside the dump's join)",
+                               spec["overlap_s"], spec["legs"]),
                               ("blackout dump", dump_s, blackout_legs),
                               ("re-dump", redump_s, redump)):
         log("precopy", f"{label}: {secs:.3f} s = "
@@ -1450,8 +1582,9 @@ def phase_precopy(work: str, card: str, ref_losses: dict) -> dict:
                        f"({legs['bytes']} B written); seconds "
                        f"{fmt_legs(legs, DUMP_LEGS)}; through {legs['staging']}; "
                        f"mirror committed {legs['mirror']} [{card}]")
-    log("precopy", f"mirrors: base {mirrors['base']} B, delta "
-                   f"{mirrors['delta']} B, both committed; each COMMIT's "
+    log("precopy", f"mirrors: base {mirrors['base']} B, spec "
+                   f"{mirrors['spec']} B, delta {mirrors['delta']} B, all "
+                   f"committed; each COMMIT's "
                    f"data-h0000.bin size and signature equal the primary "
                    f"MANIFEST's")
     for label, run in runs.items():
@@ -1479,7 +1612,9 @@ def phase_precopy(work: str, card: str, ref_losses: dict) -> dict:
                    f"line refused (rc {frc}, SnapshotIntegrityError) [{card}]")
     return {"bytes": sizes, "dirty": dirty, "mirror_bytes": mirrors,
             "live_s": live_s, "dump_s": dump_s, "redump_s": redump_s,
+            "speculative": {k: v for k, v in spec.items() if k != "legs"},
             "legs": {"live": live, "blackout": blackout_legs,
+                     "speculative": spec["legs"],
                      "redump": redump,
                      "restore": runs["streamed"]["pipe"],
                      "restore_base_prestaged": runs["base prestaged"]["pipe"]},
@@ -1492,7 +1627,7 @@ def phase_precopy(work: str, card: str, ref_losses: dict) -> dict:
 
 # -- phase 9 -------------------------------------------------------------------
 
-FROZEN_STEPS = 8       # the uninterrupted frozen-trunk run and the restored one
+FROZEN_AFTER = 5       # steps the restored frozen-trunk runs take past the cut
 MNIST_ARGS = ["--model", "mnist"]  # the harness workload's twin (rehearsal:
 MNIST_AFTER = 5                    # ... + ["--device", "cpu"])
 TRAINABLE = ("['params']['final_norm']", "['params']['lm_head']")
@@ -1538,21 +1673,42 @@ class HookWarnings:
             self.handler)
 
 
+def _chain_names(d: str, base: str) -> tuple[set, set]:
+    """Leaf names of the committed delta ``d`` whose bytes lie outside
+    ``base`` (written since it), and those ``d`` wrote itself."""
+    from grit_tpu_torch.device.snapshot import SnapshotManifest  # noqa: PLC0415
+
+    since, own = set(), set()
+    for rec in SnapshotManifest.load(d).arrays:
+        for c in rec["chunks"]:
+            at = os.path.normpath(os.path.join(d, c.get("ref_dir", ".")))
+            if at != os.path.normpath(base):
+                since.add(rec["name"])
+            if not c.get("ref_dir"):
+                own.add(rec["name"])
+    return since, own
+
+
 def phase_frozen(work: str, card: str, *, train: dict) -> dict:
     """The bench's migrated flagship, the frozen-trunk fine-tune (sgd 0.5
     on ``final_norm`` and ``lm_head``, the trunk frozen), migrated as the
-    reference agent does with pre-copy on, through the port's
-    ``TpuDeviceCheckpointHook``: ``predump`` at step 2 (speculation on: its
-    probe is refused and the hook falls back to the parked, hashed,
-    mirrored pass), the blackout delta at step 3, the carried kernel
-    libraries uploaded beside the mirrors, a streamed stage into a
-    destination whose ``GRIT_TPU_COMPILE_CACHE`` is empty, which restores
-    and continues; the source's kernel cache is phase 2's build directory.
-    Then the harness's MNIST workload, migrated through ``AutoDeviceHook``.
-    ``train``: phase 4's record, whose step times this phase prints."""
+    reference agent does with pre-copy and speculation on, through the
+    port's ``TpuDeviceCheckpointHook``: ``predump`` at step 2 (the
+    non-parking probe: the loop steps through it), the blackout (a
+    quiesce whose concurrent pass writes a boundary clone to ``-spec``
+    against the probe, then the validated re-ship of what the last step
+    touched), the carried kernel libraries uploaded beside the mirrors, a
+    streamed stage of all three trees into a destination whose
+    ``GRIT_TPU_COMPILE_CACHE`` is empty, which restores and continues; then
+    a second destination restores the staged tree by post-copy
+    (``GRIT_RESTORE_POSTCOPY=1``). The uninterrupted run comes last, long
+    enough to pass the cut. Then the harness's MNIST workload, migrated
+    through ``AutoDeviceHook``. ``train``: phase 4's record, whose step
+    times this phase prints."""
+    from grit_tpu_torch.device.agentlet import ToggleClient  # noqa: PLC0415
     from grit_tpu_torch.device.hook import TpuDeviceCheckpointHook  # noqa: PLC0415
     from grit_tpu_torch.device.snapshot import (  # noqa: PLC0415
-        DATA_FILE, INDEX_FILE, MANIFEST_FILE, SnapshotManifest,
+        DATA_FILE, INDEX_FILE, MANIFEST_FILE, SPEC_SUFFIX, SnapshotManifest,
         snapshot_delta_nbytes, snapshot_exists, snapshot_nbytes)
     from grit_tpu_torch.ops import build  # noqa: PLC0415
     from grit_tpu_torch.ops.build import COMPILE_CACHE_SUBDIR  # noqa: PLC0415
@@ -1568,29 +1724,38 @@ def phase_frozen(work: str, card: str, *, train: dict) -> dict:
     env = {"GRIT_TPU_SOCKET_DIR": socks, "GRIT_TPU_COMPILE_CACHE": cache_src,
            "GRIT_SNAP_SPECULATE": "1"}
     args = WORKLOAD_ARGS + ["--optimizer", "frozen-trunk"]
-    trees = {"base": "main-precopy/hbm", "delta": "main/hbm"}
+    trees = {"base": "main-precopy/hbm", "delta": "main/hbm",
+             "spec": "main/hbm" + SPEC_SUFFIX}
     at = {k: os.path.join(host, rel) for k, rel in trees.items()}
     saved_env = {k: os.environ.get(k) for k in env}
     os.environ.update(env)  # the hook's process: the agent's environment
     warnings = HookWarnings()
+    probes: list[dict] = []
+    client_dump = ToggleClient.dump
+
+    def kept_dump(self, *a, **kw):
+        resp = client_dump(self, *a, **kw)
+        if kw.get("speculative"):
+            probes.append(resp)
+        return resp
+
+    ToggleClient.dump = kept_dump  # the probe's response, for its outcome
     procs: list[Workload] = []
     try:
-        ref = Workload(FROZEN_STEPS, env, args=args)
-        procs.append(ref)
-        ref.finish()
-        ref_losses, ref_kernels = ref.losses(), ref.kernels()
-
-        src = Workload(1000, env, args=args)
+        src = Workload(10 ** 6, env, args=args)
         procs.append(src)
         src.wait_for("READY")
         src.wait_for(rf"STEP {PRECOPY_LIVE} ")
         hook = TpuDeviceCheckpointHook(timeout=600)
+        status = ToggleClient(src.proc.pid, path=os.path.join(
+            socks, f"grit-tpu-{src.proc.pid}.sock"), timeout=600)
+        step_before = status.status()["step"]
         t0 = time.perf_counter()
         hook.predump(src.proc.pid, os.path.dirname(at["base"]),
                      mirror=os.path.join(pvc, os.path.dirname(trees["base"])))
         live_s = time.perf_counter() - t0
-        fallback = [m for m in warnings.messages
-                    if "falling back to the parked pre-copy pass" in m]
+        step_after = status.status()["step"]
+        status.close()
         src.wait_for(rf"STEP {MIGRATE_CUT} ")
         calls = HookCalls(hook._client(src.proc.pid))
         t_quiesce = time.perf_counter()
@@ -1606,6 +1771,7 @@ def phase_frozen(work: str, card: str, *, train: dict) -> dict:
                         os.path.join(pvc, trees["delta"], COMPILE_CACHE_SUBDIR))
         t_uploaded = time.perf_counter()
     finally:
+        ToggleClient.dump = client_dump
         warnings.close()
         for k, v in saved_env.items():
             if v is None:
@@ -1615,41 +1781,56 @@ def phase_frozen(work: str, card: str, *, train: dict) -> dict:
         for p in procs:
             p.kill()
 
-    if len(fallback) != 1 or "speculative probe" not in fallback[0]:
-        raise AssertionError(f"the predump's speculative probe did not fall "
-                             f"back loudly: {warnings.messages}")
+    if warnings.messages:
+        raise AssertionError(f"the hook warned: {warnings.messages}")
+    if [r.get("speculative", {}).get("outcome") for r in probes] != ["probe"]:
+        raise AssertionError(f"the predump was not served as a probe: {probes}")
+    probe = probes[0]
     resp = calls.dump_resp
-    if resp.get("speculative", {}).get("outcome") != "degraded":
-        raise AssertionError(f"the blackout quiesce carried no dump spec: {resp}")
+    spec = resp.get("speculative", {})
+    if spec.get("outcome") != "validated":
+        raise AssertionError(f"the blackout's speculation did not validate: "
+                             f"{spec}")
     base_chunks = [c for rec in SnapshotManifest.load(at["base"]).arrays
                    for c in rec["chunks"]]
     if not all("sha256" in c for c in base_chunks):
         raise AssertionError("the live pass was not hashed")
     manifest = json.load(open(os.path.join(at["delta"], MANIFEST_FILE)))
     cut = manifest["meta"]["step"]
-    dirty_names = {rec["name"] for rec in manifest["arrays"]
-                   for c in rec["chunks"] if not c.get("ref_dir")}
-    if dirty_names != set(TRAINABLE) | {"['step']"}:
-        raise AssertionError(f"the blackout delta's dirty chunks are "
-                             f"{sorted(dirty_names)}, not the trainable "
-                             f"slice and the step")
+    spec_step = SnapshotManifest.load(at["spec"]).meta["step"]
+    trainable = set(TRAINABLE) | {"['step']"}
+    since, dirty_names = _chain_names(at["delta"], at["base"])
+    if since != trainable:
+        raise AssertionError(f"leaves written since the live pass: "
+                             f"{sorted(since)}, not the trainable slice and "
+                             f"the step")
+    want_dirty = trainable if cut > spec_step else set()
+    if dirty_names != want_dirty:
+        raise AssertionError(f"the re-ship (parked at step {cut}, clone at "
+                             f"{spec_step}) wrote {sorted(dirty_names)}, "
+                             f"want {sorted(want_dirty)}")
     dirty = manifest["dirty"]
-    if snapshot_delta_nbytes(at["delta"]) != dirty["bytes"]:
-        raise AssertionError("the delta's dirty block disagrees with its chunks")
+    if snapshot_delta_nbytes(at["delta"]) != dirty["bytes"] or \
+            spec["dirty_bytes"] != dirty["bytes"]:
+        raise AssertionError(f"the re-ship's dirty accounting disagrees: "
+                             f"{dirty} vs {spec}")
     for k in trees:
         if not snapshot_exists(os.path.join(pvc, trees[k])):
             raise AssertionError(f"the {k} mirror did not commit")
     if carried != libs:
         raise AssertionError(f"the snapshot carried {carried}, not {libs}")
     sizes = {k: snapshot_nbytes(d) for k, d in at.items()}
+    spec_dirty = json.load(open(os.path.join(at["spec"], MANIFEST_FILE)))["dirty"]
     shutil.rmtree(host)
 
     # The streamed stage: metadata and the carried libraries first, the
     # destination spawned, the data streamed once it begins its restore.
-    metas = [f"{trees[k]}/{n}" for k in ("delta", "base")
+    # The -spec sibling ships with the re-ship, as the agent ships it.
+    metas = [f"{trees[k]}/{n}" for k in ("delta", "spec", "base")
              for n in ("COMMIT", MANIFEST_FILE, INDEX_FILE)]
     metas += [f"{trees['delta']}/{COMPILE_CACHE_SUBDIR}/{n}" for n in libs]
-    datas = [f"{trees[k]}/{DATA_FILE}" for k in ("delta", "base")]
+    datas = [f"{trees[k]}/{DATA_FILE}" for k in ("delta", "spec", "base")]
+    n_steps = cut + FROZEN_AFTER
     dst_env = {**env, "GRIT_TPU_COMPILE_CACHE": dst_cache,
                "GRIT_TPU_RESTORE_DIR": os.path.join(dst_root, trees["delta"])}
     try:
@@ -1659,7 +1840,7 @@ def phase_frozen(work: str, card: str, *, train: dict) -> dict:
             stager.stage_file(rel)
         for rel in datas:
             stager.preallocate(rel)
-        dst = Workload(FROZEN_STEPS, dst_env, args=args)
+        dst = Workload(n_steps, dst_env, args=args)
         procs.append(dst)
         dst.wait_for("RESTORE_BEGIN")
         t_begin = time.perf_counter()
@@ -1677,17 +1858,43 @@ def phase_frozen(work: str, card: str, *, train: dict) -> dict:
         t_first = time.perf_counter()
         dst.finish()
         dst_kernels = dst.kernels()
+
+        # The post-copy destination, from the staged tree: READY follows
+        # the hot set, the first step joins the tail.
+        pc = Workload(n_steps, {**dst_env, "GRIT_RESTORE_POSTCOPY": "1"},
+                      args=args)
+        procs.append(pc)
+        pc_restored = int(pc.wait_for(r"RESTORED (\d+)").group(1))
+        pc_hot_s = float(pc.wait_for(r"RESTORE_SECONDS (\S+)").group(1))
+        pc_pipe = json.loads(pc.wait_for(r"RESTORE_PIPELINE (.+)").group(1))
+        pc.wait_for("READY")
+        pc_ready = time.perf_counter()
+        pc.wait_for(r"STEP \d+ ")
+        pc_first = time.perf_counter()
+        pc_tail = json.loads(pc.wait_for(r"RESTORE_POSTCOPY (.+)").group(1))
+        pc.finish()
+        pc_kernels = pc.kernels()
+
+        # The uninterrupted run, long enough to pass the cut.
+        ref = Workload(n_steps, env, args=args)
+        procs.append(ref)
+        ref.finish()
+        ref_losses, ref_kernels = ref.losses(), ref.kernels()
     finally:
         for p in procs:
             p.kill()
         shutil.rmtree(pvc, ignore_errors=True)
         shutil.rmtree(dst_root, ignore_errors=True)
 
-    got = dst.losses()
+    got, pc_got = dst.losses(), pc.losses()
     want = {s: x for s, x in ref_losses.items() if s > cut}
-    if restored != cut or not want or got != want:
+    if restored != cut or len(want) != FROZEN_AFTER or got != want:
         raise AssertionError(f"restored step {restored} (cut {cut}); losses "
                              f"after the cut {got}, uninterrupted {want}")
+    if pc_restored != cut or pc_got != want or not pc_pipe.get("postcopy"):
+        raise AssertionError(f"post-copy destination: restored {pc_restored} "
+                             f"(cut {cut}), losses {pc_got} vs {want}, "
+                             f"pipeline {pc_pipe}")
     if not all(math.isfinite(x) for x in ref_losses.values()):
         raise AssertionError(f"non-finite frozen-trunk loss: {ref_losses}")
     in_cache = sorted(os.listdir(dst_cache))
@@ -1695,7 +1902,7 @@ def phase_frozen(work: str, card: str, *, train: dict) -> dict:
         raise AssertionError(
             f"the destination seeded {seeded} files, holds {in_cache} and "
             f"compiled {dst_kernels['built']}: want {libs} seeded, none built")
-    per_step = {n: ref_kernels["launches"][n] / FROZEN_STEPS for n in KERNELS}
+    per_step = {n: ref_kernels["launches"][n] / n_steps for n in KERNELS}
     if per_step != {"flash_fwd": LAYERS, "flash_bwd_dq": 0,
                     "flash_bwd_dkv": 0}:
         raise AssertionError(f"frozen-trunk launches a step {per_step}")
@@ -1712,22 +1919,40 @@ def phase_frozen(work: str, card: str, *, train: dict) -> dict:
     # The tree checks between the upload and the stage are this script's.
     blackout_s = (t_uploaded - t_quiesce) + (t_first - t_stage)
     log("frozen", f"frozen-trunk flagship (sgd 0.5 on final_norm and "
-                  f"lm_head): losses {[ref_losses[s] for s in sorted(ref_losses)]}"
-                  f"; step {train['frozen_step_s']:.4f} s against Adam's "
+                  f"lm_head): losses of the uninterrupted run "
+                  f"{[ref_losses[s] for s in sorted(ref_losses)]}; step "
+                  f"{train['frozen_step_s']:.4f} s against Adam's "
                   f"{train['step_s']:.4f} s (both phase 4's, in process, "
                   f"median after the first) [{card}]")
     log("frozen", f"launches a step, uninterrupted run: {per_step} "
-                  f"({ref_kernels['launches']} in {FROZEN_STEPS} steps); "
-                  f"destination {dst_kernels['launches']} in "
-                  f"{len(got)} steps")
-    log("frozen", f"live pass (hook predump, probe refused, parked fallback) "
-                  f"{live_s:.3f} s, base {sizes['base']} B hashed and "
-                  f"mirrored [{card}]")
-    log("frozen", f"blackout dump {dump_s:.3f} s (quiesce {quiesce_s:.4f} s): "
-                  f"delta {sizes['delta']} B, dirty {dirty['bytes']} B of "
-                  f"{dirty['totalBytes']} ({share:.4f}; {dirty['chunks']} of "
-                  f"{dirty['totalChunks']} chunks: {sorted(dirty_names)}); "
-                  f"seconds {fmt_legs(resp['legs'], DUMP_LEGS)} [{card}]")
+                  f"({ref_kernels['launches']} in {n_steps} steps); "
+                  f"destinations {dst_kernels['launches']} and "
+                  f"{pc_kernels['launches']} in {len(got)} steps each")
+    log("frozen", f"live pass (hook predump, the non-parking probe) "
+                  f"{live_s:.3f} s: the source completed "
+                  f"{step_after - step_before} steps during it (steps "
+                  f"{step_before} → {step_after}; "
+                  f"{live_s / max(1, step_after - step_before):.4f} s a step "
+                  f"while the pass ran); base {sizes['base']} B "
+                  f"hashed and mirrored; writer legs "
+                  f"{fmt_legs(probe['legs'], DUMP_LEGS)}; device memory "
+                  f"{probe['speculative'].get('hbm')} [{card}]")
+    log("frozen", f"blackout dump {dump_s:.3f} s (quiesce {quiesce_s:.4f} s, "
+                  f"with the boundary clone and the pass's launch): "
+                  f"speculation {spec['outcome']}, overlap_s "
+                  f"{spec['overlap_s']}, validate_s {spec['validate_s']}, "
+                  f"clean_bytes {spec['clean_bytes']}, dirty_bytes "
+                  f"{spec['dirty_bytes']} (clone at step {spec_step}, parked "
+                  f"at {cut}: {sorted(dirty_names)}); the pass wrote "
+                  f"{spec_dirty['bytes']} B against the live pass "
+                  f"(legs {fmt_legs(spec['legs'], DUMP_LEGS)}); the re-ship "
+                  f"{fmt_legs(resp['legs'], DUMP_LEGS)}; device memory "
+                  f"{spec.get('hbm')} [{card}]")
+    log("frozen", f"trees: base {sizes['base']} B, spec {sizes['spec']} B, "
+                  f"re-ship {sizes['delta']} B with dirty {dirty['bytes']} B "
+                  f"of {dirty['totalBytes']} ({share:.4f}; {dirty['chunks']} "
+                  f"of {dirty['totalChunks']} chunks); written since the "
+                  f"live pass: {sorted(since)}")
     log("frozen", f"restore {restore_s:.3f} s = "
                   f"{pipe['bytes'] / restore_s / 1e9:.3f} GB/s, "
                   f"{stager.bytes} B staged, seconds "
@@ -1741,25 +1966,41 @@ def phase_frozen(work: str, card: str, *, train: dict) -> dict:
                   f"{t_begin - dst.started:.3f} (set-up {init_s:.3f}) + "
                   f"restore and RESTORED → READY {t_ready - t_begin:.3f} + "
                   f"first step {first_step_s:.3f} [{card}]")
+    log("frozen", f"post-copy destination (staged tree): hot set "
+                  f"{pc_hot_s:.4f} s ({pc_pipe['bytes']} B), spawn → READY "
+                  f"{pc_ready - pc.started:.3f} s, READY → first step (joins "
+                  f"the tail) {pc_first - pc_ready:.3f} s, tail_s "
+                  f"{pc_tail['tail_s']:.3f}; against the blocking "
+                  f"destination's restore {restore_s:.3f} s and first step "
+                  f"{first_step_s:.3f} s; losses after the cut bitwise equal "
+                  f"[{card}]")
     log("frozen", f"kernel libraries: carried {len(carried)} ({carried}); the "
                   f"destination seeded {seeded} into an empty "
                   f"GRIT_TPU_COMPILE_CACHE, compiled none, loaded "
                   f"{dst_kernels['loaded']}")
     log("frozen", f"cut at step {cut}; losses after the cut bitwise equal to "
-                  f"the uninterrupted frozen-trunk run: {got}")
+                  f"the uninterrupted frozen-trunk run in both destinations: "
+                  f"{got}")
     mnist = mnist_twin(work, card)
     return {"step_s": train["frozen_step_s"],
             "launches": ref_kernels["launches"],
             "launches_per_step": per_step,
             "launches_all": {n: ref_kernels["launches"][n]
-                             + dst_kernels["launches"][n] for n in KERNELS},
+                             + dst_kernels["launches"][n]
+                             + pc_kernels["launches"][n] for n in KERNELS},
             "bytes": sizes, "dirty": dirty, "dirty_share": share,
-            "live_s": live_s, "quiesce_s": quiesce_s, "dump_s": dump_s,
-            "dump_legs": resp["legs"], "restore_s": restore_s,
-            "restore_legs": pipe, "first_step_s": first_step_s,
-            "blackout_s": blackout_s, "seeded": seeded,
-            "built_on_destination": dst_kernels["built"], "cut": cut,
-            "mnist": mnist}
+            "live_s": live_s, "live_steps": step_after - step_before,
+            "probe_hbm": probe["speculative"].get("hbm"),
+            "speculative": {k: v for k, v in spec.items() if k != "legs"},
+            "quiesce_s": quiesce_s, "dump_s": dump_s,
+            "dump_legs": resp["legs"], "spec_legs": spec["legs"],
+            "restore_s": restore_s, "restore_legs": pipe,
+            "first_step_s": first_step_s, "blackout_s": blackout_s,
+            "postcopy": {"hot_s": pc_hot_s, "tail_s": pc_tail["tail_s"],
+                         "spawn_to_ready_s": pc_ready - pc.started,
+                         "first_step_s": pc_first - pc_ready},
+            "seeded": seeded, "built_on_destination": dst_kernels["built"],
+            "cut": cut, "mnist": mnist}
 
 
 def mnist_twin(work: str, card: str) -> dict:

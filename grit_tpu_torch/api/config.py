@@ -103,11 +103,30 @@ TPU_COMPILE_CACHE = Knob(
     "build.")
 SNAP_SPECULATE = Knob(
     "GRIT_SNAP_SPECULATE", "1",
-    "Quiesce-free concurrent dump, as the node agent's device hook asks "
-    "for it: the blackout quiesce pre-announces its dump, and a pre-copy "
-    "pass first tries a non-parking speculative probe (this package's "
-    "agentlet refuses it; the hook then falls back, loudly, to the "
-    "parked pass). =0 turns both off.")
+    "Quiesce-free concurrent dump: a quiesce request that carries a dump "
+    "spec starts the snapshot speculatively against a generation cloned "
+    "at a step boundary while the loop still steps; the parked dump then "
+    "re-ships only the leaves the steps since touched (validated delta). "
+    "The node agent's pre-copy pass is then a non-parking probe. =0 "
+    "restores the fully parked dump path.")
+SNAP_SPECULATE_WAIT_S = Knob(
+    "GRIT_SNAP_SPECULATE_WAIT_S", "120.0",
+    "Bound on joining an in-flight speculative pass at dump time (and on "
+    "waiting for the step boundary its clone is taken at); a pass that "
+    "outlives it degrades loudly to the parked full dump (bit-identical "
+    "either way).")
+RESTORE_POSTCOPY = Knob(
+    "GRIT_RESTORE_POSTCOPY", "0",
+    "Post-copy (lazy) restore: the restored workload resumes once the "
+    "manifest and the hot (small) arrays are placed, and the cold bulk is "
+    "placed in the background in readiness order; the first touch of the "
+    "state waits for it. =0 keeps the blocking restore.")
+RESTORE_POSTCOPY_HOT_MB = Knob(
+    "GRIT_RESTORE_POSTCOPY_HOT_MB", "8.0",
+    "Per-array hot-set threshold of the post-copy restore: arrays of at "
+    "most this many MB (scalars, norms, serving bookkeeping) are placed "
+    "before the workload resumes; larger ones land through the tail. 0 "
+    "sends every array to the tail.")
 SLICE_HOSTS = Knob(
     "GRIT_SLICE_HOSTS", "0",
     "Host count of the slice an agent leg belongs to. 0/1 is the "

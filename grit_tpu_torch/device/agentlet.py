@@ -7,9 +7,10 @@ protocol on the same socket, so the unchanged node agent
 
 Protocol (newline-delimited JSON, one request per line):
 
-    {"op": "quiesce"}                → {"ok": true, "step": N}   toggle off
+    {"op": "quiesce", "dump"?}       → {"ok": true, "step": N}   toggle off
     {"op": "dump", "dir": "<path>",  → {"ok": true, "dir": ...}  device snapshot
-     "base"?, "hashes"?, "mirror"?}
+     "base"?, "hashes"?, "mirror"?,
+     "speculative"?}
     {"op": "resume", "reload"?}      → {"ok": true}              toggle on
     {"op": "status"}                 → {"ok": true, "step": N, "paused": ...}
 
@@ -21,26 +22,40 @@ A dump's ``base`` makes it a delta against that committed snapshot,
 agent's upload destination (:func:`~grit_tpu_torch.device.snapshot.write_snapshot`).
 The response also carries ``"legs"``, the writer's seconds by stage.
 
-Parts of the protocol this slice answers on the reference's own failure
-paths (the features arrive with later slices):
+Validated speculation (``GRIT_SNAP_SPECULATE``, on by default), as the
+reference serves it:
 
-- a quiesce carrying a ``dump`` spec (quiesce-free concurrent dump) parks
-  as a plain quiesce; the following dump is the parked full dump (or
-  delta) and its response says ``"speculative": {"outcome": "degraded",
-  ...}``;
-- a non-parking ``"speculative": true`` dump is refused (``ok: false``);
-  the agent then falls back to its parked pass;
-- a ``wire`` stream answers ``"wire": {"ok": false, ...}`` (the agent
-  falls back to the PVC path).
+- a quiesce carrying a ``dump`` spec (``{"dir", "base"?, "mirror"?}``)
+  takes a clone of the state at the loop's next step boundary, starts
+  writing it to ``<dir>-spec`` on a thread, and only then asks the loop to
+  park; the matching dump joins that pass, compares the parked state with
+  the clone and re-ships only the leaves that differ, referencing the
+  rest. Its response carries ``"speculative": {"outcome": "validated",
+  "overlap_s", "validate_s", "clean_bytes", "dirty_bytes", "legs"}``. A
+  failed launch, join or validation degrades loudly (a warning, and
+  ``"outcome": "degraded"`` with ``"error"``) to the parked dump, which is
+  then bit-identical to one without speculation;
+- a ``"speculative": true`` dump is the non-parking probe: the clone is
+  harvested at a step boundary and written while the loop keeps
+  stepping; it answers ``"speculative": {"outcome": "probe"}``.
+
+Answered on the reference's failure path (the feature arrives with a
+later slice): a ``wire`` stream answers ``"wire": {"ok": false, ...}``
+(the agent falls back to the PVC path).
 
 ``resume`` with ``reload`` (the device re-attach after a process
 restore) runs the workload's ``reload_fn`` on the snapshot while still
 parked, then unparks; without a ``reload_fn`` it is refused.
 
 Wiring: the training loop calls :meth:`Agentlet.checkpoint_point` once
-per step. On a pending quiesce the loop drains device work and parks
-there until ``resume``; ``dump`` runs while the loop is parked, so the
-state tree is stable.
+per step (one lock check when idle). On a pending quiesce the loop drains
+device work and parks there until ``resume``; ``dump`` runs while the
+loop is parked, so the state tree is stable. A speculative clone is taken
+by the loop thread itself at a boundary: the port's steps update tensors
+in place, so no other thread reads the live state while a step is queued.
+
+The reference's speculation metrics, flight events and fault points have
+no counterpart here yet.
 """
 
 from __future__ import annotations
@@ -53,13 +68,38 @@ import threading
 import time
 from typing import Any, Callable
 
+import torch
+
 from grit_tpu_torch.api import config
-from grit_tpu_torch.device.quiesce import quiesce
-from grit_tpu_torch.device.snapshot import last_write, write_snapshot
+from grit_tpu_torch.device.quiesce import clone_generation, quiesce
+from grit_tpu_torch.device.snapshot import (
+    SpeculativeDump,
+    last_write,
+    snapshot_delta_nbytes,
+    snapshot_nbytes,
+    start_speculative_dump,
+    validated_clean_names,
+    write_snapshot,
+)
+from grit_tpu_torch.tree import flatten_with_names
 
 log = logging.getLogger(__name__)
 
 _NOT_IN_SLICE = "not in this slice of the PyTorch port"
+
+
+def _hbm(clone: Any) -> dict | None:
+    """Device memory around a speculative clone: its bytes on the card,
+    the allocator's bytes in use and its peak so far on the clone's
+    devices (None when the clone holds no CUDA tensor)."""
+    leaves = [x for _, x in flatten_with_names(clone)
+              if isinstance(x, torch.Tensor) and x.is_cuda]
+    if not leaves:
+        return None
+    devices = {x.device for x in leaves}
+    return {"clone_bytes": sum(x.numel() * x.element_size() for x in leaves),
+            "allocated": sum(torch.cuda.memory_allocated(d) for d in devices),
+            "peak": sum(torch.cuda.max_memory_allocated(d) for d in devices)}
 
 
 def socket_path(pid: int | None = None) -> str:
@@ -119,7 +159,15 @@ class Agentlet:
         self._is_parked = False
         self._dumps_in_flight = 0
         self._reloads_in_flight = 0
+        # Speculation, under _cond: the pass launched by this quiesce
+        # round, whether the round asked for one, why its launch failed,
+        # and the boundary-clone handshake with the loop thread.
+        self._speculative: SpeculativeDump | None = None
         self._spec_requested = False
+        self._spec_error: str | None = None
+        self._spec_clone_pending = False
+        self._spec_clone_box: tuple | None = None
+        self._spec_clone_error: str | None = None
         self._shutdown = False
         self._dump_lock = threading.Lock()  # one snapshot write at a time
         self._srv: socket.socket | None = None
@@ -173,10 +221,22 @@ class Agentlet:
     # -- loop-side hook ---------------------------------------------------------
 
     def checkpoint_point(self) -> None:
-        """Call once per training step. Parks while a quiesce is pending."""
+        """Call once per training step. Serves a pending boundary clone,
+        then parks while a quiesce is pending."""
         with self._cond:
-            if not self._want_pause:
+            harvest = self._spec_clone_pending
+            self._spec_clone_pending = False
+            if not (harvest or self._want_pause):
                 return
+        if harvest:
+            # Between steps, on the loop's own stream: the clone's reads
+            # come before the next step's in-place writes. The park, if
+            # one is pending, comes at a later boundary, after the
+            # concurrent write has started against the clone.
+            self._serve_boundary_clone()
+            with self._cond:
+                if not self._want_pause:
+                    return
         if self.pre_park_fn is not None:
             self.pre_park_fn()
         # Drain device work outside the lock; re-check the request after —
@@ -244,6 +304,8 @@ class Agentlet:
             if op == "quiesce":
                 return self._quiesce(req)
             if op == "dump":
+                if req.get("speculative"):
+                    return self._speculative_probe(req)
                 return self._dump(req)
             if op == "resume":
                 return self._resume(req)
@@ -255,12 +317,195 @@ class Agentlet:
             log.exception("agentlet %s failed", op)
             return {"ok": False, "error": f"{type(exc).__name__}: {exc}"}
 
-    def _quiesce(self, req: dict) -> dict:
-        deadline = time.monotonic() + float(req.get("timeout", 300.0))
+    # -- speculation --------------------------------------------------------------
+
+    def _serve_boundary_clone(self) -> None:
+        """Loop-thread half of the handshake: clone the current generation,
+        with its step and meta, and hand them to the waiting dispatch
+        thread (or the error that stopped it)."""
+        try:
+            box: tuple | None = (clone_generation(self.state_fn()),
+                                 int(self.step_fn()), dict(self.meta_fn()))
+            err: str | None = None
+        except Exception as exc:  # noqa: BLE001 — reported to the waiter
+            box, err = None, f"{type(exc).__name__}: {exc}"
         with self._cond:
-            # A pre-announced dump ("dump" spec) is not speculated here:
-            # remember it so the dump reports the degrade.
-            self._spec_requested = bool(req.get("dump"))
+            self._spec_clone_box = box
+            self._spec_clone_error = err
+            self._cond.notify_all()
+
+    def _harvest_boundary_clone(self, timeout_s: float) -> tuple[Any, int, dict]:
+        """Dispatch-thread half: ``(clone, step, meta)`` of the generation
+        at the loop's next step boundary. A parked loop is at a boundary
+        with no step queued, so that case clones here. Raises on timeout
+        (a loop that never reaches a boundary) or a failed clone."""
+        with self._cond:
+            parked = self._is_parked and self._want_pause
+            if not parked:
+                self._spec_clone_box = None
+                self._spec_clone_error = None
+                self._spec_clone_pending = True
+                self._cond.notify_all()
+        if parked:
+            return (clone_generation(self.state_fn()), int(self.step_fn()),
+                    dict(self.meta_fn()))
+        deadline = time.monotonic() + timeout_s
+        with self._cond:
+            while self._spec_clone_box is None \
+                    and self._spec_clone_error is None:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    self._spec_clone_pending = False
+                    raise RuntimeError(
+                        f"no step boundary within {timeout_s:.0f}s to "
+                        "harvest the speculative clone")
+                self._cond.wait(timeout=min(0.2, remaining))
+            box, err = self._spec_clone_box, self._spec_clone_error
+            self._spec_clone_box = self._spec_clone_error = None
+        if err is not None:
+            raise RuntimeError(f"boundary clone failed: {err}")
+        return box
+
+    def _speculative_probe(self, req: dict) -> dict:
+        """The non-parking dump: a clone harvested at a step boundary,
+        written from this thread while the loop keeps stepping. No pause
+        is ever requested. The committed snapshot has the parked dump's
+        format (hashed when asked), so a delta base it feeds stays valid."""
+        directory = req["dir"]
+        with self._cond:
+            self._dumps_in_flight += 1
+        try:
+            clone, at_step, at_meta = self._harvest_boundary_clone(
+                config.SNAP_SPECULATE_WAIT_S.get_float())
+            hbm = _hbm(clone)
+            with self._dump_lock:
+                write_snapshot(directory, clone,
+                               meta={"step": at_step, **at_meta},
+                               base=req.get("base"),
+                               hashes=bool(req.get("hashes")),
+                               mirror=req.get("mirror"), speculative=True)
+                legs = last_write()
+            if hbm is not None:
+                hbm["peak_after"] = _hbm(clone)["peak"]
+            del clone
+        finally:
+            with self._cond:
+                self._dumps_in_flight -= 1
+                self._cond.notify_all()
+        info: dict = {"outcome": "probe"}
+        if hbm is not None:
+            info["hbm"] = hbm
+        return {"ok": True, "dir": directory, "legs": legs,
+                "speculative": info}
+
+    def _launch_speculation(self, dump_spec: dict, timeout_s: float) -> None:
+        """A quiesce's dump spec: harvest a boundary clone and start its
+        concurrent pass. A failure is recorded (the dump reports the
+        degrade) and logged; it never fails the quiesce."""
+        with self._cond:
+            stale = self._speculative
+            self._speculative = None
+            self._spec_requested = True
+            self._spec_error = None
+        if stale is not None:
+            stale.release()
+        try:
+            clone, at_step, at_meta = self._harvest_boundary_clone(
+                min(timeout_s, config.SNAP_SPECULATE_WAIT_S.get_float()))
+            spec = start_speculative_dump(
+                str(dump_spec["dir"]), clone, already_cloned=True,
+                meta={"step": at_step, **at_meta},
+                base=dump_spec.get("base"), mirror=dump_spec.get("mirror"),
+                dump_lock=self._dump_lock)
+            spec.hbm = _hbm(clone)
+            with self._cond:
+                self._speculative = spec
+        except Exception as exc:  # noqa: BLE001 — degrade, never fail the quiesce
+            with self._cond:
+                self._spec_error = f"{type(exc).__name__}: {exc}"
+            log.warning("speculative dump launch failed (%s); this round "
+                        "degrades to the parked dump", exc)
+
+    def _consume_speculation(self, directory: str, req_base: str | None
+                             ) -> tuple[str | None, frozenset | None,
+                                        dict | None]:
+        """Join and validate this round's speculative pass for the parked
+        dump: ``(base, clean_names, spec_info)``. Validated: the base is
+        the committed ``-spec`` pass and ``clean_names`` the leaves proved
+        untouched. Any failure: the request's own base and no clean set,
+        the parked dump without speculation, and a warning. ``spec_info``
+        is None when the round asked for no speculation. Runs before the
+        dump lock is taken: the pass writes under it."""
+        with self._cond:
+            spec, self._speculative = self._speculative, None
+            requested, self._spec_requested = self._spec_requested, False
+            why, self._spec_error = self._spec_error or "", None
+        if not requested:
+            return req_base, None, None
+        outcome, overlap_s, validate_s = "degraded", 0.0, 0.0
+        base, clean = req_base, None
+        if spec is not None:
+            if not spec.join(config.SNAP_SPECULATE_WAIT_S.get_float()):
+                why = "speculative pass still running past the wait bound"
+            else:
+                overlap_s = spec.seconds
+                if spec.error is not None:
+                    why = f"speculative pass failed: {spec.error!r}"
+                elif spec.final_dir != directory:
+                    why = (f"speculative pass targeted {spec.final_dir!r}, "
+                           f"the dump asked for {directory!r}")
+                else:
+                    if spec.hbm is not None:
+                        spec.hbm["peak_after"] = _hbm(spec.clone)["peak"]
+                    tv = time.monotonic()
+                    names = validated_clean_names(self.state_fn(), spec.clone)
+                    validate_s = time.monotonic() - tv
+                    if names is None:
+                        why = "state generations structurally incomparable"
+                    else:
+                        clean = frozenset(names)
+                        base = spec.directory
+                        outcome = "validated"
+            spec.release()
+        info: dict = {"outcome": outcome, "overlap_s": round(overlap_s, 4),
+                      "validate_s": round(validate_s, 4)}
+        if outcome == "validated":
+            info["legs"] = spec.legs
+            if spec.hbm is not None:
+                info["hbm"] = spec.hbm
+        else:
+            info["error"] = why or "launch failed"
+            log.warning("speculative dump degraded to the parked full "
+                        "path: %s", info["error"])
+        return base, clean, info
+
+    @staticmethod
+    def _account_speculation(directory: str, info: dict) -> None:
+        """Bytes of a validated re-ship: ``clean_bytes`` it referenced from
+        the speculative pass with no device read, ``dirty_bytes`` the
+        steps since the clone touched."""
+        if info["outcome"] != "validated":
+            return
+        try:
+            total = snapshot_nbytes(directory)
+            dirty = snapshot_delta_nbytes(directory)
+        except (OSError, ValueError, KeyError):
+            total = dirty = 0
+        info["clean_bytes"] = max(0, total - dirty)
+        info["dirty_bytes"] = dirty
+
+    # -- the protocol ---------------------------------------------------------------
+
+    def _quiesce(self, req: dict) -> dict:
+        timeout = float(req.get("timeout", 300.0))
+        dump_spec = req.get("dump")
+        if dump_spec and config.SNAP_SPECULATE.get_flag():
+            # The concurrent pass starts before the pause is requested:
+            # the loop clones at its next boundary, steps on, and parks
+            # at a later one.
+            self._launch_speculation(dump_spec, timeout)
+        deadline = time.monotonic() + timeout
+        with self._cond:
             self._want_pause = True
             self._cond.notify_all()
             while not self._is_parked:
@@ -273,24 +518,23 @@ class Agentlet:
         return {"ok": True, "step": int(self.step_fn())}
 
     def _dump(self, req: dict) -> dict:
-        if req.get("speculative"):
-            return {"ok": False, "error": f"speculative probe {_NOT_IN_SLICE}"}
         with self._cond:
             if not (self._is_parked and self._want_pause):
                 return {"ok": False, "error": "not quiesced"}
             self._dumps_in_flight += 1
-            spec_requested = self._spec_requested
-            self._spec_requested = False
         try:
             directory = req["dir"]
+            base, clean, spec_info = self._consume_speculation(
+                directory, req.get("base"))
             with self._dump_lock:
                 write_snapshot(directory, self.state_fn(),
                                meta={"step": int(self.step_fn()),
                                      **self.meta_fn()},
-                               base=req.get("base"),
-                               hashes=bool(req.get("hashes")),
-                               mirror=req.get("mirror"))
+                               base=base, hashes=bool(req.get("hashes")),
+                               mirror=req.get("mirror"), clean_names=clean)
                 legs = last_write()
+            if spec_info is not None:
+                self._account_speculation(directory, spec_info)
         finally:
             with self._cond:
                 self._dumps_in_flight -= 1
@@ -298,10 +542,8 @@ class Agentlet:
         resp: dict = {"ok": True, "dir": directory, "legs": legs}
         if req.get("wire") is not None:
             resp["wire"] = {"ok": False, "error": f"wire stream {_NOT_IN_SLICE}"}
-        if spec_requested:
-            resp["speculative"] = {
-                "outcome": "degraded", "overlap_s": 0.0, "validate_s": 0.0,
-                "error": f"speculative dump {_NOT_IN_SLICE}"}
+        if spec_info is not None:
+            resp["speculative"] = spec_info
         return resp
 
     def _resume(self, req: dict) -> dict:
@@ -329,8 +571,14 @@ class Agentlet:
                     and not self._shutdown:
                 self._cond.wait()
             self._want_pause = False
+            # Resume ends the speculation window: a pass no dump consumed
+            # (a quiesce aborted before its dump) is abandoned.
+            stale, self._speculative = self._speculative, None
             self._spec_requested = False
+            self._spec_error = None
             self._cond.notify_all()
+        if stale is not None:
+            stale.release()
         return {"ok": True, **({"reloaded": reload_dir} if reload_dir else {})}
 
 
@@ -367,8 +615,8 @@ class ToggleClient:
              wire: dict | None = None, speculative: bool = False) -> dict:
         """The dump response. ``base``, ``hashes`` and ``mirror`` as
         :func:`~grit_tpu_torch.device.snapshot.write_snapshot` takes them;
-        ``wire`` and ``speculative`` as the reference client sends them
-        (this agentlet answers both on their failure paths)."""
+        ``speculative``: the non-parking probe; ``wire`` as the reference
+        client sends it (this agentlet answers it on its failure path)."""
         fields: dict = {"dir": directory}
         if base is not None:
             fields["base"] = base

@@ -91,9 +91,13 @@ class TpuDeviceCheckpointHook:
         outcome is returned (None when no wire was asked for).
 
         With ``GRIT_SNAP_SPECULATE`` on (the default) the quiesce
-        pre-announces the dump, as the reference's does; this package's
-        agentlet parks as a plain quiesce and reports the degrade in the
-        dump's response."""
+        pre-announces the dump, as the reference's does: the agentlet
+        starts writing a boundary clone to ``<hbm>-spec`` before the loop
+        parks, and the dump re-ships only what the steps since touched
+        (its response's ``speculative`` block says ``validated``, or
+        ``degraded`` with the error when the pass failed and the dump
+        fell back to the parked path). The delta references the ``-spec``
+        sibling, which ships with it."""
         if config.SLICE_HOSTS.get_int() > 1:
             raise RuntimeError(
                 f"{config.SLICE_HOSTS.name}={config.SLICE_HOSTS.get_int()}: "
@@ -122,10 +126,12 @@ class TpuDeviceCheckpointHook:
         dump (``base``: the rolling pre-copy base a later round deltas
         against), an immediate resume.
 
-        With ``GRIT_SNAP_SPECULATE`` on it first tries the reference's
-        non-parking speculative probe; any failure of it (this package's
-        agentlet refuses it) falls back, with a warning, to the parked
-        pass: the same committed layout either way."""
+        With ``GRIT_SNAP_SPECULATE`` on it is the reference's
+        non-parking speculative probe: the agentlet clones the state at a
+        step boundary and writes the clone while the loop keeps stepping,
+        so the loop never parks. A failed probe falls back, with a
+        warning, to the parked pass: the same committed layout either
+        way."""
         hbm_dir = os.path.join(dest_dir, HBM_SUBDIR)
         hbm_mirror = (os.path.join(mirror, HBM_SUBDIR)
                       if mirror is not None else None)

@@ -58,9 +58,23 @@ array, reserved in array order), and the caller copies them to the
 device asynchronously. Host memory stays bounded by the ring and the
 blocks. A CPU target needs neither.
 
+Validated speculation (the quiesce-free dump): :func:`start_speculative_dump`
+writes a cloned generation to the ``-spec`` sibling of the final
+directory on a thread while the loop keeps stepping;
+:func:`validated_clean_names` then compares the parked state with the
+clone on the device, byte for byte, and the parked dump
+(``write_snapshot(clean_names=)``) references the clean leaves' chunks in
+the speculative pass without reading them from the device.
+
+Post-copy restore (:func:`restore_snapshot_postcopy`): the hot set (small
+arrays) is placed before the call returns, the cold bulk by a background
+tail in the order its bytes are staged; :meth:`PostcopyRestore.wait`
+hands over the whole tree.
+
 Not in this package yet: the codec container (a data file with a
-``.gritc`` sidecar is refused), crc32c, the wire sink, speculation,
-post-copy and the multi-process index merge.
+``.gritc`` sidecar is refused), crc32c, the wire sink, the multi-process
+index merge, and the reference's metrics, flight events and fault points
+of speculation and post-copy.
 """
 
 from __future__ import annotations
@@ -106,6 +120,9 @@ WORK_SUFFIX = ".work"
 DATA_FILE = "data-h0000.bin"
 INDEX_FILE = "index-h0000.json"
 MIRROR_MARKER = "mirror-ok-h0000"
+# The speculative pass commits beside the final dump directory, under this
+# suffix (a wire contract: the agent ships the sibling with the dump).
+SPEC_SUFFIX = "-spec"
 
 # The card's staging ring: pieces of at most _PIECE_BYTES (zlib.crc32,
 # sha256 and file IO release the GIL only on large buffers), _RING_SLOTS
@@ -227,9 +244,17 @@ class _DeviceToHost:
     with an event the reader waits on before it sees the bytes; a slot is
     refilled only once the reader has moved past the piece it held, and a
     new tensor's copies start only after every copy of the last one has
-    landed (an abandoned pass cannot overwrite a live slot)."""
+    landed (an abandoned pass cannot overwrite a live slot).
 
-    def __init__(self) -> None:
+    The side stream first waits for the caller's current stream, which
+    wrote the tensors. ``settled`` tensors (a drained clone,
+    :func:`~grit_tpu_torch.device.quiesce.clone_generation`) are complete
+    on every stream already: their copies wait on nothing, so a writer
+    thread does not queue behind the steps the loop has put on the shared
+    default stream since."""
+
+    def __init__(self, settled: bool = False) -> None:
+        self._settled = settled
         self._ring: torch.Tensor | None = None
         self._host: np.ndarray | None = None
         self._streams: dict[torch.device, torch.cuda.Stream] = {}
@@ -253,10 +278,12 @@ class _DeviceToHost:
         stream = self._streams.get(flat.device)
         if stream is None:
             stream = self._streams[flat.device] = torch.cuda.Stream(flat.device)
-        # The side stream reads what the caller's stream wrote, and the
-        # allocator must not reuse a contiguous copy's memory before the
-        # side stream is done with it.
-        stream.wait_stream(torch.cuda.current_stream(flat.device))
+        # The side stream reads what the caller's stream wrote (a settled
+        # tensor's bytes are complete, unless the byte view had to copy
+        # it), and the allocator must not reuse the memory it reads, the
+        # clone's included, before the side stream is done with it.
+        if not (self._settled and t.is_contiguous()):
+            stream.wait_stream(torch.cuda.current_stream(flat.device))
         flat.record_stream(stream)
 
         def issue(i: int) -> None:
@@ -388,6 +415,11 @@ def _match_base_chunk(base_abs: str, base_rel: str, bc: dict, index: list,
                           bc["offset"], bc["nbytes"], pieces())
     if not same:
         return None, known
+    return _ref_chunk(bc, index, base_rel), known
+
+
+def _ref_chunk(bc: dict, index: list, base_rel: str) -> dict:
+    """The chunk record that references base chunk ``bc``."""
     chunk = {
         "file": bc["file"], "offset": bc["offset"], "nbytes": bc["nbytes"],
         "index": index, "crc": bc.get("crc", bc.get("crc32")),
@@ -399,7 +431,7 @@ def _match_base_chunk(base_abs: str, base_rel: str, bc: dict, index: list,
     }
     if "sha256" in bc:
         chunk["sha256"] = bc["sha256"]
-    return chunk, known
+    return chunk
 
 
 # Sub-window of the byte compare: its temporaries stay small enough for
@@ -654,7 +686,8 @@ def _commit_mirror(mirror: str, committed: str) -> bool:
 
 def write_snapshot(directory: str, state: Any, *, meta: dict | None = None,
                    base: str | None = None, hashes: bool = False,
-                   mirror: str | None = None) -> str:
+                   mirror: str | None = None, speculative: bool = False,
+                   clean_names: frozenset | None = None) -> str:
     """Serialize the tree ``state`` to ``directory`` atomically; returns it.
 
     ``base``: a committed snapshot; chunks byte-identical to its are
@@ -670,6 +703,20 @@ def write_snapshot(directory: str, state: Any, *, meta: dict | None = None,
     ``mirror``: a second directory that receives a committed copy of the
     physically written bytes while the dump runs; failures only abandon
     it.
+
+    ``speculative``: the concurrent pass of a quiesce-free dump, racing
+    live steps: ``state`` is a drained clone
+    (:func:`~grit_tpu_torch.device.quiesce.clone_generation`), whose
+    device copies wait on nothing of the caller's stream, and the kernel
+    libraries are not carried (the parked dump that validates against
+    this pass carries them into the final directory).
+
+    ``clean_names``: leaves the caller proved byte-identical to ``base``
+    (:func:`validated_clean_names` against the clone ``base`` was written
+    from). Each references its base chunk without any device read; a
+    name the base does not hold falls through to the normal path, so a
+    wrong claim costs time, never correctness, but membership itself is
+    trusted.
 
     The caller quiesces first (:func:`grit_tpu_torch.device.quiesce.quiesce`)
     so the arrays are a consistent cut. The data file is not fsynced, as
@@ -696,7 +743,8 @@ def write_snapshot(directory: str, state: Any, *, meta: dict | None = None,
     leaves = [(name, _as_tensor(leaf))
               for name, leaf in flatten_with_names(state)]
     mirror_work, tee = _open_mirror(mirror)
-    d2h = _DeviceToHost()
+    clean = clean_names or frozenset()
+    d2h = _DeviceToHost(settled=speculative)
     legs = _DumpLegs()
     records: list[dict] = []
     # (crc, nbytes) of every physically appended chunk in write order —
@@ -715,7 +763,11 @@ def write_snapshot(directory: str, state: Any, *, meta: dict | None = None,
                 bc = base_chunks.get((name, tuple(map(tuple, index)), nbytes,
                                       dtype))
                 chunk, known = None, {}
-                if bc is not None:
+                if bc is not None and name in clean:
+                    # Validated clean: reference the base chunk; the
+                    # size and dtype come from metadata, not a read.
+                    chunk = _ref_chunk(bc, index, base_rel)
+                elif bc is not None:
                     chunk, known = _match_base_chunk(
                         base_abs, base_rel, bc, index,
                         lambda t=t: d2h.pieces(t), hasher, legs)
@@ -757,7 +809,8 @@ def write_snapshot(directory: str, state: Any, *, meta: dict | None = None,
     os.rename(work, directory)
     shutil.rmtree(old, ignore_errors=True)
     mirrored = mirror is not None and _commit_mirror(mirror, directory)
-    _carry_kernels(directory)
+    if not speculative:
+        _carry_kernels(directory)
     with _RECORD_LOCK:
         _LAST_WRITE.clear()
         _LAST_WRITE.update(
@@ -768,7 +821,7 @@ def write_snapshot(directory: str, state: Any, *, meta: dict | None = None,
             staging=(f"pinned ring {_RING_SLOTS} x {_PIECE_BYTES >> 20} MiB, "
                      "side-stream D2H" if d2h._ring is not None else "host")
             + ", hashing beside the write",
-            mirror=mirrored)
+            mirror=mirrored, speculative=speculative)
     return directory
 
 
@@ -803,6 +856,136 @@ def _append(f, offset: int, nbytes: int, index: list,
     if hashes:
         chunk["sha256"] = known.get("sha256") or digest.sha256()
     return chunk
+
+
+# -- validated speculation -------------------------------------------------------
+
+
+class SpeculativeDump:
+    """Handle to an in-flight speculative (quiesce-free) snapshot pass,
+    made by :func:`start_speculative_dump`: the cloned generation
+    (``clone``, the validation reference) and the thread writing it to
+    ``directory`` (``<final_dir>-spec``). The parked dump joins it,
+    validates the live state against the clone and re-ships the diff.
+    ``seconds`` is the pass's wall time, ``legs`` its writer's legs
+    (:func:`last_write`), ``error`` what it raised."""
+
+    def __init__(self, directory: str, final_dir: str, clone: Any) -> None:
+        self.directory = directory
+        self.final_dir = final_dir
+        self.clone = clone
+        self.error: BaseException | None = None
+        self.seconds = 0.0
+        self.legs: dict = {}
+        self.hbm: dict | None = None  # the agentlet's device-memory record
+        self._thread: threading.Thread | None = None
+
+    @property
+    def ok(self) -> bool:
+        return self._thread is not None and not self._thread.is_alive() \
+            and self.error is None
+
+    def join(self, timeout: float | None = None) -> bool:
+        """Wait for the pass; True iff it has finished (ok or not)."""
+        self._thread.join(timeout)
+        return not self._thread.is_alive()
+
+    def release(self) -> None:
+        """Drop the handle's reference to the clone (idempotent). A pass
+        still writing keeps its own reference, and the device copies it
+        queued hold the clone's memory through ``record_stream``, so this
+        never frees bytes that are still being read."""
+        self.clone = None
+
+
+def start_speculative_dump(directory: str, state: Any, *,
+                           already_cloned: bool = False,
+                           meta: dict | None = None, base: str | None = None,
+                           mirror: str | None = None,
+                           dump_lock: threading.Lock | None = None
+                           ) -> SpeculativeDump:
+    """Launch the concurrent pass of a quiesce in progress.
+
+    ``directory`` is the final dump directory; the pass commits to its
+    ``-spec`` sibling, hashed, as a delta against ``base`` when given,
+    with its mirror (if any) at ``mirror + "-spec"``. ``state`` is cloned
+    first (:func:`~grit_tpu_torch.device.quiesce.clone_generation`; a
+    zero-argument callable goes through ``clone_live_generation``), or
+    taken as is with ``already_cloned`` (the agentlet harvests its clone
+    at a step boundary). A thread then writes the clone with
+    ``speculative=True`` while holding ``dump_lock`` (the agentlet's
+    snapshot serializer): callers join the handle before they take it.
+    Raises whatever the clone raises; callers degrade to the parked dump
+    on any exception."""
+    from grit_tpu_torch.device.quiesce import (  # noqa: PLC0415
+        clone_generation,
+        clone_live_generation,
+    )
+
+    if already_cloned:
+        clone = state
+    elif callable(state):
+        clone = clone_live_generation(state)
+    else:
+        clone = clone_generation(state)
+    handle = SpeculativeDump(directory + SPEC_SUFFIX, directory, clone)
+    lock = dump_lock if dump_lock is not None else threading.Lock()
+
+    def run(state_ref: Any) -> None:
+        # The clone is pinned by this thread (its argument), not by the
+        # handle: a caller that gives up on the join and releases the
+        # handle must not drop the state under the write.
+        t0 = time.monotonic()
+        try:
+            with lock:
+                write_snapshot(handle.directory, state_ref, meta=meta,
+                               base=base, hashes=True,
+                               mirror=(mirror + SPEC_SUFFIX) if mirror else None,
+                               speculative=True)
+                handle.legs = last_write()
+        except BaseException as exc:  # noqa: BLE001 — surfaced via handle.error
+            handle.error = exc
+        finally:
+            handle.seconds = time.monotonic() - t0
+
+    handle._thread = threading.Thread(target=run, args=(clone,),
+                                      name="grit-spec-dump", daemon=True)
+    handle._thread.start()
+    return handle
+
+
+# Same-width integer views: the validation compares bytes, so a sign of
+# zero counts (-0.0 != +0.0) and identical NaN bytes are equal.
+_INT_VIEW = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+def validated_clean_names(state: Any, clone: Any) -> set | None:
+    """The leaves of ``state`` byte-identical to the speculative ``clone``:
+    the ones the steps since the clone left untouched.
+
+    Each leaf pair is compared on its device through an integer view of
+    its width, with no copy of the data to the host; the verdicts of each
+    device are stacked and fetched with one transfer. Leaves that are not
+    tensors compare as the tensors the dump writes. Returns None when the
+    two trees are structurally incomparable (other names, shapes or
+    dtypes), which callers treat as "degrade to the parked full dump"."""
+    flat_s = flatten_with_names(state)
+    flat_c = flatten_with_names(clone)
+    if [n for n, _ in flat_s] != [n for n, _ in flat_c]:
+        return None
+    verdicts: dict[torch.device, list[tuple[str, torch.Tensor]]] = {}
+    for (name, a), (_, b) in zip(flat_s, flat_c):
+        a, b = _as_tensor(a), _as_tensor(b)
+        if a.shape != b.shape or a.dtype != b.dtype or a.device != b.device:
+            return None
+        view = _INT_VIEW[a.element_size()]
+        same = (a.view(view) == b.view(view)).all()
+        verdicts.setdefault(a.device, []).append((name, same))
+    clean = set()
+    for pairs in verdicts.values():
+        got = torch.stack([v for _, v in pairs]).cpu().tolist()
+        clean.update(name for (name, _), ok in zip(pairs, got) if ok)
+    return clean
 
 
 # -- streamed stage ----------------------------------------------------------------
@@ -885,6 +1068,20 @@ class _StageMonitor:
         if rel in self._done or self._complete:
             return True
         return nbytes is not None and self._water.get(rel, 0) >= nbytes
+
+    def ready_hint(self, path: str, nbytes: int | None = None) -> bool:
+        """Non-blocking: whether ``path`` appears to have ``nbytes``
+        contiguous bytes staged (None: the whole file). A hint that only
+        orders the post-copy tail; the gated read still waits on
+        :meth:`wait_ready`. Paths outside the staging root, and a failed
+        stage (whose read then raises), report ready."""
+        rel = os.path.relpath(os.path.abspath(path), self.root)
+        if rel.startswith(".."):
+            return True
+        with self._lock:
+            self._poll_locked()
+            return self._failed is not None or self._ready_locked(
+                os.path.normpath(rel), nbytes)
 
     def wait_ready(self, path: str, nbytes: int | None = None) -> None:
         """Block until ``path`` has at least ``nbytes`` contiguous bytes
@@ -1106,9 +1303,20 @@ def restore_snapshot(directory: str, *, like: Any = None,
         return dict(zip(names, _restore_leaves(
             directory, _Placer(recs, [None] * len(recs), None),
             verify=verify, monitor=monitor, seeded=seeded)))
+    recs, leaves, device = _like_plan(directory, by_name, like, device)
+    out = iter(_restore_leaves(directory, _Placer(recs, leaves, device),
+                               verify=verify, monitor=monitor, seeded=seeded))
+    return map_with_names(lambda _name, _leaf: next(out), like)
+
+
+def _like_plan(directory: str, by_name: dict, like: Any,
+               device: torch.device | str | None
+               ) -> tuple[list[dict], list, torch.device | None]:
+    """The manifest records and leaves of ``like`` in its flattening
+    order, checked against the manifest, and the device its meta leaves
+    go to (resolved only when it has one)."""
     leaves = flatten_with_names(like)
-    names = [n for n, _ in leaves]
-    missing = [n for n in names if n not in by_name]
+    missing = [n for n, _ in leaves if n not in by_name]
     if missing:
         raise KeyError(f"snapshot {directory} lacks arrays: {missing[:5]}")
     for name, leaf in leaves:
@@ -1122,11 +1330,203 @@ def restore_snapshot(directory: str, *, like: Any = None,
     if any(isinstance(x, torch.Tensor) and x.device.type == "meta"
            for _, x in leaves):
         device = resolve_device(device)
-    placer = _Placer([by_name[n] for n in names], [x for _, x in leaves],
-                     device)
-    out = iter(_restore_leaves(directory, placer, verify=verify,
-                               monitor=monitor, seeded=seeded))
-    return map_with_names(lambda _name, _leaf: next(out), like)
+    return [by_name[n] for n, _ in leaves], [x for _, x in leaves], device
+
+
+def restore_snapshot_postcopy(directory: str, *, like: Any,
+                              device: torch.device | str | None = None,
+                              verify: bool = True) -> "PostcopyRestore":
+    """Post-copy (lazy) :func:`restore_snapshot`: place the hot set (arrays
+    of at most ``GRIT_RESTORE_POSTCOPY_HOT_MB`` each: step counters,
+    norms, serving bookkeeping) now, through the blocking restore's
+    readers and placer, and return a :class:`PostcopyRestore` whose
+    background tail places the cold bulk in the order its bytes are
+    staged. The caller resumes at once; :meth:`PostcopyRestore.wait`
+    hands over the whole tree. ``like`` is required (the handle rebuilds
+    the caller's tree); ``device`` and ``verify`` as for
+    :func:`restore_snapshot`, whose checks every chunk still passes."""
+    if like is None:
+        raise ValueError("post-copy restore requires `like` (the handle "
+                         "rebuilds the caller's tree)")
+    t0 = time.monotonic()
+    monitor, manifest, seeded = _begin_restore(directory)
+    by_name = {rec["name"]: rec for rec in manifest.arrays}
+    recs, leaves, device = _like_plan(directory, by_name, like, device)
+    hot_cut = max(0.0, config.RESTORE_POSTCOPY_HOT_MB.get_float()) * 1e6
+    sizes = [sum(c["nbytes"] for c in rec["chunks"]) for rec in recs]
+    hot = [i for i, n in enumerate(sizes) if n <= hot_cut]
+    cold = [i for i, n in enumerate(sizes) if n > hot_cut]
+    placed = _restore_leaves(
+        directory, _Placer([recs[i] for i in hot], [leaves[i] for i in hot],
+                           device),
+        verify=verify, monitor=monitor, seeded=seeded)
+    handle = PostcopyRestore(
+        directory, like=like, recs=recs, leaves=leaves, device=device,
+        monitor=monitor, verify=verify, results=dict(zip(hot, placed)),
+        cold=cold, meta=dict(manifest.meta))
+    handle.hot_s = time.monotonic() - t0
+    handle.start()
+    return handle
+
+
+class PostcopyRestore:
+    """An in-flight post-copy restore: the hot leaves placed, the cold
+    ones landing through the tail thread. :meth:`wait` returns the whole
+    ``like``-shaped tree.
+
+    The tail reads each cold array into pinned blocks and copies it to
+    the device on a side stream of its own, so its copies neither queue
+    behind nor hold up the kernels the resumed workload puts on the
+    default stream; the host waits for each array's copies before it
+    releases the blocks and publishes the tensor, which is therefore
+    complete on every stream. The tensor's memory is allocated on the
+    tail thread's current stream, which the side stream waits for first,
+    so the allocator never hands the copies memory a queued kernel still
+    uses."""
+
+    def __init__(self, directory: str, *, like: Any, recs: list[dict],
+                 leaves: list, device: torch.device | None,
+                 monitor: _StageMonitor | None, verify: bool,
+                 results: dict, cold: list[int], meta: dict) -> None:
+        self.directory = directory
+        self.meta = meta
+        self.hot_s = 0.0   # restore call → hot set placed
+        self.tail_s = 0.0  # the tail's wall time
+        self._like = like
+        self._recs = recs
+        self._leaves = leaves
+        self._names = [rec["name"] for rec in recs]
+        self._device = device
+        self._monitor = monitor
+        self._verify = verify
+        self._results: dict[int, Any] = dict(results)
+        self._cold = list(cold)
+        self._cond = threading.Condition()
+        self._err: BaseException | None = None
+        self._done = not self._cold
+        self._thread: threading.Thread | None = None
+
+    def start(self) -> None:
+        self._thread = threading.Thread(target=self._tail,
+                                        name="grit-postcopy-tail", daemon=True)
+        self._thread.start()
+
+    @property
+    def done(self) -> bool:
+        with self._cond:
+            return self._done
+
+    @property
+    def placed(self) -> int:
+        """Arrays placed so far (the hot set and the tail's progress)."""
+        with self._cond:
+            return len(self._results)
+
+    def placed_leaves(self) -> dict:
+        """``{keystr name: leaf}`` of the leaves placed so far: a snapshot
+        in time, not a live view (a serving clone starts on the hot
+        bookkeeping while its KV cache lands)."""
+        with self._cond:
+            return {self._names[i]: v for i, v in self._results.items()}
+
+    def _tail(self) -> None:
+        t0 = time.monotonic()
+        try:
+            placer = _Placer([self._recs[i] for i in self._cold],
+                             [self._leaves[i] for i in self._cold],
+                             self._device)
+            placer.open_pool(1)
+            stream = (torch.cuda.Stream(self._device)
+                      if self._device is not None
+                      and self._device.type == "cuda" else None)
+            pending = list(range(len(self._cold)))
+            for order in range(len(pending)):
+                j = self._pick_ready(pending)
+                got = placer.read(j, self.directory, verify=self._verify,
+                                  monitor=self._monitor, order=order)
+                leaf = placer.place(j, got, stream=stream)
+                pending.remove(j)
+                with self._cond:
+                    self._results[self._cold[j]] = leaf
+                    self._cond.notify_all()
+        except BaseException as exc:  # noqa: BLE001 — surfaced by wait()
+            with self._cond:
+                self._err = exc
+                self._cond.notify_all()
+        finally:
+            self.tail_s = time.monotonic() - t0
+            with self._cond:
+                self._done = True
+                self._cond.notify_all()
+
+    def _array_ready(self, j: int) -> bool:
+        """Every chunk of cold array ``j`` appears staged (a hint)."""
+        for chunk in self._recs[self._cold[j]]["chunks"]:
+            d = self.directory
+            if chunk.get("ref_dir"):
+                d = os.path.normpath(os.path.join(d, chunk["ref_dir"]))
+            if not self._monitor.ready_hint(os.path.join(d, chunk["file"]),
+                                            chunk["offset"] + chunk["nbytes"]):
+                return False
+        return True
+
+    def _pick_ready(self, pending: list[int]) -> int:
+        """Readiness order: poll briefly for a pending array whose bytes
+        have landed; when none has, the head, whose gated read waits for
+        exactly the bytes it needs (and raises on a failed stage)."""
+        if self._monitor is None:
+            return pending[0]
+        deadline = time.monotonic() + 2.0
+        while time.monotonic() < deadline:
+            for j in pending:
+                if self._array_ready(j):
+                    return j
+            time.sleep(0.05)
+        return pending[0]
+
+    def wait(self, timeout: float | None = None) -> Any:
+        """Block until every cold array is placed; returns the restored
+        tree, leaf types as :func:`restore_snapshot` gives them. A tail
+        that failed on the snapshot's bytes (a failed or torn stage, an
+        OSError) falls back, with a warning, to a bounded loop of the
+        blocking restore: after a stage failure the agent re-stages the
+        tree underneath it. Any other error is raised."""
+        if timeout is None:
+            timeout = _stage_timeout()
+        deadline = time.monotonic() + timeout
+        with self._cond:
+            while not self._done:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    raise TimeoutError(
+                        f"post-copy tail still placing after {timeout:.0f}s "
+                        f"({len(self._results)}/{len(self._recs)} arrays)")
+                self._cond.wait(min(1.0, remaining))
+            err = self._err
+        if err is not None:
+            if isinstance(err, (SnapshotIntegrityError, OSError)):
+                log.warning("post-copy tail failed (%s: %s); falling back to "
+                            "the blocking restore", type(err).__name__, err)
+                return self._blocking_fallback(deadline)
+            raise err
+        out = iter([self._results[i] for i in range(len(self._recs))])
+        return map_with_names(lambda _name, _leaf: next(out), self._like)
+
+    def _blocking_fallback(self, deadline: float) -> Any:
+        """The blocking restore, retried until the stage deadline: each
+        attempt fails loudly until the re-staged tree is whole, and never
+        hands over partial state."""
+        while True:
+            try:
+                return restore_snapshot(self.directory, like=self._like,
+                                        device=self._device,
+                                        verify=self._verify)
+            except (SnapshotIntegrityError, OSError) as exc:
+                if time.monotonic() > deadline:
+                    raise SnapshotIntegrityError(
+                        "post-copy fallback could not complete a blocking "
+                        f"restore before the stage deadline: {exc}") from exc
+                time.sleep(0.5)
 
 
 class _PinnedBlocks:
@@ -1227,10 +1627,13 @@ class _Placer:
             self.pool = _PinnedBlocks(min(total, window * max(self.need)))
 
     def read(self, i: int, directory: str, *, verify: bool,
-             monitor: _StageMonitor | None):
-        """Array ``i``'s bytes: its pinned blocks, or a CPU tensor."""
+             monitor: _StageMonitor | None, order: int | None = None):
+        """Array ``i``'s bytes: its pinned blocks, or a CPU tensor.
+        ``order``: its turn at the pinned blocks (by default ``i``: reads
+        reserve in array order)."""
         if self.pool is not None:
-            blocks = self.pool.reserve(i, self.need[i])
+            blocks = self.pool.reserve(i if order is None else order,
+                                       self.need[i])
             if blocks:
                 chunk = self.recs[i]["chunks"][0]
                 try:
@@ -1244,18 +1647,29 @@ class _Placer:
         return _read_array_host(directory, self.recs[i], verify=verify,
                                 monitor=monitor)
 
-    def place(self, i: int, got):
+    def place(self, i: int, got, stream: "torch.cuda.Stream | None" = None):
+        """Array ``i`` on its target, from what :meth:`read` returned.
+        Pinned blocks are copied on the caller's current stream, or on
+        ``stream`` once it has waited for the current one (the memory of
+        the result is the current stream's), and released only after
+        their copies have landed."""
         target = self.targets[i]
         if self.need[i]:
             rec = self.recs[i]
             out = torch.empty(rec["shape"], dtype=_NAME_DTYPES[rec["dtype"]],
                               device=target)
             dst = out.reshape(-1).view(torch.uint8)
-            for (o, m), src in zip(_spans(dst.numel()), self.pool.pieces(
-                    got, dst.numel(), host=False)):
-                dst[o:o + m].copy_(src, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(torch.cuda.current_stream(target))
+            current = torch.cuda.current_stream(target)
+            if stream is None:
+                stream = current
+            else:
+                stream.wait_stream(current)
+            with torch.cuda.stream(stream):
+                for (o, m), src in zip(_spans(dst.numel()), self.pool.pieces(
+                        got, dst.numel(), host=False)):
+                    dst[o:o + m].copy_(src, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(stream)
             done.synchronize()
             self.pool.release(got)
             return out

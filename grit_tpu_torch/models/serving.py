@@ -33,6 +33,13 @@ engine's device seeded by the key and the stream's ``n_generated``, so a
 sampled continuation is bit-identical within the port; across the two
 frameworks only greedy tokens can agree.
 
+**Post-copy clones.** :meth:`ContinuousBatchingEngine.restore_postcopy`
+places a snapshot's hot bookkeeping and serves new requests on the slots
+the source had free while the KV cache lands; the source's in-flight
+slots stay parked until :meth:`~ContinuousBatchingEngine.absorb_restored`
+merges the restored rows in (the snapshot fan-out,
+:mod:`grit_tpu_torch.serving.fanout`).
+
 Engines given no device run on the current CUDA device and raise without
 one (pass ``device="cpu"`` explicitly).
 """
@@ -49,8 +56,10 @@ import torch
 from grit_tpu_torch.device.placement import resolve_device
 from grit_tpu_torch.device.quiesce import quiesce
 from grit_tpu_torch.device.snapshot import (
+    PostcopyRestore,
     SnapshotManifest,
     restore_snapshot,
+    restore_snapshot_postcopy,
     write_snapshot,
 )
 from grit_tpu_torch.models import llama
@@ -217,6 +226,14 @@ class ContinuousBatchingEngine:
         self.device = resolve_device(device)
         self._submissions = 0  # the next admission's RNG stream (monotonic)
         self.state = self._fresh_state(self.device)
+        # Post-copy clone (snapshot fan-out): while the cold KV cache is
+        # still landing, _parked_mask marks the slots the source had in
+        # flight (neither admitted into nor stepped until their rows
+        # arrive) and _fresh_mask the slots this clone has admitted into
+        # its fresh grid since; absorb_restored() merges the two.
+        self._postcopy: PostcopyRestore | None = None
+        self._parked_mask: torch.Tensor | None = None
+        self._fresh_mask: torch.Tensor | None = None
 
     def _fresh_state(self, device) -> dict:
         b = self.bcfg
@@ -235,7 +252,13 @@ class ContinuousBatchingEngine:
     # -- admission -------------------------------------------------------------
 
     def free_slots(self) -> list[int]:
-        return torch.nonzero(~self.state["active"]).flatten().tolist()
+        free = ~self.state["active"]
+        if self._parked_mask is not None:
+            # Mid post-copy restore: the source's in-flight slots are
+            # reserved; an admission into one would be overwritten by
+            # the absorb merge.
+            free = free & ~self._parked_mask
+        return torch.nonzero(free).flatten().tolist()
 
     def submit(self, prompt) -> int:
         """Admit a prompt into a free slot; returns the slot id. The next
@@ -272,6 +295,10 @@ class ContinuousBatchingEngine:
             dtype=torch.uint32)
         st["n_generated"][slot] = 0
         self._submissions += 1
+        if self._fresh_mask is not None:
+            # The slot's KV rows live in the clone's fresh grid: the
+            # absorb merge keeps them over the restored cache.
+            self._fresh_mask[slot] = True
         return slot
 
     def release(self, slot: int) -> None:
@@ -283,6 +310,10 @@ class ContinuousBatchingEngine:
         """One ragged decode for every active slot. Returns ``{slot:
         token}`` for the slots that emitted; slots hitting EOS or the
         cache limit deactivate (their final token is still reported)."""
+        if self._postcopy is not None and self._postcopy.done:
+            # A batch boundary is the merge point: the cold tail has
+            # landed, so the restored streams join this step.
+            self.absorb_restored()
         was_active = self.state["active"]  # the step rebinds, never mutates
         if not was_active.any():
             return {}
@@ -308,7 +339,11 @@ class ContinuousBatchingEngine:
         waterline) zeroed, so a codec's zero-block elision ships a
         half-empty grid's cache as mostly empty payloads. Semantically
         the same state: those pages are prefilled or overwritten before
-        any read."""
+        any read. A clone whose cold tail is still landing absorbs it
+        first: the half-merged grid marks the migrated slots inactive and
+        would drop their streams."""
+        if self._postcopy is not None:
+            self.absorb_restored()
         st = self.state
         with _on(self.device):
             k, v = _tag_elidable_kv(st["cache"]["k"], st["cache"]["v"],
@@ -320,6 +355,8 @@ class ContinuousBatchingEngine:
         agentlet accepts it: the dump is full, which a delta reader takes
         as is."""
         del base
+        if self._postcopy is not None:
+            self.absorb_restored()
         quiesce(self.state)
         return write_snapshot(directory, self.snapshot_state(),
                               meta=self.snapshot_meta())
@@ -329,6 +366,82 @@ class ContinuousBatchingEngine:
             directory, like=self._fresh_state("meta"), device=self.device)
         self._submissions = int(
             SnapshotManifest.load(directory).meta.get("submissions", 0))
+        self._postcopy = self._parked_mask = self._fresh_mask = None
+
+    def restore_postcopy(self, directory: str) -> PostcopyRestore:
+        """The snapshot fan-out's restore: place the hot bookkeeping
+        (positions, active mask, RNG words, last tokens, counts) now and
+        return the :class:`~grit_tpu_torch.device.snapshot.PostcopyRestore`
+        while the KV cache lands. The engine serves at once: new requests
+        prefill into a fresh grid on the slots the source had free, and
+        the source's in-flight slots stay parked until
+        :meth:`absorb_restored` (run by the first :meth:`step` after the
+        tail lands) merges the restored rows in; from then on the
+        migrated streams continue bit-identically. When the hot set does
+        not hold the bookkeeping (``GRIT_RESTORE_POSTCOPY_HOT_MB`` too
+        small), the restore completes as the blocking one does."""
+        if self._postcopy is not None:
+            # Two outstanding tails over one state cannot merge.
+            self.absorb_restored()
+        handle = restore_snapshot_postcopy(
+            directory, like=self._fresh_state("meta"), device=self.device)
+        self._submissions = int(handle.meta.get("submissions", 0))
+        placed = handle.placed_leaves()
+        book = {key: placed.get(f"[{key!r}]") for key in
+                ("lengths", "active", "last_token", "rngs", "n_generated")}
+        if any(v is None for v in book.values()):
+            self.state = handle.wait()
+            self._postcopy = self._parked_mask = self._fresh_mask = None
+            return handle
+        fresh = self._fresh_state(self.device)
+        # Copies: admissions write the bookkeeping in place, and the
+        # handle hands these same tensors to the merge.
+        self.state = {**{k: v.clone() for k, v in book.items()},
+                      "cache": fresh["cache"],
+                      # Parked until their rows land; absorb re-activates.
+                      "active": fresh["active"]}
+        self._postcopy = handle
+        self._parked_mask = book["active"].clone()
+        self._fresh_mask = torch.zeros_like(self._parked_mask)
+        return handle
+
+    @property
+    def resumed_all(self) -> bool:
+        """True once no restored stream waits on its KV rows (never a
+        clone, or the absorb merge has run)."""
+        return self._postcopy is None
+
+    def absorb_restored(self, timeout: float | None = None) -> None:
+        """Wait for the restored KV cache, then merge: the fresh grid's
+        rows for the slots this clone admitted, the restored rows (and
+        bookkeeping) for every other slot, which re-activates the parked
+        streams. Idempotent; a tail that failed for good raises out of
+        the handle's own fallback."""
+        if self._postcopy is None:
+            return
+        full = self._postcopy.wait(
+            **({} if timeout is None else {"timeout": timeout}))
+        fresh, cur = self._fresh_mask, self.state
+        page = fresh.to(cur["cache"]["k"].device)[None, :, None, None, None]
+        self.state = {
+            "cache": {**full["cache"],
+                      "k": torch.where(page, cur["cache"]["k"],
+                                       full["cache"]["k"]),
+                      "v": torch.where(page, cur["cache"]["v"],
+                                       full["cache"]["v"])},
+            "lengths": torch.where(fresh, cur["lengths"], full["lengths"]),
+            "active": torch.where(fresh, cur["active"], full["active"]),
+            "last_token": torch.where(fresh[:, None], cur["last_token"],
+                                      full["last_token"]),
+            # Through int32: some torch builds have no uint32 `where` on
+            # the CPU, where the RNG words live.
+            "rngs": torch.where(fresh[:, None], cur["rngs"].view(torch.int32),
+                                full["rngs"].view(torch.int32)
+                                ).view(torch.uint32),
+            "n_generated": torch.where(fresh, cur["n_generated"],
+                                       full["n_generated"]),
+        }
+        self._postcopy = self._parked_mask = self._fresh_mask = None
 
 
 def _tag_elidable_kv(cache_k: torch.Tensor, cache_v: torch.Tensor,

@@ -180,6 +180,20 @@ class ServingAgentlet:
 
     def _drain(self) -> None:
         t0 = time.monotonic()
+        if not getattr(self.engine, "resumed_all", True):
+            # A clone still mid post-copy restore: settle the merge now, so
+            # the drain sees (and drain mode finishes) the migrated streams
+            # too; the dump-time absorb would re-activate them into a grid
+            # the drain declared empty. The drain budget bounds the absorb:
+            # a stalled tail surfaces as the drain's loud timeout.
+            try:
+                self.engine.absorb_restored(
+                    timeout=max(0.001, self.drain_timeout_s))
+            except TimeoutError as exc:
+                raise ServingDrainTimeout(
+                    f"cold post-copy tail still landing after "
+                    f"{self.drain_timeout_s:.0f}s "
+                    f"({config.SERVE_DRAIN_TIMEOUT_S.name}): {exc}") from exc
         in_flight = int(self.engine.state["active"].sum())
         ok = False
         drained_tokens = 0

@@ -32,10 +32,16 @@ from typing import Any, Callable
 
 import torch
 
+from grit_tpu_torch.api import config
 from grit_tpu_torch.device.hook import restore_dir_from_env
 from grit_tpu_torch.device.placement import resolve_device
 from grit_tpu_torch.device.quiesce import quiesce
-from grit_tpu_torch.device.snapshot import restore_snapshot, write_snapshot
+from grit_tpu_torch.device.snapshot import (
+    PostcopyRestore,
+    restore_snapshot,
+    restore_snapshot_postcopy,
+    write_snapshot,
+)
 from grit_tpu_torch.train.optim import GradientTransformation, adam
 from grit_tpu_torch.tree import flatten_with_names, map_with_names, tree_map
 
@@ -96,6 +102,11 @@ class Trainer:
         # allocation inside the migration blackout, thrown away by the
         # restore one call later. First access materializes.
         self._state: dict | None = None
+        # An in-flight post-copy restore (GRIT_RESTORE_POSTCOPY): the cold
+        # bulk is still landing through the handle's tail, and the first
+        # touch of the state joins it.
+        self._postcopy: PostcopyRestore | None = None
+        self._postcopy_step: int | None = None
 
     # -- state ------------------------------------------------------------------
 
@@ -114,13 +125,35 @@ class Trainer:
 
     @property
     def state(self) -> dict:
+        if self._postcopy is not None:
+            # First touch of the whole tree: join the post-copy tail. The
+            # handle is dropped only after wait() succeeds, so a failed
+            # join stays loud on every retry and never turns into a
+            # fresh state at step 0.
+            resolved = self._postcopy.wait()
+            self._postcopy = None
+            self._postcopy_step = None
+            self._state = resolved
         if self._state is None:
             gen = torch.Generator(device=self.device).manual_seed(self.cfg.seed)
             self._state = self._make_state(self._init_params(gen, self.device))
         return self._state
 
+    @state.setter
+    def state(self, value: dict) -> None:
+        self._state = value
+        self._postcopy = None
+        self._postcopy_step = None
+
+    @property
+    def postcopy(self) -> PostcopyRestore | None:
+        """The post-copy restore still landing, if any."""
+        return self._postcopy
+
     @property
     def step(self) -> int:
+        if self._postcopy is not None and self._postcopy_step is not None:
+            return self._postcopy_step  # the manifest's; the tail runs on
         return int(self.state["step"])
 
     # -- step -------------------------------------------------------------------
@@ -179,8 +212,25 @@ class Trainer:
 
     def restore(self, directory: str) -> int:
         """Load state (never materializing the initial state); returns the
-        restored step."""
-        self._state = restore_snapshot(directory, like=self.abstract_state(),
-                                       device=self.device)
+        restored step.
+
+        With ``GRIT_RESTORE_POSTCOPY`` set the restore is lazy: the hot set
+        is placed now, the step comes from the manifest, and the cold bulk
+        lands through a background tail that the first touch of the state
+        (normally the first ``train_step``) joins."""
+        like = self.abstract_state()
+        if config.RESTORE_POSTCOPY.get_flag():
+            handle = restore_snapshot_postcopy(directory, like=like,
+                                               device=self.device)
+            step = handle.meta.get("step")
+            if isinstance(step, (int, float)):
+                self._state = None
+                self._postcopy = handle
+                self._postcopy_step = int(step)
+                return self._postcopy_step
+            # No recorded step: the caller needs it now.
+            self.state = handle.wait()
+            return self.step
+        self.state = restore_snapshot(directory, like=like, device=self.device)
         return self.step
 

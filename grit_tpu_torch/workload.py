@@ -10,7 +10,11 @@ flagship (``bench.py``'s, with ``--optimizer adam``, the default, or
 before the restore, then ``RESTORED <step>``, ``RESTORE_SECONDS <s>``,
 ``RESTORE_PIPELINE <json>`` with the restore's legs and ``seeded``, the
 kernel libraries seeded from the snapshot, and ``INIT_SECONDS <s>``, the
-set-up before the restore); it serves
+set-up before the restore). With ``GRIT_RESTORE_POSTCOPY=1`` the restore
+places only the hot set (``RESTORE_SECONDS`` is its time, and
+``RESTORE_PIPELINE`` carries ``"postcopy": true`` and ``hot_s``), ``READY``
+follows it, the first step joins the cold tail, and
+``RESTORE_POSTCOPY {"hot_s", "tail_s"}`` follows that step's line. It serves
 the toggle protocol through an
 :class:`~grit_tpu_torch.device.agentlet.Agentlet` (printing ``READY``),
 then trains, printing ``STEP <n> <loss!r>`` and offering a checkpoint
@@ -148,13 +152,18 @@ def main(argv: list[str] | None = None) -> None:
         restored = tr.restore(restore_dir)
         print(f"RESTORED {restored}", flush=True)
         print(f"RESTORE_SECONDS {time.perf_counter() - t0!r}", flush=True)
-        print(f"RESTORE_PIPELINE {json.dumps(last_restore_pipeline())}",
-              flush=True)
+        pipeline = last_restore_pipeline()
+        if tr.postcopy is not None:
+            pipeline.update(postcopy=True, hot_s=tr.postcopy.hot_s)
+        print(f"RESTORE_PIPELINE {json.dumps(pipeline)}", flush=True)
         print(f"INIT_SECONDS {t0 - t_main!r}", flush=True)
-    # Materialize the state here, on the loop thread: the agentlet's
-    # dispatch thread reads it (status, dump) and must never be the one
-    # that initializes it.
-    tr.state  # noqa: B018
+    postcopy = tr.postcopy
+    if postcopy is None:
+        # Materialize the state here, on the loop thread: the agentlet's
+        # dispatch thread reads it (status, dump) and must never be the
+        # one that initializes it. A post-copy restore is left to land:
+        # the first step joins it, and no dump can come before that step.
+        tr.state  # noqa: B018
     agentlet = Agentlet(lambda: tr.state, step_fn=lambda: tr.step,
                         reload_fn=tr.restore).start()
     print("READY", flush=True)
@@ -163,6 +172,11 @@ def main(argv: list[str] | None = None) -> None:
         while tr.step < n_steps:
             loss = float(tr.train_step()["loss"])
             print(f"STEP {tr.step} {loss!r}", flush=True)
+            if postcopy is not None:
+                print("RESTORE_POSTCOPY " + json.dumps(
+                    {"hot_s": postcopy.hot_s, "tail_s": postcopy.tail_s}),
+                    flush=True)
+                postcopy = None
             agentlet.checkpoint_point()
     finally:
         agentlet.stop()

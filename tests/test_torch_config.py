@@ -27,7 +27,7 @@ VALUES = {"unset": lambda t: None, "empty": lambda t: "",
 
 
 def test_every_port_knob_is_a_reference_knob():
-    assert len(KNOBS) >= 12
+    assert len(KNOBS) >= 15
     for knob in KNOBS:
         assert knob.name in ref.REGISTRY, knob.name
         assert ref.REGISTRY[knob.name].type in READ
@@ -45,6 +45,19 @@ def test_knob_reads_as_the_reference_registry(knob, case, monkeypatch):
     got = getattr(knob, READ[want_knob.type])()
     want = want_knob.get()
     assert type(got) is type(want) and got == want, (knob.name, raw)
+
+
+@pytest.mark.parametrize("name", ["GRIT_SNAP_SPECULATE",
+                                  "GRIT_SNAP_SPECULATE_WAIT_S",
+                                  "GRIT_RESTORE_POSTCOPY",
+                                  "GRIT_RESTORE_POSTCOPY_HOT_MB"])
+def test_speculation_and_postcopy_knobs_are_declared(name, monkeypatch):
+    """The knobs validated speculation and post-copy read are the port's
+    own, with the reference's names and defaults."""
+    monkeypatch.delenv(name, raising=False)
+    knob = next(k for k in KNOBS if k.name == name)
+    want = ref.REGISTRY[name]
+    assert getattr(knob, READ[want.type])() == want.get()
 
 
 def test_empty_socket_dir_is_the_default_for_both_packages(monkeypatch):

@@ -50,16 +50,25 @@ def test_precopy_blackout_delta_streamed_stage(tmp_path, monkeypatch):
                                            "MANIFEST.json")))
     cut = manifest["meta"]["step"]
     assert cut >= 3
-    assert manifest["base"] == os.path.join("..", "..", "main-precopy",
-                                            HBM_SUBDIR)
-    dirty = manifest["dirty"]
-    assert dirty["totalChunks"] == sum(len(r["chunks"])
-                                       for r in manifest["arrays"])
-    # Adam moves every weight each step: the blackout delta is nearly all
-    # dirty, and the leaves the steps never touch (the seed) are reused.
+    # Speculation on (the default): the blackout quiesce started a pass
+    # into <hbm>-spec, a delta against the pre-copy base, and the parked
+    # dump re-shipped against that pass what the steps since changed.
+    spec = json.load(open(os.path.join(h.pvc, "main", HBM_SUBDIR + "-spec",
+                                       "MANIFEST.json")))
+    assert manifest["base"] == os.path.join("..", HBM_SUBDIR + "-spec")
+    assert spec["base"] == os.path.join("..", "..", "main-precopy",
+                                        HBM_SUBDIR)
+    for m in (manifest, spec):
+        assert m["dirty"]["totalChunks"] == sum(len(r["chunks"])
+                                                for r in m["arrays"])
+    # Adam moves every weight each step: the pass is nearly all dirty,
+    # and the leaves the steps never touch (the seed) are reused; the
+    # re-ship writes at most what the pass wrote.
+    dirty = spec["dirty"]
     assert 0 < dirty["chunks"] < dirty["totalChunks"]
-    assert any(c.get("ref_dir") for r in manifest["arrays"]
-               for c in r["chunks"])
+    assert manifest["dirty"]["chunks"] <= dirty["chunks"]
+    rng = next(r for r in manifest["arrays"] if r["name"] == "['rng']")
+    assert rng["chunks"][0].get("ref_dir")
     # The blackout upload skipped what the streaming mirror committed.
     mirrored = {os.path.join("main", HBM_SUBDIR, n)
                 for n in ("data-h0000.bin", "index-h0000.json")}

@@ -165,7 +165,8 @@ def test_port_imports_nothing_of_jax():
             grit_tpu_torch.__path__, "grit_tpu_torch.")]
         for want in ("grit_tpu_torch.workload", "grit_tpu_torch.train.optim",
                      "grit_tpu_torch.device.hook",
-                     "grit_tpu_torch.models.mnist"):
+                     "grit_tpu_torch.models.mnist",
+                     "grit_tpu_torch.serving.fanout"):
             assert want in names, names
         for name in names:
             importlib.import_module(name)
