@@ -54,7 +54,11 @@ non-zero without the final result line:
    and the phase fails if one launched.
 7. io      — rates of the stages a dump and restore are made of
    (device-host copies, crc32, sha256, file write and read) on a buffer
-   the size of the flagship's largest leaf.
+   the size of the flagship's largest leaf; the port's crc32c library
+   (built here with the host compiler, its path printed) held to the RFC
+   3720 vectors and to its plain version at unaligned lengths on both of
+   its paths, and timed against ``zlib.crc32``; zlib level 1, the codec
+   stage's, on one 64 MiB piece.
 8. precopy — the reference agent's pre-copy and streamed-stage migration
    of phase 5's flagship, driven as the agent drives it: a live pass at
    step 2 (quiesce, hashed dump mirrored to a PVC directory, resume), the
@@ -92,11 +96,28 @@ non-zero without the final result line:
    harness's MNIST workload (``--model mnist``) migrated once through
    ``AutoDeviceHook``, bitwise, and a pid without an agentlet skipped
    loudly. ``[frozen]`` lines.
+10. wire   — phase 5's flagship migrated over the wire into this
+   script's own receiver (the reference's frames and journal: frame crc,
+   codec records decoded and checked against their crc of the raw bytes,
+   waterline lines, eof): (a) raw, the dump carrying a wire spec and a
+   PVC mirror, the rest of the tree staged after it and a destination
+   spawned on the landed tree, whose losses must equal phase 5's
+   uninterrupted run bit for bit; then a second dump of the parked source
+   into a receiver that hangs up mid-stream must answer ``ok`` with a
+   failed wire block and a committed mirror; (b) the same under
+   ``GRIT_SNAPSHOT_CODEC=zlib`` at 4 layers (the source's own run,
+   resumed after the dump, is the reference): the wire carries codec
+   records, the mirror is a container with a ``.gritc`` sidecar, and a
+   second destination restores from it; both continue bitwise. A byte
+   flipped in one frame must fail the stream. Bytes raw and on the wire,
+   records compressed and raw, ``send_s``, ``stall_s``,
+   ``dump_overlap_bytes``, dump and blackout print as ``[wire]`` lines.
 
 The second-to-last lines are the kernels' JSON record (with the serving
-phase's numbers under ``serving``, phase 8's under ``precopy`` and phase
-9's under ``frozen_trunk``; each kernel's ``launches`` sums phases 4 and
-9) and the card's ``name, power limit``;
+phase's numbers under ``serving``, phase 8's under ``precopy``, phase
+9's under ``frozen_trunk``, phase 10's under ``wire`` and phase 7's
+crc32c and codec rates under ``io``; each kernel's ``launches`` sums
+phases 4, 9 and 10) and the card's ``name, power limit``;
 the last line is the result JSON. ``--seed`` seeds the serving phase's
 weights and prompts (default 0). The script imports nothing of JAX or of
 the JAX package.
@@ -140,8 +161,13 @@ KERNELS = {  # name -> (CUDA source, the Pallas kernel it replaces)
 }
 
 
+_T0 = time.perf_counter()
+
+
 def log(phase: str, msg: str) -> None:
-    print(f"[{phase}] {msg}", flush=True)
+    """One line of ``phase``, stamped with the seconds since the script
+    started."""
+    print(f"[{phase}] +{time.perf_counter() - _T0:.0f}s {msg}", flush=True)
 
 
 # -- phase 1 -------------------------------------------------------------------
@@ -1210,14 +1236,15 @@ def phase_serving(torch, fa, work: str, card: str, *, seed: int,
             "device_busy_ms": None if prof is None else prof["device_ms"]}
 
 
-def phase_io(torch, work: str, card: str) -> None:
+def phase_io(torch, work: str, card: str) -> dict:
     """Rates of the stages the dump and restore are made of, on a buffer
     the size of the flagship's largest leaf (the stacked MLP weights),
     fastest of three calls after a warm-up: device-host copies (pageable
     and pinned; the snapshot stages through pinned buffers), ``zlib.crc32``
     and ``hashlib.sha256`` (the chunk checksum and the pre-copy chunk
     identity), and file write and read through the page cache beside the
-    snapshot."""
+    snapshot; then the crc32c library and the codec's zlib
+    (:func:`io_codec_and_crc32c`, whose numbers it returns)."""
     import numpy as np  # noqa: PLC0415
 
     n = LAYERS * 2560 * 6912 * 2
@@ -1263,6 +1290,88 @@ def phase_io(torch, work: str, card: str) -> None:
     os.unlink(path)
     log("io", f"stage rates on {n} bytes ({os.cpu_count()} CPUs): "
               f"{'; '.join(rates)} [{card}]")
+    return io_codec_and_crc32c(host, card)
+
+
+# RFC 3720 section B.4, and the usual check value of "123456789".
+CRC32C_VECTORS = ((bytes(32), 0x8A9136AA), (b"\xff" * 32, 0x62A8AB43),
+                  (bytes(range(32)), 0x46DD794E),
+                  (bytes(range(31, -1, -1)), 0x113FDB5C),
+                  (b"123456789", 0xE3069283))
+
+
+def io_codec_and_crc32c(host, card: str) -> dict:
+    """The port's crc32c library (``grit_tpu_torch/checksum.py``, built here
+    with the host compiler) on both of its paths, held to the RFC 3720
+    vectors and to its plain version on a few MiB at unaligned lengths,
+    then timed against ``zlib.crc32`` on ``host`` (fastest of three after a
+    warm-up); zlib level 1 (the codec stage's) compressing and
+    decompressing one 64 MiB dump piece of ``host``."""
+    from grit_tpu_torch import checksum  # noqa: PLC0415
+
+    t0 = time.perf_counter()
+    path = checksum.path()
+    build_s = time.perf_counter() - t0
+    checked = 0
+    for table in (False, True):
+        checksum.force_table(table)
+        try:
+            for data, want in CRC32C_VECTORS:
+                if checksum.crc32c(data) != want:
+                    raise AssertionError(f"crc32c (table {table}) of "
+                                         f"{data[:8]!r}...: not {want:#x}")
+            for k, length in enumerate((1, 4095, 1 << 20, (2 << 20) + 7)):
+                view = host[k + 1:k + 1 + length]  # unaligned starts
+                if checksum.crc32c(view) != checksum.plain_crc32c(view):
+                    raise AssertionError(f"crc32c (table {table}) disagrees "
+                                         f"with its plain version at length "
+                                         f"{length}")
+                checked += length
+        finally:
+            checksum.force_table(False)
+
+    def best_of(fn, reps: int = 3) -> float:
+        fn()
+        best = float("inf")
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            best = min(best, time.perf_counter() - t0)
+        return best
+
+    n = host.nbytes
+    crc32c_s = best_of(lambda: checksum.crc32c(host))
+    checksum.force_table(True)
+    try:
+        table_s = best_of(lambda: checksum.crc32c(host), reps=1)
+    finally:
+        checksum.force_table(False)
+    crc32_s = best_of(lambda: zlib.crc32(host))
+    piece = host[:64 << 20]
+    t0 = time.perf_counter()
+    packed = zlib.compress(piece, 1)
+    compress_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if zlib.decompress(packed) != piece.tobytes():
+        raise AssertionError("zlib round trip changed the piece")
+    decompress_s = time.perf_counter() - t0
+    out = {"crc32c_path": path, "crc32c_build_s": build_s,
+           "crc32c_gbps": n / crc32c_s / 1e9,
+           "crc32c_table_gbps": n / table_s / 1e9,
+           "crc32_gbps": n / crc32_s / 1e9,
+           "zlib1_compress_gbps": piece.nbytes / compress_s / 1e9,
+           "zlib1_decompress_gbps": piece.nbytes / decompress_s / 1e9,
+           "zlib1_ratio": len(packed) / piece.nbytes}
+    log("io", f"crc32c library: path {path} (built and loaded in "
+              f"{build_s:.3f} s); RFC 3720 vectors and {checked} bytes at "
+              f"unaligned lengths equal to the plain version on both paths; "
+              f"{out['crc32c_gbps']:.3f} GB/s ({out['crc32c_table_gbps']:.3f} "
+              f"on the table path) against zlib.crc32 "
+              f"{out['crc32_gbps']:.3f} GB/s on {n} bytes; zlib level 1 on "
+              f"one 64 MiB piece: compress {out['zlib1_compress_gbps']:.4f} "
+              f"GB/s, decompress {out['zlib1_decompress_gbps']:.3f} GB/s, "
+              f"ratio {out['zlib1_ratio']:.4f} [{card}]")
+    return out
 
 
 # -- phase 8 -------------------------------------------------------------------
@@ -2065,6 +2174,480 @@ def mnist_twin(work: str, card: str) -> dict:
     return {"cut": cut, "dump_s": dump_s, "losses": got}
 
 
+# -- phase 10 ------------------------------------------------------------------
+
+WIRE_STREAMS = 2
+# The zlib run's depth (its widths are the flagship's): the codec
+# compresses nearly every bf16 block on the host's cores, so its dump
+# grows with the state; this depth keeps the script within its time.
+WIRE_CODEC_LAYERS = 4
+
+
+class Receiver:
+    """A migration destination's wire receiver, written for this script in
+    the reference's frame format and journal (``grit_tpu/agent/copy.py``,
+    ``WireReceiver``): ``u32 header length | header JSON | payload``
+    frames on any number of connections; a ``chunk`` frame's payload is
+    checked against its crc32 (of the raw bytes, after the codec record's
+    decode for a frame with ``"c"``) and written at its raw offset, and a
+    waterline line ``{"file", "staged"}`` goes to the stage journal in
+    ``dst`` whenever the contiguous prefix grows; ``eof`` waits for the
+    waterline to reach its total and writes the ``done`` line. Any bad
+    frame fails the session: a ``{"failed": msg}`` line, every connection
+    closed. Planted faults: ``flip_frame`` flips a byte of that chunk
+    frame's payload on arrival; ``close_after`` hangs up on every stream
+    once that many payload bytes have arrived."""
+
+    def __init__(self, dst: str, *, flip_frame: int | None = None,
+                 close_after: int | None = None) -> None:
+        import socket  # noqa: PLC0415
+        import threading  # noqa: PLC0415
+
+        from grit_tpu_torch.metadata import STAGE_JOURNAL_FILE  # noqa: PLC0415
+
+        self.dst = dst
+        os.makedirs(dst, exist_ok=True)
+        self.journal = open(os.path.join(dst, STAGE_JOURNAL_FILE), "w")
+        self.flip_frame, self.close_after = flip_frame, close_after
+        self.srv = socket.socket()
+        self.srv.bind(("127.0.0.1", 0))
+        self.srv.listen(16)
+        self.endpoint = f"127.0.0.1:{self.srv.getsockname()[1]}"
+        self.error: str | None = None
+        self.hung_up = False
+        self.records = {"raw": 0, "compressed": 0, "zero": 0}
+        self.wire_bytes = 0   # payload bytes received
+        self.raw_bytes = 0    # raw bytes written
+        self._fds: dict[str, int] = {}
+        self._water: dict[str, int] = {}
+        self._pending: dict[str, dict[int, int]] = {}
+        self._frames = 0
+        self._conns: list = []
+        self._cond = threading.Condition()
+        self._thread = threading.Thread(target=self._accept, daemon=True)
+        self._thread.start()
+
+    def _accept(self) -> None:
+        import threading  # noqa: PLC0415
+
+        while True:
+            try:
+                conn, _ = self.srv.accept()
+            except OSError:
+                return
+            with self._cond:
+                self._conns.append(conn)
+            threading.Thread(target=self._serve, args=(conn,),
+                             daemon=True).start()
+
+    def _drop_all(self) -> None:
+        """Hang up every stream (shutdown first: it wakes a thread blocked
+        in ``recv`` and tells the sender at once). Holds ``_cond``."""
+        import socket  # noqa: PLC0415
+
+        for c in self._conns:
+            try:
+                c.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+            c.close()
+
+    @staticmethod
+    def _exact(conn, n: int) -> bytearray:
+        """``n`` bytes read straight into one buffer."""
+        out = bytearray(n)
+        view, got = memoryview(out), 0
+        while got < n:
+            k = conn.recv_into(view[got:])
+            if not k:
+                raise ConnectionError(f"peer closed mid-frame ({got}/{n} "
+                                      "bytes)")
+            got += k
+        return out
+
+    def _serve(self, conn) -> None:
+        import struct  # noqa: PLC0415
+
+        try:
+            while self.error is None:
+                head = conn.recv(4)
+                if not head:
+                    return
+                if len(head) < 4:
+                    head += self._exact(conn, 4 - len(head))
+                (hlen,) = struct.unpack(">I", head)
+                header = json.loads(self._exact(conn, hlen))
+                payload = self._exact(conn, int(header.get("n", 0)))
+                self._frame(header, payload)
+        except (OSError, ValueError, KeyError, zlib.error) as exc:
+            if not self.hung_up:
+                self._fail(f"{type(exc).__name__}: {exc}")
+
+    def _frame(self, header: dict, payload: bytearray) -> None:
+        kind = header.get("t")
+        if kind == "eof":
+            self._eof(header["rel"], int(header["total"]))
+            return
+        if kind != "chunk":
+            raise ValueError(f"unexpected frame {header}")
+        with self._cond:
+            self._frames += 1
+            k = self._frames
+            self.wire_bytes += len(payload)
+            if self.close_after is not None and \
+                    self.wire_bytes > self.close_after and not self.hung_up:
+                self.hung_up = True
+                self._drop_all()
+                return
+        if k == self.flip_frame and payload:
+            payload[0] ^= 0x01
+        codec = header.get("c")
+        if codec is None:
+            raw = payload
+        elif codec == "zero":
+            raw = bytes(int(header["rn"]))
+        elif codec == "zlib":
+            raw = zlib.decompress(payload)
+        else:
+            raise ValueError(f"codec {codec!r} is not this receiver's")
+        if len(raw) != int(header.get("rn", len(payload))) or \
+                zlib.crc32(raw) != int(header["crc"]):
+            raise ValueError(f"frame crc mismatch at {header['rel']}@"
+                             f"{header['off']} ({len(payload)} bytes)")
+        rel, off = header["rel"], int(header["off"])
+        with self._cond:
+            fd = self._fds.get(rel)
+            if fd is None:
+                path = os.path.join(self.dst, rel)
+                os.makedirs(os.path.dirname(path), exist_ok=True)
+                fd = self._fds[rel] = os.open(path, os.O_RDWR | os.O_CREAT)
+        # Streams write apart; eof closes the file only once the waterline,
+        # moved after each write, has passed every byte.
+        os.pwrite(fd, raw, off)
+        with self._cond:
+            self.raw_bytes += len(raw)
+            self.records["raw" if codec in (None, "none") else
+                         "zero" if codec == "zero" else "compressed"] += 1
+            pend = self._pending.setdefault(rel, {})
+            pend[off] = len(raw)
+            water = self._water.get(rel, 0)
+            while water in pend:
+                water += pend.pop(water)
+            if water != self._water.get(rel, 0):
+                self._water[rel] = water
+                self.journal.write(json.dumps({"file": rel, "staged": water})
+                                   + "\n")
+                self.journal.flush()
+            self._cond.notify_all()
+
+    def _eof(self, rel: str, total: int) -> None:
+        deadline = time.monotonic() + 300
+        with self._cond:
+            while self._water.get(rel, 0) < total and self.error is None:
+                if time.monotonic() > deadline:
+                    raise ValueError(f"{rel} ended short "
+                                     f"({self._water.get(rel, 0)}/{total})")
+                self._cond.wait(1.0)
+            if self.error is None:
+                os.close(self._fds.pop(rel))
+                self.journal.write(json.dumps(
+                    {"file": rel, "staged": total, "done": True}) + "\n")
+                self.journal.flush()
+
+    def _fail(self, msg: str) -> None:
+        with self._cond:
+            if self.error is not None:
+                return
+            self.error = msg
+            self.journal.write(json.dumps({"failed": msg}) + "\n")
+            self.journal.flush()
+            self._drop_all()
+            self._cond.notify_all()
+
+    def stage_file(self, src: str, rel: str) -> None:
+        """A whole file of the tree, as the agent ships the rest after the
+        dump."""
+        os.makedirs(os.path.dirname(os.path.join(self.dst, rel)), exist_ok=True)
+        shutil.copyfile(src, os.path.join(self.dst, rel))
+        with self._cond:
+            self.journal.write(json.dumps(
+                {"file": rel, "staged": os.path.getsize(src), "done": True})
+                + "\n")
+            self.journal.flush()
+
+    def complete(self) -> None:
+        with self._cond:
+            self.journal.write(json.dumps({"complete": True}) + "\n")
+            self.journal.flush()
+
+    def close(self) -> None:
+        import socket  # noqa: PLC0415
+
+        try:
+            self.srv.shutdown(socket.SHUT_RDWR)  # wakes the accept thread
+        except OSError:
+            pass
+        self.srv.close()
+        with self._cond:
+            self._drop_all()
+            for fd in self._fds.values():
+                os.close(fd)
+            self._fds.clear()
+        self.journal.close()
+
+
+def wire_run(work: str, card: str, label: str, codec: str,
+             ref_losses: dict | None, *, hang_up_check: bool,
+             layers: int | None = None) -> dict:
+    """One wire migration of phase 5's flagship (Adam): the source
+    quiesced and dumped with a wire spec and a PVC mirror under
+    ``GRIT_SNAPSHOT_CODEC=codec``, the rest of the tree staged as the
+    agent ships it, then a destination spawned on the landed tree; its
+    losses after the cut against ``ref_losses``. With a codec, a second
+    destination restores from the mirror (a container on the PVC),
+    spawned once the first has taken its first step. ``hang_up_check``:
+    before the source is killed, a second dump of its parked state into
+    a receiver that hangs up mid-stream must answer ``ok`` with a failed
+    wire block and a committed mirror. ``layers``: a depth other than
+    phase 5's (the widths stay the flagship's); ``ref_losses`` None: the
+    reference is the source's own run, resumed after the dump to the same
+    last step."""
+    from grit_tpu_torch.device.agentlet import ToggleClient  # noqa: PLC0415
+    from grit_tpu_torch.device.snapshot import (  # noqa: PLC0415
+        DATA_FILE, INDEX_FILE, MANIFEST_FILE, snapshot_exists, snapshot_nbytes)
+
+    self_ref = ref_losses is None
+    socks = os.path.join(work, f"socks-wire-{label}")
+    host, pvc, dst_root = (os.path.join(work, f"{n}-wire-{label}")
+                           for n in ("host", "pvc", "dst"))
+    os.makedirs(socks)
+    env = {"GRIT_TPU_SOCKET_DIR": socks, "GRIT_SNAPSHOT_CODEC": codec}
+    snap, mirror = os.path.join(host, "hbm"), os.path.join(pvc, "hbm")
+    procs: list[Workload] = []
+    recv = Receiver(dst_root)
+    out: dict = {"codec": codec}
+    try:
+        args = WORKLOAD_ARGS[:]
+        if layers is not None:
+            args[args.index("--layers") + 1] = str(layers)
+        src = Workload(1000, env, args=args)
+        procs.append(src)
+        src.wait_for("READY")
+        src.wait_for(rf"STEP {MIGRATE_CUT} ")
+        client = ToggleClient(src.proc.pid, path=os.path.join(
+            socks, f"grit-tpu-{src.proc.pid}.sock"), timeout=600)
+        t_quiesce = time.perf_counter()
+        cut = client.quiesce()
+        t_dump = time.perf_counter()
+        resp = client.dump(snap, mirror=mirror, wire={
+            "endpoint": recv.endpoint, "prefix": "hbm",
+            "streams": WIRE_STREAMS})
+        t_dumped = time.perf_counter()
+        for name in (INDEX_FILE, MANIFEST_FILE, "COMMIT"):
+            recv.stage_file(os.path.join(snap, name), f"hbm/{name}")
+        recv.complete()
+        # The restored container is created once the tree has landed (the
+        # shim injects the restore env only for a committed snapshot).
+        dst = Workload(MIGRATE_STEPS, {
+            **env, "GRIT_TPU_RESTORE_DIR": os.path.join(dst_root, "hbm")},
+            args=args)
+        procs.append(dst)
+        restored = int(dst.wait_for(r"RESTORED (\d+)").group(1))
+        t_restored = time.perf_counter()
+        restore_s = float(dst.wait_for(r"RESTORE_SECONDS (\S+)").group(1))
+        pipe = json.loads(dst.wait_for(r"RESTORE_PIPELINE (.+)").group(1))
+        init_s = float(dst.wait_for(r"INIT_SECONDS (\S+)").group(1))
+        dst.wait_for(r"STEP \d+ ")
+        t_first = time.perf_counter()
+        mdst = None
+        if codec != "none":  # the mirror's destination, beside the first
+            mdst = Workload(MIGRATE_STEPS, {**env,
+                                            "GRIT_TPU_RESTORE_DIR": mirror},
+                            args=args)
+            procs.append(mdst)
+        dst.finish()
+        if hang_up_check:
+            hang = Receiver(os.path.join(work, f"hang-{label}"),
+                            close_after=min(64 << 20, snapshot_nbytes(snap) // 8))
+            hang_mirror = os.path.join(work, f"pvc-hang-{label}", "hbm")
+            try:
+                hung = client.dump(os.path.join(host, "hang", "hbm"),
+                                   mirror=hang_mirror, wire={
+                                       "endpoint": hang.endpoint,
+                                       "prefix": "hbm",
+                                       "streams": WIRE_STREAMS})
+            finally:
+                hang.close()
+                shutil.rmtree(hang.dst, ignore_errors=True)
+            if not hang.hung_up or hung["wire"].get("ok") is not False \
+                    or not snapshot_exists(hang_mirror):
+                raise AssertionError(f"a receiver that hung up mid-stream: "
+                                     f"response {hung.get('wire')}, mirror "
+                                     f"committed {snapshot_exists(hang_mirror)}")
+            out["hang_up"] = {"wire": hung["wire"],
+                              "received_bytes": hang.wire_bytes}
+            shutil.rmtree(os.path.dirname(hang_mirror), ignore_errors=True)
+        if ref_losses is None:
+            # The source's own run, resumed after the dump, is the
+            # uninterrupted one (its loop only paused).
+            src.drain()
+            client.resume()
+            deadline = time.monotonic() + 300
+            while MIGRATE_STEPS not in src.losses():
+                if time.monotonic() > deadline or src.proc.poll() is not None:
+                    raise AssertionError(f"{label}: the resumed source did "
+                                         f"not reach step {MIGRATE_STEPS}")
+                time.sleep(0.2)
+            ref_losses = src.losses()
+        client.close()
+        src.kill()
+        nbytes = snapshot_nbytes(snap)
+        mirror_files = os.listdir(mirror)
+        if mdst is not None:
+            m_restored = int(mdst.wait_for(r"RESTORED (\d+)").group(1))
+            m_restore_s = float(mdst.wait_for(r"RESTORE_SECONDS (\S+)").group(1))
+            mdst.finish()
+            out["mirror_restore"] = {"restored": m_restored,
+                                     "restore_s": m_restore_s,
+                                     "losses": mdst.losses(),
+                                     "launches": mdst.kernels()["launches"]}
+    finally:
+        for p in procs:
+            p.kill()
+        recv.close()
+        for d in (host, pvc, dst_root):
+            shutil.rmtree(d, ignore_errors=True)
+
+    wire = resp.get("wire", {})
+    want = {s: x for s, x in ref_losses.items() if cut < s <= MIGRATE_STEPS}
+    if recv.error is not None or not wire.get("ok"):
+        raise AssertionError(f"{label}: the wire failed: response {wire}, "
+                             f"receiver {recv.error}")
+    if wire["files"] != {f"hbm/{DATA_FILE}": nbytes} or \
+            recv.raw_bytes != nbytes:
+        raise AssertionError(f"{label}: streamed {wire['files']}, received "
+                             f"{recv.raw_bytes} raw bytes of {nbytes}")
+    if not pipe["streamed"]:
+        raise AssertionError(f"{label}: the restore did not read the stage "
+                             f"journal: {pipe}")
+    got = dst.losses()
+    if restored != cut or not want or got != want:
+        raise AssertionError(f"{label}: restored step {restored} (cut {cut}); "
+                             f"losses after the cut {got}, uninterrupted "
+                             f"{want}")
+    launches = dst.kernels()["launches"]
+    if codec == "none":
+        if recv.records["compressed"] or recv.wire_bytes != nbytes:
+            raise AssertionError(f"{label}: a raw wire carried "
+                                 f"{recv.records}, {recv.wire_bytes} bytes")
+    else:
+        side = DATA_FILE + ".gritc"
+        m = out["mirror_restore"]
+        if side not in mirror_files or not recv.records["compressed"]:
+            raise AssertionError(f"{label}: mirror files {mirror_files}, "
+                                 f"records {recv.records}")
+        if m["restored"] != cut or m["losses"] != want:
+            raise AssertionError(f"{label}: the mirror's destination restored "
+                                 f"{m['restored']} (cut {cut}) with losses "
+                                 f"{m['losses']}, uninterrupted {want}")
+        launches = {n: launches[n] + m["launches"][n] for n in KERNELS}
+    if not all(launches[n] > 0 for n in KERNELS):
+        raise AssertionError(f"{label}: a kernel never launched: {launches}")
+    dump_s = t_dumped - t_dump
+    legs = resp["legs"]
+    out.update(cut=cut, bytes=nbytes, wire=wire, records=dict(recv.records),
+               wire_payload_bytes=recv.wire_bytes, dump_s=dump_s,
+               quiesce_s=t_dump - t_quiesce, restore_s=restore_s,
+               init_s=init_s, stage_and_spawn_s=dst.started - t_dumped,
+               spawn_to_restored_s=t_restored - dst.started,
+               first_step_s=t_first - t_restored,
+               blackout_s=t_first - t_quiesce, dump_legs=legs,
+               restore_legs=pipe, launches=launches)
+    log("wire", f"{label}: cut at step {cut}; {nbytes} raw bytes streamed "
+                f"over {WIRE_STREAMS} streams as {recv.wire_bytes} payload "
+                f"bytes ({sum(recv.records.values())} records: "
+                f"{recv.records['compressed']} compressed, "
+                f"{recv.records['raw']} raw, {recv.records['zero']} zero); "
+                f"sender: sent_bytes {wire['sent_bytes']}, send_s "
+                f"{wire['send_s']}, stall_s {wire['stall_s']}, "
+                f"dump_overlap_bytes {wire['dump_overlap_bytes']} [{card}]")
+    log("wire", f"{label}: dump {dump_s:.3f} s = {nbytes / dump_s / 1e9:.3f} "
+                f"GB/s (codec {legs.get('codec')}, mirror "
+                f"{legs.get('mirror_bytes')} B, committed "
+                f"{legs.get('mirror')}, writer blocked on the codec "
+                f"{legs.get('codec_wait', 0.0):.3f} s; legs "
+                f"{fmt_legs(legs, DUMP_LEGS)}); blackout (quiesce → first "
+                f"post-restore step) {t_first - t_quiesce:.3f} s = quiesce "
+                f"{t_dump - t_quiesce:.4f} + dump {dump_s:.3f} + metadata "
+                f"staged and spawn {dst.started - t_dumped:.3f} + spawn → "
+                f"RESTORED {t_restored - dst.started:.3f} (set-up "
+                f"{init_s:.3f}, restore {restore_s:.3f} = "
+                f"{nbytes / restore_s / 1e9:.3f} GB/s, legs "
+                f"{fmt_legs(pipe, RESTORE_LEGS)}) + first step "
+                f"{t_first - t_restored:.3f} [{card}]")
+    msg = (f"{label} ({args[args.index('--layers') + 1]} layers): losses "
+           f"after the cut bitwise equal "
+           f"to {'the resumed source' if self_ref else 'phase 5'}'s "
+           f"uninterrupted run: {got}")
+    if "mirror_restore" in out:
+        msg += (f"; the mirror ({side} beside the container) restored "
+                f"on the card in {out['mirror_restore']['restore_s']:.3f} s, "
+                f"losses bitwise equal too")
+    if "hang_up" in out:
+        msg += (f"; a receiver that hung up after "
+                f"{out['hang_up']['received_bytes']} bytes: dump ok, wire "
+                f"{out['hang_up']['wire']}, mirror committed")
+    log("wire", msg + f" [{card}]")
+    return out
+
+
+def planted_flip(torch, work: str, card: str, dev) -> str:
+    """A byte flipped in one frame on its way: the receiver must fail the
+    stream loudly (a journal ``failed`` line naming the crc) while the
+    dump, of tensors on the card through its pinned ring, commits."""
+    from grit_tpu_torch.device.snapshot import write_snapshot  # noqa: PLC0415
+    from grit_tpu_torch.wire import WireDumpSink, WireSender  # noqa: PLC0415
+
+    recv = Receiver(os.path.join(work, "flip-dst"), flip_frame=2)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    state = {"w": torch.randn(6 << 20, device=dev, generator=gen)}  # 24 MiB
+    try:
+        sender = WireSender(recv.endpoint, streams=WIRE_STREAMS)
+        sink = WireDumpSink(sender, "hbm/data-h0000.bin")
+        try:
+            write_snapshot(os.path.join(work, "flip-src"), state, wire=sink)
+        finally:
+            sender.close()
+    finally:
+        recv.close()
+    with open(os.path.join(work, "flip-dst", ".grit-stage-journal")) as f:
+        journal = f.read()
+    if recv.error is None or "crc" not in recv.error \
+            or '"failed"' not in journal:
+        raise AssertionError(f"a flipped byte was not refused: receiver "
+                             f"{recv.error}, journal {journal[-300:]}")
+    log("wire", f"planted fault: a byte flipped in frame 2 failed the stream "
+                f"({recv.error}); the sender's wire ok {sink.ok} "
+                f"({sink.error}) [{card}]")
+    return recv.error
+
+
+def phase_wire(torch, work: str, card: str, ref_losses: dict,
+               dev=None) -> dict:
+    """Phase 10: the wire migration of phase 5's flagship, raw and then
+    compressed (zlib), and the planted faults (``dev``: the card by
+    default; a rehearsal on the CPU passes the CPU)."""
+    runs = {"raw": wire_run(work, card, "raw", "none", ref_losses,
+                            hang_up_check=True),
+            "zlib": wire_run(work, card, "zlib", "zlib", None,
+                             hang_up_check=False, layers=WIRE_CODEC_LAYERS)}
+    runs["flip"] = planted_flip(torch, work, card,
+                                dev if dev is not None else torch.device("cuda", 0))
+    runs["launches"] = {n: runs["raw"]["launches"][n]
+                        + runs["zlib"]["launches"][n] for n in KERNELS}
+    return runs
+
+
 # -- main ----------------------------------------------------------------------
 
 
@@ -2104,9 +2687,10 @@ def main(argv: list[str] | None = None) -> int:
         migrate = phase_migrate(work, device["smi"])
         serve = phase_serving(torch, fa, work, device["smi"], seed=args.seed)
         torch.cuda.empty_cache()
-        phase_io(torch, work, device["smi"])
+        io = phase_io(torch, work, device["smi"])
         precopy = phase_precopy(work, device["smi"], migrate["ref_losses"])
         frozen = phase_frozen(work, device["smi"], train=train)
+        wire = phase_wire(torch, work, device["smi"], migrate["ref_losses"])
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2116,11 +2700,13 @@ def main(argv: list[str] | None = None) -> int:
         "route": "cuda",
         "source": src,
         "replaces": replaces,
-        # Phase 4's steps and phase 9's frozen-trunk runs (the
-        # uninterrupted one and the restored one).
-        "launches": train["launches"][name] + frozen["launches_all"][name],
+        # Phase 4's steps, phase 9's frozen-trunk runs (the uninterrupted
+        # one and the restored ones) and phase 10's wire destinations.
+        "launches": (train["launches"][name] + frozen["launches_all"][name]
+                     + wire["launches"][name]),
         "launches_by_path": {"adam": train["launches"][name],
-                             "frozen_trunk": frozen["launches_all"][name]},
+                             "frozen_trunk": frozen["launches_all"][name],
+                             "wire": wire["launches"][name]},
         "max_abs_err": main_shape["err"][name],
         "worst_tile_err_ratio": main_shape["tiles"][name],
         "ms": main_shape["ms"][name],
@@ -2143,7 +2729,11 @@ def main(argv: list[str] | None = None) -> int:
         # The pre-copy migration (phase 8) runs the training step's three.
         "precopy": precopy,
         # The frozen-trunk pre-copy (phase 9) runs the forward only.
-        "frozen_trunk": frozen}
+        "frozen_trunk": frozen,
+        # The wire migrations (phase 10) run all three; phase 7's crc32c
+        # and codec rates.
+        "wire": {k: v for k, v in wire.items() if k != "launches"},
+        "io": io}
     print(json.dumps(record), flush=True)
     print(device["smi"], flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,5 +11,8 @@ with delta dumps, the mirror tee and the staged, pipelined restore, the
 agentlet and restore hook (``device``) and the migratable workload
 (``workload``) — and serving: decode and the KV cache, the lock-step and
 continuous-batching engines (``models.serving``) and the request-drain
-serving agentlet (``serving``).
+serving agentlet (``serving``) — and the snapshot's transport: the
+migration wire's source half (``wire``), the codec stage and its
+container format (``codec``), and a crc32c verifier (``checksum``) for
+the JAX package's native-plane chunks.
 """

@@ -91,9 +91,29 @@ TPU_RESTORE_WORKERS = Knob(
     "from the host's cores, 0 disables read-ahead.")
 SNAPSHOT_CODEC = Knob(
     "GRIT_SNAPSHOT_CODEC", "none",
-    "Chunk codec of the mirror tee. This package has no codec stage: any "
-    "value but 'none' abandons the mirror loudly (the agent's upload pass "
-    "then ships the bytes).")
+    "Chunk codec of the snapshot's transport (wire frames and the mirror "
+    "tee's container format): 'none', 'zlib', or 'zstd' (degrades to zlib "
+    "with a loud warning when the zstandard module is absent; unknown "
+    "values degrade to none). Compression is adaptive per chunk; see "
+    "GRIT_CODEC_MIN_RATIO.")
+CODEC_WORKERS = Knob(
+    "GRIT_CODEC_WORKERS", "-1",
+    "Bounded codec worker-pool size (compression on the dump side); -1 "
+    "(unset) sizes from the host's cores.")
+CODEC_MIN_RATIO = Knob(
+    "GRIT_CODEC_MIN_RATIO", "0.9",
+    "Adaptive raw-ship threshold: a chunk whose sample compresses to more "
+    "than this fraction of its raw size ships uncompressed.")
+CODEC_SAMPLE_KB = Knob(
+    "GRIT_CODEC_SAMPLE_KB", "64",
+    "KiB of each chunk sample-compressed to decide between compression "
+    "and raw-ship.")
+WIRE_IFACES = Knob(
+    "GRIT_WIRE_IFACES", "",
+    "Comma-separated network interface names for multi-NIC striping: "
+    "wire stream k is pinned (SO_BINDTODEVICE) to iface k mod N before it "
+    "dials. A refused pin logs loudly and the stream dials unpinned. "
+    "Unset: no pinning.")
 TPU_COMPILE_CACHE = Knob(
     "GRIT_TPU_COMPILE_CACHE", "",
     "Directory the CUDA kernel libraries are built into and loaded from "

@@ -10,7 +10,7 @@ Protocol (newline-delimited JSON, one request per line):
     {"op": "quiesce", "dump"?}       → {"ok": true, "step": N}   toggle off
     {"op": "dump", "dir": "<path>",  → {"ok": true, "dir": ...}  device snapshot
      "base"?, "hashes"?, "mirror"?,
-     "speculative"?}
+     "wire"?, "speculative"?}
     {"op": "resume", "reload"?}      → {"ok": true}              toggle on
     {"op": "status"}                 → {"ok": true, "step": N, "paused": ...}
 
@@ -39,9 +39,14 @@ reference serves it:
   harvested at a step boundary and written while the loop keeps
   stepping; it answers ``"speculative": {"outcome": "probe"}``.
 
-Answered on the reference's failure path (the feature arrives with a
-later slice): a ``wire`` stream answers ``"wire": {"ok": false, ...}``
-(the agent falls back to the PVC path).
+A dump's ``wire`` (``{"endpoint": "host:port", "prefix", "streams"?}``,
+the agent's wire-mode migration) streams the snapshot's data file to the
+destination's receiver while the dump drains, as
+``<prefix>/data-h0000.bin`` (:mod:`grit_tpu_torch.wire`). The response
+carries ``"wire": {"ok": true, "files": {rel: raw bytes}, "sent_bytes",
+"dump_overlap_bytes", "send_s", "stall_s"}``, or ``{"ok": false, "error"}``
+when the connect failed or the wire dropped: never a failed dump (the
+agent falls back to the PVC path). A speculative pass streams nothing.
 
 ``resume`` with ``reload`` (the device re-attach after a process
 restore) runs the workload's ``reload_fn`` on the snapshot while still
@@ -54,8 +59,8 @@ loop is parked, so the state tree is stable. A speculative clone is taken
 by the loop thread itself at a boundary: the port's steps update tensors
 in place, so no other thread reads the live state while a step is queued.
 
-The reference's speculation metrics, flight events and fault points have
-no counterpart here yet.
+The reference's speculation and wire metrics, flight events and fault
+points have no counterpart here yet.
 """
 
 from __future__ import annotations
@@ -63,6 +68,7 @@ from __future__ import annotations
 import json
 import logging
 import os
+import posixpath
 import socket
 import threading
 import time
@@ -73,6 +79,7 @@ import torch
 from grit_tpu_torch.api import config
 from grit_tpu_torch.device.quiesce import clone_generation, quiesce
 from grit_tpu_torch.device.snapshot import (
+    DATA_FILE,
     SpeculativeDump,
     last_write,
     snapshot_delta_nbytes,
@@ -82,11 +89,9 @@ from grit_tpu_torch.device.snapshot import (
     write_snapshot,
 )
 from grit_tpu_torch.tree import flatten_with_names
+from grit_tpu_torch.wire import WireDumpSink, WireSender
 
 log = logging.getLogger(__name__)
-
-_NOT_IN_SLICE = "not in this slice of the PyTorch port"
-
 
 def _hbm(clone: Any) -> dict | None:
     """Device memory around a speculative clone: its bytes on the card,
@@ -517,31 +522,64 @@ class Agentlet:
                 self._cond.wait(timeout=min(0.2, remaining))
         return {"ok": True, "step": int(self.step_fn())}
 
+    @staticmethod
+    def _wire_sink(spec: dict | None):
+        """The dump's wire tee from a request's ``wire`` spec: ``(sink,
+        sender, error_result)``. A connect failure is reported in the
+        response's ``wire`` block, never raised: the agent falls back to
+        the PVC path loudly, and the snapshot is never lost."""
+        if not spec:
+            return None, None, None
+        try:
+            sender = WireSender(str(spec["endpoint"]),
+                                streams=int(spec.get("streams", 2)))
+            rel = posixpath.join(str(spec.get("prefix", "")), DATA_FILE)
+            return WireDumpSink(sender, rel), sender, None
+        except Exception as exc:  # noqa: BLE001 — reported, never raised
+            return None, None, {"ok": False,
+                                "error": f"{type(exc).__name__}: {exc}"}
+
     def _dump(self, req: dict) -> dict:
         with self._cond:
             if not (self._is_parked and self._want_pause):
                 return {"ok": False, "error": "not quiesced"}
             self._dumps_in_flight += 1
+        wire_result: dict | None = None
         try:
             directory = req["dir"]
-            base, clean, spec_info = self._consume_speculation(
-                directory, req.get("base"))
-            with self._dump_lock:
-                write_snapshot(directory, self.state_fn(),
-                               meta={"step": int(self.step_fn()),
-                                     **self.meta_fn()},
-                               base=base, hashes=bool(req.get("hashes")),
-                               mirror=req.get("mirror"), clean_names=clean)
-                legs = last_write()
+            sink, sender, wire_result = self._wire_sink(req.get("wire"))
+            try:
+                base, clean, spec_info = self._consume_speculation(
+                    directory, req.get("base"))
+                with self._dump_lock:
+                    write_snapshot(directory, self.state_fn(),
+                                   meta={"step": int(self.step_fn()),
+                                         **self.meta_fn()},
+                                   base=base, hashes=bool(req.get("hashes")),
+                                   mirror=req.get("mirror"), wire=sink,
+                                   clean_names=clean)
+                    legs = last_write()
+            finally:
+                if sender is not None:
+                    sender.close()  # sends what is queued, then closes
             if spec_info is not None:
                 self._account_speculation(directory, spec_info)
+            if sink is not None:
+                wire_result = (
+                    {"ok": True, "files": {sink.rel: sink.nbytes},
+                     "sent_bytes": sender.sent_bytes,
+                     # on a socket while the dump still drained
+                     "dump_overlap_bytes": sink.bytes_during_dump,
+                     "send_s": round(sender.send_s, 4),
+                     "stall_s": round(sender.stall_s, 4)}
+                    if sink.ok else {"ok": False, "error": sink.error})
         finally:
             with self._cond:
                 self._dumps_in_flight -= 1
                 self._cond.notify_all()
         resp: dict = {"ok": True, "dir": directory, "legs": legs}
-        if req.get("wire") is not None:
-            resp["wire"] = {"ok": False, "error": f"wire stream {_NOT_IN_SLICE}"}
+        if wire_result is not None:
+            resp["wire"] = wire_result
         if spec_info is not None:
             resp["speculative"] = spec_info
         return resp
@@ -615,8 +653,8 @@ class ToggleClient:
              wire: dict | None = None, speculative: bool = False) -> dict:
         """The dump response. ``base``, ``hashes`` and ``mirror`` as
         :func:`~grit_tpu_torch.device.snapshot.write_snapshot` takes them;
-        ``speculative``: the non-parking probe; ``wire`` as the reference
-        client sends it (this agentlet answers it on its failure path)."""
+        ``speculative``: the non-parking probe; ``wire``: ``{"endpoint",
+        "prefix", "streams"?}``, the stream to a migration destination."""
         fields: dict = {"dir": directory}
         if base is not None:
             fields["base"] = base

@@ -16,9 +16,10 @@ Arrays are named by their ``jax.tree_util.keystr`` path
 for bf16, and every array is one chunk with ``{"type": "replicated"}``
 sharding. Chunk checksums are ``zlib.crc32`` (``"algo": "crc32"``). A
 JAX-written snapshot whose chunks carry ``crc32c`` (the JAX package's
-native IO plane) is refused with :class:`SnapshotIntegrityError`: this
-package has no crc32c, and a chunk is read unverified only when the caller
-passes ``verify=False``.
+native IO plane) is verified with the port's crc32c library
+(:mod:`grit_tpu_torch.checksum`); where that cannot be built, its chunks
+raise :class:`SnapshotIntegrityError` unless the caller passes
+``verify=False``.
 
 Delta dumps (``write_snapshot(base=)``, pre-copy live migration): a chunk
 byte-identical to the base's is recorded as a reference (``"ref_dir"``,
@@ -32,8 +33,13 @@ agent's pre-copy governors read.
 Mirror (``mirror=``): a writer thread tees every physically written chunk
 into a second committed snapshot (the agent's upload destination), whose
 COMMIT records each file's identity so the agent's upload pass skips it
-(``grit_tpu/agent/checkpoint.py:_mirrored_skip``). A failed tee never
-fails the dump.
+(``grit_tpu/agent/checkpoint.py:_mirrored_skip``). With
+``GRIT_SNAPSHOT_CODEC`` set, the tee's codec stage (:mod:`grit_tpu_torch.codec`)
+compresses blocks on a worker pool and the mirror's data file is a
+container with a ``.gritc`` sidecar, which every restore path decodes and
+verifies. Wire (``wire=``): the same tee streams the bytes, raw or as codec
+records, to a migration destination while the dump drains
+(:mod:`grit_tpu_torch.wire`). A failed tee never fails the dump.
 
 Restore gates every read on the streamed-staging journal when one governs
 the directory (the agent stages metadata first, data while the restore
@@ -71,10 +77,10 @@ arrays) is placed before the call returns, the cold bulk by a background
 tail in the order its bytes are staged; :meth:`PostcopyRestore.wait`
 hands over the whole tree.
 
-Not in this package yet: the codec container (a data file with a
-``.gritc`` sidecar is refused), crc32c, the wire sink, the multi-process
-index merge, and the reference's metrics, flight events and fault points
-of speculation and post-copy.
+Not in this package yet: the multi-process index merge, the reference's
+native drain and native container read (``libgritio``), and the
+reference's metrics, flight events and fault points of speculation,
+post-copy, the codec and the wire.
 """
 
 from __future__ import annotations
@@ -97,11 +103,12 @@ from typing import Any, Callable, Iterator
 import numpy as np
 import torch
 
+from grit_tpu_torch import checksum
+from grit_tpu_torch import codec as transport_codec
 from grit_tpu_torch.api import config
 from grit_tpu_torch.device.placement import resolve_device
 from grit_tpu_torch.ops import build
 from grit_tpu_torch.metadata import (
-    CODEC_SIDECAR_SUFFIX,
     SNAPSHOT_FORMAT,
     STAGE_JOURNAL_FILE,
     atomic_write_json,
@@ -110,6 +117,7 @@ from grit_tpu_torch.metadata import (
     crc32_file,
 )
 from grit_tpu_torch.tree import flatten_with_names, map_with_names
+from grit_tpu_torch.wire import Countdown
 
 log = logging.getLogger(__name__)
 
@@ -147,8 +155,8 @@ _NAME_DTYPES = {v: k for k, v in _DTYPE_NAMES.items()}
 
 class SnapshotIntegrityError(RuntimeError):
     """A snapshot's bytes cannot be trusted (checksum, size, coverage, a
-    failed or stalled stage, a missing base) or cannot be read by this
-    package (crc32c, a codec container)."""
+    torn codec sidecar or a corrupt block, a failed or stalled stage, a
+    missing base), or its crc32c chunks cannot be verified here."""
 
 
 @dataclass
@@ -385,11 +393,12 @@ def _match_base_chunk(base_abs: str, base_rel: str, bc: dict, index: list,
     (``crc``, ``sha256``) for the write that follows a miss.
 
     A hashed base compares sha256 (no read of the base; the crc32 is
-    computed beside it for the write). Otherwise a crc32 mismatch proves a
-    change; a match is only a hint, confirmed by a byte compare against
-    the base file, one piece at a time. A base chunk whose algo this
-    package cannot compute (crc32c) goes straight to the byte compare. An
-    OSError on the base means a fresh write."""
+    computed beside it for the write). Otherwise a mismatch of the base
+    chunk's checksum (crc32, or crc32c from the JAX package's native
+    plane) proves a change; a match is only a hint, confirmed by a byte
+    compare against the base file, one piece at a time. A base chunk of
+    another algo goes straight to the byte compare. An OSError on the base
+    means a fresh write."""
     known: dict = {}
     if "sha256" in bc:
         digest = _Digest(hasher, legs, crc=False, sha256=True)
@@ -401,11 +410,14 @@ def _match_base_chunk(base_abs: str, base_rel: str, bc: dict, index: list,
         known.update(crc=crc, sha256=digest.sha256())
         same = known["sha256"] == bc["sha256"]
     else:
-        if bc.get("algo", "crc32") == "crc32":
+        algo = bc.get("algo", "crc32")
+        crc_fn = {"crc32": zlib.crc32, "crc32c": checksum.crc32c}.get(algo)
+        if crc_fn is not None:
             crc = 0
             for piece in pieces():
-                crc = legs.timed("crc", zlib.crc32, piece, crc)
-            known["crc"] = crc
+                crc = legs.timed("crc", crc_fn, piece, crc)
+            if algo == "crc32":  # the write's own checksum
+                known["crc"] = crc
             if crc != bc.get("crc", bc.get("crc32")):
                 return None, known
         d = base_abs
@@ -506,28 +518,54 @@ class _ByteBoundedQueue:
 
 
 class _MirrorWriter:
-    """Background raw tee of the dump's physically written bytes into
-    ``path``, in the primary's write order, behind a queue bounded by
-    ``GRIT_MIRROR_MAX_INFLIGHT_MB``. A piece whose memory the dump reuses
-    (a pinned ring slot) is queued as a copy in a buffer the writer hands
-    back once written, so copies never fault in fresh pages. Any failure
-    only disables the mirror (the agent's upload pass then ships the
-    bytes); it never fails or hangs the dump."""
+    """Background tee of the dump's physically written bytes, in the
+    primary's write order, into ``path`` (the mirror's data file; None: no
+    file) and onto ``wire`` (a :class:`~grit_tpu_torch.wire.WireDumpSink`;
+    None: no wire), behind a queue bounded by
+    ``GRIT_MIRROR_MAX_INFLIGHT_MB``.
 
-    def __init__(self, path: str) -> None:
+    A piece whose memory the dump reuses (a pinned ring slot) is queued as
+    a copy in a spare buffer that comes back once the file and the wire
+    are through with it, so copies never fault in fresh pages.
+
+    With ``GRIT_SNAPSHOT_CODEC`` set, each piece is decided once
+    (:func:`~grit_tpu_torch.codec.decide_codec`), split into blocks and
+    compressed on the shared pool, and the writer drains the blocks in
+    raw-offset order to both sinks: the file becomes a container with a
+    ``.gritc`` sidecar, the wire carries codec records. With the codec off
+    both carry the raw bytes.
+
+    Any failure only disables the tee: the agent's upload pass ships the
+    bytes, and the wire's ``ok`` turns false (a dead tee leaves a hole in
+    the stream). It never fails or hangs the dump."""
+
+    def __init__(self, path: str | None, wire=None) -> None:
         self._q = _ByteBoundedQueue(config.MIRROR_MAX_INFLIGHT_MB.get_int() << 20)
         self._ok = True
         self._err: str | None = None
         self._path = path
-        self.raw_written = 0
+        self._wire = wire
+        self.codec = transport_codec.resolve_codec()
+        self._pool = (transport_codec.shared_pool()
+                      if self.codec != transport_codec.CODEC_NONE else None)
+        self.sidecar_path: str | None = None
+        self._raw_off = 0       # raw bytes submitted by the dump
+        self.raw_written = 0    # raw bytes drained by the writer
+        self.comp_written = 0   # bytes of the file (raw when the codec is off)
+        self.codec_wait_s = 0.0  # the writer blocked on the pool
         self._spare: queue.SimpleQueue = queue.SimpleQueue()
         self._thread = threading.Thread(target=self._run,
                                         name="grit-snapshot-mirror", daemon=True)
         self._thread.start()
 
     def _run(self) -> None:
+        sidecar = None
         try:
-            with open(self._path, "wb") as f:
+            f = open(self._path, "wb") if self._path is not None else None
+            try:
+                if f is not None and self._pool is not None:
+                    sidecar = transport_codec.SidecarWriter(self._path)
+                    self.sidecar_path = sidecar.path
                 idle = 0
                 while True:
                     try:
@@ -543,15 +581,22 @@ class _MirrorWriter:
                         continue
                     idle = 0
                     if item is None:
+                        if sidecar is not None:
+                            sidecar.close(self.raw_written, self.comp_written)
+                            sidecar = None
                         return
-                    buf, spare = item
-                    f.write(buf)
-                    self.raw_written += buf.nbytes
-                    if spare is not None:
-                        self._spare.put(spare)
+                    self._drain(f, sidecar, item)
+            finally:
+                if f is not None:
+                    f.close()
         except Exception as exc:  # noqa: BLE001 — the tee never fails the dump
             self._ok = False
             self._err = f"{type(exc).__name__}: {exc}"
+            if sidecar is not None:
+                sidecar.abandon()  # an unterminated sidecar is invalid
+            if self._wire is not None:
+                # Bytes died between the dump and the wire: a hole.
+                self._wire.mark_failed(f"mirror tee died: {self._err}")
             # Drain so the producer never blocks on a dead tee; bounded,
             # in case the producer went away without its terminator.
             idle = 0
@@ -563,32 +608,102 @@ class _MirrorWriter:
                 except queue.Empty:
                     idle += 1
 
+    def _drain(self, f, sidecar, item) -> None:
+        """One queued item to the file and the wire: ``("raw", buf, lease)``
+        or ``("rec", future, raw_off, lease)`` (one codec block). ``lease``
+        (or None) hands the item's spare buffer back once both are
+        through with it."""
+        if item[0] == "raw":
+            _, buf, lease = item
+            used, payload, raw_n, crc_raw = None, buf, buf.nbytes, None
+        else:
+            _, fut, raw_off, lease = item
+            t0 = time.perf_counter()
+            # Bounded: a wedged pool worker must surface as a dead tee
+            # within finish()'s join budget.
+            used, payload, raw_n, crc_raw = fut.result(timeout=600.0)
+            self.codec_wait_s += time.perf_counter() - t0
+        if f is not None:
+            f.write(payload)
+            if sidecar is not None:
+                sidecar.record(used, raw_off, raw_n, self.comp_written,
+                               len(payload), crc_raw)
+        self.raw_written += raw_n
+        self.comp_written += len(payload)
+        done = lease.tick if lease is not None else None
+        if self._wire is None:
+            if done is not None:
+                done()
+        elif used is None:
+            self._wire.put(payload, done=done)
+        else:
+            self._wire.put_record(used, payload, raw_off, raw_n, crc_raw,
+                                  done=done)
+
     def put(self, buf: np.ndarray, *, borrowed: bool = False) -> None:
         """Queue ``buf``, which the caller does not write again; a
         ``borrowed`` one, whose memory the caller reuses, as a copy."""
+        if not self._ok:
+            return
+        view = buf.reshape(-1).view(np.uint8)
         spare = None
-        if borrowed and self._ok:
+        if borrowed:
             try:
                 spare = self._spare.get_nowait()
             except queue.Empty:
                 pass
-            if spare is None or spare.nbytes < buf.nbytes:
-                spare = np.empty(max(buf.nbytes, _PIECE_BYTES), np.uint8)
-            np.copyto(spare[:buf.nbytes], buf)
-            buf = spare[:buf.nbytes]
+            if spare is None or spare.nbytes < view.nbytes:
+                spare = np.empty(max(view.nbytes, _PIECE_BYTES), np.uint8)
+            np.copyto(spare[:view.nbytes], view)
+            view = spare[:view.nbytes]
+        if self._pool is None:
+            self._enqueue(("raw", view, self._lease(1, spare)), view.nbytes)
+            return
+        try:
+            piece_codec = transport_codec.decide_codec(view, self.codec)
+        except Exception as exc:  # noqa: BLE001 — the tee never fails the dump
+            self._ok = False
+            self._err = self._err or f"codec decision failed: {exc}"
+            if self._wire is not None:
+                self._wire.mark_failed(self._err)
+            return
+        # Blocks compress in parallel on the pool; the writer drains them
+        # in submission (raw-offset) order. Raw-decided pieces still
+        # zero-elide and checksum per block.
+        spans = [(o, min(transport_codec.BLOCK_BYTES, view.nbytes - o))
+                 for o in range(0, view.nbytes, transport_codec.BLOCK_BYTES)]
+        lease = self._lease(len(spans), spare)
+        for o, n in spans:
+            fut = transport_codec.pool_submit(
+                transport_codec.compress_block, view[o:o + n], piece_codec,
+                presampled=True, elide_zeros=True)
+            self._enqueue(("rec", fut, self._raw_off, lease), n)
+            self._raw_off += n
+
+    def _lease(self, parts: int, spare: np.ndarray | None) -> Countdown | None:
+        """The lease of ``spare`` to ``parts`` queued items: it returns to
+        the free list once each has ticked (None: nothing lent)."""
+        if spare is None:
+            return None
+        return Countdown(parts, lambda: self._spare.put(spare))
+
+    def _enqueue(self, item, nbytes: int) -> None:
+        # Fail fast on a dead writer: a put re-checking liveness can never
+        # block the dump forever.
         while self._ok:
             if not self._thread.is_alive():
                 self._ok = False
                 self._err = self._err or "mirror thread died"
                 return
             try:
-                self._q.put((buf, spare), buf.nbytes, timeout=1.0)
+                self._q.put(item, nbytes, timeout=1.0)
                 return
             except queue.Full:
                 continue
 
     def finish(self, dump_ok: bool = True) -> bool:
-        """Terminate and join; False when the mirror is unusable."""
+        """Terminate and join, then end the wire's stream (its terminator
+        only after a whole, healthy dump); False when the tee is unusable."""
         while self._thread.is_alive():
             try:
                 self._q.put(None, 0, timeout=1.0)
@@ -599,48 +714,59 @@ class _MirrorWriter:
         if self._thread.is_alive():
             self._ok = False
             self._err = self._err or "mirror writer wedged at finish"
+        if self._wire is not None:
+            self._wire.finish(dump_ok and self._ok)
         if not self._ok:
             log.warning("snapshot mirror %s failed (%s); the upload pass "
                         "ships the bytes instead", self._path, self._err)
         return self._ok and dump_ok
 
 
-def _open_mirror(mirror: str | None) -> tuple[str | None, _MirrorWriter | None]:
-    """The mirror's work dir and tee, or ``(None, None)`` when the mirror
-    is abandoned up front."""
-    if mirror is None:
+def _open_mirror(mirror: str | None, wire=None
+                 ) -> tuple[str | None, _MirrorWriter | None]:
+    """The mirror's work dir and the dump's tee: into the mirror and onto
+    ``wire`` (a wire-only tee without a mirror, or when the mirror's work
+    dir cannot be made: the two have separate failure domains), or
+    ``(None, None)`` with neither."""
+    work = None
+    if mirror is not None:
+        work = mirror + WORK_SUFFIX
+        try:
+            shutil.rmtree(work, ignore_errors=True)
+            os.makedirs(work)
+        except OSError as exc:
+            log.warning("snapshot mirror %s abandoned: %s", mirror, exc)
+            work = None
+    if work is None and wire is None:
         return None, None
-    codec = config.SNAPSHOT_CODEC.get() or "none"
-    if codec != "none":
-        log.warning("snapshot mirror %s abandoned: %s=%s asks for the codec "
-                    "stage, which this package does not have; the agent's "
-                    "upload pass ships the snapshot", mirror,
-                    config.SNAPSHOT_CODEC.name, codec)
-        return None, None
-    work = mirror + WORK_SUFFIX
-    try:
-        shutil.rmtree(work, ignore_errors=True)
-        os.makedirs(work)
-    except OSError as exc:
-        log.warning("snapshot mirror %s abandoned: %s", mirror, exc)
-        return None, None
-    return work, _MirrorWriter(os.path.join(work, DATA_FILE))
+    path = os.path.join(work, DATA_FILE) if work is not None else None
+    return work, _MirrorWriter(path, wire=wire)
 
 
 def _mark_mirror(mirror_work: str, work: str,
-                 written_pairs: list[tuple[int, int]]) -> None:
+                 written_pairs: list[tuple[int, int]],
+                 sidecar_path: str | None) -> None:
     """Copy the index into the mirror and drop its ``mirror-ok`` marker:
-    the raw size and chunk-stream signature of the data file, size and
-    crc32 of the index. A missing marker abandons the mirror at commit."""
+    the RAW size and chunk-stream signature of the data file (a container
+    too: the upload-skip pass compares the source's raw bytes, and a
+    restore re-verifies them after decode), size and crc32 of the index
+    and of the codec sidecar, which travels with its container. A missing
+    marker abandons the mirror at commit."""
     index = os.path.join(work, INDEX_FILE)
     try:
         shutil.copyfile(index, os.path.join(mirror_work, INDEX_FILE))
-        atomic_write_json(os.path.join(mirror_work, MIRROR_MARKER), {"files": {
+        files = {
             DATA_FILE: {"size": sum(n for _, n in written_pairs),
                         "sig": chunk_stream_signature(written_pairs)},
             INDEX_FILE: {"size": os.path.getsize(index),
                          "crc": crc32_file(index)},
-        }})
+        }
+        if sidecar_path is not None:
+            files[os.path.basename(sidecar_path)] = {
+                "size": os.path.getsize(sidecar_path),
+                "crc": crc32_file(sidecar_path)}
+        atomic_write_json(os.path.join(mirror_work, MIRROR_MARKER),
+                          {"files": files})
     except OSError as exc:
         log.warning("snapshot mirror %s: marker not written (%s)",
                     mirror_work, exc)
@@ -686,7 +812,8 @@ def _commit_mirror(mirror: str, committed: str) -> bool:
 
 def write_snapshot(directory: str, state: Any, *, meta: dict | None = None,
                    base: str | None = None, hashes: bool = False,
-                   mirror: str | None = None, speculative: bool = False,
+                   mirror: str | None = None, wire=None,
+                   speculative: bool = False,
                    clean_names: frozenset | None = None) -> str:
     """Serialize the tree ``state`` to ``directory`` atomically; returns it.
 
@@ -701,8 +828,15 @@ def write_snapshot(directory: str, state: Any, *, meta: dict | None = None,
     pre-copy live pass pays it outside the blackout).
 
     ``mirror``: a second directory that receives a committed copy of the
-    physically written bytes while the dump runs; failures only abandon
-    it.
+    physically written bytes while the dump runs (a codec container with
+    its ``.gritc`` sidecar under ``GRIT_SNAPSHOT_CODEC``); failures only
+    abandon it.
+
+    ``wire``: a :class:`~grit_tpu_torch.wire.WireDumpSink` that receives
+    the same bytes (raw, or the codec's records) in write order while the
+    dump drains, and the stream's terminator after a whole dump; the
+    direct source-to-destination migration stream. Its failures never
+    fail the dump: the caller reads ``wire.ok`` afterwards.
 
     ``speculative``: the concurrent pass of a quiesce-free dump, racing
     live steps: ``state`` is a drained clone
@@ -742,7 +876,7 @@ def write_snapshot(directory: str, state: Any, *, meta: dict | None = None,
         base_chunks, base_rel, base_abs = _load_base_chunks(directory, base)
     leaves = [(name, _as_tensor(leaf))
               for name, leaf in flatten_with_names(state)]
-    mirror_work, tee = _open_mirror(mirror)
+    mirror_work, tee = _open_mirror(mirror, wire)
     clean = clean_names or frozenset()
     d2h = _DeviceToHost(settled=speculative)
     legs = _DumpLegs()
@@ -785,13 +919,14 @@ def write_snapshot(directory: str, state: Any, *, meta: dict | None = None,
         # The tee must never be left blocked, nor its work dir survive.
         if tee is not None:
             tee.finish(dump_ok=False)
-            shutil.rmtree(mirror_work, ignore_errors=True)
+            if mirror_work is not None:
+                shutil.rmtree(mirror_work, ignore_errors=True)
         raise
 
     with open(os.path.join(work, INDEX_FILE), "w") as f:
         json.dump(records, f)
-    if tee is not None and tee.finish():
-        _mark_mirror(mirror_work, work, written_pairs)
+    if tee is not None and tee.finish() and mirror_work is not None:
+        _mark_mirror(mirror_work, work, written_pairs, tee.sidecar_path)
     manifest = {"format": FORMAT, "process_count": 1, "meta": meta or {},
                 "arrays": records}
     if base_rel is not None:
@@ -821,7 +956,10 @@ def write_snapshot(directory: str, state: Any, *, meta: dict | None = None,
             staging=(f"pinned ring {_RING_SLOTS} x {_PIECE_BYTES >> 20} MiB, "
                      "side-stream D2H" if d2h._ring is not None else "host")
             + ", hashing beside the write",
-            mirror=mirrored, speculative=speculative)
+            mirror=mirrored, speculative=speculative,
+            codec=tee.codec if tee is not None else transport_codec.CODEC_NONE,
+            mirror_bytes=tee.comp_written if tee is not None else 0,
+            codec_wait=tee.codec_wait_s if tee is not None else 0.0)
     return directory
 
 
@@ -1128,37 +1266,74 @@ def _stage_timeout() -> float:
 # -- read ------------------------------------------------------------------------
 
 
-def _chunk_path(directory: str, chunk: dict, *, verify: bool) -> str:
-    """The file holding ``chunk``'s bytes; raises for what this package
-    cannot read as raw verified bytes (a codec container, crc32c)."""
+def _chunk_path(directory: str, chunk: dict) -> str:
+    """The file holding ``chunk``'s bytes (a delta's base file for a
+    referenced chunk)."""
     if chunk.get("ref_dir"):  # delta chunk: the bytes live in the base
         directory = os.path.normpath(os.path.join(directory, chunk["ref_dir"]))
-    path = os.path.join(directory, chunk["file"])
-    if os.path.exists(path + CODEC_SIDECAR_SUFFIX):
-        raise SnapshotIntegrityError(
-            f"{path} is a codec container (a {CODEC_SIDECAR_SUFFIX} sidecar "
-            "lies beside it); the codec is not ported to this package yet, "
-            "and a container is never read as raw bytes")
-    algo = chunk.get("algo", "crc32")
-    if verify and algo != "crc32":
-        raise SnapshotIntegrityError(
-            f"chunk {chunk['file']}@{chunk['offset']} carries a {algo!r} "
-            "checksum, which this package cannot verify; re-dump with crc32 "
-            "chunks")
-    return path
+    return os.path.join(directory, chunk["file"])
+
+
+def _running_crc(algo: str) -> Callable:
+    """The running checksum ``(buf, crc) -> crc`` of a chunk's ``algo``:
+    zlib's crc32, or the crc32c library's (:mod:`grit_tpu_torch.checksum`).
+    A crc32c chunk is read verified or not at all: where the library cannot
+    be built this raises, naming why (the reference skips the check)."""
+    if algo == "crc32":
+        return zlib.crc32
+    if algo == "crc32c":
+        try:
+            checksum.library()
+        except checksum.CRC32CUnavailable as exc:
+            raise SnapshotIntegrityError(
+                f"chunks carry crc32c checksums and the crc32c library is "
+                f"unavailable, so they cannot be verified: {exc}") from exc
+        return checksum.crc32c
+    raise SnapshotIntegrityError(f"unknown checksum algo {algo!r}")
 
 
 def _read_chunk_into(directory: str, chunk: dict, views: list[np.ndarray], *,
                      verify: bool, monitor: _StageMonitor | None) -> None:
-    """``chunk``'s bytes read straight into ``views`` (its pieces, in
-    order), each piece waiting only for its own bytes under a streamed
+    """``chunk``'s raw bytes read straight into ``views`` (its pieces, in
+    order), each read waiting only for its own bytes under a streamed
     stage (the stager preallocates the data file: an ungated read would
-    consume zeros), with a running crc32 checked at the end unless
-    ``verify`` is False."""
-    path = _chunk_path(directory, chunk, verify=verify)
+    consume zeros), with a running checksum of the chunk's algo (crc32 or
+    crc32c) checked at the end unless ``verify`` is False.
+
+    A data file with a ``.gritc`` sidecar is a codec container: the
+    covering blocks are read (gated on their container bytes), decoded and
+    checked against their crc-of-raw, and the chunk's checksum is taken
+    over the raw bytes, as for a raw file. A torn sidecar or a corrupt
+    block raises :class:`SnapshotIntegrityError`."""
+    path = _chunk_path(directory, chunk)
     where = f"{chunk['file']}@{chunk['offset']}"
+    crc_fn = _running_crc(chunk.get("algo", "crc32")) if verify else None
+    try:
+        cindex = transport_codec.load_container_index(path)
+    except transport_codec.CodecError as exc:
+        raise SnapshotIntegrityError(
+            f"codec sidecar for {chunk['file']} is torn: {exc}") from exc
+    if cindex is None:
+        crc = _read_raw_into(path, chunk["offset"], views, crc_fn, monitor,
+                             where)
+    else:
+        try:
+            crc = _read_container_into(path, cindex, chunk["offset"], views,
+                                       crc_fn, monitor, where)
+        except transport_codec.CodecError as exc:
+            raise SnapshotIntegrityError(
+                f"container decode failed in {where}: {exc}") from exc
+    if verify and crc != chunk.get("crc", chunk.get("crc32")):
+        raise SnapshotIntegrityError(
+            f"crc mismatch ({chunk.get('algo', 'crc32')}) in {where}")
+
+
+def _read_raw_into(path: str, offset: int, views: list[np.ndarray], crc_fn,
+                   monitor: _StageMonitor | None, where: str) -> int:
+    """Raw bytes at ``offset`` into ``views``; returns their checksum (0
+    without ``crc_fn``)."""
     crc = 0
-    end = chunk["offset"]
+    end = offset
     if monitor is not None and views:
         # The stager may not have created the file before its first bytes.
         monitor.wait_ready(path, end + views[0].nbytes)
@@ -1176,10 +1351,50 @@ def _read_chunk_into(directory: str, chunk: dict, views: list[np.ndarray], *,
                 if not n:
                     raise SnapshotIntegrityError(f"short read in {where}")
                 got += n
-            if verify:
-                crc = zlib.crc32(view, crc)
-    if verify and crc != chunk.get("crc", chunk.get("crc32")):
-        raise SnapshotIntegrityError(f"crc mismatch in {where}")
+            if crc_fn is not None:
+                crc = crc_fn(view, crc)
+    return crc
+
+
+def _read_container_into(path: str, cindex, offset: int,
+                         views: list[np.ndarray], crc_fn,
+                         monitor: _StageMonitor | None, where: str) -> int:
+    """Raw bytes ``[offset, offset + sum(views))`` of a container into
+    ``views``, block by block; returns their checksum (0 without
+    ``crc_fn``). A streamed stage's waterline counts container bytes."""
+    nbytes = sum(v.nbytes for v in views)
+    flat = [(v, v.nbytes) for v in views]
+    vi = vo = 0  # the view and the offset in it that the next byte lands at
+    crc = 0
+    pos = offset
+    with open(path, "rb", buffering=0) as f:
+        for rec in cindex.covering(offset, nbytes):
+            lo = max(pos, rec.raw_off)
+            hi = min(offset + nbytes, rec.raw_off + rec.raw_n)
+            if hi <= lo:
+                continue
+            if monitor is not None:
+                monitor.wait_ready(path, rec.comp_off + rec.comp_n)
+            payload = os.pread(f.fileno(), rec.comp_n, rec.comp_off)
+            if len(payload) != rec.comp_n:
+                raise SnapshotIntegrityError(
+                    f"short container read in {where} at {rec.comp_off} "
+                    f"({len(payload)}/{rec.comp_n})")
+            raw = transport_codec.decompress_block(
+                rec.codec, payload, rec.raw_n, rec.crc_raw)
+            seg = np.frombuffer(raw, np.uint8)[lo - rec.raw_off:hi - rec.raw_off]
+            if crc_fn is not None:
+                crc = crc_fn(seg, crc)
+            while seg.nbytes:
+                view, size = flat[vi]
+                k = min(size - vo, seg.nbytes)
+                view[vo:vo + k] = seg[:k]
+                seg = seg[k:]
+                vo += k
+                if vo == size:
+                    vi, vo = vi + 1, 0
+            pos = hi
+    return crc
 
 
 def _coverage_complete(shape: list[int], indices: list[list]) -> bool:

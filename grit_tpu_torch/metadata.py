@@ -22,10 +22,6 @@ SNAPSHOT_FORMAT = "grit-tpu-snapshot-v1"
 # advance, then a terminal ``{"complete": true}`` or ``{"failed": msg}``.
 STAGE_JOURNAL_FILE = ".grit-stage-journal"
 
-# Sidecar beside a data file that the JAX package's codec stage wrote as a
-# block container (``grit_tpu/codec.py``): its bytes are not raw.
-CODEC_SIDECAR_SUFFIX = ".gritc"
-
 
 def atomic_write_text(path: str, data: str) -> None:
     """Crash-atomic small-file write: tmp + fsync + rename. A reader sees

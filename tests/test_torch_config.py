@@ -27,7 +27,7 @@ VALUES = {"unset": lambda t: None, "empty": lambda t: "",
 
 
 def test_every_port_knob_is_a_reference_knob():
-    assert len(KNOBS) >= 15
+    assert len(KNOBS) >= 19
     for knob in KNOBS:
         assert knob.name in ref.REGISTRY, knob.name
         assert ref.REGISTRY[knob.name].type in READ
@@ -54,6 +54,18 @@ def test_knob_reads_as_the_reference_registry(knob, case, monkeypatch):
 def test_speculation_and_postcopy_knobs_are_declared(name, monkeypatch):
     """The knobs validated speculation and post-copy read are the port's
     own, with the reference's names and defaults."""
+    monkeypatch.delenv(name, raising=False)
+    knob = next(k for k in KNOBS if k.name == name)
+    want = ref.REGISTRY[name]
+    assert getattr(knob, READ[want.type])() == want.get()
+
+
+@pytest.mark.parametrize("name", ["GRIT_SNAPSHOT_CODEC", "GRIT_CODEC_WORKERS",
+                                  "GRIT_CODEC_MIN_RATIO", "GRIT_CODEC_SAMPLE_KB",
+                                  "GRIT_WIRE_IFACES"])
+def test_codec_and_wire_knobs_are_declared(name, monkeypatch):
+    """The knobs the codec stage and the wire read are the port's own, with
+    the reference's names and defaults."""
     monkeypatch.delenv(name, raising=False)
     knob = next(k for k in KNOBS if k.name == name)
     want = ref.REGISTRY[name]

@@ -1,7 +1,7 @@
 """The port's mirror tee (``write_snapshot(mirror=)``): twins of
 ``tests/test_snapshot.py::TestMirrorSnapshots``, the reference agent's
 upload-skip check (``_mirrored_skip``) over port mirrors, and the codec
-answers the port gives (it has no codec stage)."""
+container in both directions."""
 
 from __future__ import annotations
 
@@ -26,7 +26,8 @@ from grit_tpu_torch.device import snapshot as psnap
 @pytest.fixture
 def python_chunks(monkeypatch):
     """The JAX writer on its Python plane, whose chunks carry crc32 (its
-    native plane writes crc32c, which the port refuses)."""
+    native plane writes crc32c, which only the tests of the crc32c
+    verifier need)."""
     monkeypatch.setattr(jsnap, "_chunk_writer",
                         lambda path, durable: jsnap._PyChunkWriter(path, durable))
 
@@ -172,18 +173,38 @@ class TestReferenceUploadSkip:
 class TestCodecAnswers:
     def test_codec_knob_abandons_the_mirror_loudly(self, tmp_path, monkeypatch,
                                                    caplog):
+        """Under ``GRIT_SNAPSHOT_CODEC`` the mirror is no longer abandoned:
+        it commits as a codec container with its ``.gritc`` sidecar, whose
+        identity its COMMIT records beside the data file's raw one, and the
+        JAX package restores it bitwise."""
         monkeypatch.setenv("GRIT_SNAPSHOT_CODEC", "zlib")
         primary, mirror = str(tmp_path / "hbm"), str(tmp_path / "pvc")
         with caplog.at_level(logging.WARNING, logger=psnap.__name__):
             psnap.write_snapshot(primary, _state(), mirror=mirror)
-        assert psnap.snapshot_exists(primary)
-        assert not os.path.exists(mirror)
+        assert psnap.snapshot_exists(primary) and psnap.snapshot_exists(mirror)
         assert not os.path.exists(mirror + psnap.WORK_SUFFIX)
-        assert any("GRIT_SNAPSHOT_CODEC=zlib" in r.getMessage()
-                   for r in caplog.records)
+        assert not caplog.records
+        data = os.path.join(mirror, psnap.DATA_FILE)
+        index = jcodec.load_container_index(data)
+        assert index is not None
+        assert index.raw_size == os.path.getsize(
+            os.path.join(primary, psnap.DATA_FILE))
+        files = _commit_files(mirror)
+        sidecar = psnap.DATA_FILE + jcodec.SIDECAR_SUFFIX
+        assert files[sidecar] == {"size": os.path.getsize(data + jcodec.SIDECAR_SUFFIX),
+                                  "crc": metadata.crc32_file(
+                                      data + jcodec.SIDECAR_SUFFIX)}
+        assert files[psnap.DATA_FILE]["size"] == index.raw_size
+        got = jsnap.restore_snapshot(mirror)
+        for k, v in _state().items():
+            assert np.asarray(got[f"['{k}']"]).tobytes() == \
+                v.view(torch.uint8 if v.dtype == torch.bfloat16 else v.dtype
+                       ).numpy().tobytes(), k
 
     def test_port_refuses_a_jax_codec_container(self, tmp_path, monkeypatch,
                                                 python_chunks):
+        """The port restores the JAX package's codec container bitwise (it
+        used to refuse it); a torn sidecar is refused."""
         monkeypatch.setenv("GRIT_SNAPSHOT_CODEC", "zlib")
         state = {k: np.asarray(v.float()) for k, v in _state().items()}
         primary, mirror = str(tmp_path / "hbm"), str(tmp_path / "pvc")
@@ -191,8 +212,12 @@ class TestCodecAnswers:
                              mirror=mirror)
         data = os.path.join(mirror, psnap.DATA_FILE)
         assert jcodec.load_container_index(data) is not None
-        with pytest.raises(psnap.SnapshotIntegrityError, match="codec"):
+        for d in (mirror, primary):
+            got = psnap.restore_snapshot(d)
+            for k, v in state.items():
+                assert got[f"['{k}']"].numpy().tobytes() == v.tobytes(), (d, k)
+        sidecar = data + jcodec.SIDECAR_SUFFIX
+        lines = open(sidecar).read().splitlines()
+        open(sidecar, "w").write("\n".join(lines[:-1]) + "\n")
+        with pytest.raises(psnap.SnapshotIntegrityError, match="torn"):
             psnap.restore_snapshot(mirror)
-        # The primary is raw and restores through the port.
-        got = psnap.restore_snapshot(primary)
-        assert got["['w']"].numpy().tobytes() == state["w"].tobytes()

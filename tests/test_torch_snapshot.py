@@ -50,7 +50,8 @@ def _bytes(x) -> bytes:
 @pytest.fixture
 def python_chunks(monkeypatch):
     """The JAX writer on its Python plane, whose chunks carry crc32 (its
-    native plane writes crc32c, which the port refuses)."""
+    native plane writes crc32c, which only the tests of the crc32c
+    verifier need)."""
     monkeypatch.setattr(jsnap, "_chunk_writer",
                         lambda path, durable: jsnap._PyChunkWriter(path, durable))
 

@@ -25,7 +25,8 @@ from grit_tpu_torch.device import snapshot as psnap
 @pytest.fixture
 def python_chunks(monkeypatch):
     """The JAX writer on its Python plane, whose chunks carry crc32 (its
-    native plane writes crc32c, which the port refuses)."""
+    native plane writes crc32c, which only the tests of the crc32c
+    verifier need)."""
     monkeypatch.setattr(jsnap, "_chunk_writer",
                         lambda path, durable: jsnap._PyChunkWriter(path, durable))
 
@@ -173,27 +174,36 @@ class TestDeltaSnapshots:
         _assert_restores(delta_d, _state(2))
 
     def test_crc32c_base_chunks_go_straight_to_the_byte_compare(self, tmp_path):
-        """A base chunk whose algo the port cannot compute (crc32c, the JAX
-        native plane's) is matched by the byte compare alone: equal bytes
-        are referenced, changed bytes written fresh."""
+        """A base chunk with a crc32c checksum (the JAX native plane's) is
+        matched by its crc32c, computed over the new bytes, then the byte
+        compare: equal bytes are referenced, a crc32c mismatch is written
+        fresh, and the port's restore verifies the referenced crc32c."""
+        from grit_tpu_torch import checksum
+
         base_d, delta_d = str(tmp_path / "b"), str(tmp_path / "d")
         psnap.write_snapshot(base_d, _state(1))
+        raw = open(os.path.join(base_d, psnap.DATA_FILE), "rb").read()
         mpath = os.path.join(base_d, psnap.MANIFEST_FILE)
         manifest = json.load(open(mpath))
         for rec in manifest["arrays"]:
-            rec["chunks"][0].update(algo="crc32c", crc=0)
+            c = rec["chunks"][0]
+            c.update(algo="crc32c", crc=checksum.plain_crc32c(
+                raw[c["offset"]:c["offset"] + c["nbytes"]]))
         json.dump(manifest, open(mpath, "w"))
         psnap.write_snapshot(delta_d, _state(2), base=base_d)
         by_name = _by_name(delta_d)
         assert by_name["['frozen']"]["chunks"][0]["algo"] == "crc32c"
         assert by_name["['frozen']"]["chunks"][0].get("ref_dir")
         assert not by_name["['lora']"]["chunks"][0].get("ref_dir")
-        # The JAX package reads it (it skips crc32c it cannot compute);
-        # the port refuses the crc32c chunk unless told not to verify.
-        with pytest.raises(psnap.SnapshotIntegrityError, match="crc32c"):
-            psnap.restore_snapshot(delta_d)
-        got = psnap.restore_snapshot(delta_d, verify=False)
+        assert by_name["['lora']"]["chunks"][0]["algo"] == "crc32"
+        got = psnap.restore_snapshot(delta_d)
         assert torch.equal(got["['frozen']"], _state(2)["frozen"])
+        assert torch.equal(got["['lora']"], _state(2)["lora"])
+        # A wrong crc32c proves a change without any compare.
+        manifest["arrays"][0]["chunks"][0]["crc"] ^= 1
+        json.dump(manifest, open(mpath, "w"))
+        psnap.write_snapshot(delta_d, _state(2), base=base_d)
+        assert not _by_name(delta_d)["['frozen']"]["chunks"][0].get("ref_dir")
 
     def test_committed_tree_has_the_reference_file_set(self, tmp_path,
                                                        python_chunks):

@@ -166,7 +166,8 @@ def test_port_imports_nothing_of_jax():
         for want in ("grit_tpu_torch.workload", "grit_tpu_torch.train.optim",
                      "grit_tpu_torch.device.hook",
                      "grit_tpu_torch.models.mnist",
-                     "grit_tpu_torch.serving.fanout"):
+                     "grit_tpu_torch.serving.fanout", "grit_tpu_torch.wire",
+                     "grit_tpu_torch.codec", "grit_tpu_torch.checksum"):
             assert want in names, names
         for name in names:
             importlib.import_module(name)
