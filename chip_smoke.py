@@ -112,12 +112,35 @@ non-zero without the final result line:
    flipped in one frame must fail the stream. Bytes raw and on the wire,
    records compressed and raw, ``send_s``, ``stall_s``,
    ``dump_overlap_bytes``, dump and blackout print as ``[wire]`` lines.
+11. lora   — the north star's workload (the JAX package's
+   ``examples/workload.py``): ``--model lora`` at Llama-2-7B's full width
+   (32 layers, dim 4096, 32 heads of 128, hidden 11008, vocab 32000, f32
+   params, bf16 activations), adapters of rank 16 on ``wq`` and ``wv``, S
+   2048, batch 8, per-layer remat. An uninterrupted run of 6 steps; a run
+   quiesced after step 3 through its agentlet, dumped, killed, and a fresh
+   process that rebuilds the frozen base from its seed, restores the
+   adapters and their Adam state and continues: its losses must equal the
+   uninterrupted run's bit for bit, and each step must launch the forward
+   64 times (twice a layer under remat) and dQ and dK/dV 32 times. Step
+   seconds, tokens/s, ``max_memory_allocated``, snapshot bytes and the
+   blackout split (process start, base rebuild, restore, first step),
+   read against the north star's 60 s. ``[lora]`` lines.
+12. remat  — the same trainer at 4 layers, batch 2: one loss and the
+   adapters' gradients with remat off and on, bitwise equal, the forward
+   launched twice a layer with it on, the peak memory lower; both peaks
+   printed. ``[remat]`` lines.
+13. moe    — ``bench.py``'s MoE model (``bench_moe``: dim 1024, 12
+   layers, 8 heads of 128, hidden 3584, 8 experts, top-2, bf16, about
+   0.82 B params) at batch 16 x seq 512: the bench's forward tokens/s,
+   then ``--model moe`` trained with Adam and migrated as phase 11 is,
+   bitwise, each kernel launched 12 times a step. ``[moe]`` lines.
 
 The second-to-last lines are the kernels' JSON record (with the serving
 phase's numbers under ``serving``, phase 8's under ``precopy``, phase
-9's under ``frozen_trunk``, phase 10's under ``wire`` and phase 7's
-crc32c and codec rates under ``io``; each kernel's ``launches`` sums
-phases 4, 9 and 10) and the card's ``name, power limit``;
+9's under ``frozen_trunk``, phase 10's under ``wire``, phase 7's
+crc32c and codec rates under ``io``, and phases 11-13's under
+``lora_7b``, ``remat`` and ``moe``; each kernel's ``launches`` sums
+phases 4, 9, 10, 11, 12 and 13) and the card's ``name, power limit``;
 the last line is the result JSON. ``--seed`` seeds the serving phase's
 weights and prompts (default 0). The script imports nothing of JAX or of
 the JAX package.
@@ -664,6 +687,7 @@ class Workload:
                 stderr.close()
         self.started = time.perf_counter()
         self.lines: list[str] = []
+        self.times: list[float] = []  # host clock at each line's arrival
         self._drain = None
 
     def readline(self) -> str:
@@ -673,6 +697,7 @@ class Workload:
             raise RuntimeError(f"workload exited (rc {rc}) after "
                                f"{self.lines[-5:]}")
         line = line.strip()
+        self.times.append(time.perf_counter())
         self.lines.append(line)
         return line
 
@@ -687,6 +712,14 @@ class Workload:
 
         self._drain = threading.Thread(target=run, daemon=True)
         self._drain.start()
+
+    def find(self, pattern: str) -> re.Match | None:
+        """The first line already read that matches ``pattern``."""
+        for line in self.lines:
+            m = re.match(pattern, line)
+            if m:
+                return m
+        return None
 
     def kernels(self) -> dict:
         """The ``KERNELS`` line: launches, libraries built and loaded."""
@@ -897,10 +930,10 @@ def serving_mismatch(torch, got: dict, want: dict, eng, ref) -> str | None:
     return None
 
 
-def profile_decode(torch, eng, rounds: int) -> dict:
-    """Device time by operator over ``rounds`` decode rounds of ``eng``
-    (torch.profiler): each operator's kernels' time a round, their sum
-    (the device's busy time), and the wall time of the profiled rounds."""
+def profile_ops(torch, fn, rounds: int) -> dict:
+    """Device time by operator over ``rounds`` calls of ``fn``
+    (torch.profiler): each operator's kernels' time a call, their sum
+    (the device's busy time), and the wall time of the profiled calls."""
     from torch.autograd import DeviceType  # noqa: PLC0415
     from torch.profiler import ProfilerActivity, profile  # noqa: PLC0415
 
@@ -909,7 +942,8 @@ def profile_decode(torch, eng, rounds: int) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(rounds):
-            eng.step()
+            fn()
+        torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     ops = []
     for ev in prof.key_averages():
@@ -1172,7 +1206,7 @@ def phase_serving(torch, fa, work: str, card: str, *, seed: int,
         raise AssertionError(f"the serving path launched flash kernels "
                              f"{launches}; its attention is the plain one")
 
-    prof = profile_decode(torch, ref, PROFILE_ROUNDS) if on_card else None
+    prof = profile_ops(torch, ref.step, PROFILE_ROUNDS) if on_card else None
     steady = sorted(round_ms[2:])[len(round_ms[2:]) // 2]
     kv_bytes = 2 * ref.state["cache"]["k"].numel() * ref.state["cache"]["k"].element_size()
     quiesce_s, dump_s = t_dump - t_quiesce, t_restore - t_dump
@@ -2648,6 +2682,289 @@ def phase_wire(torch, work: str, card: str, ref_losses: dict,
     return runs
 
 
+# -- phases 11-13 --------------------------------------------------------------
+
+# Phase 11: the JAX package's example workload (examples/workload.py, the
+# north star's fine-tune): Llama-2-7B at full width, f32 params and bf16
+# activations, LoRA rank 16 on wq and wv, S 2048, batch 8, with remat.
+LORA_ARGS = ["--model", "lora", "--remat", "--seq", "2048", "--batch", "8"]
+LORA_TOKENS = 8 * 2048
+LORA_LAYERS = 32
+LORA_STEPS = 6        # the uninterrupted run and the restored run end here
+LORA_CUT = 3
+NORTH_STAR_BLACKOUT_S = 60.0
+# Phase 12: the same trainer cut to 4 layers at batch 2, remat off and on.
+REMAT_LAYERS = 4
+REMAT_BATCH = 2
+# Phase 13: bench.py's MoE model (bench_moe: dim 1024, 12 layers, 8 heads
+# of 128, hidden 3584, 8 experts, top-2, bf16) at its batch 16 x seq 512.
+MOE_ARGS = ["--model", "moe", "--seq", "512", "--batch", "16"]
+MOE_LAYERS = 12
+MOE_BATCH, MOE_SEQ = 16, 512
+MOE_STEPS = 8
+MOE_CUT = 3
+MOE_FWD_ITERS = 3     # bench.py's forward throughput iterations
+
+
+def step_seconds(w: Workload) -> list[float]:
+    """Host-clock seconds between consecutive ``STEP`` lines of ``w`` (a
+    step prints after its loss's readback, which waits for its work)."""
+    t = [w.times[i] for i, line in enumerate(w.lines) if line.startswith("STEP ")]
+    return [b - a for a, b in zip(t, t[1:])]
+
+
+def migrate_model(work: str, card: str, label: str, args: list[str], *,
+                  n_steps: int, cut: int, layers: int, tokens: int,
+                  want_per_step: dict) -> dict:
+    """An uninterrupted run of ``n_steps`` of the workload ``args``, then a
+    run quiesced after step ``cut`` through its agentlet, dumped, killed,
+    and a fresh process restored from the snapshot that continues to
+    ``n_steps``: its losses must equal the uninterrupted run's bit for
+    bit, and each kernel's launches a step in the uninterrupted run must
+    be ``want_per_step``. ``tokens``: a step's tokens. Returns the numbers
+    phases 11 and 13 print."""
+    from grit_tpu_torch.device.agentlet import ToggleClient  # noqa: PLC0415
+    from grit_tpu_torch.device.snapshot import snapshot_nbytes  # noqa: PLC0415
+
+    socks = os.path.join(work, f"socks-{label}")
+    snap = os.path.join(work, f"ckpt-{label}", "hbm")
+    os.makedirs(socks)
+    env = {"GRIT_TPU_SOCKET_DIR": socks}
+    procs: list[Workload] = []
+    try:
+        ref = Workload(n_steps, env, args=args)
+        procs.append(ref)
+        ref.finish()
+        ref_losses = ref.losses()
+        launches = ref.kernels()["launches"]
+        m = ref.find(r"MEMORY (\d+)")  # printed on the card only
+        peak = int(m.group(1)) if m else None
+        steps_s = step_seconds(ref)
+
+        src = Workload(1000, env, args=args)
+        procs.append(src)
+        src.wait_for("READY")
+        src.wait_for(rf"STEP {cut} ")
+        client = ToggleClient(
+            src.proc.pid, path=os.path.join(socks, f"grit-tpu-{src.proc.pid}.sock"))
+        t_quiesce = time.perf_counter()
+        got_cut = client.quiesce()
+        t_dump = time.perf_counter()
+        client.dump(snap)
+        t_dumped = time.perf_counter()
+        client.close()
+        src.kill()
+        nbytes = snapshot_nbytes(snap)
+
+        dst = Workload(n_steps, {**env, "GRIT_TPU_RESTORE_DIR": snap}, args=args)
+        procs.append(dst)
+        restored = int(dst.wait_for(r"RESTORED (\d+)").group(1))
+        t_restored = time.perf_counter()
+        restore_s = float(dst.wait_for(r"RESTORE_SECONDS (\S+)").group(1))
+        base_s = 0.0
+        while True:
+            line = dst.readline()
+            m = re.match(r"(BASE|INIT)_SECONDS (\S+)", line)
+            if m and m.group(1) == "BASE":
+                base_s = float(m.group(2))
+            elif m:
+                init_s = float(m.group(2))
+                break
+        dst.wait_for("READY")
+        t_ready = time.perf_counter()
+        dst.wait_for(r"STEP \d+ ")
+        t_first = time.perf_counter()
+        dst.finish()
+    finally:
+        for p in procs:
+            p.kill()
+        shutil.rmtree(os.path.dirname(snap), ignore_errors=True)
+    if restored != got_cut:
+        raise AssertionError(f"{label}: restored step {restored}, quiesced "
+                             f"at {got_cut}")
+    want = {s: x for s, x in ref_losses.items() if s > got_cut}
+    got = dst.losses()
+    if got != want or not want:
+        raise AssertionError(f"{label}: losses after the cut differ from the "
+                             f"uninterrupted run: {got} vs {want}")
+    if not all(math.isfinite(x) for x in ref_losses.values()):
+        raise AssertionError(f"{label}: non-finite loss {ref_losses}")
+    per_step = {n: launches[n] / n_steps for n in KERNELS}
+    if per_step != want_per_step:
+        raise AssertionError(f"{label}: launches a step {per_step}, want "
+                             f"{want_per_step}")
+    steady = median_after_first(steps_s)
+    start_s = t_restored - dst.started - init_s - restore_s
+    blackout = t_first - t_quiesce
+    log(label, f"cut at step {got_cut}; losses after the cut bitwise equal to "
+               f"the uninterrupted run: {got}")
+    log(label, f"{layers} layers; step seconds {[round(x, 4) for x in steps_s]}"
+               f"; median after the first {steady:.4f} s = "
+               f"{tokens / steady:.0f} tokens/s; max_memory_allocated "
+               f"{peak} B; launches a step "
+               f"{per_step} [{card}]")
+    log(label, f"snapshot {nbytes} bytes; quiesce {t_dump - t_quiesce:.4f} s; "
+               f"dump {t_dumped - t_dump:.3f} s; blackout (quiesce → first "
+               f"post-restore step) {blackout:.3f} s = kill + spawn "
+               f"{dst.started - t_dumped:.3f} + process start (interpreter "
+               f"and imports) {start_s:.3f} + base rebuild {base_s:.3f} + "
+               f"other set-up {init_s - base_s:.3f} + restore {restore_s:.3f} "
+               f"+ RESTORED → READY {t_ready - t_restored:.3f} + first step "
+               f"{t_first - t_ready:.3f} [{card}]")
+    return {"cut": got_cut, "losses": ref_losses, "step_s": steady,
+            "steps_s": steps_s, "tokens_per_s": tokens / steady,
+            "max_memory_allocated": peak, "snapshot_bytes": nbytes,
+            "launches": launches, "launches_per_step": per_step,
+            "quiesce_s": t_dump - t_quiesce, "dump_s": t_dumped - t_dump,
+            "blackout_s": blackout, "blackout_split_s": {
+                "kill_spawn": dst.started - t_dumped, "process_start": start_s,
+                "base_rebuild": base_s, "other_setup": init_s - base_s,
+                "restore": restore_s, "restored_to_ready": t_ready - t_restored,
+                "first_step": t_first - t_ready}}
+
+
+def phase_lora(work: str, card: str) -> dict:
+    """Phase 11: the north star's fine-tune, migrated; its blackout read
+    against the north star's limit."""
+    out = migrate_model(work, card, "lora", LORA_ARGS, n_steps=LORA_STEPS,
+                        cut=LORA_CUT, layers=LORA_LAYERS,
+                        tokens=LORA_TOKENS, want_per_step={
+                            "flash_fwd": 2 * LORA_LAYERS,
+                            "flash_bwd_dq": LORA_LAYERS,
+                            "flash_bwd_dkv": LORA_LAYERS})
+    log("lora", f"blackout {out['blackout_s']:.3f} s against the north "
+                f"star's {NORTH_STAR_BLACKOUT_S:.0f} s: "
+                f"{'within' if out['blackout_s'] < NORTH_STAR_BLACKOUT_S else 'OVER'}"
+                f" [{card}]")
+    return out
+
+
+def phase_remat(torch, fa, card: str) -> dict:
+    """Phase 12: the LoRA trainer at Llama-2-7B widths cut to
+    :data:`REMAT_LAYERS` layers, batch :data:`REMAT_BATCH`: one loss and
+    the adapters' gradients with remat off, then on; both bitwise equal,
+    the forward launched twice a layer under remat."""
+    from dataclasses import replace  # noqa: PLC0415
+
+    from grit_tpu_torch.models import llama, lora  # noqa: PLC0415
+    from grit_tpu_torch.tree import flatten_with_names  # noqa: PLC0415
+    from grit_tpu_torch.workload import lora_base  # noqa: PLC0415
+
+    cfg = replace(llama.LlamaConfig.llama2_7b(), n_layers=REMAT_LAYERS)
+    lcfg = lora.LoraConfig(rank=16)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    base = lora_base(cfg, "cuda")
+    ad = lora.init_lora(cfg, lcfg, gen, "cuda")
+    for name in ("wq_b", "wv_b"):  # non-zero, so A's gradient is too
+        ad["layers"]["attn"][name].normal_(generator=gen).mul_(0.01)
+    leaves = [x.requires_grad_(True) for _, x in flatten_with_names(ad)]
+    toks = torch.randint(0, cfg.vocab_size, (REMAT_BATCH, SEQ + 1),
+                         device="cuda", generator=gen)
+    runs = {}
+    for remat in (False, True):
+        rcfg = replace(cfg, remat=remat)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss = lora.lora_loss_fn(rcfg, lcfg, base, ad, toks[:, :-1],
+                                 toks[:, 1:])
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        runs[remat] = {"loss": loss.detach(), "grads": grads,
+                       "seconds": time.perf_counter() - t0,
+                       "launches": dict(fa.LAUNCHES),
+                       "peak": torch.cuda.max_memory_allocated(),
+                       "held": held}
+        del loss
+    off, on = runs[False], runs[True]
+    same = torch.equal(off["loss"], on["loss"]) and all(
+        torch.equal(a, b) for a, b in zip(off["grads"], on["grads"]))
+    log("remat", f"{REMAT_LAYERS} layers, B {REMAT_BATCH} S {SEQ}, LoRA rank "
+                 f"16: loss {off['loss'].item()!r} (off) {on['loss'].item()!r} "
+                 f"(on); loss and {len(leaves)} adapter gradients bitwise "
+                 f"equal: {same}")
+    log("remat", f"max_memory_allocated off {off['peak']} B, on {on['peak']} "
+                 f"B; above the base and adapters held ({off['held']} B): off "
+                 f"{off['peak'] - off['held']} B, on {on['peak'] - on['held']}"
+                 f" B; seconds off {off['seconds']:.4f}, on "
+                 f"{on['seconds']:.4f} (first calls); launches off "
+                 f"{off['launches']}, on {on['launches']} [{card}]")
+    if not same:
+        raise AssertionError("remat changed the loss or a gradient")
+    want = {"flash_fwd": REMAT_LAYERS, "flash_bwd_dq": REMAT_LAYERS,
+            "flash_bwd_dkv": REMAT_LAYERS}
+    if off["launches"] != want or on["launches"] != {
+            **want, "flash_fwd": 2 * REMAT_LAYERS}:
+        raise AssertionError(f"remat launches {off['launches']} (off), "
+                             f"{on['launches']} (on)")
+    if not on["peak"] < off["peak"]:
+        raise AssertionError("remat did not lower the peak memory")
+    launches = {n: off["launches"][n] + on["launches"][n] for n in KERNELS}
+    del runs
+    # Where a LoRA step's device time goes (remat on), by operator; its
+    # launches are not counted.
+    rcfg = replace(cfg, remat=True)
+    prof = profile_ops(torch, lambda: torch.autograd.grad(lora.lora_loss_fn(
+        rcfg, lcfg, base, ad, toks[:, :-1], toks[:, 1:]), leaves), 1)
+    log("remat", f"profile of one remat step: wall {prof['wall_ms']:.2f} ms, "
+                 f"device busy {prof['device_ms']:.2f} ms; top operators "
+                 f"(ms) {[(k, round(ms, 3)) for k, ms in prof['top']]} "
+                 f"[{card}]")
+    del base, ad, leaves
+    torch.cuda.empty_cache()
+    return {"peak_off": off["peak"], "peak_on": on["peak"],
+            "held": off["held"], "launches": launches,
+            "loss": off["loss"].item(), "profile": prof}
+
+
+def moe_forward_throughput(torch, card: str) -> dict:
+    """``bench.py``'s MoE measure: forward tokens/s of the model at batch
+    16 x seq 512 (no gradient), CUDA events around
+    :data:`MOE_FWD_ITERS` forwards after one warm-up."""
+    from grit_tpu_torch.models import moe_llama  # noqa: PLC0415
+    from grit_tpu_torch.tree import flatten_with_names  # noqa: PLC0415
+
+    cfg = moe_llama.MoeLlamaConfig.bench()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = moe_llama.init_params(cfg, gen, "cuda")
+    n_params = sum(x.numel() for _, x in flatten_with_names(params))
+    toks = torch.randint(0, cfg.vocab_size, (MOE_BATCH, MOE_SEQ),
+                         device="cuda", generator=gen)
+    with torch.no_grad():
+        ms = cuda_ms(torch, lambda: moe_llama.forward(cfg, params, toks),
+                     iters=MOE_FWD_ITERS, warmup=1)
+        logits = moe_llama.forward(cfg, params, toks)
+        prof = profile_ops(torch, lambda: moe_llama.forward(cfg, params, toks),
+                           1)
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("non-finite MoE logits")
+    tps = MOE_BATCH * MOE_SEQ / (ms / 1e3)
+    log("moe", f"{n_params / 1e9:.3f} B params; forward {ms:.3f} ms at B "
+               f"{MOE_BATCH} S {MOE_SEQ} = {tps:.0f} tokens/s (bench.py's "
+               f"moe_tokens_per_s measure) [{card}]")
+    log("moe", f"profile of one forward: wall {prof['wall_ms']:.2f} ms, "
+               f"device busy {prof['device_ms']:.2f} ms; top operators (ms) "
+               f"{[(k, round(x, 3)) for k, x in prof['top']]} [{card}]")
+    del params, logits
+    torch.cuda.empty_cache()
+    return {"params": n_params, "forward_ms": ms, "forward_tokens_per_s": tps,
+            "forward_profile": prof}
+
+
+def phase_moe(torch, fa, work: str, card: str) -> dict:
+    """Phase 13: bench.py's MoE model, its forward throughput, then
+    trained and migrated as phase 11 is."""
+    fwd = moe_forward_throughput(torch, card)
+    out = migrate_model(work, card, "moe", MOE_ARGS, n_steps=MOE_STEPS,
+                        cut=MOE_CUT, layers=MOE_LAYERS,
+                        tokens=MOE_BATCH * MOE_SEQ,
+                        want_per_step={n: MOE_LAYERS for n in KERNELS})
+    return {**out, **fwd}
+
+
 # -- main ----------------------------------------------------------------------
 
 
@@ -2691,6 +3008,10 @@ def main(argv: list[str] | None = None) -> int:
         precopy = phase_precopy(work, device["smi"], migrate["ref_losses"])
         frozen = phase_frozen(work, device["smi"], train=train)
         wire = phase_wire(torch, work, device["smi"], migrate["ref_losses"])
+        torch.cuda.empty_cache()
+        lora = phase_lora(work, device["smi"])
+        remat = phase_remat(torch, fa, device["smi"])
+        moe = phase_moe(torch, fa, work, device["smi"])
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2701,12 +3022,19 @@ def main(argv: list[str] | None = None) -> int:
         "source": src,
         "replaces": replaces,
         # Phase 4's steps, phase 9's frozen-trunk runs (the uninterrupted
-        # one and the restored ones) and phase 10's wire destinations.
+        # one and the restored ones), phase 10's wire destinations, the
+        # uninterrupted runs of phases 11 and 13 and phase 12's two steps.
         "launches": (train["launches"][name] + frozen["launches_all"][name]
-                     + wire["launches"][name]),
+                     + wire["launches"][name] + lora["launches"][name]
+                     + remat["launches"][name] + moe["launches"][name]),
         "launches_by_path": {"adam": train["launches"][name],
                              "frozen_trunk": frozen["launches_all"][name],
-                             "wire": wire["launches"][name]},
+                             "wire": wire["launches"][name],
+                             "lora_7b": lora["launches"][name],
+                             "remat": remat["launches"][name],
+                             "moe": moe["launches"][name]},
+        "launches_per_step": {"lora_7b": lora["launches_per_step"][name],
+                              "moe": moe["launches_per_step"][name]},
         "max_abs_err": main_shape["err"][name],
         "worst_tile_err_ratio": main_shape["tiles"][name],
         "ms": main_shape["ms"][name],
@@ -2733,7 +3061,11 @@ def main(argv: list[str] | None = None) -> int:
         # The wire migrations (phase 10) run all three; phase 7's crc32c
         # and codec rates.
         "wire": {k: v for k, v in wire.items() if k != "launches"},
-        "io": io}
+        "io": io,
+        # Phases 11-13: the LoRA-7B fine-tune, remat, the MoE model.
+        "lora_7b": {k: v for k, v in lora.items() if k != "launches"},
+        "remat": {k: v for k, v in remat.items() if k != "launches"},
+        "moe": {k: v for k, v in moe.items() if k != "launches"}}
     print(json.dumps(record), flush=True)
     print(device["smi"], flush=True)
     print(json.dumps({"ok": True, "device": {

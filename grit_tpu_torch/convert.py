@@ -3,7 +3,9 @@ and the port.
 
 Both sides speak numpy: the JAX side converts its pytree with
 ``jax.tree.map(np.asarray, tree)``, and these functions turn such a tree
-into the port's tensors (and back). bf16 arrives as an ml_dtypes
+into the port's tensors (and back). The walk is generic: a llama, LoRA
+adapter or MoE parameter tree, and its Adam state, carry over by their
+leaf names alike. bf16 arrives as an ml_dtypes
 ``bfloat16`` array, which ``torch.from_numpy`` refuses; its bytes are
 reinterpreted through int16 instead, so this module needs no ml_dtypes.
 """

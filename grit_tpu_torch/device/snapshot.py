@@ -1615,6 +1615,9 @@ class PostcopyRestore:
         self._monitor = monitor
         self._verify = verify
         self._results: dict[int, Any] = dict(results)
+        # Placed before the tail started: what a caller may decide on
+        # without racing the tail's progress.
+        self._hot = dict(results)
         self._cold = list(cold)
         self._cond = threading.Condition()
         self._err: BaseException | None = None
@@ -1636,6 +1639,12 @@ class PostcopyRestore:
         """Arrays placed so far (the hot set and the tail's progress)."""
         with self._cond:
             return len(self._results)
+
+    def hot_leaves(self) -> dict:
+        """``{keystr name: leaf}`` of the hot set, which the restore placed
+        before the tail started: the same set however far the tail has
+        got, so a decision made on it does not race the tail."""
+        return {self._names[i]: v for i, v in self._hot.items()}
 
     def placed_leaves(self) -> dict:
         """``{keystr name: leaf}`` of the leaves placed so far: a snapshot

@@ -48,6 +48,12 @@ class LlamaConfig:
     norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
+    # Per-layer rematerialization: the backward recomputes each layer from
+    # its input instead of keeping its activations, so activation memory
+    # holds one layer's input per layer (the counterpart of the reference's
+    # jax.checkpoint around the scan body). The flash forward then
+    # launches twice per layer and step.
+    remat: bool = False
 
     @property
     def head_dim(self) -> int:
@@ -78,11 +84,12 @@ class LlamaConfig:
         return replace(cfg, **overrides)
 
 
-def param_shapes(cfg: LlamaConfig) -> dict:
+def param_shapes(cfg: LlamaConfig, with_mlp: bool = True) -> dict:
     """The parameter tree's leaves as ``(shape, fan_in)``; ``fan_in`` None
-    marks a norm scale (initialised to ones)."""
+    marks a norm scale (initialised to ones). ``with_mlp=False`` leaves
+    out the dense feed-forward, for the families that replace it."""
     L, d, hd = cfg.n_layers, cfg.dim, cfg.head_dim
-    return {
+    spec = {
         "tok_emb": ((cfg.vocab_size, d), d),
         "layers": {
             "attn": {
@@ -102,6 +109,9 @@ def param_shapes(cfg: LlamaConfig) -> dict:
         "final_norm": ((d,), None),
         "lm_head": ((d, cfg.vocab_size), d),
     }
+    if not with_mlp:
+        del spec["layers"]["mlp"]
+    return spec
 
 
 def _build(spec: dict, make) -> dict:
@@ -110,10 +120,12 @@ def _build(spec: dict, make) -> dict:
 
 
 def init_params(cfg: LlamaConfig, generator: torch.Generator,
-                device: torch.device | str) -> dict:
+                device: torch.device | str, with_mlp: bool = True) -> dict:
     """Initialise the parameter tree on ``device`` from ``generator``
     (which must live on the same device type): dense weights
-    N(0, 1/fan_in), norm scales ones, in ``cfg.param_dtype``."""
+    N(0, 1/fan_in), norm scales ones, in ``cfg.param_dtype``.
+    ``with_mlp=False`` allocates no dense feed-forward (the MoE family
+    replaces it)."""
     pd = cfg.param_dtype
 
     def make(shape, fan_in):
@@ -123,7 +135,7 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
                         device=device)
         return (w / fan_in ** 0.5).to(pd)
 
-    return _build(param_shapes(cfg), make)
+    return _build(param_shapes(cfg, with_mlp), make)
 
 
 def abstract_params(cfg: LlamaConfig) -> dict:
@@ -216,15 +228,24 @@ def _mlp_block(cfg: LlamaConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def layer_body(cfg: LlamaConfig, layer_params: dict, x: torch.Tensor,
-               positions: torch.Tensor, cache=None, active=None) -> torch.Tensor:
+               positions: torch.Tensor, cache=None, active=None,
+               mlp_fn=None) -> tuple[torch.Tensor, torch.Tensor | None]:
     """One transformer layer (attn_norm → attn → residual → mlp_norm →
     FFN → residual), the single copy of the layer math for training and
-    serving (``cache``/``active`` as :func:`_attn_block` takes them)."""
+    serving (``cache``/``active`` as :func:`_attn_block` takes them).
+
+    ``mlp_fn(layer_params, normed) -> (y, aux)`` replaces the dense
+    feed-forward (the MoE family trains through this hook). Returns
+    ``(h, aux)``; the dense FFN's aux is None."""
     h = x + _attn_block(cfg, layer_params["attn"],
                         rms_norm(x, layer_params["attn_norm"], cfg.norm_eps),
                         positions, cache=cache, active=active)
     normed = rms_norm(h, layer_params["mlp_norm"], cfg.norm_eps)
-    return h + _mlp_block(cfg, layer_params["mlp"], normed).to(h.dtype)
+    if mlp_fn is None:
+        y, aux = _mlp_block(cfg, layer_params["mlp"], normed), None
+    else:
+        y, aux = mlp_fn(layer_params, normed)
+    return h + y.to(h.dtype), aux
 
 
 def _unstack(tree: dict, n: int) -> list[dict]:
@@ -237,16 +258,32 @@ def _unstack(tree: dict, n: int) -> list[dict]:
     return out
 
 
-def forward_hidden(cfg: LlamaConfig, params: dict,
-                   tokens: torch.Tensor) -> torch.Tensor:
+def forward_hidden(cfg: LlamaConfig, params: dict, tokens: torch.Tensor,
+                   mlp_fn=None, return_aux: bool = False):
     """Decoder trunk up to and including the final norm: tokens (B, S)
-    → hidden (B, S, dim) in ``cfg.dtype``."""
+    → hidden (B, S, dim) in ``cfg.dtype``; the single copy of the
+    positions and remat semantics. With ``cfg.remat`` each layer runs
+    under non-reentrant activation checkpointing, which keeps only the
+    layer's inputs and replays the layer in the backward.
+
+    ``mlp_fn`` as :func:`layer_body` takes it. ``return_aux`` (with an
+    ``mlp_fn``) returns ``(hidden, aux)`` with the per-layer aux stacked
+    to (n_layers,)."""
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     x = F.embedding(tokens, params["tok_emb"]).to(cfg.dtype)
+    auxes = []
     for layer_params in _unstack(params["layers"], cfg.n_layers):
-        x = layer_body(cfg, layer_params, x, positions)
-    return rms_norm(x, params["final_norm"], cfg.norm_eps)
+        if cfg.remat:
+            x, aux = checkpoint(layer_body, cfg, layer_params, x, positions,
+                                mlp_fn=mlp_fn, use_reentrant=False,
+                                preserve_rng_state=False)
+        else:
+            x, aux = layer_body(cfg, layer_params, x, positions,
+                                mlp_fn=mlp_fn)
+        auxes.append(aux)
+    hidden = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return (hidden, torch.stack(auxes)) if return_aux else hidden
 
 
 def forward_trunk(cfg: LlamaConfig, params: dict,
@@ -286,8 +323,8 @@ def _cached_trunk(cfg: LlamaConfig, params: dict, tokens: torch.Tensor,
     layers = zip(_unstack(params["layers"], cfg.n_layers),
                  torch.unbind(cache["k"], 0), torch.unbind(cache["v"], 0))
     for layer_params, kc, vc in layers:
-        x = layer_body(cfg, layer_params, x, positions,
-                       cache=(kc, vc, cur_len), active=active)
+        x, _ = layer_body(cfg, layer_params, x, positions,
+                          cache=(kc, vc, cur_len), active=active)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return (x @ params["lm_head"].to(cfg.dtype)).float()
 

@@ -386,8 +386,11 @@ class ContinuousBatchingEngine:
         handle = restore_snapshot_postcopy(
             directory, like=self._fresh_state("meta"), device=self.device)
         self._submissions = int(handle.meta.get("submissions", 0))
-        placed = handle.placed_leaves()
-        book = {key: placed.get(f"[{key!r}]") for key in
+        # The hot set, never the tail's progress: with a cut that keeps
+        # the bookkeeping cold, whether the clone parks must not depend on
+        # how far the tail got before this line ran.
+        hot = handle.hot_leaves()
+        book = {key: hot.get(f"[{key!r}]") for key in
                 ("lengths", "active", "last_token", "rngs", "n_generated")}
         if any(v is None for v in book.values()):
             self.state = handle.wait()

@@ -2,9 +2,16 @@
 
 Counterpart of the JAX package's harness and bench workloads: the llama
 flagship (``bench.py``'s, with ``--optimizer adam``, the default, or
-``--optimizer frozen-trunk``, the fine-tune the bench migrates) and, with
-``--model mnist``, the harness's MNIST trainer (``grit_tpu/harness.py``
-``WORKLOAD``: hidden 16, batch 16, Adam). It builds a
+``--optimizer frozen-trunk``, the fine-tune the bench migrates); with
+``--model lora``, the JAX package's example workload
+(``examples/workload.py``: Llama-2-7B with LoRA adapters of rank 16 on
+``wq`` and ``wv``, Adam at 1e-3, the frozen base rebuilt on the device
+from a fixed seed before any restore; a restoring process prints
+``BASE_SECONDS <s>``, the rebuild's share of ``INIT_SECONDS``);
+with ``--model moe``, ``bench.py``'s MoE model trained with Adam; and,
+with ``--model mnist``, the harness's MNIST trainer (``grit_tpu/harness.py``
+``WORKLOAD``: hidden 16, batch 16, Adam). ``--remat`` turns on llama's
+per-layer rematerialization for the llama-based models. It builds a
 :class:`~grit_tpu_torch.train.trainer.Trainer`; when the shim injected
 ``GRIT_TPU_RESTORE_DIR``, it restores (printing ``RESTORE_BEGIN`` just
 before the restore, then ``RESTORED <step>``, ``RESTORE_SECONDS <s>``,
@@ -20,7 +27,8 @@ the toggle protocol through an
 then trains, printing ``STEP <n> <loss!r>`` and offering a checkpoint
 point after every step, until ``N_STEPS`` (env, default 10), then
 ``KERNELS <json>`` (this process's launches of each kernel, the
-libraries it compiled and those it loaded) and ``DONE``.
+libraries it compiled and those it loaded), on the card ``MEMORY <bytes>``
+(``torch.cuda.max_memory_allocated``), and ``DONE``.
 
 Run on a tiny config on the CPU (what the tests do)::
 
@@ -29,6 +37,11 @@ Run on a tiny config on the CPU (what the tests do)::
 or at the flagship widths on the card (the default)::
 
     python -m grit_tpu_torch.workload --layers 13 --seq 2048 --batch 2
+
+The LoRA fine-tune at the example's shape, and the bench's MoE model::
+
+    python -m grit_tpu_torch.workload --model lora --remat --batch 8
+    python -m grit_tpu_torch.workload --model moe --seq 512 --batch 16
 """
 
 from __future__ import annotations
@@ -42,7 +55,8 @@ from dataclasses import replace
 
 import torch
 
-from grit_tpu_torch.models import llama, mnist
+from grit_tpu_torch.device.placement import resolve_device
+from grit_tpu_torch.models import llama, lora, mnist, moe_llama
 from grit_tpu_torch.train import optim
 from grit_tpu_torch.train.trainer import Trainer, TrainerConfig, enable_determinism
 
@@ -56,19 +70,35 @@ FROZEN_TRUNK_LR = 0.5
 # =16), batches of 16, the Trainer's default Adam.
 MNIST = mnist.MnistConfig(hidden_dim=16)
 MNIST_BATCH = 16
+# The LoRA example's Trainer runs at the JAX TrainerConfig's default rate;
+# its frozen base comes from a generator of its own, seeded apart from the
+# Trainer's (which draws the adapters).
+LORA_LR = 1e-3
+LORA_BASE_SEED = 1
 
-CONFIGS = {"flagship": llama.LlamaConfig.flagship,
-           "tiny": lambda **kw: llama.LlamaConfig.tiny(
-               dim=256, n_heads=2, n_kv_heads=2, param_dtype=torch.float32,
-               dtype=torch.float32, **kw)}
+_TINY = dict(dim=256, n_heads=2, n_kv_heads=2, param_dtype=torch.float32,
+             dtype=torch.float32)
+CONFIGS = {  # model family -> {config name: factory}
+    "llama": {"flagship": llama.LlamaConfig.flagship,
+              "llama2_7b": llama.LlamaConfig.llama2_7b,
+              "tiny": lambda **kw: llama.LlamaConfig.tiny(**_TINY, **kw)},
+    "moe": {"moe": moe_llama.MoeLlamaConfig.bench,
+            "tiny": lambda **kw: moe_llama.MoeLlamaConfig.tiny(
+                **_TINY, top_k=2, **kw)},
+}
+CONFIGS["lora"] = CONFIGS["llama"]
+DEFAULT_CONFIG = {"llama": "flagship", "lora": "llama2_7b", "moe": "moe"}
 
 
 def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     p = argparse.ArgumentParser(prog="python -m grit_tpu_torch.workload",
                                 description=__doc__.splitlines()[0])
-    p.add_argument("--model", choices=("llama", "mnist"), default="llama")
-    p.add_argument("--config", choices=sorted(CONFIGS), default="flagship",
-                   help="the llama config")
+    p.add_argument("--model", choices=("llama", "lora", "moe", "mnist"),
+                   default="llama")
+    p.add_argument("--config", default=None,
+                   choices=sorted({n for c in CONFIGS.values() for n in c}),
+                   help="the model's config (default: flagship for llama, "
+                        "llama2_7b for lora, moe for moe)")
     p.add_argument("--optimizer", choices=("adam", "frozen-trunk"),
                    default="adam",
                    help="llama only: Adam on every leaf, or bench.py's "
@@ -78,20 +108,49 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                    help="cut the depth (widths stay the config's)")
     p.add_argument("--seq", type=int, default=2048)
     p.add_argument("--batch", type=int, default=2)
+    p.add_argument("--lora-rank", type=int, default=16,
+                   help="lora only: the adapters' rank")
+    p.add_argument("--remat", action="store_true",
+                   help="llama, lora, moe: recompute each layer in the "
+                        "backward instead of keeping its activations")
     p.add_argument("--device", default=None,
                    help="torch device (default: the current CUDA device)")
     args = p.parse_args(argv)
-    if args.model == "mnist" and args.optimizer != "adam":
+    if args.model != "llama" and args.optimizer != "adam":
         p.error("--optimizer frozen-trunk is llama's fine-tune")
+    if args.model == "mnist":
+        if args.remat or args.config is not None:
+            p.error("--model mnist takes no --config and no --remat")
+        return args
+    args.config = args.config or DEFAULT_CONFIG[args.model]
+    if args.config not in CONFIGS[args.model]:
+        p.error(f"--model {args.model} takes --config "
+                f"{' or '.join(sorted(CONFIGS[args.model]))}")
     return args
 
 
-def build_trainer(args: argparse.Namespace) -> Trainer:
-    if args.model == "mnist":
-        return mnist_trainer(device=args.device)
-    cfg = CONFIGS[args.config]()
+def model_config(args: argparse.Namespace):
+    """The llama-family config the flags name (not for ``mnist``)."""
+    cfg = CONFIGS[args.model][args.config]()
     if args.layers is not None:
         cfg = replace(cfg, n_layers=args.layers)
+    return replace(cfg, remat=args.remat)
+
+
+def build_trainer(args: argparse.Namespace, base: dict | None = None
+                  ) -> Trainer:
+    """The Trainer the flags name; ``base`` is the LoRA fine-tune's frozen
+    base, built here when not given."""
+    if args.model == "mnist":
+        return mnist_trainer(device=args.device)
+    cfg = model_config(args)
+    if args.model == "lora":
+        return lora_trainer(cfg, lora.LoraConfig(rank=args.lora_rank),
+                            batch=args.batch, seq=args.seq, base=base,
+                            device=args.device)
+    if args.model == "moe":
+        return moe_trainer(cfg, batch=args.batch, seq=args.seq,
+                           device=args.device)
     optimizer = (optim.frozen_trunk(FROZEN_TRUNK_LR)
                  if args.optimizer == "frozen-trunk" else None)
     return llama_trainer(cfg, batch=args.batch, seq=args.seq,
@@ -107,27 +166,72 @@ def mnist_trainer(device: torch.device | str | None = None) -> Trainer:
         device=device)
 
 
-def llama_trainer(cfg: llama.LlamaConfig, *, batch: int, seq: int,
-                  tcfg: TrainerConfig | None = None,
-                  optimizer: optim.GradientTransformation | None = None,
-                  device: torch.device | str | None = None) -> Trainer:
-    """A Trainer of ``cfg`` on synthetic next-token batches ``(batch, seq)``
+def zipf_batches(vocab_size: int, batch: int, seq: int):
+    """A ``batch_fn`` of synthetic next-token batches ``(batch, seq)``
     whose token ids follow a Zipf law over the vocabulary, as words in
     text do: a distribution a randomly initialised model learns within a
     few steps, so a falling loss shows the step trains."""
-    zipf = 1.0 / torch.arange(1, cfg.vocab_size + 1, dtype=torch.float64)
+    zipf = 1.0 / torch.arange(1, vocab_size + 1, dtype=torch.float64)
 
     def batch_fn(gen: torch.Generator):
         tokens = torch.multinomial(zipf, batch * (seq + 1), replacement=True,
                                    generator=gen).reshape(batch, seq + 1)
         return tokens[:, :-1].contiguous(), tokens[:, 1:].contiguous()
 
+    return batch_fn
+
+
+def llama_trainer(cfg: llama.LlamaConfig, *, batch: int, seq: int,
+                  tcfg: TrainerConfig | None = None,
+                  optimizer: optim.GradientTransformation | None = None,
+                  device: torch.device | str | None = None) -> Trainer:
+    """A Trainer of ``cfg`` on Zipf batches (:func:`zipf_batches`)."""
     return Trainer(
         loss_fn=lambda params, b: llama.loss_fn(cfg, params, *b),
         init_params=lambda gen, dev: llama.init_params(cfg, gen, dev),
-        batch_fn=batch_fn,
+        batch_fn=zipf_batches(cfg.vocab_size, batch, seq),
         cfg=tcfg or TrainerConfig(learning_rate=LEARNING_RATE),
         device=device, optimizer=optimizer)
+
+
+def lora_base(cfg: llama.LlamaConfig,
+              device: torch.device | str | None = None) -> dict:
+    """The LoRA fine-tune's frozen base, built on ``device`` from a
+    generator seeded with :data:`LORA_BASE_SEED`: every process, a
+    restoring one included, rebuilds the same bytes."""
+    device = resolve_device(device)
+    gen = torch.Generator(device=device).manual_seed(LORA_BASE_SEED)
+    return llama.init_params(cfg, gen, device)
+
+
+def lora_trainer(cfg: llama.LlamaConfig, lcfg: lora.LoraConfig, *,
+                 batch: int, seq: int, base: dict | None = None,
+                 tcfg: TrainerConfig | None = None,
+                 device: torch.device | str | None = None) -> Trainer:
+    """The JAX example's LoRA Trainer: the state is the adapter tree and
+    its Adam state; ``base`` (default :func:`lora_base`) is a constant of
+    the loss, never part of the state."""
+    device = resolve_device(device)
+    if base is None:
+        base = lora_base(cfg, device)
+    return Trainer(
+        loss_fn=lambda lp, b: lora.lora_loss_fn(cfg, lcfg, base, lp, *b),
+        init_params=lambda gen, dev: lora.init_lora(cfg, lcfg, gen, dev),
+        batch_fn=zipf_batches(cfg.vocab_size, batch, seq),
+        cfg=tcfg or TrainerConfig(learning_rate=LORA_LR), device=device)
+
+
+def moe_trainer(cfg: moe_llama.MoeLlamaConfig, *, batch: int, seq: int,
+                tcfg: TrainerConfig | None = None,
+                device: torch.device | str | None = None) -> Trainer:
+    """A Trainer of the MoE model on Zipf batches, Adam at the flagship's
+    rate (bf16 parameters, no warmup)."""
+    return Trainer(
+        loss_fn=lambda params, b: moe_llama.loss_fn(cfg, params, *b),
+        init_params=lambda gen, dev: moe_llama.init_params(cfg, gen, dev),
+        batch_fn=zipf_batches(cfg.vocab_size, batch, seq),
+        cfg=tcfg or TrainerConfig(learning_rate=LEARNING_RATE),
+        device=device)
 
 
 def main(argv: list[str] | None = None) -> None:
@@ -140,7 +244,14 @@ def main(argv: list[str] | None = None) -> None:
     t_main = time.perf_counter()
     enable_determinism()
     args = parse_args(argv)
-    tr = build_trainer(args)
+    base = None
+    if args.model == "lora":
+        t_base = time.perf_counter()
+        base = lora_base(model_config(args), args.device)
+        if base["tok_emb"].is_cuda:
+            torch.cuda.synchronize(base["tok_emb"].device)
+        base_s = time.perf_counter() - t_base
+    tr = build_trainer(args, base=base)
     if "jax" in sys.modules:
         raise RuntimeError("the PyTorch workload imported jax")
     restore_dir = restore_dir_from_env()
@@ -156,6 +267,9 @@ def main(argv: list[str] | None = None) -> None:
         if tr.postcopy is not None:
             pipeline.update(postcopy=True, hot_s=tr.postcopy.hot_s)
         print(f"RESTORE_PIPELINE {json.dumps(pipeline)}", flush=True)
+        if args.model == "lora":
+            # The frozen base's rebuild alone, inside the set-up before.
+            print(f"BASE_SECONDS {base_s!r}", flush=True)
         print(f"INIT_SECONDS {t0 - t_main!r}", flush=True)
     postcopy = tr.postcopy
     if postcopy is None:
@@ -183,6 +297,9 @@ def main(argv: list[str] | None = None) -> None:
     print("KERNELS " + json.dumps({"launches": fa.LAUNCHES,
                                    "built": build.BUILT,
                                    "loaded": build.LOADED}), flush=True)
+    if tr.device.type == "cuda":
+        print(f"MEMORY {torch.cuda.max_memory_allocated(tr.device)}",
+              flush=True)
     print("DONE", flush=True)
 
 

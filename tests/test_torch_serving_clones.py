@@ -218,6 +218,67 @@ class TestPostcopyClone:
         assert clone.resumed_all  # nothing parked
         assert clone.step() == src_cont[0]
 
+    @pytest.mark.parametrize("hot_mb,parks", [("0", False), ("0.001", True)],
+                             ids=["bookkeeping-cold", "bookkeeping-hot"])
+    @pytest.mark.parametrize("tail", ["held", "landed"])
+    def test_park_or_block_does_not_race_the_tail(self, params, tmp_path,
+                                                  monkeypatch, hot_mb, parks,
+                                                  tail):
+        """Whether a clone parks depends on the hot cut alone: the same
+        decision when the tail is held before the engine reads the handle
+        as when the tail has placed every array first."""
+        d, sa, src_cont = _snapshot(params, tmp_path)
+        monkeypatch.setenv("GRIT_RESTORE_POSTCOPY_HOT_MB", hot_mb)
+        real = serving.restore_snapshot_postcopy
+
+        def tail_first(*a, **kw):
+            handle = real(*a, **kw)
+            handle._thread.join(timeout=60.0)
+            assert handle.done
+            return handle
+
+        clone = _engine(params)
+        if tail == "held":
+            with _HeldTail(monkeypatch) as held:
+                # The tail waits at its first pick until the engine has
+                # read the handle.
+                read = psnap.PostcopyRestore.hot_leaves
+
+                def read_then_release(handle):
+                    out = read(handle)
+                    assert handle.placed == len(out)  # the tail placed none
+                    held.release.set()
+                    return out
+
+                monkeypatch.setattr(psnap.PostcopyRestore, "hot_leaves",
+                                    read_then_release)
+                handle = clone.restore_postcopy(d)
+                monkeypatch.setattr(psnap.PostcopyRestore, "hot_leaves", read)
+        else:
+            monkeypatch.setattr(serving, "restore_snapshot_postcopy",
+                                tail_first)
+            handle = clone.restore_postcopy(d)
+        assert (not clone.resumed_all) == parks
+        hot = set(handle.hot_leaves())
+        assert ("['active']" in hot) == parks
+        assert "['cache']['k']" not in hot
+        clone.absorb_restored()
+        assert clone.step() == src_cont[0]
+
+    def test_hot_leaves_are_the_hot_set_while_placed_leaves_grow(
+            self, params, tmp_path, monkeypatch):
+        d, _sa, _cont = _snapshot(params, tmp_path)
+        eng = _engine(params)
+        with _HeldTail(monkeypatch) as held:
+            handle = psnap.restore_snapshot_postcopy(
+                d, like=eng._fresh_state("meta"), device="cpu")
+            hot = set(handle.hot_leaves())
+            assert hot and set(handle.placed_leaves()) == hot
+            held.release.set()
+            handle.wait()
+        assert set(handle.hot_leaves()) == hot
+        assert set(handle.placed_leaves()) > hot
+
     def test_restore_clears_a_pending_clone(self, params, tmp_path):
         d, sa, src_cont = _snapshot(params, tmp_path)
         clone = _engine(params)
