@@ -60,7 +60,8 @@ non-zero without the final result line:
    its paths, and timed against ``zlib.crc32``; zlib level 1, the codec
    stage's, on one 64 MiB piece.
 8. precopy — the reference agent's pre-copy and streamed-stage migration
-   of phase 5's flagship, driven as the agent drives it: a live pass at
+   of phase 5's flagship cut to 4 layers (the widths stay the
+   flagship's), driven as the agent drives it: a live pass at
    step 2 (quiesce, hashed dump mirrored to a PVC directory, resume), the
    blackout at step 3 (quiesce with a dump spec: a boundary clone written
    to ``<hbm>-spec`` as a delta against the live pass while the loop
@@ -71,7 +72,7 @@ non-zero without the final result line:
    the three trees in the agent's journal
    format: metadata staged, a destination spawned, the data streamed in
    64 MiB pieces only once it prints ``RESTORE_BEGIN``. Its losses after
-   the cut must equal phase 5's uninterrupted run's bit for bit, its
+   the cut must equal an uninterrupted run's at that depth bit for bit, its
    restore must have waited on the stream, and a second stage whose
    journal fails mid-stream must make the destination exit non-zero with
    ``SnapshotIntegrityError``. Tree sizes, dirty shares, dump and restore
@@ -134,16 +135,47 @@ non-zero without the final result line:
    0.82 B params) at batch 16 x seq 512: the bench's forward tokens/s,
    then ``--model moe`` trained with Adam and migrated as phase 11 is,
    bitwise, each kernel launched 12 times a step. ``[moe]`` lines.
+14. moe_serve — phase 6's serving path for the same MoE model (both
+   engines dispatch on ``MoeLlamaConfig``): a continuous-batching engine
+   of 4 slots x 1024 positions at temperature 1.0, Zipf prompts of 700,
+   500, 230 and 40 tokens and a fifth of 300 in a reused slot, migrated
+   through its serving agentlet after 24 rounds and bitwise equal to an
+   uninterrupted engine after it; the lock-step engine likewise; no
+   flash launch. Then the masked prefill: a 230-token prompt padded to
+   its 256 bucket with the pads masked out of the routing must give the
+   unpadded prompt's next-token logits (at non-binding capacity, within
+   2^-6 of their largest). ``[moe_serve]`` lines.
+15. long_context — four ranks of ``grit_tpu_torch.parallel.launch`` on
+   the one card over gloo (a hop goes through the host; one launch runs
+   phases 15 and 16, and the kernels are built before it): the flagship
+   widths (13 layers, remat) at B 1 x S 8192, 2048 positions a rank.
+   ``forward_sp`` with the ring and with Ulysses against the dense flash
+   forward on the whole sequence (run on every rank), the loss's
+   gradients against dense, bytewise equal on every rank; one Trainer
+   step of each scheme, the state bytewise equal on every rank, and rank
+   0's snapshot restored into a dense Trainer byte for byte, which steps
+   on. Ulysses launches each kernel a layer, the ring none.
+   ``[long_context]`` lines.
+16. pipeline — the same ranks as pipeline stages: the flagship widths
+   at 12 layers (four stages of 3, remat), B 8 x S 2048 in 4
+   microbatches, and the MoE model (12 layers, capacity factor 8, so
+   nothing drops) at B 16 x S 512: logits and cross-entropy gradients of
+   each stage against the dense model (for the MoE model microbatch by
+   microbatch, as the pipeline routes), every rank's tick time and
+   launches (each stage's layers a tick, bubbles included).
+   ``[pipeline]`` lines.
 
-The second-to-last lines are the kernels' JSON record (with the serving
-phase's numbers under ``serving``, phase 8's under ``precopy``, phase
-9's under ``frozen_trunk``, phase 10's under ``wire``, phase 7's
-crc32c and codec rates under ``io``, and phases 11-13's under
-``lora_7b``, ``remat`` and ``moe``; each kernel's ``launches`` sums
-phases 4, 9, 10, 11, 12 and 13) and the card's ``name, power limit``;
-the last line is the result JSON. ``--seed`` seeds the serving phase's
-weights and prompts (default 0). The script imports nothing of JAX or of
-the JAX package.
+The second-to-last lines are the script's wall time, the kernels' JSON
+record (with the serving phase's numbers under ``serving``, phase 8's
+under ``precopy``, phase 9's under ``frozen_trunk``, phase 10's under
+``wire``, phase 7's crc32c and codec rates under ``io``, phases 11-13's
+under ``lora_7b``, ``remat`` and ``moe``, and phases 14-16's under
+``moe_serving``, ``long_context`` and ``pipeline``; each kernel's
+``launches`` sums phases 4, 9, 10, 11, 12, 13, 15 and 16, every rank's)
+and the card's ``name, power limit``; the last line is the result JSON.
+``--seed`` seeds the serving phases' and the parallel phases' weights
+and prompts (default 0). The script imports nothing of JAX or of the
+JAX package.
 """
 
 from __future__ import annotations
@@ -868,16 +900,19 @@ def zipf_tokens(torch, n: int, vocab: int, gen) -> "torch.Tensor":
 
 class ServingTraffic:
     """The serving phase's request schedule, the same for every engine
-    that runs it: four prompts admitted before round 1 and, after round
-    ``SERVE_SWAP[0]``, the release of slot ``SERVE_SWAP[1]`` and the
-    admission of a fifth prompt into it. Every event falls before the
-    migration's cut, so the restored engine only decodes."""
+    that runs it: four prompts of ``prompts[:4]`` tokens admitted before
+    round 1 and, after round ``swap[0]``, the release of slot ``swap[1]``
+    and the admission of a prompt of ``swap[2]`` tokens into it. Every
+    event falls before the migration's cut, so the restored engine only
+    decodes."""
 
     def __init__(self, torch, vocab: int, seed: int, sync,
-                 buckets: tuple[int, ...]) -> None:
+                 buckets: tuple[int, ...], prompts: tuple[int, ...],
+                 swap: tuple[int, int, int]) -> None:
         gen = torch.Generator().manual_seed(seed)
         self.prompts = [zipf_tokens(torch, n, vocab, gen)
-                        for n in (*SERVE_PROMPTS, SERVE_SWAP[2])]
+                        for n in (*prompts, swap[2])]
+        self.swap = swap
         self.sync = sync
         self.buckets = buckets
 
@@ -896,11 +931,11 @@ class ServingTraffic:
 
     def after_round(self, r: int, submit, release, slots: list[int],
                     times: dict) -> None:
-        if r == SERVE_SWAP[0]:
-            release(slots[SERVE_SWAP[1]])
+        if r == self.swap[0]:
+            release(slots[self.swap[1]])
             slot = self._admit(submit, self.prompts[4], times)
-            if slot != slots[SERVE_SWAP[1]]:
-                raise AssertionError(f"the freed slot {slots[SERVE_SWAP[1]]} "
+            if slot != slots[self.swap[1]]:
+                raise AssertionError(f"the freed slot {slots[self.swap[1]]} "
                                      f"was not reused (got {slot})")
 
 
@@ -1039,22 +1074,30 @@ def serving_fanout(torch, serving, src, cfg, bcfg, dev, work: str,
 
 
 def phase_serving(torch, fa, work: str, card: str, *, seed: int,
-                  cfg=None, device: str = "cuda") -> dict:
+                  cfg=None, device: str = "cuda", label: str = "serve",
+                  max_len: int = SERVE_MAX_LEN,
+                  prompts: tuple[int, ...] = SERVE_PROMPTS,
+                  swap: tuple[int, int, int] = SERVE_SWAP,
+                  fanout: bool = True) -> dict:
     """The serving path: a continuous-batching engine at the flagship
-    widths (``cfg`` and ``device`` other than the defaults only to
-    rehearse the phase at a small size on the CPU) serves four requests
+    widths (phase 14 passes the MoE model's ``cfg``, ``max_len``,
+    ``prompts`` and ``swap``, and logs as ``label``; ``device`` other than
+    the card only to rehearse the phase at a small size on the CPU) of
+    ``max_len`` positions a slot serves four requests
     and a fifth in a reused slot, is quiesced and dumped through its
     serving agentlet after ``SERVE_CUT`` rounds, and a second engine built
     from the same seed restores the snapshot and decodes ``SERVE_AFTER``
     rounds: its tokens and final state must equal an uninterrupted
     engine's over the same schedule, and a restored state with one slot's
     position one higher must not. Then a lock-step engine snapshots and
-    continues in process."""
+    continues in process. With ``fanout`` (phase 6; phase 14 leaves it
+    to phase 6) the source's snapshot then fans out into post-copy
+    clones."""
     import threading  # noqa: PLC0415
 
     from grit_tpu_torch.device.agentlet import ToggleClient  # noqa: PLC0415
     from grit_tpu_torch.device.snapshot import snapshot_nbytes  # noqa: PLC0415
-    from grit_tpu_torch.models import llama  # noqa: PLC0415
+    from grit_tpu_torch.models import llama, moe_llama  # noqa: PLC0415
     from grit_tpu_torch.models import serving  # noqa: PLC0415
     from grit_tpu_torch.serving import ServingAgentlet  # noqa: PLC0415
 
@@ -1062,11 +1105,11 @@ def phase_serving(torch, fa, work: str, card: str, *, seed: int,
     on_card = dev.type == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     cfg = cfg or llama.LlamaConfig.flagship(n_layers=LAYERS)
-    bcfg = serving.BatchingConfig(n_slots=SERVE_SLOTS,
-                                  max_seq_len=SERVE_MAX_LEN, temperature=1.0,
-                                  seed=seed)
+    family = moe_llama if isinstance(cfg, moe_llama.MoeLlamaConfig) else llama
+    bcfg = serving.BatchingConfig(n_slots=SERVE_SLOTS, max_seq_len=max_len,
+                                  temperature=1.0, seed=seed)
     traffic = ServingTraffic(torch, cfg.vocab_size, seed, sync,
-                             bcfg.prefill_buckets)
+                             bcfg.prefill_buckets, prompts, swap)
     total = SERVE_CUT + SERVE_AFTER
 
     def engine():
@@ -1074,7 +1117,7 @@ def phase_serving(torch, fa, work: str, card: str, *, seed: int,
         the pod image, never with the snapshot)."""
         gen = torch.Generator(device=dev).manual_seed(seed)
         return serving.ContinuousBatchingEngine(
-            cfg, llama.init_params(cfg, gen, dev), bcfg, device=dev)
+            cfg, family.init_params(cfg, gen, dev), bcfg, device=dev)
 
     if on_card:
         torch.cuda.empty_cache()
@@ -1160,7 +1203,7 @@ def phase_serving(torch, fa, work: str, card: str, *, seed: int,
                   + int(torch.count_nonzero(tagged["v"]))) / (
                       2 * tagged["k"].numel())
     live = int(((src.state["lengths"] + 1) * src.state["active"]).sum())
-    expect_zeroed = 1 - live / (SERVE_SLOTS * SERVE_MAX_LEN)
+    expect_zeroed = 1 - live / (SERVE_SLOTS * max_len)
     del tagged
     bad = serving_mismatch(torch, got, want, dst, ref)
     if bad is not None:
@@ -1200,7 +1243,8 @@ def phase_serving(torch, fa, work: str, card: str, *, seed: int,
                              "bit-identically")
     shutil.rmtree(snap)
     shutil.rmtree(lsnap)
-    fanout = serving_fanout(torch, serving, src, cfg, bcfg, dev, work, sync)
+    if fanout:
+        fanout = serving_fanout(torch, serving, src, cfg, bcfg, dev, work, sync)
     launches = dict(fa.LAUNCHES)
     if any(launches.values()):
         raise AssertionError(f"the serving path launched flash kernels "
@@ -1211,56 +1255,57 @@ def phase_serving(torch, fa, work: str, card: str, *, seed: int,
     kv_bytes = 2 * ref.state["cache"]["k"].numel() * ref.state["cache"]["k"].element_size()
     quiesce_s, dump_s = t_dump - t_quiesce, t_restore - t_dump
     restore_s = t_restored - t_restore
-    log("serve", f"flagship widths, {cfg.n_layers} layers, {SERVE_SLOTS} "
-                 f"slots x {SERVE_MAX_LEN} positions (KV cache {kv_bytes} "
-                 f"bytes), buckets {bcfg.prefill_buckets}, temperature 1.0; "
-                 f"prompts {SERVE_PROMPTS}, then {SERVE_SWAP[2]} tokens into "
-                 f"slot {SERVE_SWAP[1]} after round {SERVE_SWAP[0]}")
-    log("serve", "prefill ms by bucket (source engine; prompts "
-                 f"{[len(p) for p in traffic.prompts]}): " + "; ".join(
-                     f"{b}: {[round(x, 3) for x in ms]}"
-                     for b, ms in sorted(prefill_ms.items())) + f" [{card}]")
-    log("serve", f"decode round ms (uninterrupted run, {total} rounds): "
-                 f"median after the first two {steady:.3f} = "
-                 f"{SERVE_SLOTS / steady * 1e3:.1f} tokens/s; first two "
-                 f"{[round(x, 3) for x in round_ms[:2]]} [{card}]")
+    log(label, f"{type(cfg).__name__} dim {cfg.dim}, {cfg.n_layers} layers, "
+                f"{SERVE_SLOTS} slots x {max_len} positions (KV cache "
+                f"{kv_bytes} bytes), buckets {bcfg.prefill_buckets}, "
+                f"temperature 1.0; prompts {prompts}, then {swap[2]} tokens "
+                f"into slot {swap[1]} after round {swap[0]}")
+    log(label, "prefill ms by bucket (source engine; prompts "
+                f"{[len(p) for p in traffic.prompts]}): " + "; ".join(
+                    f"{b}: {[round(x, 3) for x in ms]}"
+                    for b, ms in sorted(prefill_ms.items())) + f" [{card}]")
+    log(label, f"decode round ms (uninterrupted run, {total} rounds): "
+                f"median after the first two {steady:.3f} = "
+                f"{SERVE_SLOTS / steady * 1e3:.1f} tokens/s; first two "
+                f"{[round(x, 3) for x in round_ms[:2]]} [{card}]")
     if prof is not None:
-        log("serve", f"decode round profile ({PROFILE_ROUNDS} rounds under "
-                     f"torch.profiler): wall {prof['wall_ms']:.3f} ms a round, "
-                     f"device busy {prof['device_ms']:.3f} ms (idle share "
-                     f"{1 - prof['device_ms'] / prof['wall_ms']:.3f}; of the "
-                     f"unprofiled median round "
-                     f"{1 - prof['device_ms'] / steady:.3f}); kernel time by "
-                     f"operator, ms a round: " + "; ".join(
-                         f"{k} {ms:.3f}" for k, ms in prof["top"]))
-    log("serve", f"snapshot {nbytes} bytes; KV bytes the tag zeroed "
-                 f"{zeroed:.4f} (expected from the positions "
-                 f"{expect_zeroed:.4f}); quiesce {quiesce_s:.4f} s; dump "
-                 f"{dump_s:.3f} s = {nbytes / dump_s / 1e9:.3f} GB/s; restore "
-                 f"{restore_s:.3f} s = {nbytes / restore_s / 1e9:.3f} GB/s; "
-                 f"first token of the restored engine {t_first - t_restored:.3f}"
-                 f" s; blackout (quiesce → that token) "
-                 f"{t_first - t_quiesce:.3f} s [{card}]")
-    log("serve", f"migrated after round {cut}: rounds {SERVE_CUT + 1}.."
-                 f"{total} bitwise equal to the uninterrupted run, final "
-                 f"state (positions, RNG words, counts, the KV cache at every "
-                 f"written position) torch.equal; planted fault (slot {fault_slot} one position "
-                 f"on) rejected: {planted}")
-    log("serve", f"lock-step: batch {B}, {S}-token prompt, {n_tok} tokens, "
-                 f"snapshot after {n_tok // 2}: continues bit-identically; "
-                 f"flash kernel launches on the serving path {launches}")
-    for leg in fanout["legs"]:
-        log("serve", f"post-copy clone {leg['ordinal']}: hot set placed "
-                     f"{leg['hot_placed_s']:.4f} s, first token of a new "
-                     f"request {leg['first_token_s']:.4f} s with the KV tail "
-                     f"still landing, tail {leg['tail_s']:.3f} s "
-                     f"({fanout['cold_bytes']} cold bytes) [{card}]")
-    log("serve", f"fan-out of {FANOUT_CLONES} post-copy clones of a snapshot "
-                 f"with slot {FANOUT_FREE} free: after absorb_restored every "
-                 f"stream's next {FANOUT_ROUNDS} tokens (the migrated ones "
-                 f"and the request each clone served on the free slot) "
-                 f"bitwise equal to the source's; hot set "
-                 f"{fanout['hot_bytes']} bytes")
+        log(label, f"decode round profile ({PROFILE_ROUNDS} rounds under "
+                   f"torch.profiler): wall {prof['wall_ms']:.3f} ms a round, "
+                   f"device busy {prof['device_ms']:.3f} ms (idle share "
+                   f"{1 - prof['device_ms'] / prof['wall_ms']:.3f}; of the "
+                   f"unprofiled median round "
+                   f"{1 - prof['device_ms'] / steady:.3f}); kernel time by "
+                   f"operator, ms a round: " + "; ".join(
+                       f"{k} {ms:.3f}" for k, ms in prof["top"]))
+    log(label, f"snapshot {nbytes} bytes; KV bytes the tag zeroed "
+                f"{zeroed:.4f} (expected from the positions "
+                f"{expect_zeroed:.4f}); quiesce {quiesce_s:.4f} s; dump "
+                f"{dump_s:.3f} s = {nbytes / dump_s / 1e9:.3f} GB/s; restore "
+                f"{restore_s:.3f} s = {nbytes / restore_s / 1e9:.3f} GB/s; "
+                f"first token of the restored engine {t_first - t_restored:.3f}"
+                f" s; blackout (quiesce → that token) "
+                f"{t_first - t_quiesce:.3f} s [{card}]")
+    log(label, f"migrated after round {cut}: rounds {SERVE_CUT + 1}.."
+                f"{total} bitwise equal to the uninterrupted run, final "
+                f"state (positions, RNG words, counts, the KV cache at every "
+                f"written position) torch.equal; planted fault (slot {fault_slot} one position "
+                f"on) rejected: {planted}")
+    log(label, f"lock-step: batch {B}, {S}-token prompt, {n_tok} tokens, "
+                f"snapshot after {n_tok // 2}: continues bit-identically; "
+                f"flash kernel launches on the serving path {launches}")
+    for leg in fanout["legs"] if fanout else ():
+        log(label, f"post-copy clone {leg['ordinal']}: hot set placed "
+                   f"{leg['hot_placed_s']:.4f} s, first token of a new "
+                   f"request {leg['first_token_s']:.4f} s with the KV tail "
+                   f"still landing, tail {leg['tail_s']:.3f} s "
+                   f"({fanout['cold_bytes']} cold bytes) [{card}]")
+    if fanout:
+        log(label, f"fan-out of {FANOUT_CLONES} post-copy clones of a "
+                   f"snapshot with slot {FANOUT_FREE} free: after "
+                   f"absorb_restored every stream's next {FANOUT_ROUNDS} "
+                   f"tokens (the migrated ones and the request each clone "
+                   f"served on the free slot) bitwise equal to the source's;"
+                   f" hot set {fanout['hot_bytes']} bytes")
     return {"flash_launches": launches, "fanout": fanout, "decode_round_ms": steady,
             "tokens_per_s": SERVE_SLOTS / steady * 1e3,
             "prefill_ms": {str(b): ms for b, ms in prefill_ms.items()},
@@ -1412,6 +1457,13 @@ def io_codec_and_crc32c(host, card: str) -> dict:
 
 PRECOPY_LIVE = 2          # step of the live pre-copy pass
 STAGE_PIECE = 64 << 20    # bytes of each streamed piece of a data file
+# The pre-copy migration's depth (its widths are the flagship's): two
+# migrations of the whole Adam state and two dumps of it are the
+# script's longest phase at 13 layers; this depth keeps the script
+# within its time. Its reference is an uninterrupted run at this depth.
+PRECOPY_LAYERS = 4
+PRECOPY_ARGS = ["--layers", str(PRECOPY_LAYERS), "--seq", str(SEQ),
+                "--batch", str(BATCH)]
 
 
 class Stager:
@@ -1494,9 +1546,11 @@ def mirror_commit_files(d: str) -> dict:
         return json.loads(f.readline())["files"]
 
 
-def phase_precopy(work: str, card: str, ref_losses: dict) -> dict:
+def phase_precopy(work: str, card: str) -> dict:
     """The reference agent's pre-copy and streamed-stage migration of the
-    flagship trainer, driven here as the agent drives it: a live pass
+    flagship trainer at :data:`PRECOPY_LAYERS` layers (an uninterrupted
+    run at that depth is the reference), driven here as the agent drives
+    it: a live pass
     (quiesce, hashed dump mirrored to the PVC, resume), the blackout (a
     quiesce with a dump spec, whose concurrent pass writes a boundary
     clone to ``-spec`` against the live pass; the dump must validate it
@@ -1523,7 +1577,11 @@ def phase_precopy(work: str, card: str, ref_losses: dict) -> dict:
     env = {"GRIT_TPU_SOCKET_DIR": socks, "GRIT_SNAP_SPECULATE": "1"}
     procs: list[Workload] = []
     try:
-        src = Workload(1000, env)
+        ref = Workload(MIGRATE_STEPS, env, args=PRECOPY_ARGS)
+        procs.append(ref)
+        ref.finish()
+        ref_losses = ref.losses()
+        src = Workload(1000, env, args=PRECOPY_ARGS)
         procs.append(src)
         src.wait_for("READY")
         src.wait_for(rf"STEP {PRECOPY_LIVE} ")
@@ -1618,7 +1676,7 @@ def phase_precopy(work: str, card: str, ref_losses: dict) -> dict:
                 stager.preallocate(rel)
         dst = Workload(MIGRATE_STEPS, {
             **env, "GRIT_TPU_RESTORE_DIR": os.path.join(dst_root, trees["delta"])},
-            stderr_path=stderr_path)
+            stderr_path=stderr_path, args=PRECOPY_ARGS)
         procs.append(dst)
         dst.wait_for("RESTORE_BEGIN")
         return stager, dst, t_stage, time.perf_counter()
@@ -1712,9 +1770,8 @@ def phase_precopy(work: str, card: str, ref_losses: dict) -> dict:
                    f"{spec['overlap_s']}, validate_s {spec['validate_s']}, "
                    f"clean_bytes {spec['clean_bytes']}, dirty_bytes "
                    f"{spec['dirty_bytes']}; device memory {spec.get('hbm')}; "
-                   f"blackout dump {dump_s:.3f} s, against 15.652 s for "
-                   f"the blackout delta without speculation in an earlier "
-                   f"run on an NVIDIA H100 80GB HBM3 at 700.00 W [{card}]")
+                   f"blackout dump {dump_s:.3f} s; {PRECOPY_LAYERS} layers "
+                   f"[{card}]")
     for label, secs, legs in (("live pass", live_s, live),
                               ("speculative pass (inside the dump's join)",
                                spec["overlap_s"], spec["legs"]),
@@ -2965,6 +3022,556 @@ def phase_moe(torch, fa, work: str, card: str) -> dict:
     return {**out, **fwd}
 
 
+# -- phases 14-16 --------------------------------------------------------------
+
+# Phase 14: bench.py's MoE model served by a continuous-batching engine of
+# 4 slots of 1024 positions (its max_seq_len), prompts that fit them with
+# the rounds the phase decodes, migrated as phase 6 migrates the flagship.
+MOE_SERVE_MAX_LEN = 1024
+MOE_SERVE_PROMPTS = (700, 500, 230, 40)  # the 1024, 1024, 256 and 64 buckets
+MOE_SERVE_SWAP = (12, 3, 300)  # after round 12, slot 3 leaves; 300 join
+MOE_PREFILL = (230, 256)  # the masked-prefill check: prompt tokens, bucket
+# Phases 15 and 16: four ranks on the one card over gloo (a hop goes
+# through the host), started once for both phases.
+N_RANKS = 4
+SP_SEQ = 8192             # phase 15: batch 1 at S 8192, 2048 positions a rank
+PP_LAYERS = 12            # phase 16: the flagship widths at 12 layers (13
+PP_BATCH = 8              # does not divide by 4 stages), B 8 x S 2048 in
+PP_MICRO = 4              # 4 microbatches; the MoE model at its B 16 x S 512
+MOE_PP_BATCH, MOE_PP_SEQ = 16, 512
+# Bounds of the parallel phases against their dense runs, all in bf16: a
+# logit's error against the dense model's largest logit, and each
+# gradient leaf's relative L2 error against the dense gradient's.
+PAR_LOGIT_BOUND = 2 ** -5
+PAR_GRAD_BOUND = 2 ** -4
+
+
+def moe_masked_prefill(torch, card: str, *, seed: int, cfg=None,
+                       device: str = "cuda") -> dict:
+    """A bucket-padded MoE prefill with its pads masked out of the routing
+    (the engine's prefill call) against the unpadded prompt: the next
+    token's logits, at non-binding capacity (``capacity_factor`` =
+    ``n_experts``: a capacity is a share of the call's rows, pads
+    included, so at a tight one the two calls may drop differently). The
+    padded prefill at the default capacity, unmasked against masked (the
+    pads' competition for capacity alone), is printed beside it."""
+    from dataclasses import replace  # noqa: PLC0415
+
+    from grit_tpu_torch.models import moe_llama  # noqa: PLC0415
+
+    cfg = cfg or moe_llama.MoeLlamaConfig.bench()
+    loose = replace(cfg, capacity_factor=float(cfg.n_experts))
+    dev = torch.device(device)
+    n, bucket = MOE_PREFILL
+    params = moe_llama.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    prompt = zipf_tokens(torch, n, cfg.vocab_size,
+                         torch.Generator().manual_seed(seed + 2)).to(dev)[None]
+    padded = torch.zeros((1, bucket), dtype=torch.int32, device=dev)
+    padded[0, :n] = prompt[0]
+    mask = torch.arange(bucket, device=dev) < n
+
+    def next_logits(c, toks, token_mask):
+        cache = moe_llama.init_kv_cache(c, 1, bucket, device=dev)
+        logits, _ = moe_llama.decode(c, params, toks, cache,
+                                     token_mask=token_mask)
+        return logits[0, n - 1]
+
+    plain = next_logits(loose, prompt, None)
+    err, scale = max_err(next_logits(loose, padded, mask), plain)
+    unmasked, _ = max_err(next_logits(cfg, padded, None),
+                          next_logits(cfg, padded, mask))
+    bound = 2 ** -6 * scale
+    log("moe_serve", f"masked prefill ({n} tokens in the {bucket} bucket, "
+                     f"capacity_factor {loose.capacity_factor}): next-token "
+                     f"logits against the unpadded prompt's max |err| {err:.5f}"
+                     f", bound {bound:.5f} (2^-6 of their largest "
+                     f"{scale:.3f}); at capacity_factor "
+                     f"{cfg.capacity_factor} the pads unmasked move them by "
+                     f"{unmasked:.5f} [{card}]")
+    if not err <= bound:
+        raise AssertionError(f"the masked prefill's logits differ from the "
+                             f"unpadded prompt's by {err} > {bound}")
+    del params
+    return {"max_abs_err": err, "bound": bound,
+            "unmasked_tight_moves": unmasked}
+
+
+def phase_moe_serving(torch, fa, work: str, card: str, *, seed: int,
+                      cfg=None, device: str = "cuda") -> dict:
+    """Phase 14: ``bench.py``'s MoE model served, migrated mid-generation
+    and fanned out as phase 6 serves the flagship (both engines dispatch
+    on the config), then the masked prefill. Its attention is the plain
+    one: no flash kernel launches."""
+    from grit_tpu_torch.models import moe_llama  # noqa: PLC0415
+
+    cfg = cfg or moe_llama.MoeLlamaConfig.bench()
+    out = phase_serving(torch, fa, work, card, seed=seed, cfg=cfg,
+                        device=device, label="moe_serve",
+                        max_len=MOE_SERVE_MAX_LEN, prompts=MOE_SERVE_PROMPTS,
+                        swap=MOE_SERVE_SWAP, fanout=False)
+    out["masked_prefill"] = moe_masked_prefill(torch, card, seed=seed,
+                                               cfg=cfg, device=device)
+    return out
+
+
+def _sync(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _start(torch, dev) -> float:
+    """The clock at a point every rank has reached with its work done, so
+    a rank's time is its own and not the wait for the slowest."""
+    import torch.distributed as dist  # noqa: PLC0415
+
+    _sync(torch, dev)
+    dist.barrier()
+    return time.perf_counter()
+
+
+def _digest(torch, tensors) -> str:
+    """sha256 over the bytes of ``tensors``, in order."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().reshape(-1).contiguous().view(torch.uint8)
+                 .cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _bits_equal(torch, a, b) -> bool:
+    """Byte equality of two tensors of one dtype (a float's -0 and +0
+    differ, a NaN equals its own bytes)."""
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    view = ints[a.element_size()]
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.view(view), b.view(view))
+
+
+def _rel_l2(got, want) -> float:
+    got, want = got.float(), want.float()
+    return ((got - want).norm() / want.norm().clamp_min(1e-30)).item()
+
+
+def _peak(torch, dev) -> int | None:
+    return torch.cuda.max_memory_allocated() if dev.type == "cuda" else None
+
+
+def _reset_peak(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def sp_rank(torch, fa, dev, spec: dict) -> dict:
+    """Phase 15 on this rank: the dense reference (the whole sequence on
+    this rank), ``forward_sp`` and the loss's gradients of each scheme on
+    this rank's 2048 positions, then one Trainer step of each and, on rank
+    0, the snapshot restored into a dense Trainer."""
+    from grit_tpu_torch.models import llama, long_context  # noqa: PLC0415
+    from grit_tpu_torch.parallel import axis_index, axis_size  # noqa: PLC0415
+    from grit_tpu_torch.train.optim import adam  # noqa: PLC0415
+    from grit_tpu_torch.train.trainer import Trainer  # noqa: PLC0415
+    from grit_tpu_torch.tree import flatten_with_names  # noqa: PLC0415
+
+    rank, n = axis_index(), axis_size()
+    cfg, S = spec["lc_cfg"], spec["lc_seq"]
+    s = S // n
+    sl = slice(rank * s, (rank + 1) * s)
+    params = llama.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(spec["seed"]), dev)
+    toks = zipf_tokens(torch, S + 1, cfg.vocab_size,
+                       torch.Generator().manual_seed(spec["seed"]))[None]
+    inp, tgt = toks[:, :-1], toks[:, 1:].long()
+    named = flatten_with_names(params)
+    leaves = [x.requires_grad_(True) for _, x in named]
+    with torch.no_grad():
+        dense = llama.forward(cfg, params, inp.to(dev))[:, sl].clone()
+    dense_loss = llama.loss_fn(cfg, params, inp.to(dev), tgt.to(dev))
+    dense_grads = torch.autograd.grad(dense_loss, leaves)
+    out = {"dense_loss": dense_loss.item()}
+    mine = inp[:, sl].to(dev), tgt[:, sl].to(dev)
+    for impl in long_context.ATTN_IMPLS:
+        fa.reset_launch_counts()
+        t0 = _start(torch, dev)
+        with torch.no_grad():
+            logits = long_context.forward_sp(cfg, params, mine[0],
+                                             attn_impl=impl)
+        _sync(torch, dev)
+        fwd_s = time.perf_counter() - t0
+        fwd_launches = dict(fa.LAUNCHES)
+        err, scale = max_err(logits, dense)
+        del logits
+        fa.reset_launch_counts()
+        _reset_peak(torch, dev)
+        t0 = _start(torch, dev)
+        loss = long_context.loss_fn_sp(cfg, params, *mine, attn_impl=impl)
+        grads = torch.autograd.grad(loss, leaves)
+        _sync(torch, dev)
+        out[impl] = {
+            "forward_s": fwd_s, "forward_launches": fwd_launches,
+            "logit_err": err, "logit_scale": scale,
+            "grad_s": time.perf_counter() - t0,
+            "grad_launches": dict(fa.LAUNCHES), "peak": _peak(torch, dev),
+            "loss": loss.item(),
+            "grad_rel_l2": {name: _rel_l2(g, d) for (name, _), g, d
+                            in zip(named, grads, dense_grads)},
+            "grad_digest": _digest(torch, grads)}
+        del grads, loss
+    del dense, dense_grads, dense_loss
+    for x in leaves:
+        x.requires_grad_(False)
+
+    # One Trainer step of each scheme; rank 0's snapshot into a dense one.
+    box = {"impl": "ring"}
+
+    def init(_gen, device):
+        return llama.abstract_params(cfg) if device.type == "meta" else params
+
+    def sp_loss(p, b):
+        return long_context.loss_fn_sp(cfg, p, *b, attn_impl=box["impl"])
+
+    tr = Trainer(loss_fn=sp_loss, init_params=init,
+                 batch_fn=lambda _gen: (inp[:, sl], tgt[:, sl]), device=dev,
+                 optimizer=adam(1e-4))
+    steps = {}
+    for impl in long_context.ATTN_IMPLS:
+        box["impl"] = impl
+        t0 = _start(torch, dev)
+        loss = tr.train_step()["loss"].item()
+        _sync(torch, dev)
+        steps[impl] = {"loss": loss, "step_s": time.perf_counter() - t0}
+    state = flatten_with_names(tr.state)
+    out.update(train=steps, state_digest=_digest(torch, (x for _, x in state)),
+               state_bytes=sum(x.numel() * x.element_size() for _, x in state))
+    if rank == 0:
+        snap = os.path.join(spec["work"], "sp-snap")
+        tr.snapshot(snap)
+        dense_tr = Trainer(
+            loss_fn=lambda p, b: llama.loss_fn(cfg, p, *b), init_params=init,
+            batch_fn=lambda _gen: (inp, tgt), device=dev, optimizer=adam(1e-4))
+        restored_step = dense_tr.restore(snap)
+        got = flatten_with_names(dense_tr.state)
+        out["restore"] = {
+            "step": restored_step,
+            "names_equal": [k for k, _ in got] == [k for k, _ in state],
+            "bytes_equal": all(_bits_equal(torch, a, b)
+                               for (_, a), (_, b) in zip(got, state)),
+            "dense_loss_after": dense_tr.train_step()["loss"].item()}
+        shutil.rmtree(snap)
+        del dense_tr, got
+    del tr, state, params, leaves, named
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def pp_rank(torch, fa, dev, spec: dict) -> dict:
+    """Phase 16 on this rank (stage): for the dense flagship cut to 12
+    layers and for the MoE model, the dense reference's logits and
+    cross-entropy gradients (every rank runs it), then the pipelined
+    forward and loss gradients of this rank's stage."""
+    from grit_tpu_torch.models import llama, moe_llama, pipeline_llama  # noqa: PLC0415
+    from grit_tpu_torch.parallel import axis_index, axis_size  # noqa: PLC0415
+    from grit_tpu_torch.tree import flatten_with_names, map_with_names, tree_map  # noqa: PLC0415
+
+    rank, n = axis_index(), axis_size()
+    out = {}
+    for label, cfg, B, S in (("dense", spec["pp_cfg"], *spec["pp_shape"]),
+                             ("moe", spec["moe_pp_cfg"], *spec["moe_pp_shape"])):
+        moe = label == "moe"
+        family = moe_llama if moe else llama
+        forward_pp = moe_llama.forward_pp if moe else pipeline_llama.forward_pp
+        params = family.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(spec["seed"]), dev)
+        toks = zipf_tokens(torch, B * (S + 1), cfg.vocab_size,
+                           torch.Generator().manual_seed(spec["seed"])
+                           ).reshape(B, S + 1).to(dev)
+        inp, tgt = toks[:, :-1], toks[:, 1:].long()
+        local = tree_map(
+            lambda a: a.detach().clone(),
+            pipeline_llama.stage_slice(
+                pipeline_llama.to_stage_params(cfg, params, n), rank))
+        micro = spec["pp_micro"]
+
+        def dense_forward():
+            """The dense model's logits: over the whole batch for llama;
+            for the MoE model microbatch by microbatch, as the pipeline
+            routes them (with nothing dropped the two are the same
+            function, but the router's fp32 products round by the
+            call's shape, and a near-tie of two experts then goes either
+            way: a whole-batch reference differs by a routing flip)."""
+            if not moe:
+                return family.forward(cfg, params, inp)
+            return torch.cat([family.forward(cfg, params, part)
+                              for part in inp.chunk(micro)])
+
+        with torch.no_grad():
+            dense = dense_forward()
+            fa.reset_launch_counts()
+            t0 = _start(torch, dev)
+            logits = forward_pp(cfg, local, inp, n_microbatches=micro)
+            _sync(torch, dev)
+            fwd_s = time.perf_counter() - t0
+        fwd_launches = dict(fa.LAUNCHES)
+        err, scale = max_err(logits, dense)
+        del logits, dense
+        named = flatten_with_names(params)
+        leaves = [x.requires_grad_(True) for _, x in named]
+        dense_loss = llama.token_cross_entropy(dense_forward(), tgt)
+        grads = dict(zip((k for k, _ in named),
+                         torch.autograd.grad(dense_loss, leaves)))
+        want = flatten_with_names(pipeline_llama.stage_slice(
+            pipeline_llama.to_stage_params(
+                cfg, map_with_names(lambda k, _: grads[k], params), n), rank))
+        del grads
+        for x in leaves:
+            x.requires_grad_(False)
+        local_named = flatten_with_names(local)
+        local_leaves = [x.requires_grad_(True) for _, x in local_named]
+        fa.reset_launch_counts()
+        _reset_peak(torch, dev)
+        t0 = _start(torch, dev)
+        loss = llama.token_cross_entropy(
+            forward_pp(cfg, local, inp, n_microbatches=micro), tgt)
+        got = torch.autograd.grad(loss, local_leaves)
+        _sync(torch, dev)
+        replicated = [g for (k, _), g in zip(local_named, got)
+                      if not k.startswith("['layers']")]
+        out[label] = {
+            "forward_s": fwd_s, "ticks": micro + n - 1,
+            "forward_launches": fwd_launches, "logit_err": err,
+            "logit_scale": scale, "grad_s": time.perf_counter() - t0,
+            "grad_launches": dict(fa.LAUNCHES), "peak": _peak(torch, dev),
+            "loss": loss.item(), "dense_loss": dense_loss.item(),
+            "grad_rel_l2": {k: _rel_l2(g, w) for (k, _), g, (_, w)
+                            in zip(local_named, got, want)},
+            "replicated_digest": _digest(torch, replicated)}
+        del params, local, got, want, loss, dense_loss, leaves, local_leaves
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def parallel_rank(spec: dict) -> dict:
+    """Phases 15 and 16 on one rank of the four (``run_ranks`` starts it:
+    each rank is a process of its own on the same card)."""
+    import torch  # noqa: PLC0415
+
+    from grit_tpu_torch.ops import flash_attention as fa  # noqa: PLC0415
+
+    dev = torch.device(spec["device"])
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+    return {"long_context": sp_rank(torch, fa, dev, spec),
+            "pipeline": pp_rank(torch, fa, dev, spec)}
+
+
+def _worst(d: dict) -> tuple[str, float]:
+    name = max(d, key=d.get)
+    return name, d[name]
+
+
+def phase_parallel(torch, work: str, card: str, *, seed: int,
+                   device: str = "cuda", lc_cfg=None, lc_seq: int = SP_SEQ,
+                   pp_cfg=None, pp_shape=(PP_BATCH, SEQ), moe_pp_cfg=None,
+                   moe_pp_shape=(MOE_PP_BATCH, MOE_PP_SEQ),
+                   pp_micro: int = PP_MICRO) -> tuple[dict, dict]:
+    """Phases 15 and 16: :data:`N_RANKS` ranks over gloo on the one card
+    (the configs and ``device`` other than the defaults only to rehearse
+    at a small size on the CPU). Returns the two phases' records."""
+    from dataclasses import replace  # noqa: PLC0415
+
+    from grit_tpu_torch.models import llama, moe_llama  # noqa: PLC0415
+    from grit_tpu_torch.parallel.launch import run_ranks  # noqa: PLC0415
+
+    lc_cfg = lc_cfg or llama.LlamaConfig.flagship(n_layers=LAYERS, remat=True)
+    pp_cfg = pp_cfg or llama.LlamaConfig.flagship(n_layers=PP_LAYERS,
+                                                  remat=True)
+    moe_pp_cfg = moe_pp_cfg or moe_llama.MoeLlamaConfig.bench(remat=True)
+    # Non-binding capacity: the pipeline routes per microbatch, the dense
+    # model per batch, so they agree only when no token is dropped.
+    moe_pp_cfg = replace(moe_pp_cfg, capacity_factor=float(moe_pp_cfg.n_experts))
+    on_card = device == "cuda"
+    if on_card:
+        torch.cuda.empty_cache()
+    spec = {"device": device, "seed": seed, "work": work, "lc_cfg": lc_cfg,
+            "lc_seq": lc_seq, "pp_cfg": pp_cfg, "pp_shape": pp_shape,
+            "moe_pp_cfg": moe_pp_cfg, "moe_pp_shape": moe_pp_shape,
+            "pp_micro": pp_micro}
+    t0 = time.perf_counter()
+    ranks = run_ranks(parallel_rank, N_RANKS, spec, backend="gloo",
+                      timeout=900)
+    wall = time.perf_counter() - t0
+    lc = long_context_checks([r["long_context"] for r in ranks], lc_cfg,
+                             lc_seq, card, wall, on_card)
+    pp = pipeline_checks([r["pipeline"] for r in ranks], pp_cfg, moe_pp_cfg,
+                         pp_shape, moe_pp_shape, pp_micro, card, on_card)
+    return lc, pp
+
+
+def long_context_checks(ranks: list[dict], cfg, seq: int, card: str,
+                        wall: float, on_card: bool) -> dict:
+    """Phase 15's lines and checks over the ranks' records."""
+    L = cfg.n_layers
+    failures = []
+    log("long_context", f"{N_RANKS} ranks on one card over gloo (every hop "
+                        f"through the host), launched and run in {wall:.1f} s"
+                        f" with phase 16; dim {cfg.dim}, {cfg.n_heads} heads "
+                        f"of {cfg.head_dim}, {L} layers, remat, B 1 x S {seq}"
+                        f", {seq // N_RANKS} positions a rank [{card}]")
+    for impl in ("ring", "ulysses"):
+        recs = [r[impl] for r in ranks]
+        err = max(r["logit_err"] for r in recs)
+        bound = PAR_LOGIT_BOUND * max(r["logit_scale"] for r in recs)
+        worst = [_worst(r["grad_rel_l2"]) for r in recs]
+        grad = max(w[1] for w in worst)
+        digests = {r["grad_digest"] for r in recs}
+        log("long_context", f"{impl}: logits against the dense flash forward "
+                            f"at S {seq}: max |err| {err:.5f}, bound "
+                            f"{bound:.5f} ({PAR_LOGIT_BOUND} of the largest "
+                            f"dense logit); loss {recs[0]['loss']!r} (dense "
+                            f"{ranks[0]['dense_loss']!r}); worst gradient "
+                            f"relative L2 {grad:.5f} ({worst[0][0]}), bound "
+                            f"{PAR_GRAD_BOUND}; gradients bytewise equal on "
+                            f"all ranks: {len(digests) == 1}")
+        log("long_context", f"{impl}: per rank forward s "
+                            f"{[round(r['forward_s'], 4) for r in recs]}, loss "
+                            f"and gradients s "
+                            f"{[round(r['grad_s'], 4) for r in recs]}, peak "
+                            f"memory {[r['peak'] for r in recs]} B, flash "
+                            f"launches (forward; loss and gradients) "
+                            f"{recs[0]['forward_launches']}; "
+                            f"{recs[0]['grad_launches']} [{card}]")
+        if not err <= bound:
+            failures.append(f"{impl} logits off by {err} > {bound}")
+        if not grad <= PAR_GRAD_BOUND:
+            failures.append(f"{impl} gradient relative L2 {grad}")
+        if len(digests) != 1:
+            failures.append(f"{impl} gradients differ between ranks")
+        if len({r["loss"] for r in recs}) != 1:
+            failures.append(f"{impl} losses differ between ranks")
+        if on_card:
+            want_fwd = ({"flash_fwd": L, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+                        if impl == "ulysses" else dict.fromkeys(KERNELS, 0))
+            want_grad = ({"flash_fwd": 2 * L, "flash_bwd_dq": L,
+                          "flash_bwd_dkv": L} if impl == "ulysses"
+                         else dict.fromkeys(KERNELS, 0))
+            for r in recs:
+                if r["forward_launches"] != want_fwd or \
+                        r["grad_launches"] != want_grad:
+                    failures.append(f"{impl} launches {r['forward_launches']},"
+                                    f" {r['grad_launches']}")
+    train = [r["train"] for r in ranks]
+    restore = ranks[0]["restore"]
+    log("long_context", f"Trainer (Adam), one ring step then one Ulysses "
+                        f"step on every rank: losses {train[0]['ring']['loss']!r}"
+                        f", {train[0]['ulysses']['loss']!r}; step s per rank "
+                        f"ring {[round(t['ring']['step_s'], 4) for t in train]}"
+                        f", ulysses "
+                        f"{[round(t['ulysses']['step_s'], 4) for t in train]};"
+                        f" state ({ranks[0]['state_bytes']} B) bytewise equal "
+                        f"on all ranks: "
+                        f"{len({r['state_digest'] for r in ranks}) == 1}; rank "
+                        f"0's snapshot restored into a dense Trainer at step "
+                        f"{restore['step']}, leaves byte-identical: "
+                        f"{restore['bytes_equal']}, its next dense step's "
+                        f"loss {restore['dense_loss_after']!r} [{card}]")
+    if len({r["state_digest"] for r in ranks}) != 1:
+        failures.append("the trained state differs between ranks")
+    if len({(t["ring"]["loss"], t["ulysses"]["loss"]) for t in train}) != 1:
+        failures.append("the Trainer's losses differ between ranks")
+    if not (restore["step"] == 2 and restore["names_equal"]
+            and restore["bytes_equal"]
+            and math.isfinite(restore["dense_loss_after"])):
+        failures.append(f"rank 0's snapshot did not restore into a dense "
+                        f"Trainer byte for byte: {restore}")
+    if failures:
+        raise AssertionError("long context: " + "; ".join(failures))
+    return {
+        "ranks": N_RANKS, "seq": seq, "layers": L,
+        "wall_s_with_pipeline": wall,
+        **{impl: {"logit_err": max(r[impl]["logit_err"] for r in ranks),
+                  "worst_grad_rel_l2": max(_worst(r[impl]["grad_rel_l2"])[1]
+                                           for r in ranks),
+                  "forward_s": [r[impl]["forward_s"] for r in ranks],
+                  "grad_s": [r[impl]["grad_s"] for r in ranks],
+                  "peak": [r[impl]["peak"] for r in ranks],
+                  "trainer_step_s": [t[impl]["step_s"] for t in train],
+                  "launches_per_rank": [{
+                      k: r[impl]["forward_launches"][k]
+                      + r[impl]["grad_launches"][k] for k in KERNELS}
+                      for r in ranks],
+                  "launches": {k: sum(r[impl][f"{part}_launches"][k]
+                                      for r in ranks
+                                      for part in ("forward", "grad"))
+                               for k in KERNELS}}
+           for impl in ("ring", "ulysses")},
+        "restore": restore}
+
+
+def pipeline_checks(ranks: list[dict], cfg, moe_cfg, shape, moe_shape,
+                    micro: int, card: str, on_card: bool) -> dict:
+    """Phase 16's lines and checks over the ranks' records."""
+    failures = []
+    out = {"ranks": N_RANKS, "microbatches": micro}
+    for label, c, (B, S) in (("dense", cfg, shape), ("moe", moe_cfg, moe_shape)):
+        recs = [r[label] for r in ranks]
+        per = c.n_layers // N_RANKS
+        ticks = recs[0]["ticks"]
+        err = max(r["logit_err"] for r in recs)
+        bound = PAR_LOGIT_BOUND * max(r["logit_scale"] for r in recs)
+        worst = [_worst(r["grad_rel_l2"]) for r in recs]
+        grad = max(w[1] for w in worst)
+        tick_ms = [r["forward_s"] / ticks * 1e3 for r in recs]
+        log("pipeline", f"{label}: {type(c).__name__} dim {c.dim}, "
+                        f"{c.n_layers} layers in {N_RANKS} stages of {per}, "
+                        f"B {B} x S {S} in {micro} microbatches, {ticks} "
+                        f"ticks, remat; logits against the dense model"
+                        f"{' microbatch by microbatch' if label == 'moe' else ''}"
+                        f": max |err| {err:.5f}, bound {bound:.5f}; loss "
+                        f"{recs[0]['loss']!r} (dense {recs[0]['dense_loss']!r})"
+                        f"; worst gradient relative L2 {grad:.5f} "
+                        f"({worst[0][0]} on stage 0), bound {PAR_GRAD_BOUND}")
+        log("pipeline", f"{label}: per rank tick ms (forward / ticks) "
+                        f"{[round(x, 3) for x in tick_ms]}, loss and "
+                        f"gradients s {[round(r['grad_s'], 4) for r in recs]}"
+                        f", peak memory {[r['peak'] for r in recs]} B, flash "
+                        f"launches per rank (forward; loss and gradients) "
+                        f"{recs[0]['forward_launches']}; "
+                        f"{recs[0]['grad_launches']} [{card}]")
+        if not err <= bound:
+            failures.append(f"{label} logits off by {err} > {bound}")
+        if not grad <= PAR_GRAD_BOUND:
+            failures.append(f"{label} gradient relative L2 {grad}")
+        if len({r["replicated_digest"] for r in recs}) != 1 or \
+                len({r["loss"] for r in recs}) != 1:
+            failures.append(f"{label}: the replicated leaves' gradients or "
+                            f"the loss differ between ranks")
+        if on_card:
+            fwd = {"flash_fwd": ticks * per, "flash_bwd_dq": 0,
+                   "flash_bwd_dkv": 0}
+            grads = {"flash_fwd": 2 * ticks * per,
+                     "flash_bwd_dq": ticks * per, "flash_bwd_dkv": ticks * per}
+            for r in recs:
+                if r["forward_launches"] != fwd or r["grad_launches"] != grads:
+                    failures.append(f"{label} launches {r['forward_launches']}"
+                                    f", {r['grad_launches']}")
+        out[label] = {"logit_err": err, "worst_grad_rel_l2": grad,
+                      "tick_ms": tick_ms, "ticks": ticks,
+                      "grad_s": [r["grad_s"] for r in recs],
+                      "peak": [r["peak"] for r in recs],
+                      "launches_per_rank": [{
+                          k: r["forward_launches"][k] + r["grad_launches"][k]
+                          for k in KERNELS} for r in recs]}
+    out["launches"] = {k: sum(r[label][f"{part}_launches"][k] for r in ranks
+                              for label in ("dense", "moe")
+                              for part in ("forward", "grad"))
+                       for k in KERNELS}
+    if failures:
+        raise AssertionError("pipeline: " + "; ".join(failures))
+    return out
+
+
 # -- main ----------------------------------------------------------------------
 
 
@@ -3005,13 +3612,17 @@ def main(argv: list[str] | None = None) -> int:
         serve = phase_serving(torch, fa, work, device["smi"], seed=args.seed)
         torch.cuda.empty_cache()
         io = phase_io(torch, work, device["smi"])
-        precopy = phase_precopy(work, device["smi"], migrate["ref_losses"])
+        precopy = phase_precopy(work, device["smi"])
         frozen = phase_frozen(work, device["smi"], train=train)
         wire = phase_wire(torch, work, device["smi"], migrate["ref_losses"])
         torch.cuda.empty_cache()
         lora = phase_lora(work, device["smi"])
         remat = phase_remat(torch, fa, device["smi"])
         moe = phase_moe(torch, fa, work, device["smi"])
+        moe_serve = phase_moe_serving(torch, fa, work, device["smi"],
+                                      seed=args.seed)
+        long_context, pipeline = phase_parallel(torch, work, device["smi"],
+                                                seed=args.seed)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -3023,16 +3634,24 @@ def main(argv: list[str] | None = None) -> int:
         "replaces": replaces,
         # Phase 4's steps, phase 9's frozen-trunk runs (the uninterrupted
         # one and the restored ones), phase 10's wire destinations, the
-        # uninterrupted runs of phases 11 and 13 and phase 12's two steps.
+        # uninterrupted runs of phases 11 and 13, phase 12's two steps,
+        # and every rank's Ulysses (15) and pipeline (16) runs.
         "launches": (train["launches"][name] + frozen["launches_all"][name]
                      + wire["launches"][name] + lora["launches"][name]
-                     + remat["launches"][name] + moe["launches"][name]),
+                     + remat["launches"][name] + moe["launches"][name]
+                     + long_context["ring"]["launches"][name]
+                     + long_context["ulysses"]["launches"][name]
+                     + pipeline["launches"][name]),
         "launches_by_path": {"adam": train["launches"][name],
                              "frozen_trunk": frozen["launches_all"][name],
                              "wire": wire["launches"][name],
                              "lora_7b": lora["launches"][name],
                              "remat": remat["launches"][name],
-                             "moe": moe["launches"][name]},
+                             "moe": moe["launches"][name],
+                             "moe_serving": moe_serve["flash_launches"][name],
+                             "ring": long_context["ring"]["launches"][name],
+                             "ulysses": long_context["ulysses"]["launches"][name],
+                             "pipeline": pipeline["launches"][name]},
         "launches_per_step": {"lora_7b": lora["launches_per_step"][name],
                               "moe": moe["launches_per_step"][name]},
         "max_abs_err": main_shape["err"][name],
@@ -3065,7 +3684,12 @@ def main(argv: list[str] | None = None) -> int:
         # Phases 11-13: the LoRA-7B fine-tune, remat, the MoE model.
         "lora_7b": {k: v for k, v in lora.items() if k != "launches"},
         "remat": {k: v for k, v in remat.items() if k != "launches"},
-        "moe": {k: v for k, v in moe.items() if k != "launches"}}
+        "moe": {k: v for k, v in moe.items() if k != "launches"},
+        # Phases 14-16: MoE serving, long context, the pipeline.
+        "moe_serving": moe_serve,
+        "long_context": long_context,
+        "pipeline": {k: v for k, v in pipeline.items() if k != "launches"}}
+    log("total", f"chip_smoke.py took {time.perf_counter() - _T0:.1f} s")
     print(json.dumps(record), flush=True)
     print(device["smi"], flush=True)
     print(json.dumps({"ok": True, "device": {

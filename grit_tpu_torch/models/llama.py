@@ -33,6 +33,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from grit_tpu_torch.ops.attention import causal_attention
+from grit_tpu_torch.tree import flatten_with_names
 
 
 @dataclass(frozen=True)
@@ -184,7 +185,8 @@ def _ragged_cache_write(cache: torch.Tensor, new: torch.Tensor,
 def _attn_block(cfg: LlamaConfig, p: dict, x: torch.Tensor,
                 positions: torch.Tensor,
                 cache: tuple | None = None,
-                active: torch.Tensor | None = None) -> torch.Tensor:
+                active: torch.Tensor | None = None,
+                attn_fn=None) -> torch.Tensor:
     """Self-attention; with ``cache=(k_cache, v_cache, cur_len)`` it runs
     the serving path: write the new K/V at ``cur_len`` into the caches
     (in place) and attend into them.
@@ -193,7 +195,11 @@ def _attn_block(cfg: LlamaConfig, p: dict, x: torch.Tensor,
     position) or a per-row ``(B,)`` tensor on the cache's device
     (continuous batching, with ``active`` (B,): released slots' rows stay
     untouched). One implementation of projections, RoPE and output for
-    training and both serving cases, so the paths cannot drift."""
+    training and both serving cases, so the paths cannot drift.
+
+    ``attn_fn(q, k, v) -> out`` replaces the cache-less attention core
+    (the long-context family runs ring or Ulysses attention through it,
+    the same pattern as ``mlp_fn``)."""
     B, S, _ = x.shape
     hd = cfg.head_dim
     q = (x @ p["wq"].to(cfg.dtype)).reshape(B, S, cfg.n_heads, hd)
@@ -202,7 +208,7 @@ def _attn_block(cfg: LlamaConfig, p: dict, x: torch.Tensor,
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     if cache is None:
-        out = causal_attention(q, k, v)
+        out = (attn_fn or causal_attention)(q, k, v)
     else:
         k_cache, v_cache, cur_len = cache
         if isinstance(cur_len, int):
@@ -229,17 +235,20 @@ def _mlp_block(cfg: LlamaConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
 
 def layer_body(cfg: LlamaConfig, layer_params: dict, x: torch.Tensor,
                positions: torch.Tensor, cache=None, active=None,
-               mlp_fn=None) -> tuple[torch.Tensor, torch.Tensor | None]:
+               mlp_fn=None, attn_fn=None
+               ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """One transformer layer (attn_norm → attn → residual → mlp_norm →
     FFN → residual), the single copy of the layer math for training and
     serving (``cache``/``active`` as :func:`_attn_block` takes them).
 
     ``mlp_fn(layer_params, normed) -> (y, aux)`` replaces the dense
-    feed-forward (the MoE family trains through this hook). Returns
-    ``(h, aux)``; the dense FFN's aux is None."""
+    feed-forward (the MoE family runs through this hook) and
+    ``attn_fn(q, k, v) -> out`` the attention core (the long-context
+    family). Returns ``(h, aux)``; the dense FFN's aux is None."""
     h = x + _attn_block(cfg, layer_params["attn"],
                         rms_norm(x, layer_params["attn_norm"], cfg.norm_eps),
-                        positions, cache=cache, active=active)
+                        positions, cache=cache, active=active,
+                        attn_fn=attn_fn)
     normed = rms_norm(h, layer_params["mlp_norm"], cfg.norm_eps)
     if mlp_fn is None:
         y, aux = _mlp_block(cfg, layer_params["mlp"], normed), None
@@ -258,38 +267,58 @@ def _unstack(tree: dict, n: int) -> list[dict]:
     return out
 
 
-def forward_hidden(cfg: LlamaConfig, params: dict, tokens: torch.Tensor,
-                   mlp_fn=None, return_aux: bool = False):
-    """Decoder trunk up to and including the final norm: tokens (B, S)
-    → hidden (B, S, dim) in ``cfg.dtype``; the single copy of the
-    positions and remat semantics. With ``cfg.remat`` each layer runs
-    under non-reentrant activation checkpointing, which keeps only the
-    layer's inputs and replays the layer in the backward.
-
-    ``mlp_fn`` as :func:`layer_body` takes it. ``return_aux`` (with an
-    ``mlp_fn``) returns ``(hidden, aux)`` with the per-layer aux stacked
-    to (n_layers,)."""
-    B, S = tokens.shape
-    positions = torch.arange(S, device=tokens.device).expand(B, S)
-    x = F.embedding(tokens, params["tok_emb"]).to(cfg.dtype)
+def layer_stack(cfg: LlamaConfig, layers: dict, x: torch.Tensor,
+                positions: torch.Tensor, mlp_fn=None, attn_fn=None
+                ) -> tuple[torch.Tensor, list]:
+    """``x`` through every layer of the stacked tree ``layers`` (their
+    count is the leaves' leading axis), each under non-reentrant
+    activation checkpointing when ``cfg.remat`` is set, which keeps only
+    the layer's input and replays the layer in the backward. Returns
+    ``(x, per-layer aux list)``. The single copy of the layer loop: the
+    dense trunk and each pipeline stage run it."""
+    n = flatten_with_names(layers)[0][1].shape[0]
     auxes = []
-    for layer_params in _unstack(params["layers"], cfg.n_layers):
+    for layer_params in _unstack(layers, n):
         if cfg.remat:
             x, aux = checkpoint(layer_body, cfg, layer_params, x, positions,
-                                mlp_fn=mlp_fn, use_reentrant=False,
-                                preserve_rng_state=False)
+                                mlp_fn=mlp_fn, attn_fn=attn_fn,
+                                use_reentrant=False, preserve_rng_state=False)
         else:
             x, aux = layer_body(cfg, layer_params, x, positions,
-                                mlp_fn=mlp_fn)
+                                mlp_fn=mlp_fn, attn_fn=attn_fn)
         auxes.append(aux)
+    return x, auxes
+
+
+def forward_hidden(cfg: LlamaConfig, params: dict, tokens: torch.Tensor,
+                   mlp_fn=None, return_aux: bool = False, attn_fn=None,
+                   positions: torch.Tensor | None = None):
+    """Decoder trunk up to and including the final norm: tokens (B, S)
+    → hidden (B, S, dim) in ``cfg.dtype``; the single copy of the
+    positions and remat semantics (:func:`layer_stack`).
+
+    ``mlp_fn`` and ``attn_fn`` as :func:`layer_body` takes them.
+    ``positions`` (B, S) defaults to ``arange(S)``; a rank holding one
+    shard of a longer sequence passes its own (the long-context family).
+    ``return_aux`` (with an ``mlp_fn``) returns ``(hidden, aux)`` with
+    the per-layer aux stacked to (n_layers,)."""
+    B, S = tokens.shape
+    if positions is None:
+        positions = torch.arange(S, device=tokens.device).expand(B, S)
+    x = F.embedding(tokens, params["tok_emb"]).to(cfg.dtype)
+    x, auxes = layer_stack(cfg, params["layers"], x, positions,
+                           mlp_fn=mlp_fn, attn_fn=attn_fn)
     hidden = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return (hidden, torch.stack(auxes)) if return_aux else hidden
 
 
-def forward_trunk(cfg: LlamaConfig, params: dict,
-                  tokens: torch.Tensor) -> torch.Tensor:
-    """tokens (B, S) → logits (B, S, vocab) fp32."""
-    x = forward_hidden(cfg, params, tokens)
+def forward_trunk(cfg: LlamaConfig, params: dict, tokens: torch.Tensor,
+                  attn_fn=None,
+                  positions: torch.Tensor | None = None) -> torch.Tensor:
+    """tokens (B, S) → logits (B, S, vocab) fp32; ``attn_fn`` and
+    ``positions`` as :func:`forward_hidden` takes them."""
+    x = forward_hidden(cfg, params, tokens, attn_fn=attn_fn,
+                       positions=positions)
     return (x @ params["lm_head"].to(cfg.dtype)).float()
 
 
@@ -315,40 +344,50 @@ def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int | None = None, *,
 
 def _cached_trunk(cfg: LlamaConfig, params: dict, tokens: torch.Tensor,
                   cache: dict, positions: torch.Tensor, cur_len,
-                  active: torch.Tensor | None = None) -> torch.Tensor:
+                  active: torch.Tensor | None = None,
+                  mlp_fn=None) -> torch.Tensor:
     """Embedding, the layer stack against the cache (in place), final norm
     and ``lm_head``: fp32 logits. The single copy of the serving trunk for
-    :func:`decode` and :func:`decode_ragged`."""
+    :func:`decode` and :func:`decode_ragged`; ``mlp_fn(layer_params,
+    normed) -> y`` as they take it."""
+    ffn = None if mlp_fn is None else (
+        lambda layer_params, normed: (mlp_fn(layer_params, normed), None))
     x = F.embedding(tokens, params["tok_emb"]).to(cfg.dtype)
     layers = zip(_unstack(params["layers"], cfg.n_layers),
                  torch.unbind(cache["k"], 0), torch.unbind(cache["v"], 0))
     for layer_params, kc, vc in layers:
         x, _ = layer_body(cfg, layer_params, x, positions,
-                          cache=(kc, vc, cur_len), active=active)
+                          cache=(kc, vc, cur_len), active=active, mlp_fn=ffn)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return (x @ params["lm_head"].to(cfg.dtype)).float()
 
 
 @torch.no_grad()
 def decode(cfg: LlamaConfig, params: dict, tokens: torch.Tensor,
-           cache: dict) -> tuple[torch.Tensor, dict]:
+           cache: dict, mlp_fn=None) -> tuple[torch.Tensor, dict]:
     """Serving step: append ``tokens`` (B, S) at ``cache['length']``,
     attend into the cache, return (logits (B, S, vocab) fp32, the cache
     with ``length`` advanced by S). Prefill (S = prompt length) and
     autoregressive decode (S = 1) alike. A write past the cache's end
-    raises ``ValueError`` before anything is written."""
+    raises ``ValueError`` before anything is written.
+
+    ``mlp_fn(layer_params, normed) -> y`` replaces the dense feed-forward
+    (the MoE family serves through this function with its expert layer,
+    so the cache and position semantics cannot drift between the
+    families). Unlike :func:`layer_body`'s hook it returns ``y`` alone."""
     B, S = tokens.shape
     cur_len = int(cache["length"])
     positions = (cur_len + torch.arange(S, device=tokens.device)).expand(B, S)
-    logits = _cached_trunk(cfg, params, tokens, cache, positions, cur_len)
+    logits = _cached_trunk(cfg, params, tokens, cache, positions, cur_len,
+                           mlp_fn=mlp_fn)
     return logits, {**cache, "length": torch.tensor(cur_len + S,
                                                     dtype=torch.int32)}
 
 
 @torch.no_grad()
 def decode_ragged(cfg: LlamaConfig, params: dict, tokens: torch.Tensor,
-                  cache: dict, lengths: torch.Tensor, active: torch.Tensor
-                  ) -> tuple[torch.Tensor, dict]:
+                  cache: dict, lengths: torch.Tensor, active: torch.Tensor,
+                  mlp_fn=None) -> tuple[torch.Tensor, dict]:
     """Continuous-batching serving step: one new token per slot, each slot
     at its own position in the cache.
 
@@ -357,8 +396,8 @@ def decode_ragged(cfg: LlamaConfig, params: dict, tokens: torch.Tensor,
     ``active`` (B,) bool: inactive slots compute (the batch is the step's
     shape) but their cache rows stay byte-identical. ``cache['length']``
     is ignored and returned as is. An active slot at the cache's end
-    raises ``ValueError`` before anything is written. Returns (logits
-    (B, 1, vocab) fp32, cache)."""
+    raises ``ValueError`` before anything is written. ``mlp_fn`` as
+    :func:`decode` takes it. Returns (logits (B, 1, vocab) fp32, cache)."""
     B, S = tokens.shape
     if S != 1:
         raise ValueError("decode_ragged is the per-token step; use "
@@ -372,7 +411,7 @@ def decode_ragged(cfg: LlamaConfig, params: dict, tokens: torch.Tensor,
     dev = cache["k"].device
     lengths, active = lengths.to(dev), active.to(dev)
     logits = _cached_trunk(cfg, params, tokens.to(dev), cache,
-                           lengths[:, None], lengths, active)
+                           lengths[:, None], lengths, active, mlp_fn=mlp_fn)
     return logits, cache
 
 

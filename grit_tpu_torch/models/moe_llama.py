@@ -1,9 +1,11 @@
 """MoE-llama: llama attention with a top-k expert feed-forward in every
 layer (Mixtral-shaped; ``top_k`` 1 is Switch routing, 2 Mixtral's).
 
-Counterpart of ``grit_tpu/models/moe_llama.py``'s training path:
-``MoeLlamaConfig``, ``init_params``, ``forward_with_aux``, ``forward`` and
-``loss_fn``. It composes llama's trunk (:func:`llama.forward_hidden`
+Counterpart of ``grit_tpu/models/moe_llama.py``: ``MoeLlamaConfig``,
+``init_params``, ``forward_with_aux``, ``forward`` and ``loss_fn``; the
+serving steps ``decode`` and ``decode_ragged`` (llama's, through their
+``mlp_fn`` hook) and ``init_kv_cache``; and ``forward_pp``, the pipelined
+forward. It composes llama's trunk (:func:`llama.forward_hidden`
 through its ``mlp_fn`` hook, remat included) with
 :func:`grit_tpu_torch.ops.moe.moe_mlp`; the router's load-balancing aux
 is averaged over the layers and added to the LM loss. The parameter tree
@@ -12,8 +14,12 @@ is llama's without the dense FFN, plus the stacked
 (L, E, dim, hidden), ``w_out`` (L, E, hidden, dim)), under the JAX
 package's names, so snapshots of the two cross-restore.
 
-Serving (``decode``, ``decode_ragged``), the pipelined forward and the
-expert sharding are not ported.
+Tokens compete for expert capacity within one call, so a prefill, a
+decode step and a pipeline microbatch drop differently from a whole
+training batch when capacity binds (the reference's capacity note); with
+``capacity_factor >= n_experts`` nothing drops and all of them agree with
+:func:`forward`. The expert sharding (``MOE_LLAMA_RULES``,
+``pp_stage_shardings``) is not ported.
 """
 
 from __future__ import annotations
@@ -23,7 +29,7 @@ from dataclasses import dataclass
 
 import torch
 
-from grit_tpu_torch.models import llama
+from grit_tpu_torch.models import llama, pipeline_llama
 from grit_tpu_torch.models.llama import LlamaConfig, token_cross_entropy
 from grit_tpu_torch.ops.moe import moe_mlp, moe_param_shapes
 
@@ -75,14 +81,17 @@ def init_params(cfg: MoeLlamaConfig, generator: torch.Generator,
     return params
 
 
-def _moe_ffn(cfg: MoeLlamaConfig, B: int, S: int):
+def _moe_ffn(cfg: MoeLlamaConfig, B: int, S: int,
+             token_mask: torch.Tensor | None = None):
     """The FFN hook for llama's trunk: the expert layer over the B·S
-    tokens, which compete for capacity within the batch."""
+    tokens, which compete for capacity within the batch. ``token_mask``
+    (B·S,) bool keeps rows (bucket padding, released serving slots) out
+    of the routing, so they never take a real token's capacity."""
 
     def ffn(layer_params, normed):
         y, aux = moe_mlp(layer_params["moe"], normed.reshape(B * S, cfg.dim),
                          capacity_factor=cfg.capacity_factor,
-                         top_k=cfg.top_k)
+                         top_k=cfg.top_k, token_mask=token_mask)
         return y.reshape(B, S, cfg.dim), aux
 
     return ffn
@@ -102,6 +111,46 @@ def forward_with_aux(cfg: MoeLlamaConfig, params: dict, tokens: torch.Tensor
 def forward(cfg: MoeLlamaConfig, params: dict,
             tokens: torch.Tensor) -> torch.Tensor:
     return forward_with_aux(cfg, params, tokens)[0]
+
+
+def decode(cfg: MoeLlamaConfig, params: dict, tokens: torch.Tensor,
+           cache: dict, token_mask: torch.Tensor | None = None
+           ) -> tuple[torch.Tensor, dict]:
+    """Serving step (prefill or S = 1 decode): llama's cached attention
+    with the expert feed-forward; the cache layout is llama's, so the
+    serving engines migrate MoE generations unchanged. ``token_mask``
+    (B·S,) as :func:`_moe_ffn` takes it; the aux is dropped."""
+    B, S = tokens.shape
+    ffn = _moe_ffn(cfg, B, S, token_mask=token_mask)
+    return llama.decode(cfg, params, tokens, cache,
+                        mlp_fn=lambda lp, normed: ffn(lp, normed)[0])
+
+
+def decode_ragged(cfg: MoeLlamaConfig, params: dict, tokens: torch.Tensor,
+                  cache: dict, lengths: torch.Tensor, active: torch.Tensor
+                  ) -> tuple[torch.Tensor, dict]:
+    """The continuous-batching step for the MoE family: llama's ragged
+    step with the expert feed-forward, released slots' stale tokens
+    masked out of the routing."""
+    B, S = tokens.shape
+    mask = active.to(cache["k"].device).repeat_interleave(S)
+    ffn = _moe_ffn(cfg, B, S, token_mask=mask)
+    return llama.decode_ragged(cfg, params, tokens, cache, lengths, active,
+                               mlp_fn=lambda lp, normed: ffn(lp, normed)[0])
+
+
+init_kv_cache = llama.init_kv_cache  # the same cache layout
+
+
+def forward_pp(cfg: MoeLlamaConfig, stage_params: dict, tokens: torch.Tensor,
+               *, n_microbatches: int, axis=None) -> torch.Tensor:
+    """The pipelined MoE forward: :func:`pipeline_llama.forward_pp` with
+    the expert feed-forward per microbatch (``stage_params``: this rank's
+    stage of :func:`pipeline_llama.to_stage_params` on an MoE tree). The
+    aux is dropped, as the reference's stage drops it."""
+    return pipeline_llama.forward_pp(
+        cfg, stage_params, tokens, n_microbatches=n_microbatches,
+        axis=axis, mlp_fn_builder=lambda mb, S: _moe_ffn(cfg, mb, S))
 
 
 def loss_fn(cfg: MoeLlamaConfig, params: dict, tokens: torch.Tensor,

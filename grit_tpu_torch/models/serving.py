@@ -40,6 +40,12 @@ slots stay parked until :meth:`~ContinuousBatchingEngine.absorb_restored`
 merges the restored rows in (the snapshot fan-out,
 :mod:`grit_tpu_torch.serving.fanout`).
 
+**Families.** Both engines dispatch on the config, as the reference's
+do: an ``MoeLlamaConfig`` decodes through :mod:`moe_llama`'s steps (the
+same cache layout, the expert feed-forward), any other llama config
+through :mod:`llama`'s. The MoE prefill masks the bucket's pad positions
+out of the expert routing, so a pad never takes a real token's capacity.
+
 Engines given no device run on the current CUDA device and raise without
 one (pass ``device="cpu"`` explicitly).
 """
@@ -62,7 +68,7 @@ from grit_tpu_torch.device.snapshot import (
     restore_snapshot_postcopy,
     write_snapshot,
 )
-from grit_tpu_torch.models import llama
+from grit_tpu_torch.models import llama, moe_llama
 
 _WORD = 1 << 32
 
@@ -116,6 +122,10 @@ class InferenceEngine:
         self.scfg = scfg or ServingConfig()
         self.params = params
         self.device = resolve_device(device)
+        # Family dispatch: the MoE family decodes through moe_llama.
+        self._decode_fn = (moe_llama.decode
+                           if isinstance(cfg, moe_llama.MoeLlamaConfig)
+                           else llama.decode)
         self.state = self._fresh_state(self.device)
         # Host mirror of cache['length'], so the capacity guard reads no
         # state; resynced on restore.
@@ -160,8 +170,8 @@ class InferenceEngine:
     def _step(self, tokens: torch.Tensor) -> torch.Tensor:
         """Decode and sample (the port of ``_decode_and_sample``)."""
         st = self.state
-        logits, cache = llama.decode(self.cfg, self.params, tokens,
-                                     st["cache"])
+        logits, cache = self._decode_fn(self.cfg, self.params, tokens,
+                                        st["cache"])
         last = logits[:, -1, :]
         t = self.scfg.temperature
         if t > 0.0:
@@ -224,6 +234,11 @@ class ContinuousBatchingEngine:
         self.bcfg = bcfg or BatchingConfig()
         self.params = params
         self.device = resolve_device(device)
+        # Family dispatch, as the lock-step engine's; the MoE prefill
+        # masks its bucket's pads out of the expert routing.
+        self._masked = isinstance(cfg, moe_llama.MoeLlamaConfig)
+        fam = moe_llama if self._masked else llama
+        self._decode_fn, self._ragged_fn = fam.decode, fam.decode_ragged
         self._submissions = 0  # the next admission's RNG stream (monotonic)
         self.state = self._fresh_state(self.device)
         # Post-copy clone (snapshot fan-out): while the cold KV cache is
@@ -281,8 +296,8 @@ class ContinuousBatchingEngine:
         padded = torch.zeros((1, bucket), dtype=torch.int32)
         padded[0, :n] = prompt
         st = self.state
-        _cb_prefill(self.cfg, self.params, padded.to(self.device), slot,
-                    st["cache"])
+        _cb_prefill(self.cfg, self._decode_fn, self._masked, self.params,
+                    padded.to(self.device), n, slot, st["cache"])
         # lengths = n-1 with the prompt's last token as last_token: the
         # next step() re-derives position n-1 (rewriting identical K/V)
         # and samples generated token 1, so every emitted token comes
@@ -318,7 +333,8 @@ class ContinuousBatchingEngine:
         if not was_active.any():
             return {}
         self.state, toks = _cb_step(self.cfg, self.bcfg.temperature,
-                                    self.bcfg.eos_id, self.params, self.state)
+                                    self.bcfg.eos_id, self._ragged_fn,
+                                    self.params, self.state)
         out = toks.tolist()
         return {i: out[i] for i in torch.nonzero(was_active).flatten().tolist()}
 
@@ -462,27 +478,36 @@ def _tag_elidable_kv(cache_k: torch.Tensor, cache_v: torch.Tensor,
     return torch.where(live, cache_k, zero), torch.where(live, cache_v, zero)
 
 
-def _cb_prefill(cfg: llama.LlamaConfig, params: dict, padded: torch.Tensor,
-                slot: int, cache: dict) -> None:
-    """Prefill one slot: run the (1, bucket) prompt through the decode
-    trunk against the slot's cache rows, which it writes in place. Pad
-    positions beyond the true prompt leave K/V that is never attended
-    (the per-slot kv_len mask) and is overwritten as the slot generates
-    into those positions. The logits are dropped: prefill never samples."""
-    llama.decode(cfg, params, padded, {
-        "k": cache["k"][:, slot:slot + 1],
-        "v": cache["v"][:, slot:slot + 1],
-        "length": torch.zeros((), dtype=torch.int32),
-    })
+def _cb_prefill(cfg: llama.LlamaConfig, decode_fn, masked: bool,
+                params: dict, padded: torch.Tensor, length: int, slot: int,
+                cache: dict) -> None:
+    """Prefill one slot: run the (1, bucket) prompt through ``decode_fn``
+    against the slot's cache rows, which it writes in place. Pad positions
+    beyond the true prompt (``length`` tokens) leave K/V that is never
+    attended (the per-slot kv_len mask) and is overwritten as the slot
+    generates into those positions. With ``masked`` (the MoE family) the
+    pads are also masked out of the expert routing: a pad competing for
+    capacity would change which real tokens get their experts, and the
+    prefill would diverge from the unpadded prompt's. The logits are
+    dropped: prefill never samples."""
+    slot_cache = {"k": cache["k"][:, slot:slot + 1],
+                  "v": cache["v"][:, slot:slot + 1],
+                  "length": torch.zeros((), dtype=torch.int32)}
+    if masked:
+        mask = torch.arange(padded.shape[1], device=padded.device) < length
+        decode_fn(cfg, params, padded, slot_cache, token_mask=mask)
+    else:
+        decode_fn(cfg, params, padded, slot_cache)
 
 
 def _cb_step(cfg: llama.LlamaConfig, temperature: float, eos_id: int | None,
-             params: dict, state: dict) -> tuple[dict, torch.Tensor]:
-    """The continuous-batching step: ragged decode, per-slot sample and
-    slot bookkeeping for the whole grid. Returns (new state, tokens (B,)
-    int32 on the host)."""
+             ragged_fn, params: dict, state: dict
+             ) -> tuple[dict, torch.Tensor]:
+    """The continuous-batching step: ragged decode (``ragged_fn``, the
+    family's), per-slot sample and slot bookkeeping for the whole grid.
+    Returns (new state, tokens (B,) int32 on the host)."""
     active = state["active"]
-    logits, cache = llama.decode_ragged(
+    logits, cache = ragged_fn(
         cfg, params, state["last_token"], state["cache"], state["lengths"],
         active)
     last = logits[:, -1, :]  # (B, vocab)

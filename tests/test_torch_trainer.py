@@ -25,10 +25,12 @@ from grit_tpu.train import Trainer as JaxTrainer
 from grit_tpu_torch import convert
 from grit_tpu_torch.device import snapshot as psnap
 from grit_tpu_torch.models import llama
+from grit_tpu_torch.parallel.launch import run_ranks
 from grit_tpu_torch.train import optim
 from grit_tpu_torch.train import trainer as ptrainer
 from grit_tpu_torch.tree import flatten_with_names
 from grit_tpu_torch.workload import llama_trainer
+from tests import torch_ranks
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -156,7 +158,8 @@ def test_state_to_numpy_roundtrip():
 
 def test_port_imports_nothing_of_jax():
     """Every module of the port and chip_smoke's imports leave jax, optax,
-    ml_dtypes and the JAX package out of sys.modules."""
+    ml_dtypes and the JAX package out of sys.modules; so does a rank that
+    the port's launcher spawns from this process, which has them all."""
     code = textwrap.dedent(f"""
         import importlib, pkgutil, sys
         sys.path.insert(0, {REPO!r})
@@ -170,7 +173,14 @@ def test_port_imports_nothing_of_jax():
                      "grit_tpu_torch.codec", "grit_tpu_torch.checksum",
                      "grit_tpu_torch.models.lora",
                      "grit_tpu_torch.models.moe_llama",
-                     "grit_tpu_torch.ops.moe"):
+                     "grit_tpu_torch.ops.moe",
+                     "grit_tpu_torch.parallel.collectives",
+                     "grit_tpu_torch.parallel.launch",
+                     "grit_tpu_torch.parallel.pipeline",
+                     "grit_tpu_torch.ops.ring_attention",
+                     "grit_tpu_torch.ops.ulysses",
+                     "grit_tpu_torch.models.long_context",
+                     "grit_tpu_torch.models.pipeline_llama"):
             assert want in names, names
         for name in names:
             importlib.import_module(name)
@@ -186,6 +196,9 @@ def test_port_imports_nothing_of_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("clean")
+    assert "jax" in sys.modules
+    assert run_ranks(torch_ranks.foreign_modules, 2,
+                     backend="gloo") == [[], []]
 
 
 # -- the frozen-trunk fine-tune (bench.py's migrated flagship) ---------------------------
