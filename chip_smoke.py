@@ -97,20 +97,20 @@ non-zero without the final result line:
    harness's MNIST workload (``--model mnist``) migrated once through
    ``AutoDeviceHook``, bitwise, and a pid without an agentlet skipped
    loudly. ``[frozen]`` lines.
-10. wire   — phase 5's flagship migrated over the wire into this
-   script's own receiver (the reference's frames and journal: frame crc,
-   codec records decoded and checked against their crc of the raw bytes,
-   waterline lines, eof): (a) raw, the dump carrying a wire spec and a
-   PVC mirror, the rest of the tree staged after it and a destination
-   spawned on the landed tree, whose losses must equal phase 5's
-   uninterrupted run bit for bit; then a second dump of the parked source
-   into a receiver that hangs up mid-stream must answer ``ok`` with a
-   failed wire block and a committed mirror; (b) the same under
-   ``GRIT_SNAPSHOT_CODEC=zlib`` at 4 layers (the source's own run,
-   resumed after the dump, is the reference): the wire carries codec
-   records, the mirror is a container with a ``.gritc`` sidecar, and a
-   second destination restores from it; both continue bitwise. A byte
-   flipped in one frame must fail the stream. Bytes raw and on the wire,
+10. wire   — phase 5's flagship at 4 layers migrated over the wire into
+   this script's own receiver (the reference's frames and journal: frame
+   crc, codec records decoded and checked against their crc of the raw
+   bytes, waterline lines, eof): the dump carries a wire spec and a PVC
+   mirror, the rest of the tree is staged after it and a destination
+   spawned on the landed tree, which continues bitwise from the source's
+   own run, resumed after the dump. (a) raw (the default codec): the wire
+   carries the raw bytes; (b) under ``GRIT_SNAPSHOT_CODEC=zlib``: the
+   wire carries codec records, the mirror is a container with a
+   ``.gritc`` sidecar, and a second destination restores from it,
+   bitwise too; before the source resumes, a second dump of it into a
+   receiver that hangs up mid-stream must answer ``ok`` with a failed
+   wire block and a committed mirror. A byte flipped in one frame must
+   fail the stream. Bytes raw and on the wire,
    records compressed and raw, ``send_s``, ``stall_s``,
    ``dump_overlap_bytes``, dump and blackout print as ``[wire]`` lines.
 11. lora   — the north star's workload (the JAX package's
@@ -164,14 +164,28 @@ non-zero without the final result line:
    microbatch, as the pipeline routes), every rank's tick time and
    launches (each stage's layers a tick, bubbles included).
    ``[pipeline]`` lines.
+17. gang   — phase 16's dense pipeline as a training gang: four ranks
+   (one stage each, Adam 1e-4, Zipf batches) whose agentlets carry a
+   slice gate over a file rendezvous with the lockstep collective take a
+   few steps; four port hooks (``TpuDeviceCheckpointHook`` under
+   ``GRIT_SLICE_HOSTS=4``) dump them into ``host-<k>`` from four threads
+   started about a step apart. Every manifest must carry the same step;
+   the sources resume to cut + 3, and four fresh ranks each restore
+   ``host-<k>`` and run to cut + 3: losses and final state bitwise equal
+   to their source's, and each kernel launched 42 / 21 / 21 times a step
+   on every rank. The cut, each rank's step at its request and barrier
+   wait, dump seconds and bytes, the gang blackout (first request to the
+   last commit), restore seconds and launches a rank a step print as
+   ``[gang]`` lines.
 
 The second-to-last lines are the script's wall time, the kernels' JSON
 record (with the serving phase's numbers under ``serving``, phase 8's
 under ``precopy``, phase 9's under ``frozen_trunk``, phase 10's under
 ``wire``, phase 7's crc32c and codec rates under ``io``, phases 11-13's
 under ``lora_7b``, ``remat`` and ``moe``, and phases 14-16's under
-``moe_serving``, ``long_context`` and ``pipeline``; each kernel's
-``launches`` sums phases 4, 9, 10, 11, 12, 13, 15 and 16, every rank's)
+``moe_serving``, ``long_context`` and ``pipeline``, phase 17's under
+``gang``; each kernel's ``launches`` sums phases 4, 9, 10, 11, 12, 13,
+15, 16 and 17, every rank's)
 and the card's ``name, power limit``; the last line is the result JSON.
 ``--seed`` seeds the serving phases' and the parallel phases' weights
 and prompts (default 0). The script imports nothing of JAX or of the
@@ -2268,10 +2282,10 @@ def mnist_twin(work: str, card: str) -> dict:
 # -- phase 10 ------------------------------------------------------------------
 
 WIRE_STREAMS = 2
-# The zlib run's depth (its widths are the flagship's): the codec
+# The wire runs' depth (their widths are the flagship's): the codec
 # compresses nearly every bf16 block on the host's cores, so its dump
 # grows with the state; this depth keeps the script within its time.
-WIRE_CODEC_LAYERS = 4
+WIRE_LAYERS = 4
 
 
 class Receiver:
@@ -2487,27 +2501,23 @@ class Receiver:
         self.journal.close()
 
 
-def wire_run(work: str, card: str, label: str, codec: str,
-             ref_losses: dict | None, *, hang_up_check: bool,
-             layers: int | None = None) -> dict:
-    """One wire migration of phase 5's flagship (Adam): the source
-    quiesced and dumped with a wire spec and a PVC mirror under
-    ``GRIT_SNAPSHOT_CODEC=codec``, the rest of the tree staged as the
-    agent ships it, then a destination spawned on the landed tree; its
-    losses after the cut against ``ref_losses``. With a codec, a second
-    destination restores from the mirror (a container on the PVC),
-    spawned once the first has taken its first step. ``hang_up_check``:
-    before the source is killed, a second dump of its parked state into
-    a receiver that hangs up mid-stream must answer ``ok`` with a failed
-    wire block and a committed mirror. ``layers``: a depth other than
-    phase 5's (the widths stay the flagship's); ``ref_losses`` None: the
-    reference is the source's own run, resumed after the dump to the same
-    last step."""
+def wire_run(work: str, card: str, label: str, codec: str, *,
+             hang_up_check: bool) -> dict:
+    """One wire migration of phase 5's flagship (Adam) at
+    :data:`WIRE_LAYERS` layers: the source quiesced and dumped with a
+    wire spec and a PVC mirror under ``GRIT_SNAPSHOT_CODEC=codec``, the
+    rest of the tree staged as the agent ships it, then a destination
+    spawned on the landed tree; its losses after the cut against the
+    source's own run, resumed after the dump to the same last step. With
+    a codec, a second destination restores from the mirror (a container
+    on the PVC), spawned once the first has taken its first step.
+    ``hang_up_check``: before the source resumes, a second dump of its
+    parked state into a receiver that hangs up mid-stream must answer
+    ``ok`` with a failed wire block and a committed mirror."""
     from grit_tpu_torch.device.agentlet import ToggleClient  # noqa: PLC0415
     from grit_tpu_torch.device.snapshot import (  # noqa: PLC0415
         DATA_FILE, INDEX_FILE, MANIFEST_FILE, snapshot_exists, snapshot_nbytes)
 
-    self_ref = ref_losses is None
     socks = os.path.join(work, f"socks-wire-{label}")
     host, pvc, dst_root = (os.path.join(work, f"{n}-wire-{label}")
                            for n in ("host", "pvc", "dst"))
@@ -2519,8 +2529,7 @@ def wire_run(work: str, card: str, label: str, codec: str,
     out: dict = {"codec": codec}
     try:
         args = WORKLOAD_ARGS[:]
-        if layers is not None:
-            args[args.index("--layers") + 1] = str(layers)
+        args[args.index("--layers") + 1] = str(WIRE_LAYERS)
         src = Workload(1000, env, args=args)
         procs.append(src)
         src.wait_for("READY")
@@ -2578,18 +2587,17 @@ def wire_run(work: str, card: str, label: str, codec: str,
             out["hang_up"] = {"wire": hung["wire"],
                               "received_bytes": hang.wire_bytes}
             shutil.rmtree(os.path.dirname(hang_mirror), ignore_errors=True)
-        if ref_losses is None:
-            # The source's own run, resumed after the dump, is the
-            # uninterrupted one (its loop only paused).
-            src.drain()
-            client.resume()
-            deadline = time.monotonic() + 300
-            while MIGRATE_STEPS not in src.losses():
-                if time.monotonic() > deadline or src.proc.poll() is not None:
-                    raise AssertionError(f"{label}: the resumed source did "
-                                         f"not reach step {MIGRATE_STEPS}")
-                time.sleep(0.2)
-            ref_losses = src.losses()
+        # The source's own run, resumed after the dump, is the
+        # uninterrupted one (its loop only paused).
+        src.drain()
+        client.resume()
+        deadline = time.monotonic() + 300
+        while MIGRATE_STEPS not in src.losses():
+            if time.monotonic() > deadline or src.proc.poll() is not None:
+                raise AssertionError(f"{label}: the resumed source did "
+                                     f"not reach step {MIGRATE_STEPS}")
+            time.sleep(0.2)
+        ref_losses = src.losses()
         client.close()
         src.kill()
         nbytes = snapshot_nbytes(snap)
@@ -2676,10 +2684,8 @@ def wire_run(work: str, card: str, label: str, codec: str,
                 f"{nbytes / restore_s / 1e9:.3f} GB/s, legs "
                 f"{fmt_legs(pipe, RESTORE_LEGS)}) + first step "
                 f"{t_first - t_restored:.3f} [{card}]")
-    msg = (f"{label} ({args[args.index('--layers') + 1]} layers): losses "
-           f"after the cut bitwise equal "
-           f"to {'the resumed source' if self_ref else 'phase 5'}'s "
-           f"uninterrupted run: {got}")
+    msg = (f"{label} ({WIRE_LAYERS} layers): losses after the cut bitwise "
+           f"equal to the resumed source's uninterrupted run: {got}")
     if "mirror_restore" in out:
         msg += (f"; the mirror ({side} beside the container) restored "
                 f"on the card in {out['mirror_restore']['restore_s']:.3f} s, "
@@ -2723,15 +2729,14 @@ def planted_flip(torch, work: str, card: str, dev) -> str:
     return recv.error
 
 
-def phase_wire(torch, work: str, card: str, ref_losses: dict,
-               dev=None) -> dict:
-    """Phase 10: the wire migration of phase 5's flagship, raw and then
-    compressed (zlib), and the planted faults (``dev``: the card by
-    default; a rehearsal on the CPU passes the CPU)."""
-    runs = {"raw": wire_run(work, card, "raw", "none", ref_losses,
-                            hang_up_check=True),
-            "zlib": wire_run(work, card, "zlib", "zlib", None,
-                             hang_up_check=False, layers=WIRE_CODEC_LAYERS)}
+def phase_wire(torch, work: str, card: str, dev=None) -> dict:
+    """Phase 10: the wire migration of phase 5's flagship at
+    :data:`WIRE_LAYERS` layers, raw (the default codec) and then
+    compressed (zlib, with the receiver that hangs up), and the planted
+    faults (``dev``: the card by default; a rehearsal on the CPU passes
+    the CPU)."""
+    runs = {"raw": wire_run(work, card, "raw", "none", hang_up_check=False),
+            "zlib": wire_run(work, card, "zlib", "zlib", hang_up_check=True)}
     runs["flip"] = planted_flip(torch, work, card,
                                 dev if dev is not None else torch.device("cuda", 0))
     runs["launches"] = {n: runs["raw"]["launches"][n]
@@ -3572,6 +3577,431 @@ def pipeline_checks(ranks: list[dict], cfg, moe_cfg, shape, moe_shape,
     return out
 
 
+# -- phase 17 ------------------------------------------------------------------
+
+# Phase 17: phase 16's flagship pipeline (four stages of 3 layers, remat,
+# B 8 x S 2048 in 4 microbatches, Adam 1e-4) as a training gang: each
+# rank's agentlet carries a slice gate over a file rendezvous with the
+# lockstep collective, and four hooks' dumps land about a step apart.
+GANG_READY_STEP = 2   # every rank has taken this many steps before the dumps
+GANG_AFTER = 3        # sources and restored ranks run to cut + this
+GANG_LR = 1e-4
+
+
+def gang_trainer(torch, cfg, rank: int, n: int, *, batch: int, seq: int,
+                 micro: int, seed: int, dev):
+    """Rank ``rank``'s stage Trainer: its stage of the dense params (built
+    from ``seed`` on every rank, then sliced), ``loss_fn_pp``, Adam, Zipf
+    batches the same on every rank."""
+    from grit_tpu_torch.models import llama, pipeline_llama  # noqa: PLC0415
+    from grit_tpu_torch.train.optim import adam  # noqa: PLC0415
+    from grit_tpu_torch.train.trainer import Trainer, TrainerConfig  # noqa: PLC0415
+    from grit_tpu_torch.tree import tree_map  # noqa: PLC0415
+    from grit_tpu_torch.workload import zipf_batches  # noqa: PLC0415
+
+    def init(gen, device):
+        meta = torch.device(device).type == "meta"
+        full = (llama.abstract_params(cfg) if meta
+                else llama.init_params(cfg, gen, device))
+        local = pipeline_llama.stage_slice(
+            pipeline_llama.to_stage_params(cfg, full, n), rank)
+        return local if meta else tree_map(lambda a: a.clone(), local)
+
+    return Trainer(
+        loss_fn=lambda p, b: pipeline_llama.loss_fn_pp(
+            cfg, p, b[0], b[1], n_microbatches=micro),
+        init_params=init, batch_fn=zipf_batches(cfg.vocab_size, batch, seq),
+        cfg=TrainerConfig(learning_rate=GANG_LR, seed=seed), device=dev,
+        optimizer=adam(GANG_LR))
+
+
+def gang_rank(spec: dict) -> dict:
+    """Phase 17 on one rank (stage). ``"source"``: train with an agentlet
+    whose gate runs the cut over a ``FileRendezvous`` with the lockstep
+    collective, publish the pid, step until the phase's ``stop`` file
+    names a step reached. ``"restore"``: a fresh stage restores
+    ``host-<rank>/hbm`` and steps to ``spec["stop"]``. Returns the losses,
+    the state's digest, the kernels' launches and the steps they span,
+    the modules of JAX or of the JAX package the rank loaded (none), and
+    the gate's and the dump's numbers."""
+    import torch  # noqa: PLC0415
+
+    from grit_tpu_torch.device.agentlet import Agentlet  # noqa: PLC0415
+    from grit_tpu_torch.device.snapshot import last_write  # noqa: PLC0415
+    from grit_tpu_torch.ops import flash_attention as fa  # noqa: PLC0415
+    from grit_tpu_torch.parallel import axis_index, axis_size  # noqa: PLC0415
+    from grit_tpu_torch.parallel.coordination import (  # noqa: PLC0415
+        FileRendezvous,
+        SliceCoordinator,
+        SliceQuiesceGate,
+        group_any,
+    )
+    from grit_tpu_torch.tree import flatten_with_names  # noqa: PLC0415
+
+    dev = torch.device(spec["device"])
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+    rank, n = axis_index(), axis_size()
+    work = spec["work"]
+    tr = gang_trainer(torch, spec["cfg"], rank, n, batch=spec["batch"],
+                      seq=spec["seq"], micro=spec["micro"], seed=spec["seed"],
+                      dev=dev)
+    out: dict = {"losses": {}}
+
+    def finish(**kw) -> dict:
+        out.update(kw, launches=dict(fa.LAUNCHES), digest=_digest(
+            torch, (x for _, x in flatten_with_names(tr.state))),
+            foreign=sorted(m for m in sys.modules
+                           if m.split(".")[0] in ("jax", "jaxlib", "grit_tpu")))
+        return out
+
+    if spec["mode"] == "restore":
+        t0 = time.perf_counter()
+        out["restored"] = tr.restore(os.path.join(work, f"host-{rank}", "hbm"))
+        _sync(torch, dev)
+        out["restore_s"] = time.perf_counter() - t0
+        first = tr.step
+        fa.reset_launch_counts()
+        while tr.step < spec["stop"]:
+            loss = tr.train_step()["loss"].item()
+            out["losses"][tr.step] = loss
+        return finish(steps=tr.step - first)
+    os.environ["GRIT_TPU_SOCKET_DIR"] = spec["sockdir"]
+    gate = SliceQuiesceGate(
+        SliceCoordinator(FileRendezvous(os.path.join(work, "rdv"), rank, n),
+                         process_index=rank, process_count=n),
+        lockstep=group_any())
+    agentlet = Agentlet(lambda: tr.state, step_fn=lambda: tr.step,
+                        slice_gate=gate).start()
+    state = flatten_with_names(tr.state)
+    out["state_bytes"] = sum(x.numel() * x.element_size() for _, x in state)
+    del state
+    _write_atomic(os.path.join(work, f"pid-{rank}"), str(os.getpid()))
+    stop_file = os.path.join(work, "stop")
+    fa.reset_launch_counts()
+    try:
+        while True:
+            loss = tr.train_step()["loss"].item()
+            out["losses"][tr.step] = loss
+            agentlet.checkpoint_point()
+            try:
+                with open(stop_file) as f:
+                    stop = int(f.read())
+            except (OSError, ValueError):
+                stop = None
+            if stop is not None and tr.step >= stop:
+                break
+    finally:
+        agentlet.stop()
+    return finish(steps=tr.step, request_step=gate.request_step,
+                  wait_s=gate.wait_s, failed=gate.failed, dump=last_write(),
+                  peak=_peak(torch, dev))
+
+
+def _write_atomic(path: str, text: str) -> None:
+    with open(path + ".tmp", "w") as f:
+        f.write(text)
+    os.replace(path + ".tmp", path)
+
+
+def gang_spec(gwork: str, cfg, *, batch: int, seq: int, micro: int,
+              seed: int, device: str) -> dict:
+    """A source rank's spec: its files under ``gwork``, its agentlet's
+    socket under ``<gwork>/s`` (short: a socket path holds 107 bytes)."""
+    sockdir = os.path.join(gwork, "s")
+    os.makedirs(sockdir, exist_ok=True)
+    return {"mode": "source", "work": gwork, "sockdir": sockdir, "cfg": cfg,
+            "batch": batch, "seq": seq, "micro": micro, "seed": seed,
+            "device": device}
+
+
+class GangSources:
+    """Phase 17's source ranks: :func:`gang_rank` on ``N_RANKS`` gloo
+    ranks, launched from a thread; their pids, their agentlets' status,
+    when every rank had first reached each step (``t_step``), and the
+    stop file."""
+
+    def __init__(self, spec: dict, timeout: float = 900.0) -> None:
+        import threading  # noqa: PLC0415
+
+        self.spec = spec
+        self.box: dict = {}
+        self.t_step: dict[int, float] = {}
+        self._pids: list[int] = []
+        self.started = time.perf_counter()
+        self.thread = threading.Thread(target=self._run, args=(timeout,),
+                                       daemon=True)
+        self.thread.start()
+
+    def _run(self, timeout: float) -> None:
+        from grit_tpu_torch.parallel.launch import run_ranks  # noqa: PLC0415
+
+        try:
+            self.box["sources"] = run_ranks(gang_rank, N_RANKS, self.spec,
+                                            backend="gloo", timeout=timeout)
+        except BaseException as exc:  # noqa: BLE001 — raised in check()
+            self.box["error"] = exc
+
+    def check(self) -> None:
+        if "error" in self.box:
+            raise AssertionError(f"gang: a source rank failed: "
+                                 f"{self.box['error']}")
+
+    def pids(self, timeout: float = 600.0) -> list[int]:
+        files = [os.path.join(self.spec["work"], f"pid-{k}")
+                 for k in range(N_RANKS)]
+        deadline = time.monotonic() + timeout
+        while not all(os.path.exists(f) for f in files):
+            self.check()
+            if time.monotonic() > deadline:
+                raise AssertionError("gang: the source ranks did not start")
+            time.sleep(0.1)
+        self._pids = [int(open(f).read()) for f in files]
+        return self._pids
+
+    def client(self, pid: int):
+        from grit_tpu_torch.device.agentlet import ToggleClient  # noqa: PLC0415
+
+        return ToggleClient(pid, path=os.path.join(
+            self.spec["sockdir"], f"grit-tpu-{pid}.sock"), timeout=60)
+
+    def status(self, pid: int) -> dict:
+        with self.client(pid) as c:
+            return c.status()
+
+    def wait_steps(self, step: int, timeout: float = 600.0) -> list[int]:
+        """Every rank's step once all have reached ``step``."""
+        deadline = time.monotonic() + timeout
+        while True:
+            self.check()
+            steps = [self.status(p)["step"] for p in self._pids]
+            for s in range(1, min(steps) + 1):
+                self.t_step.setdefault(s, time.perf_counter())
+            if min(steps) >= step:
+                return steps
+            if time.monotonic() > deadline:
+                raise AssertionError(f"gang: sources at steps {steps}, "
+                                     f"want {step}")
+            time.sleep(0.05)
+
+    def stop_at(self, step: int) -> None:
+        _write_atomic(os.path.join(self.spec["work"], "stop"), str(step))
+
+    def join(self, timeout: float = 600.0) -> list[dict]:
+        self.thread.join(timeout)
+        self.check()
+        if self.thread.is_alive():
+            raise AssertionError("gang: the sources did not finish")
+        return self.box["sources"]
+
+    def close(self) -> None:
+        """Stop sources still running (a failed phase): unpark and stop
+        them at the next step."""
+        if not self.thread.is_alive():
+            return
+        self.stop_at(0)
+        for p in self._pids:
+            try:
+                with self.client(p) as c:
+                    c.resume()
+            except Exception:  # noqa: BLE001, S110 — not parked, or gone
+                pass
+        self.thread.join(timeout=60)
+
+
+def gang_dumps(hook, pids: list[int], gwork: str, order, stagger_s: float,
+               prefix: str = "host") -> dict:
+    """The per-host hooks' dumps of ``pids[k]`` into
+    ``<gwork>/<prefix>-<k>``, from one thread each, started in ``order``
+    ``stagger_s`` apart: ``{k: (start, end, error or None)}``."""
+    import threading  # noqa: PLC0415
+
+    order = list(order)
+    times: dict = {}
+
+    def dump(k):
+        time.sleep(stagger_s * order.index(k))
+        t0 = time.perf_counter()
+        try:
+            hook.dump(pids[k], os.path.join(gwork, f"{prefix}-{k}"))
+            times[k] = (t0, time.perf_counter(), None)
+        except Exception as exc:  # noqa: BLE001 — the caller judges it
+            times[k] = (t0, time.perf_counter(), exc)
+
+    threads = [threading.Thread(target=dump, args=(k,)) for k in order]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    return times
+
+
+def phase_gang(torch, work: str, card: str, *, seed: int,
+               device: str = "cuda", cfg=None, batch: int = PP_BATCH,
+               seq: int = SEQ, micro: int = PP_MICRO,
+               stagger_s: float | None = None) -> dict:
+    """Phase 17: four pipeline stages sharing the card over gloo, cut by
+    four port hooks' gang dumps that land staggered (about a step apart
+    by default), into ``host-<k>``; every manifest must carry one step.
+    The sources resume to cut + 3 (the reference); four fresh ranks
+    restore and must continue bit for bit. ``device`` and the shape other
+    than the defaults rehearse it on the CPU (``tests/test_torch_gang.py``)."""
+    from grit_tpu_torch.device.hook import HBM_SUBDIR, TpuDeviceCheckpointHook  # noqa: PLC0415
+    from grit_tpu_torch.device.snapshot import SnapshotManifest  # noqa: PLC0415
+    from grit_tpu_torch.models import llama  # noqa: PLC0415
+    from grit_tpu_torch.parallel.launch import run_ranks  # noqa: PLC0415
+
+    cfg = cfg or llama.LlamaConfig.flagship(n_layers=PP_LAYERS, remat=True)
+    on_card = device == "cuda"
+    if on_card:
+        torch.cuda.empty_cache()
+    gwork = os.path.join(work, "gang")
+    os.makedirs(gwork)
+    spec = gang_spec(gwork, cfg, batch=batch, seq=seq, micro=micro,
+                     seed=seed, device=device)
+    saved = {k: os.environ.get(k) for k in (
+        "GRIT_TPU_SOCKET_DIR", "GRIT_SLICE_HOSTS", "GRIT_SLICE_NONCE")}
+    os.environ.update(GRIT_TPU_SOCKET_DIR=spec["sockdir"],
+                      GRIT_SLICE_HOSTS=str(N_RANKS), GRIT_SLICE_NONCE="17")
+    src = GangSources(spec)
+    try:
+        pids = src.pids()
+        src.wait_steps(GANG_READY_STEP)
+        step_s = (src.t_step[GANG_READY_STEP] - src.t_step[1]) / max(
+            1, GANG_READY_STEP - 1)
+        if stagger_s is None:
+            stagger_s = step_s
+        hook = TpuDeviceCheckpointHook(timeout=600)
+        times = gang_dumps(hook, pids, gwork, range(N_RANKS), stagger_s)
+        bad = {k: v[2] for k, v in times.items() if v[2] is not None}
+        if bad or len(times) != N_RANKS:
+            raise AssertionError(f"gang: dumps failed: {bad}")
+        manifests = [SnapshotManifest.load(os.path.join(
+            gwork, f"host-{k}", HBM_SUBDIR)) for k in range(N_RANKS)]
+        cuts = [m.meta["step"] for m in manifests]
+        if len(set(cuts)) != 1:
+            raise AssertionError(f"gang: the manifests' steps differ: {cuts}")
+        if any(m.process_count != 1 for m in manifests):
+            raise AssertionError("gang: a host's tree is not its own "
+                                 "single-process snapshot")
+        cut = cuts[0]
+        parked = [src.status(p) for p in pids]
+        if not all(s["paused"] and s["slice"]["cut"] == cut for s in parked):
+            raise AssertionError(f"gang: not every rank parked at {cut}: "
+                                 f"{parked}")
+        blackout = max(v[1] for v in times.values()) - min(
+            v[0] for v in times.values())
+        src.stop_at(cut + GANG_AFTER)
+        for p in pids:
+            hook.resume(p)
+        sources = src.join()
+        source_wall = time.perf_counter() - src.started
+        t0 = time.perf_counter()
+        restored = run_ranks(gang_rank, N_RANKS,
+                             dict(spec, mode="restore", stop=cut + GANG_AFTER),
+                             backend="gloo", timeout=900)
+        restore_wall = time.perf_counter() - t0
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        src.close()
+        shutil.rmtree(gwork, ignore_errors=True)
+    return gang_checks(sources, restored, times, cut, blackout, stagger_s,
+                       step_s, cfg, (batch, seq), micro, card, on_card,
+                       source_wall, restore_wall)
+
+
+def gang_checks(sources: list[dict], restored: list[dict], times: dict,
+                cut: int, blackout: float, stagger_s: float, step_s: float,
+                cfg, shape, micro: int, card: str, on_card: bool,
+                source_wall: float, restore_wall: float) -> dict:
+    """Phase 17's lines and checks over the ranks' records."""
+    failures = []
+    B, S = shape
+    want = list(range(cut + 1, cut + GANG_AFTER + 1))
+    for k, (s, r) in enumerate(zip(sources, restored)):
+        ref = {t: s["losses"][t] for t in want if t in s["losses"]}
+        if r["restored"] != cut or sorted(r["losses"]) != want \
+                or r["losses"] != ref:
+            failures.append(f"rank {k}: restored {r['restored']} (cut {cut}),"
+                            f" losses {r['losses']} against the source's "
+                            f"{ref}")
+        if r["digest"] != s["digest"]:
+            failures.append(f"rank {k}: the restored final state differs "
+                            f"from the source's")
+        if s["failed"] is not None:
+            failures.append(f"rank {k}: the gate failed: {s['failed']}")
+        if s["request_step"] is None or s["wait_s"] is None:
+            failures.append(f"rank {k}: its gate saw no request or no "
+                            f"barrier: {s['request_step']}, {s['wait_s']}")
+        if s["foreign"] or r["foreign"]:
+            failures.append(f"rank {k} loaded {s['foreign'] + r['foreign']}")
+    if any(s["losses"] != sources[0]["losses"] for s in sources):
+        failures.append("the pipelined loss differs between ranks")
+    per_step = []
+    for recs in (sources, restored):
+        per_step.append([{n: r["launches"][n] / max(1, r["steps"])
+                          for n in KERNELS} for r in recs])
+    if on_card:
+        # A step of 3 layers a stage over M + N - 1 ticks, remat: the
+        # forward twice a layer a tick, each backward kernel once.
+        ticks = micro + N_RANKS - 1
+        per = cfg.n_layers // N_RANKS
+        step = {"flash_fwd": 2 * ticks * per, "flash_bwd_dq": ticks * per,
+                "flash_bwd_dkv": ticks * per}
+        for label, rows in zip(("source", "restored"), per_step):
+            for k, row in enumerate(rows):
+                if row != step:
+                    failures.append(f"{label} rank {k}: launches a step "
+                                    f"{row}, want {step}")
+    dumps = [s["dump"] for s in sources]
+    log("gang", f"{N_RANKS} pipeline stages on one card over gloo: dim "
+                f"{cfg.dim}, {cfg.n_layers} layers in stages of "
+                f"{cfg.n_layers // N_RANKS}, remat, B {B} x S {S} in {micro} "
+                f"microbatches, Adam {GANG_LR}; state a rank "
+                f"{[s['state_bytes'] for s in sources]} B (sum "
+                f"{sum(s['state_bytes'] for s in sources)}); a step "
+                f"{step_s:.3f} s; four port hooks' gang dumps started "
+                f"{stagger_s:.3f} s apart [{card}]")
+    log("gang", f"cut at step {cut}, the same in all {N_RANKS} manifests; "
+                f"request arrived at step "
+                f"{[s['request_step'] for s in sources]}, barrier wait s "
+                f"{[s['wait_s'] and round(s['wait_s'], 4) for s in sources]} [{card}]")
+    log("gang", f"dump s a rank {[round(d['wall'], 3) for d in dumps]}, "
+                f"bytes written {[d['bytes'] for d in dumps]} of "
+                f"{[d['total_bytes'] for d in dumps]} (the rest referenced "
+                f"from the -spec pass); hook dump s (request to commit) "
+                f"{[round(times[k][1] - times[k][0], 3) for k in range(N_RANKS)]};"
+                f" gang blackout (first request to the last rank's commit) "
+                f"{blackout:.3f} s; peak {[s['peak'] for s in sources]} B "
+                f"[{card}]")
+    log("gang", f"restore s a rank {[round(r['restore_s'], 3) for r in restored]}"
+                f"; every rank's losses after the cut {want} and final state "
+                f"bitwise equal to its source's resumed run: "
+                f"{not failures}; launches a rank a step (sources; restored) "
+                f"{per_step[0][0]}; {per_step[1][0]}; source launch "
+                f"{source_wall:.1f} s, restore launch {restore_wall:.1f} s "
+                f"[{card}]")
+    if failures:
+        raise AssertionError("gang: " + "; ".join(failures))
+    return {"cut": cut, "request_steps": [s["request_step"] for s in sources],
+            "barrier_wait_s": [s["wait_s"] for s in sources],
+            "dump_s": [d["wall"] for d in dumps],
+            "dump_bytes": [d["bytes"] for d in dumps],
+            "total_bytes": [d["total_bytes"] for d in dumps],
+            "hook_dump_s": [times[k][1] - times[k][0] for k in range(N_RANKS)],
+            "blackout_s": blackout, "stagger_s": stagger_s, "step_s": step_s,
+            "restore_s": [r["restore_s"] for r in restored],
+            "state_bytes": [s["state_bytes"] for s in sources],
+            "peak": [s["peak"] for s in sources],
+            "launches_per_step": per_step,
+            "launches": {n: sum(r["launches"][n] for r in sources + restored)
+                         for n in KERNELS}}
+
+
 # -- main ----------------------------------------------------------------------
 
 
@@ -3614,7 +4044,7 @@ def main(argv: list[str] | None = None) -> int:
         io = phase_io(torch, work, device["smi"])
         precopy = phase_precopy(work, device["smi"])
         frozen = phase_frozen(work, device["smi"], train=train)
-        wire = phase_wire(torch, work, device["smi"], migrate["ref_losses"])
+        wire = phase_wire(torch, work, device["smi"])
         torch.cuda.empty_cache()
         lora = phase_lora(work, device["smi"])
         remat = phase_remat(torch, fa, device["smi"])
@@ -3623,6 +4053,7 @@ def main(argv: list[str] | None = None) -> int:
                                       seed=args.seed)
         long_context, pipeline = phase_parallel(torch, work, device["smi"],
                                                 seed=args.seed)
+        gang = phase_gang(torch, work, device["smi"], seed=args.seed)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -3635,13 +4066,15 @@ def main(argv: list[str] | None = None) -> int:
         # Phase 4's steps, phase 9's frozen-trunk runs (the uninterrupted
         # one and the restored ones), phase 10's wire destinations, the
         # uninterrupted runs of phases 11 and 13, phase 12's two steps,
-        # and every rank's Ulysses (15) and pipeline (16) runs.
+        # every rank's Ulysses (15) and pipeline (16) runs, and every
+        # source and restored rank's steps of the gang (17).
         "launches": (train["launches"][name] + frozen["launches_all"][name]
                      + wire["launches"][name] + lora["launches"][name]
                      + remat["launches"][name] + moe["launches"][name]
                      + long_context["ring"]["launches"][name]
                      + long_context["ulysses"]["launches"][name]
-                     + pipeline["launches"][name]),
+                     + pipeline["launches"][name]
+                     + gang["launches"][name]),
         "launches_by_path": {"adam": train["launches"][name],
                              "frozen_trunk": frozen["launches_all"][name],
                              "wire": wire["launches"][name],
@@ -3651,9 +4084,11 @@ def main(argv: list[str] | None = None) -> int:
                              "moe_serving": moe_serve["flash_launches"][name],
                              "ring": long_context["ring"]["launches"][name],
                              "ulysses": long_context["ulysses"]["launches"][name],
-                             "pipeline": pipeline["launches"][name]},
+                             "pipeline": pipeline["launches"][name],
+                             "gang": gang["launches"][name]},
         "launches_per_step": {"lora_7b": lora["launches_per_step"][name],
-                              "moe": moe["launches_per_step"][name]},
+                              "moe": moe["launches_per_step"][name],
+                              "gang": gang["launches_per_step"][0][0][name]},
         "max_abs_err": main_shape["err"][name],
         "worst_tile_err_ratio": main_shape["tiles"][name],
         "ms": main_shape["ms"][name],
@@ -3688,7 +4123,9 @@ def main(argv: list[str] | None = None) -> int:
         # Phases 14-16: MoE serving, long context, the pipeline.
         "moe_serving": moe_serve,
         "long_context": long_context,
-        "pipeline": {k: v for k, v in pipeline.items() if k != "launches"}}
+        "pipeline": {k: v for k, v in pipeline.items() if k != "launches"},
+        # Phase 17: the pipeline's gang cut and restore.
+        "gang": {k: v for k, v in gang.items() if k != "launches"}}
     log("total", f"chip_smoke.py took {time.perf_counter() - _T0:.1f} s")
     print(json.dumps(record), flush=True)
     print(device["smi"], flush=True)

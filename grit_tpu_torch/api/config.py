@@ -150,5 +150,21 @@ RESTORE_POSTCOPY_HOT_MB = Knob(
 SLICE_HOSTS = Knob(
     "GRIT_SLICE_HOSTS", "0",
     "Host count of the slice an agent leg belongs to. 0/1 is the "
-    "single-host flow; the gang cut above 1 is not in this package, and "
-    "the device hook refuses it.")
+    "single-host flow; above 1 the device hook asks the workload for the "
+    "gang cut: every host parks at the same agreed step boundary.")
+SLICE_BARRIER_TIMEOUT_S = Knob(
+    "GRIT_SLICE_BARRIER_TIMEOUT_S", "120.0",
+    "Bound on the cross-host quiesce barrier: how long one host waits "
+    "at the agreed cut step for every other host to arrive before the "
+    "barrier fails loudly (the workload keeps training, the quiesce "
+    "fails, and the gang aborts) instead of parking a partial slice.")
+SLICE_POLL_S = Knob(
+    "GRIT_SLICE_POLL_S", "0.2",
+    "Poll period of the file rendezvous' barrier and allgather waits "
+    "(shared-filesystem coordination).")
+SLICE_NONCE = Knob(
+    "GRIT_SLICE_NONCE", "",
+    "Attempt namespace for the gang's rendezvous names (the manager "
+    "stamps the attempt count into every per-host agent Job), so a "
+    "retried gang never meets a failed attempt's leftover arrivals. "
+    "Empty = attempt 0.")

@@ -7,12 +7,15 @@ protocol on the same socket, so the unchanged node agent
 
 Protocol (newline-delimited JSON, one request per line):
 
-    {"op": "quiesce", "dump"?}       → {"ok": true, "step": N}   toggle off
+    {"op": "quiesce", "dump"?,       → {"ok": true, "step": N}   toggle off
+     "slice"?, "flight_dir"?,
+     "slice_nonce"?}
     {"op": "dump", "dir": "<path>",  → {"ok": true, "dir": ...}  device snapshot
      "base"?, "hashes"?, "mirror"?,
      "wire"?, "speculative"?}
     {"op": "resume", "reload"?}      → {"ok": true}              toggle on
-    {"op": "status"}                 → {"ok": true, "step": N, "paused": ...}
+    {"op": "status"}                 → {"ok": true, "step": N, "paused": ...,
+                                        "slice"?: {"cut", "failed"}}
 
 Socket path: ``{GRIT_TPU_SOCKET_DIR:-/tmp}/grit-tpu-{pid}.sock``.
 
@@ -49,8 +52,23 @@ when the connect failed or the wire dropped: never a failed dump (the
 agent falls back to the PVC path). A speculative pass streams nothing.
 
 ``resume`` with ``reload`` (the device re-attach after a process
-restore) runs the workload's ``reload_fn`` on the snapshot while still
-parked, then unparks; without a ``reload_fn`` it is refused.
+restore) seeds the kernel libraries the snapshot carries (with
+``GRIT_TPU_COMPILE_CACHE`` set), runs the workload's ``reload_fn`` on the
+snapshot while still parked, then unparks; without a ``reload_fn`` it is
+refused.
+
+Gang slice cut: a workload of a multi-host slice passes ``slice_gate``
+(:class:`~grit_tpu_torch.parallel.coordination.SliceQuiesceGate`). A
+quiesce with ``"slice": true`` (the node hook under ``GRIT_SLICE_HOSTS`` >
+1) arms the gate with its ``slice_nonce``, and the loop parks only at the
+step boundary every host agreed on, after a bounded barrier. A barrier
+that fails latches the gate: the loop trains on and the quiesce answers
+``{"ok": false, "error": "slice quiesce barrier failed: ..."}`` within
+the barrier's timeout, its request cleared. ``resume`` resets the gate;
+``status`` reports ``{"cut", "failed"}``. A quiesce without ``slice``
+ignores the gate. With the gate's ``lockstep`` collective (ranks that
+share collectives), every boundary runs it, and a rank whose peer has a
+slice quiesce pending holds at that boundary for its own.
 
 Wiring: the training loop calls :meth:`Agentlet.checkpoint_point` once
 per step (one lock check when idle). On a pending quiesce the loop drains
@@ -78,6 +96,7 @@ import torch
 
 from grit_tpu_torch.api import config
 from grit_tpu_torch.device.quiesce import clone_generation, quiesce
+from grit_tpu_torch.ops import build
 from grit_tpu_torch.device.snapshot import (
     DATA_FILE,
     SpeculativeDump,
@@ -135,6 +154,9 @@ class Agentlet:
       reload_fn: ``reload_fn(snapshot_dir)`` reloads the device state
         from a snapshot (a ``resume`` with ``reload``), on the dispatch
         thread while the loop is parked.
+      slice_gate: the gang's
+        :class:`~grit_tpu_torch.parallel.coordination.SliceQuiesceGate`;
+        None is the single-host agentlet.
     """
 
     def __init__(
@@ -146,6 +168,7 @@ class Agentlet:
         quiesce_state_fn: Callable[[], Any] | None = None,
         pre_park_fn: Callable[[], None] | None = None,
         reload_fn: Callable[[str], Any] | None = None,
+        slice_gate=None,
     ) -> None:
         self.state_fn = state_fn
         self.step_fn = step_fn
@@ -153,6 +176,7 @@ class Agentlet:
         self.quiesce_state_fn = quiesce_state_fn or state_fn
         self.pre_park_fn = pre_park_fn
         self.reload_fn = reload_fn
+        self.slice_gate = slice_gate
         self.path = path or socket_path()
         # One condition guards the pause protocol. _want_pause is the
         # request (set by quiesce, cleared by resume/stop); _is_parked is
@@ -161,6 +185,7 @@ class Agentlet:
         # agent's error-path resume.
         self._cond = threading.Condition()
         self._want_pause = False
+        self._slice_pending = False  # the pending quiesce asks for the cut
         self._is_parked = False
         self._dumps_in_flight = 0
         self._reloads_in_flight = 0
@@ -227,11 +252,14 @@ class Agentlet:
 
     def checkpoint_point(self) -> None:
         """Call once per training step. Serves a pending boundary clone,
-        then parks while a quiesce is pending."""
+        then parks while a quiesce is pending (a slice quiesce: at the
+        agreed boundary, after the gate's barrier)."""
+        gate = self.slice_gate
+        lockstep = gate is not None and gate.lockstep is not None
         with self._cond:
             harvest = self._spec_clone_pending
             self._spec_clone_pending = False
-            if not (harvest or self._want_pause):
+            if not (harvest or self._want_pause or lockstep):
                 return
         if harvest:
             # Between steps, on the loop's own stream: the clone's reads
@@ -239,9 +267,27 @@ class Agentlet:
             # one is pending, comes at a later boundary, after the
             # concurrent write has started against the clone.
             self._serve_boundary_clone()
-            with self._cond:
-                if not self._want_pause:
+        with self._cond:
+            want = self._want_pause
+            slice_pending = want and self._slice_pending
+        # The lockstep collective runs at every boundary on every rank;
+        # when a peer's slice quiesce is pending and this rank's is not,
+        # hold here for it rather than step into a collective the peer,
+        # blocked in the cut's gather, will not join. No rank pending
+        # ends a failed round.
+        if lockstep:
+            if not gate.lockstep(slice_pending):
+                gate.settle()
+            elif not slice_pending:
+                if gate.failed_this_round or \
+                        not self._hold_for_slice_request():
                     return
+                want = slice_pending = True
+        if not want:
+            return
+        if slice_pending and not gate.ready_to_park(int(self.step_fn())):
+            # Below the agreed cut, or the gate failed: keep training.
+            return
         if self.pre_park_fn is not None:
             self.pre_park_fn()
         # Drain device work outside the lock; re-check the request after —
@@ -256,6 +302,32 @@ class Agentlet:
                 self._cond.wait()
             self._is_parked = False
             self._cond.notify_all()
+
+    def _hold_for_slice_request(self) -> bool:
+        """Hold the loop at this boundary until this rank's own slice
+        quiesce arrives, bounded by the gate's timeout, serving a boundary
+        clone asked for meanwhile (the quiesce's speculation harvests one
+        before it sets the request). False, with the gate latched, when
+        none arrived."""
+        timeout = self.slice_gate.timeout_s()
+        deadline = time.monotonic() + timeout
+        while True:
+            with self._cond:
+                if self._want_pause and self._slice_pending:
+                    return True
+                harvest = self._spec_clone_pending
+                self._spec_clone_pending = False
+                remaining = deadline - time.monotonic()
+                if self._shutdown or (not harvest and remaining <= 0):
+                    break
+                if not harvest:
+                    self._cond.wait(timeout=min(0.2, remaining))
+                    continue
+            self._serve_boundary_clone()
+        self.slice_gate.latch(
+            f"BarrierTimeout: a peer's slice quiesce was pending and none "
+            f"reached this rank within {timeout}s")
+        return False
 
     @property
     def paused(self) -> bool:
@@ -315,8 +387,12 @@ class Agentlet:
             if op == "resume":
                 return self._resume(req)
             if op == "status":
-                return {"ok": True, "step": int(self.step_fn()),
+                resp = {"ok": True, "step": int(self.step_fn()),
                         "paused": self.paused, "pid": os.getpid()}
+                if self.slice_gate is not None:
+                    resp["slice"] = {"cut": self.slice_gate.cut,
+                                     "failed": self.slice_gate.failed}
+                return resp
             return {"ok": False, "error": f"unknown op {op!r}"}
         except Exception as exc:  # noqa: BLE001 — report, don't crash the workload
             log.exception("agentlet %s failed", op)
@@ -503,17 +579,34 @@ class Agentlet:
 
     def _quiesce(self, req: dict) -> dict:
         timeout = float(req.get("timeout", 300.0))
+        gate = self.slice_gate
+        want_slice = bool(req.get("slice")) and gate is not None
         dump_spec = req.get("dump")
         if dump_spec and config.SNAP_SPECULATE.get_flag():
             # The concurrent pass starts before the pause is requested:
             # the loop clones at its next boundary, steps on, and parks
-            # at a later one.
+            # at a later one (a slice quiesce: after the gate's wait).
             self._launch_speculation(dump_spec, timeout)
+        if want_slice:
+            # Armed before the request, so the first boundary that sees
+            # the request consults it.
+            gate.request(flight_dir=req.get("flight_dir"),
+                         nonce=req.get("slice_nonce"),
+                         step=int(self.step_fn()))
         deadline = time.monotonic() + timeout
         with self._cond:
+            self._slice_pending = want_slice
             self._want_pause = True
             self._cond.notify_all()
             while not self._is_parked:
+                if want_slice and gate.failed is not None:
+                    # The loop cannot park this round; a pending request
+                    # would ambush the next attempt, so it is cleared.
+                    self._want_pause = False
+                    self._slice_pending = False
+                    self._cond.notify_all()
+                    return {"ok": False, "error": "slice quiesce barrier "
+                                                  f"failed: {gate.failed}"}
                 remaining = deadline - time.monotonic()
                 if remaining <= 0:
                     # Leave the request pending: the loop parks at its next
@@ -596,6 +689,11 @@ class Agentlet:
                     return {"ok": False, "error": "workload has no reload_fn"}
                 self._reloads_in_flight += 1
             try:
+                # The libraries the snapshot carries first: a reload_fn
+                # may build kernels without entering restore_snapshot,
+                # which seeds them on the Trainer's path.
+                if config.TPU_COMPILE_CACHE.get():
+                    build.seed_compile_cache(reload_dir)
                 with self._dump_lock:
                     self.reload_fn(reload_dir)
             finally:
@@ -609,6 +707,7 @@ class Agentlet:
                     and not self._shutdown:
                 self._cond.wait()
             self._want_pause = False
+            self._slice_pending = False
             # Resume ends the speculation window: a pass no dump consumed
             # (a quiesce aborted before its dump) is abandoned.
             stale, self._speculative = self._speculative, None
@@ -617,6 +716,9 @@ class Agentlet:
             self._cond.notify_all()
         if stale is not None:
             stale.release()
+        if self.slice_gate is not None:
+            # The round is over: the next attempt agrees afresh.
+            self.slice_gate.reset()
         return {"ok": True, **({"reloaded": reload_dir} if reload_dir else {})}
 
 
@@ -644,8 +746,25 @@ class ToggleClient:
             raise RuntimeError(f"agentlet {op} failed: {resp.get('error')}")
         return resp
 
-    def quiesce(self, dump_spec: dict | None = None) -> int:
-        fields = {"dump": dump_spec} if dump_spec is not None else {}
+    def quiesce(self, slice_cut: bool = False,
+                flight_dir: str | None = None,
+                slice_nonce: str | None = None,
+                dump_spec: dict | None = None) -> int:
+        """Park the workload; returns its step. ``slice_cut``: park at the
+        slice's agreed cut (the workload's gate runs the cross-host
+        barrier), scoped by ``slice_nonce``; a workload without a gate
+        ignores it. ``dump_spec`` (``{"dir", "base"?, "mirror"?}``)
+        pre-announces the dump: the speculative pass starts before the
+        park."""
+        fields: dict = {}
+        if slice_cut:
+            fields["slice"] = True
+            if flight_dir is not None:
+                fields["flight_dir"] = flight_dir
+            if slice_nonce is not None:
+                fields["slice_nonce"] = slice_nonce
+        if dump_spec is not None:
+            fields["dump"] = dump_spec
         return int(self.request("quiesce", **fields)["step"])
 
     def dump(self, directory: str, base: str | None = None,

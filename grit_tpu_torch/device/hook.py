@@ -97,12 +97,13 @@ class TpuDeviceCheckpointHook:
         (its response's ``speculative`` block says ``validated``, or
         ``degraded`` with the error when the pass failed and the dump
         fell back to the parked path). The delta references the ``-spec``
-        sibling, which ships with it."""
-        if config.SLICE_HOSTS.get_int() > 1:
-            raise RuntimeError(
-                f"{config.SLICE_HOSTS.name}={config.SLICE_HOSTS.get_int()}: "
-                "the gang slice cut is not in this package; refusing a "
-                "per-host cut of a slice")
+        sibling, which ships with it.
+
+        Under ``GRIT_SLICE_HOSTS`` > 1 (one host of a gang) the quiesce
+        asks for the slice cut: the workload's gate parks every host at the
+        same agreed step, its rendezvous names scoped by
+        ``GRIT_SLICE_NONCE`` ("0" when unset). Pre-copy passes
+        (:meth:`predump`) stay per host."""
         hbm_dir = os.path.join(dest_dir, HBM_SUBDIR)
         hbm_mirror = (os.path.join(mirror, HBM_SUBDIR)
                       if mirror is not None else None)
@@ -114,7 +115,12 @@ class TpuDeviceCheckpointHook:
             if hbm_mirror is not None:
                 dump_spec["mirror"] = hbm_mirror
         c = self._client(pid)
-        c.quiesce(dump_spec=dump_spec)
+        if config.SLICE_HOSTS.get_int() > 1:
+            c.quiesce(slice_cut=True, flight_dir=dest_dir,
+                      slice_nonce=config.SLICE_NONCE.get() or "0",
+                      dump_spec=dump_spec)
+        else:
+            c.quiesce(dump_spec=dump_spec)
         resp = c.dump(hbm_dir, base=base, mirror=hbm_mirror, wire=wire)
         return resp.get("wire") if wire is not None else None
 

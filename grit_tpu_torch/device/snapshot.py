@@ -6,10 +6,19 @@ other::
 
     <dir>.work/               everything is written here first
         MANIFEST.json         format tag, meta, per-array dtype/shape/chunks
-        data-h0000.bin        the arrays' bytes, concatenated
-        index-h0000.json      this process's array records
+        data-h<k>.bin         process k's arrays' bytes, concatenated
+        index-h<k>.json       process k's array records
         COMMIT                sentinel written last
     → renamed to <dir>        the atomic commit
+
+Multi-process (``write_snapshot(barrier=, process_index=,
+process_count=)``, the gang's coordinated cut): each process writes its
+own data and index file and, with a mirror, its own ``mirror-ok-h<k>``
+marker, then meets the others at ``barrier()``; process 0 merges the
+indexes by array name in process order, writes the manifest (the real
+``process_count``) and commits, sealing the mirror only if every
+process's marker is there; a second ``barrier()`` follows. The defaults
+(process 0 of 1, no barrier) are the single-process dump.
 
 Arrays are named by their ``jax.tree_util.keystr`` path
 (:mod:`grit_tpu_torch.tree`), dtypes by numpy's names with ``bfloat16``
@@ -77,8 +86,9 @@ arrays) is placed before the call returns, the cold bulk by a background
 tail in the order its bytes are staged; :meth:`PostcopyRestore.wait`
 hands over the whole tree.
 
-Not in this package yet: the multi-process index merge, the reference's
-native drain and native container read (``libgritio``), and the
+Not in this package yet: sharded leaves recorded as global-index shards
+of one array (each process's leaves are whole arrays, merged by name), the
+reference's native drain and native container read (``libgritio``), and the
 reference's metrics, flight events and fault points of speculation,
 post-copy, the codec and the wire.
 """
@@ -125,9 +135,27 @@ FORMAT = SNAPSHOT_FORMAT
 MANIFEST_FILE = "MANIFEST.json"
 COMMIT_FILE = "COMMIT"
 WORK_SUFFIX = ".work"
-DATA_FILE = "data-h0000.bin"
-INDEX_FILE = "index-h0000.json"
-MIRROR_MARKER = "mirror-ok-h0000"
+
+
+def data_file(k: int) -> str:
+    """Process ``k``'s data file."""
+    return f"data-h{k:04d}.bin"
+
+
+def index_file(k: int) -> str:
+    """Process ``k``'s index file."""
+    return f"index-h{k:04d}.json"
+
+
+def mirror_marker(k: int) -> str:
+    """Process ``k``'s mirror marker."""
+    return f"mirror-ok-h{k:04d}"
+
+
+# Process 0's: the whole snapshot of a single-process dump.
+DATA_FILE = data_file(0)
+INDEX_FILE = index_file(0)
+MIRROR_MARKER = mirror_marker(0)
 # The speculative pass commits beside the final dump directory, under this
 # suffix (a wire contract: the agent ships the sibling with the dump).
 SPEC_SUFFIX = "-spec"
@@ -319,13 +347,15 @@ class _DeviceToHost:
 # -- delta dumps -----------------------------------------------------------------
 
 
-def _load_base_chunks(directory: str, base: str) -> tuple[dict, str | None,
-                                                          str | None]:
+def _load_base_chunks(directory: str, base: str, own_file: str | None = None
+                      ) -> tuple[dict, str | None, str | None]:
     """Index a committed base snapshot for a delta write:
     ``({(name, index, nbytes, dtype): chunk}, relpath, abspath)``, the
     relpath from the *final* target directory to the base (what reused
-    chunks record). A missing or uncommitted base degrades to a full dump
-    (an empty index): pre-copy is an optimization."""
+    chunks record). ``own_file``: only chunks stored in that data file
+    (a process of a multi-process dump matches its own chunks). A missing
+    or uncommitted base degrades to a full dump (an empty index): pre-copy
+    is an optimization."""
     target = os.path.abspath(directory)
     base_abs = os.path.abspath(base)
     if base_abs == target:
@@ -335,6 +365,8 @@ def _load_base_chunks(directory: str, base: str) -> tuple[dict, str | None,
     index: dict = {}
     for rec in SnapshotManifest.load(base_abs).arrays:
         for c in rec["chunks"]:
+            if own_file is not None and c["file"] != own_file:
+                continue
             index[(rec["name"], tuple(map(tuple, c["index"])), c["nbytes"],
                    rec["dtype"])] = c
     return index, os.path.relpath(base_abs, target), base_abs
@@ -722,75 +754,84 @@ class _MirrorWriter:
         return self._ok and dump_ok
 
 
-def _open_mirror(mirror: str | None, wire=None
+def _open_mirror(mirror: str | None, wire=None, pidx: int = 0,
+                 shared: bool = False
                  ) -> tuple[str | None, _MirrorWriter | None]:
-    """The mirror's work dir and the dump's tee: into the mirror and onto
-    ``wire`` (a wire-only tee without a mirror, or when the mirror's work
-    dir cannot be made: the two have separate failure domains), or
-    ``(None, None)`` with neither."""
+    """The mirror's work dir and the dump's tee into process ``pidx``'s
+    data file there and onto ``wire`` (a wire-only tee without a mirror,
+    or when the mirror's work dir cannot be made: the two have separate
+    failure domains), or ``(None, None)`` with neither. ``shared``: other
+    processes write into the same work dir, so it is not emptied first."""
     work = None
     if mirror is not None:
         work = mirror + WORK_SUFFIX
         try:
-            shutil.rmtree(work, ignore_errors=True)
-            os.makedirs(work)
+            if not shared:
+                shutil.rmtree(work, ignore_errors=True)
+            os.makedirs(work, exist_ok=shared)
         except OSError as exc:
             log.warning("snapshot mirror %s abandoned: %s", mirror, exc)
             work = None
     if work is None and wire is None:
         return None, None
-    path = os.path.join(work, DATA_FILE) if work is not None else None
+    path = os.path.join(work, data_file(pidx)) if work is not None else None
     return work, _MirrorWriter(path, wire=wire)
 
 
 def _mark_mirror(mirror_work: str, work: str,
                  written_pairs: list[tuple[int, int]],
-                 sidecar_path: str | None) -> None:
+                 sidecar_path: str | None, pidx: int = 0) -> None:
     """Copy the index into the mirror and drop its ``mirror-ok`` marker:
     the RAW size and chunk-stream signature of the data file (a container
     too: the upload-skip pass compares the source's raw bytes, and a
     restore re-verifies them after decode), size and crc32 of the index
     and of the codec sidecar, which travels with its container. A missing
-    marker abandons the mirror at commit."""
-    index = os.path.join(work, INDEX_FILE)
+    marker abandons the mirror at commit. ``pidx``: the process whose
+    files these are."""
+    index = os.path.join(work, index_file(pidx))
     try:
-        shutil.copyfile(index, os.path.join(mirror_work, INDEX_FILE))
+        shutil.copyfile(index, os.path.join(mirror_work, index_file(pidx)))
         files = {
-            DATA_FILE: {"size": sum(n for _, n in written_pairs),
-                        "sig": chunk_stream_signature(written_pairs)},
-            INDEX_FILE: {"size": os.path.getsize(index),
-                         "crc": crc32_file(index)},
+            data_file(pidx): {"size": sum(n for _, n in written_pairs),
+                              "sig": chunk_stream_signature(written_pairs)},
+            index_file(pidx): {"size": os.path.getsize(index),
+                               "crc": crc32_file(index)},
         }
         if sidecar_path is not None:
             files[os.path.basename(sidecar_path)] = {
                 "size": os.path.getsize(sidecar_path),
                 "crc": crc32_file(sidecar_path)}
-        atomic_write_json(os.path.join(mirror_work, MIRROR_MARKER),
+        atomic_write_json(os.path.join(mirror_work, mirror_marker(pidx)),
                           {"files": files})
     except OSError as exc:
         log.warning("snapshot mirror %s: marker not written (%s)",
                     mirror_work, exc)
 
 
-def _commit_mirror(mirror: str, committed: str) -> bool:
-    """Seal the mirror: require its marker, copy the committed manifest,
-    write a COMMIT whose second line is ``{"files": {rel: {size, sig|crc}}}``
-    (what the agent's upload-skip pass verifies) and rename it into place.
-    Any gap abandons the mirror — never a half-committed destination.
-    True when the mirror committed."""
+def _commit_mirror(mirror: str, committed: str, pcount: int = 1) -> bool:
+    """Seal the mirror: require the marker of every one of ``pcount``
+    processes, copy the committed manifest, write a COMMIT whose second
+    line is ``{"files": {rel: {size, sig|crc}}}`` (what the agent's
+    upload-skip pass verifies) and rename it into place. Any gap abandons
+    the mirror — never a half-committed destination. True when the
+    mirror committed."""
     work = mirror + WORK_SUFFIX
     if not os.path.isdir(work):
         return False
     try:
-        marker = os.path.join(work, MIRROR_MARKER)
-        if not os.path.isfile(marker):
-            raise OSError("mirror marker missing")
-        try:
-            with open(marker) as f:
-                files = dict(json.load(f).get("files", {}))
-        except ValueError as exc:
-            raise OSError(f"mirror marker malformed: {exc}") from exc
-        os.unlink(marker)
+        files: dict = {}
+        for k in range(pcount):
+            marker = os.path.join(work, mirror_marker(k))
+            if not os.path.isfile(marker):
+                raise OSError(f"mirror marker h{k:04d} missing")
+            try:
+                with open(marker) as f:
+                    files.update(json.load(f).get("files", {}))
+            except ValueError as exc:
+                raise OSError(f"mirror marker h{k:04d} malformed: {exc}"
+                              ) from exc
+        for k in range(pcount):
+            os.unlink(os.path.join(work, mirror_marker(k)))
         manifest = os.path.join(work, MANIFEST_FILE)
         shutil.copyfile(os.path.join(committed, MANIFEST_FILE), manifest)
         files[MANIFEST_FILE] = {"size": os.path.getsize(manifest),
@@ -811,11 +852,24 @@ def _commit_mirror(mirror: str, committed: str) -> bool:
 
 
 def write_snapshot(directory: str, state: Any, *, meta: dict | None = None,
+                   barrier: Callable[[], None] = lambda: None,
+                   process_index: int | None = None,
+                   process_count: int | None = None,
                    base: str | None = None, hashes: bool = False,
                    mirror: str | None = None, wire=None,
                    speculative: bool = False,
                    clean_names: frozenset | None = None) -> str:
     """Serialize the tree ``state`` to ``directory`` atomically; returns it.
+
+    ``barrier``, ``process_index``, ``process_count``: one process of a
+    multi-process dump (default: process 0 of 1). Each process writes its
+    own ``data-h<k>.bin`` and ``index-h<k>.json`` into the shared work dir
+    (with a mirror, its own tee and marker there), then calls
+    ``barrier()``, which must synchronize every participating process;
+    process 0 then merges the indexes, commits, and seals the mirror only
+    when every marker is present; a second ``barrier()`` follows, and only
+    then the kernel-library carry. Leaves of one name from several
+    processes become one record with every process's chunks.
 
     ``base``: a committed snapshot; chunks byte-identical to its are
     recorded as references into it (delta dump, see the module
@@ -858,25 +912,45 @@ def write_snapshot(directory: str, state: Any, *, meta: dict | None = None,
     and the upload to the checkpoint volume is the durability boundary.
     The manifest and COMMIT are fsynced before the rename that commits."""
     t_start = time.perf_counter()
+    pidx = 0 if process_index is None else int(process_index)
+    pcount = 1 if process_count is None else int(process_count)
+    shared = pcount > 1
     work = directory + WORK_SUFFIX
     old = directory + ".old"
-    # Crash recovery: a leftover .old from a crash mid-commit holds the
-    # previous committed snapshot — put it back before overwriting.
-    if snapshot_exists(old) and not snapshot_exists(directory):
-        shutil.rmtree(directory, ignore_errors=True)
-        os.rename(old, directory)
-    elif os.path.isdir(old):
-        shutil.rmtree(old)
-    shutil.rmtree(work, ignore_errors=True)
-    os.makedirs(work)
+    if pidx == 0:
+        # Crash recovery: a leftover .old from a crash mid-commit holds the
+        # previous committed snapshot — put it back before overwriting.
+        if snapshot_exists(old) and not snapshot_exists(directory):
+            shutil.rmtree(directory, ignore_errors=True)
+            os.rename(old, directory)
+        elif os.path.isdir(old):
+            shutil.rmtree(old)
+    if shared:
+        # The other processes write into the same work dir: only files of
+        # processes beyond this count (a larger earlier run) go; each
+        # process truncates its own.
+        if pidx == 0 and os.path.isdir(work):
+            for fname in os.listdir(work):
+                if fname.startswith(("data-h", "index-h")):
+                    try:
+                        k = int(fname.split("-h")[1].split(".")[0])
+                    except ValueError:
+                        continue
+                    if k >= pcount:
+                        os.unlink(os.path.join(work, fname))
+        os.makedirs(work, exist_ok=True)
+    else:
+        shutil.rmtree(work, ignore_errors=True)
+        os.makedirs(work)
 
     base_chunks: dict = {}
     base_rel = base_abs = None
     if base is not None:
-        base_chunks, base_rel, base_abs = _load_base_chunks(directory, base)
+        base_chunks, base_rel, base_abs = _load_base_chunks(
+            directory, base, own_file=data_file(pidx) if shared else None)
     leaves = [(name, _as_tensor(leaf))
               for name, leaf in flatten_with_names(state)]
-    mirror_work, tee = _open_mirror(mirror, wire)
+    mirror_work, tee = _open_mirror(mirror, wire, pidx=pidx, shared=shared)
     clean = clean_names or frozenset()
     d2h = _DeviceToHost(settled=speculative)
     legs = _DumpLegs()
@@ -886,7 +960,7 @@ def write_snapshot(directory: str, state: Any, *, meta: dict | None = None,
     written_pairs: list[tuple[int, int]] = []
     offset = 0
     try:
-        with open(os.path.join(work, DATA_FILE), "wb") as f, \
+        with open(os.path.join(work, data_file(pidx)), "wb") as f, \
                 ThreadPoolExecutor(max_workers=1) as hasher:
             for name, t in leaves:
                 if t.dtype not in _DTYPE_NAMES:
@@ -908,7 +982,8 @@ def write_snapshot(directory: str, state: Any, *, meta: dict | None = None,
                 if chunk is None:
                     chunk = _append(f, offset, nbytes, index, d2h.pieces(t),
                                     hashes=hashes, known=known, hasher=hasher,
-                                    legs=legs, tee=tee, borrowed=t.is_cuda)
+                                    legs=legs, tee=tee, borrowed=t.is_cuda,
+                                    fname=data_file(pidx))
                     written_pairs.append((chunk["crc"], nbytes))
                     offset += nbytes
                 records.append({"name": name, "dtype": dtype,
@@ -923,27 +998,20 @@ def write_snapshot(directory: str, state: Any, *, meta: dict | None = None,
                 shutil.rmtree(mirror_work, ignore_errors=True)
         raise
 
-    with open(os.path.join(work, INDEX_FILE), "w") as f:
+    with open(os.path.join(work, index_file(pidx)), "w") as f:
         json.dump(records, f)
     if tee is not None and tee.finish() and mirror_work is not None:
-        _mark_mirror(mirror_work, work, written_pairs, tee.sidecar_path)
-    manifest = {"format": FORMAT, "process_count": 1, "meta": meta or {},
-                "arrays": records}
-    if base_rel is not None:
-        manifest["base"] = base_rel  # informational; chunks carry ref_dir
-        chunks = [c for rec in records for c in rec["chunks"]]
-        dirty = [c for c in chunks if not c.get("ref_dir")]
-        manifest["dirty"] = {
-            "bytes": sum(int(c["nbytes"]) for c in dirty),
-            "totalBytes": sum(int(c["nbytes"]) for c in chunks),
-            "chunks": len(dirty), "totalChunks": len(chunks)}
-    atomic_write_json(os.path.join(work, MANIFEST_FILE), manifest)
-    atomic_write_text(os.path.join(work, COMMIT_FILE), FORMAT + "\n")
-    if os.path.isdir(directory):
-        os.rename(directory, old)
-    os.rename(work, directory)
-    shutil.rmtree(old, ignore_errors=True)
-    mirrored = mirror is not None and _commit_mirror(mirror, directory)
+        _mark_mirror(mirror_work, work, written_pairs, tee.sidecar_path,
+                     pidx=pidx)
+
+    barrier()
+    mirrored = False
+    if pidx == 0:
+        _commit(directory, work, old, _merge_indexes(work, records, pcount),
+                pcount, meta, base_rel)
+        mirrored = mirror is not None and _commit_mirror(mirror, directory,
+                                                         pcount)
+    barrier()
     if not speculative:
         _carry_kernels(directory)
     with _RECORD_LOCK:
@@ -963,6 +1031,47 @@ def write_snapshot(directory: str, state: Any, *, meta: dict | None = None,
     return directory
 
 
+def _merge_indexes(work: str, own: list[dict], pcount: int) -> list[dict]:
+    """Process 0's merge: every process's records in process order, the
+    chunks of one array name joined into its first record (``own`` is
+    process 0's list, the others are read from their index files)."""
+    merged: dict[str, dict] = {}
+    for k in range(pcount):
+        if k == 0:
+            recs = own
+        else:
+            with open(os.path.join(work, index_file(k))) as f:
+                recs = json.load(f)
+        for rec in recs:
+            if rec["name"] in merged:
+                merged[rec["name"]]["chunks"].extend(rec["chunks"])
+            else:
+                merged[rec["name"]] = rec
+    return list(merged.values())
+
+
+def _commit(directory: str, work: str, old: str, records: list[dict],
+            pcount: int, meta: dict | None, base_rel: str | None) -> None:
+    """Process 0's commit: the manifest (with the delta's ``dirty``
+    accounting), COMMIT, both fsynced, then the rename of the work dir."""
+    manifest = {"format": FORMAT, "process_count": pcount,
+                "meta": meta or {}, "arrays": records}
+    if base_rel is not None:
+        manifest["base"] = base_rel  # informational; chunks carry ref_dir
+        chunks = [c for rec in records for c in rec["chunks"]]
+        dirty = [c for c in chunks if not c.get("ref_dir")]
+        manifest["dirty"] = {
+            "bytes": sum(int(c["nbytes"]) for c in dirty),
+            "totalBytes": sum(int(c["nbytes"]) for c in chunks),
+            "chunks": len(dirty), "totalChunks": len(chunks)}
+    atomic_write_json(os.path.join(work, MANIFEST_FILE), manifest)
+    atomic_write_text(os.path.join(work, COMMIT_FILE), FORMAT + "\n")
+    if os.path.isdir(directory):
+        os.rename(directory, old)
+    os.rename(work, directory)
+    shutil.rmtree(old, ignore_errors=True)
+
+
 def _carry_kernels(directory: str) -> None:
     """The kernel-library carry of a committed snapshot (never fails it)."""
     try:
@@ -974,12 +1083,14 @@ def _carry_kernels(directory: str) -> None:
 def _append(f, offset: int, nbytes: int, index: list,
             pieces: Iterator[np.ndarray], *, hashes: bool, known: dict,
             hasher: ThreadPoolExecutor, legs: _DumpLegs,
-            tee: _MirrorWriter | None, borrowed: bool) -> dict:
+            tee: _MirrorWriter | None, borrowed: bool,
+            fname: str = DATA_FILE) -> dict:
     """Write one array's bytes at ``offset`` of the data file ``f`` (and
     into the tee) while the hasher thread checksums them; returns its
     chunk record. ``known`` holds the crc or sha256 a failed base match
     already computed over these bytes. ``borrowed``: the pieces are ring
-    slots, reused once the next piece is asked for."""
+    slots, reused once the next piece is asked for. ``fname``: the data
+    file's name, which the record carries."""
     digest = _Digest(hasher, legs, crc="crc" not in known,
                      sha256=hashes and "sha256" not in known)
     for piece in pieces:
@@ -988,7 +1099,7 @@ def _append(f, offset: int, nbytes: int, index: list,
         if tee is not None:  # copying the piece, or waiting for the tee
             legs.timed("tee", tee.put, piece, borrowed=borrowed)
         fut.result()
-    chunk = {"file": DATA_FILE, "offset": offset, "nbytes": nbytes,
+    chunk = {"file": fname, "offset": offset, "nbytes": nbytes,
              "index": index, "crc": known.get("crc", digest.crc),
              "algo": "crc32"}
     if hashes:

@@ -1,8 +1,8 @@
 """Multi-rank execution over ``torch.distributed``: the collective layer
-(``collectives``), the rank launcher (``launch``) and the GPipe pipeline
-(``pipeline``). The JAX package's ``parallel/compat.py`` is a JAX-version
-shim and has no counterpart; its mesh, sharding and slice coordination
-are not ported yet."""
+(``collectives``), the rank launcher (``launch``), the GPipe pipeline
+(``pipeline``) and slice coordination, the gang's cut (``coordination``).
+The JAX package's ``parallel/compat.py`` is a JAX-version shim and has no
+counterpart; its mesh and sharding are not ported yet."""
 
 from grit_tpu_torch.parallel.collectives import (  # noqa: F401
     all_to_all,

@@ -192,17 +192,28 @@ class Trainer:
 
     # -- snapshot / restore -----------------------------------------------------
 
-    def snapshot(self, directory: str, *, base: str | None = None,
-                 hashes: bool = False) -> str:
+    def snapshot(self, directory: str, *, barrier=lambda: None,
+                 base: str | None = None, hashes: bool = False) -> str:
         """Consistent cut at the current step boundary → committed dir.
 
+        ``barrier``: the multi-process dump's synchronization
+        (:func:`~grit_tpu_torch.device.snapshot.write_snapshot`).
         ``base``: delta-dump against an earlier committed snapshot (the
         pre-copy pattern: dump full while training, delta at the
         blackout). ``hashes``: record a sha256 per chunk, so a later delta
         against this dump matches by hash instead of reading it back."""
         quiesce(self.state)
         return write_snapshot(directory, self.state, meta={"step": self.step},
-                              base=base, hashes=hashes)
+                              barrier=barrier, base=base, hashes=hashes)
+
+    def snapshot_coordinated(self, directory: str, coordinator) -> str:
+        """Consistent-cut snapshot across all hosts of the slice: agree on
+        the cut step, run forward to it, dump. ``coordinator`` is a
+        :class:`~grit_tpu_torch.parallel.coordination.SliceCoordinator`;
+        the state goes as a getter, since stepping may rebind it."""
+        return coordinator.snapshot(directory, lambda: self.state,
+                                    step_fn=self.train_step,
+                                    current_step=self.step)
 
     def maybe_restore_from_env(self) -> int | None:
         """Transparent-migration entry: restore from ``GRIT_TPU_RESTORE_DIR``

@@ -66,9 +66,9 @@ def quiesces(monkeypatch):
     seen: list = []
     orig = ToggleClient.quiesce
 
-    def spy(self, dump_spec=None):
+    def spy(self, dump_spec=None, **kw):
         seen.append(dump_spec)
-        return orig(self, dump_spec=dump_spec)
+        return orig(self, dump_spec=dump_spec, **kw)
 
     monkeypatch.setattr(ToggleClient, "quiesce", spy)
     return seen
@@ -158,13 +158,33 @@ def test_reattach_without_reload_fn_is_refused(loop, tmp_path):
     _wait_steps_past(loop, step)
 
 
-def test_slice_cut_is_refused_before_any_quiesce(loop, tmp_path, monkeypatch,
-                                                 quiesces):
+@pytest.mark.parametrize("nonce", ["", "3"])
+def test_slice_hosts_send_the_gang_cut(loop, tmp_path, monkeypatch, nonce):
+    """Under ``GRIT_SLICE_HOSTS=2`` the hook's quiesce asks for the slice
+    cut, as the reference hook's does: ``slice``, the dest dir as
+    ``flight_dir``, ``GRIT_SLICE_NONCE`` (``"0"`` when unset) and the
+    dump spec. A workload without a gate parks at its next boundary."""
     monkeypatch.setenv("GRIT_SLICE_HOSTS", "2")
-    with pytest.raises(RuntimeError, match="GRIT_SLICE_HOSTS=2"):
-        phook.TpuDeviceCheckpointHook(timeout=30).dump(os.getpid(),
-                                                       str(tmp_path / "c"))
-    assert quiesces == [] and not loop.agentlet.paused
+    monkeypatch.setenv("GRIT_SLICE_NONCE", nonce)
+    sent: list = []
+    orig = ToggleClient.request
+
+    def spy(self, op, **fields):
+        sent.append((op, fields))
+        return orig(self, op, **fields)
+
+    monkeypatch.setattr(ToggleClient, "request", spy)
+    hook = phook.TpuDeviceCheckpointHook(timeout=30)
+    dest = str(tmp_path / "c")
+    hook.dump(os.getpid(), dest)
+    hbm = os.path.join(dest, HBM)
+    assert sent[0] == ("quiesce", {"slice": True, "flight_dir": dest,
+                                   "slice_nonce": nonce or "0",
+                                   "dump": {"dir": hbm}})
+    assert [op for op, _ in sent] == ["quiesce", "dump"]
+    assert snapshot_exists(hbm) and loop.agentlet.paused
+    hook.resume(os.getpid())
+    _wait_steps_past(loop, SnapshotManifest.load(hbm).meta["step"])
 
 
 def test_auto_hook_skips_a_pid_without_agentlet_loudly(sockdir, tmp_path,
@@ -327,6 +347,47 @@ def test_snapshot_carries_and_restore_seeds(tmp_path, monkeypatch):
     assert torch.equal(got["w"], torch.arange(6.0))
     assert sorted(os.listdir(dst)) == sorted(LIBS)
     assert last_restore_pipeline()["seeded"] == 3
+
+
+def test_reload_seeds_the_carried_libraries_before_reload_fn(tmp_path,
+                                                             monkeypatch):
+    """A ``resume`` with ``reload`` seeds ``GRIT_TPU_COMPILE_CACHE`` from
+    the snapshot before ``reload_fn`` runs, so a ``reload_fn`` that never
+    enters ``restore_snapshot`` finds the libraries there."""
+    from grit_tpu_torch.device.agentlet import Agentlet  # noqa: PLC0415
+
+    src, dst = str(tmp_path / "src-cache"), str(tmp_path / "dst-cache")
+    _plant(src, LIBS)
+    monkeypatch.setenv("GRIT_TPU_COMPILE_CACHE", src)
+    snap = str(tmp_path / "snap")
+    write_snapshot(snap, {"w": torch.arange(3.0)})
+    monkeypatch.setenv("GRIT_TPU_COMPILE_CACHE", dst)
+    seen: list = []
+
+    def reload_fn(directory):
+        seen.append(sorted(os.listdir(dst)) if os.path.isdir(dst) else [])
+
+    state = {"w": torch.zeros(3)}
+    a = Agentlet(lambda: state, path=str(tmp_path / "a.sock"),
+                 reload_fn=reload_fn).start()
+    stop = threading.Event()
+
+    def run():
+        while not stop.is_set():
+            a.checkpoint_point()
+            time.sleep(0.002)
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    try:
+        with ToggleClient(0, path=a.path, timeout=30) as c:
+            c.quiesce()
+            c.resume(reload=snap)
+    finally:
+        stop.set()
+        a.stop()
+        t.join(timeout=10)
+    assert seen == [sorted(LIBS)]
 
 
 def test_a_failed_carry_never_fails_the_commit(tmp_path, monkeypatch, caplog):

@@ -334,3 +334,23 @@ def pipeline_llama_cases(inp: dict) -> dict:
         res["world"]["restored"] = _np(pipeline_llama.forward_pp(
             cfg, _staged_local(cfg, restored, None), toks, n_microbatches=2))
     return res
+
+
+def group_any_cases(inp: dict) -> dict:
+    """:func:`~grit_tpu_torch.parallel.coordination.group_any` on every
+    pending pattern of ``inp["patterns"]`` (one flag a rank): over the
+    whole axis, over this rank's pair, and over the gloo twin it builds
+    for a group of another backend (``get_backend`` made to answer
+    ``nccl`` while it is built). Returns each collective's answers."""
+    from unittest import mock  # noqa: PLC0415
+
+    from grit_tpu_torch.parallel.coordination import group_any  # noqa: PLC0415
+
+    rank = dist.get_rank()
+    axes = _axes()
+    fns = {"world": group_any(), "pair": group_any(axes["pair"])}
+    with mock.patch.object(dist, "get_backend", return_value="nccl"):
+        fns["twin_world"] = group_any()
+        fns["twin_pair"] = group_any(axes["pair"])
+    return {name: [fn(bool(p[rank])) for p in inp["patterns"]]
+            for name, fn in fns.items()}
