@@ -75,8 +75,10 @@ non-zero without the final result line:
    the cut must equal an uninterrupted run's at that depth bit for bit, its
    restore must have waited on the stream, and a second stage whose
    journal fails mid-stream must make the destination exit non-zero with
-   ``SnapshotIntegrityError``. Tree sizes, dirty shares, dump and restore
-   legs and the blackout split print as ``[precopy]`` lines.
+   ``SnapshotIntegrityError``; the uninterrupted run, the reference, runs
+   beside that last destination, where nothing is timed. Tree sizes,
+   dirty shares, dump and restore legs and the blackout split print as
+   ``[precopy]`` lines.
 9. frozen  — the fine-tune ``bench.py`` migrates, at phase 5's shape:
    ``--optimizer frozen-trunk`` (sgd 0.5 on ``final_norm`` and
    ``lm_head``, the trunk frozen). An uninterrupted run counts each
@@ -96,7 +98,10 @@ non-zero without the final result line:
    bitwise too (hot set, READY, first step and tail printed). Then the
    harness's MNIST workload (``--model mnist``) migrated once through
    ``AutoDeviceHook``, bitwise, and a pid without an agentlet skipped
-   loudly. ``[frozen]`` lines.
+   loudly; the MNIST reference, the MNIST destination and the
+   uninterrupted frozen-trunk run (the launch counts' run) start
+   together after the MNIST dump, where nothing is timed. ``[frozen]``
+   lines.
 10. wire   — phase 5's flagship at 4 layers migrated over the wire into
    this script's own receiver (the reference's frames and journal: frame
    crc, codec records decoded and checked against their crc of the raw
@@ -146,9 +151,11 @@ non-zero without the final result line:
    unpadded prompt's next-token logits (at non-binding capacity, within
    2^-6 of their largest). ``[moe_serve]`` lines.
 15. long_context — four ranks of ``grit_tpu_torch.parallel.launch`` on
-   the one card over gloo (a hop goes through the host; one launch runs
+   the one card over ``LOCAL_GLOO`` (gloo for barriers, a CUDA tensor's
+   bytes between the ranks' device buffers; one launch runs
    phases 15 and 16, and the kernels are built before it): the flagship
-   widths (13 layers, remat) at B 1 x S 8192, 2048 positions a rank.
+   widths (4 layers, remat; 13 until PR 12) at B 1 x S 8192, 2048
+   positions a rank.
    ``forward_sp`` with the ring and with Ulysses against the dense flash
    forward on the whole sequence (run on every rank), the loss's
    gradients against dense, bytewise equal on every rank; one Trainer
@@ -164,7 +171,8 @@ non-zero without the final result line:
    microbatch, as the pipeline routes), every rank's tick time and
    launches (each stage's layers a tick, bubbles included).
    ``[pipeline]`` lines.
-17. gang   — phase 16's dense pipeline as a training gang: four ranks
+17. gang   — phase 16's dense pipeline at 4 layers (one a stage; 12
+   until PR 12) as a training gang: four ranks
    (one stage each, Adam 1e-4, Zipf batches) whose agentlets carry a
    slice gate over a file rendezvous with the lockstep collective take a
    few steps; four port hooks (``TpuDeviceCheckpointHook`` under
@@ -172,11 +180,28 @@ non-zero without the final result line:
    started about a step apart. Every manifest must carry the same step;
    the sources resume to cut + 3, and four fresh ranks each restore
    ``host-<k>`` and run to cut + 3: losses and final state bitwise equal
-   to their source's, and each kernel launched 42 / 21 / 21 times a step
+   to their source's, and each kernel launched 14 / 7 / 7 times a step
    on every rank. The cut, each rank's step at its request and barrier
    wait, dump seconds and bytes, the gang blackout (first request to the
    last commit), restore seconds and launches a rank a step print as
    ``[gang]`` lines.
+
+18. mesh   — the flagship at 4 layers (phase 8's depth) sharded by
+   ``LLAMA_RULES`` over a (data 1, fsdp 2, model 2) mesh of four ranks
+   on the card, over ``LOCAL_GLOO`` (gloo's own CUDA path crashes under
+   DTensor's functional collectives): B 2 x S 2048, Adam
+   1e-4, Zipf batches. Three sharded steps, each loss within 1e-3
+   relative of a dense Trainer's on rank 0; the step's collectives by
+   kind, device and bytes (the group's own count), every one on CUDA
+   tensors; all-reduces of an int64 and an fp64 sum past fp32's
+   precision, a bf16 sum and an fp32 maximum, each exact; a sharded snapshot (one manifest, ``named`` descriptors,
+   every array covered exactly once by its chunks, the bytes the dense
+   state's); two more steps. A fresh launch restores it onto (1,2,2)
+   (losses and final shards bitwise the source's), onto (2,1,2) and into
+   a dense Trainer (losses within 1e-2), each restored state's every
+   leaf bitwise the source's at the cut (a digest of the whole tensor,
+   gathered); each kernel launched 4 times a step on every rank.
+   ``[mesh]`` lines.
 
 The second-to-last lines are the script's wall time, the kernels' JSON
 record (with the serving phase's numbers under ``serving``, phase 8's
@@ -184,8 +209,8 @@ under ``precopy``, phase 9's under ``frozen_trunk``, phase 10's under
 ``wire``, phase 7's crc32c and codec rates under ``io``, phases 11-13's
 under ``lora_7b``, ``remat`` and ``moe``, and phases 14-16's under
 ``moe_serving``, ``long_context`` and ``pipeline``, phase 17's under
-``gang``; each kernel's ``launches`` sums phases 4, 9, 10, 11, 12, 13,
-15, 16 and 17, every rank's)
+``gang``, phase 18's under ``mesh``; each kernel's ``launches`` sums
+phases 4, 9, 10, 11, 12, 13, 15, 16, 17 and 18, every rank's)
 and the card's ``name, power limit``; the last line is the result JSON.
 ``--seed`` seeds the serving phases' and the parallel phases' weights
 and prompts (default 0). The script imports nothing of JAX or of the
@@ -1591,10 +1616,6 @@ def phase_precopy(work: str, card: str) -> dict:
     env = {"GRIT_TPU_SOCKET_DIR": socks, "GRIT_SNAP_SPECULATE": "1"}
     procs: list[Workload] = []
     try:
-        ref = Workload(MIGRATE_STEPS, env, args=PRECOPY_ARGS)
-        procs.append(ref)
-        ref.finish()
-        ref_losses = ref.losses()
         src = Workload(1000, env, args=PRECOPY_ARGS)
         procs.append(src)
         src.wait_for("READY")
@@ -1725,7 +1746,11 @@ def phase_precopy(work: str, card: str) -> dict:
                 "base prestaged": migrate_in(prestaged=(datas[2],))}
 
         # Planted fault: the stage again, its stager dying a quarter of
-        # the way through the delta's data, must be refused.
+        # the way through the delta's data, must be refused. The
+        # uninterrupted run at this depth, the reference, runs beside it:
+        # nothing is timed here.
+        ref = Workload(MIGRATE_STEPS, env, args=PRECOPY_ARGS)
+        procs.append(ref)
         err_path = os.path.join(work, "precopy-fault.stderr")
         fstager, fdst, _, _ = stage(err_path)
         fstager.stream_file(datas[0], limit=os.path.getsize(
@@ -1736,6 +1761,8 @@ def phase_precopy(work: str, card: str) -> dict:
         frc = fdst.proc.wait(timeout=300)
         with open(err_path) as f:
             ferr = f.read()
+        ref.finish()
+        ref_losses = ref.losses()
     finally:
         for p in procs:
             p.kill()
@@ -1915,10 +1942,11 @@ def phase_frozen(work: str, card: str, *, train: dict) -> dict:
     streamed stage of all three trees into a destination whose
     ``GRIT_TPU_COMPILE_CACHE`` is empty, which restores and continues; then
     a second destination restores the staged tree by post-copy
-    (``GRIT_RESTORE_POSTCOPY=1``). The uninterrupted run comes last, long
-    enough to pass the cut. Then the harness's MNIST workload, migrated
-    through ``AutoDeviceHook``. ``train``: phase 4's record, whose step
-    times this phase prints."""
+    (``GRIT_RESTORE_POSTCOPY=1``). Then the harness's MNIST workload,
+    migrated through ``AutoDeviceHook``; the uninterrupted frozen-trunk
+    run, long enough to pass the cut, runs beside the MNIST twin's
+    reference and destination, where nothing is timed. ``train``: phase
+    4's record, whose step times this phase prints."""
     from grit_tpu_torch.device.agentlet import ToggleClient  # noqa: PLC0415
     from grit_tpu_torch.device.hook import TpuDeviceCheckpointHook  # noqa: PLC0415
     from grit_tpu_torch.device.snapshot import (  # noqa: PLC0415
@@ -2088,18 +2116,17 @@ def phase_frozen(work: str, card: str, *, train: dict) -> dict:
         pc_tail = json.loads(pc.wait_for(r"RESTORE_POSTCOPY (.+)").group(1))
         pc.finish()
         pc_kernels = pc.kernels()
-
-        # The uninterrupted run, long enough to pass the cut.
-        ref = Workload(n_steps, env, args=args)
-        procs.append(ref)
-        ref.finish()
-        ref_losses, ref_kernels = ref.losses(), ref.kernels()
     finally:
         for p in procs:
             p.kill()
         shutil.rmtree(pvc, ignore_errors=True)
         shutil.rmtree(dst_root, ignore_errors=True)
 
+    # The uninterrupted run, long enough to pass the cut, starts beside
+    # the MNIST twin's reference and destination, where nothing is timed.
+    mnist, ref = mnist_twin(work, card,
+                            beside=lambda: Workload(n_steps, env, args=args))
+    ref_losses, ref_kernels = ref.losses(), ref.kernels()
     got, pc_got = dst.losses(), pc.losses()
     want = {s: x for s, x in ref_losses.items() if s > cut}
     if restored != cut or len(want) != FROZEN_AFTER or got != want:
@@ -2195,7 +2222,6 @@ def phase_frozen(work: str, card: str, *, train: dict) -> dict:
     log("frozen", f"cut at step {cut}; losses after the cut bitwise equal to "
                   f"the uninterrupted frozen-trunk run in both destinations: "
                   f"{got}")
-    mnist = mnist_twin(work, card)
     return {"step_s": train["frozen_step_s"],
             "launches": ref_kernels["launches"],
             "launches_per_step": per_step,
@@ -2217,10 +2243,12 @@ def phase_frozen(work: str, card: str, *, train: dict) -> dict:
             "cut": cut, "mnist": mnist}
 
 
-def mnist_twin(work: str, card: str) -> dict:
+def mnist_twin(work: str, card: str, beside) -> tuple[dict, Workload]:
     """The harness's MNIST workload migrated once through the port's
     ``AutoDeviceHook``; with no agentlet (this process), the hook skips
-    loudly."""
+    loudly. After the dump, its uninterrupted reference, its destination
+    and the workload ``beside()`` starts run at once (none of them is
+    timed); returns the twin's record and that workload, finished."""
     from grit_tpu_torch.device.hook import HBM_SUBDIR, AutoDeviceHook  # noqa: PLC0415
 
     socks = os.path.join(work, "socks-mnist")
@@ -2245,14 +2273,17 @@ def mnist_twin(work: str, card: str) -> dict:
         src.kill()
         snap = os.path.join(ckpt, HBM_SUBDIR)
         cut = json.load(open(os.path.join(snap, "MANIFEST.json")))["meta"]["step"]
+        other = beside()
+        procs.append(other)
         ref = Workload(cut + MNIST_AFTER, env, args=MNIST_ARGS)
         procs.append(ref)
-        ref.finish()
         dst = Workload(cut + MNIST_AFTER, {**env, "GRIT_TPU_RESTORE_DIR": snap},
                        args=MNIST_ARGS)
         procs.append(dst)
+        ref.finish()
         restored = int(dst.wait_for(r"RESTORED (\d+)").group(1))
         dst.finish()
+        other.finish()
     finally:
         warnings.close()
         if saved is None:
@@ -2276,7 +2307,7 @@ def mnist_twin(work: str, card: str) -> dict:
                   f"{MNIST_AFTER} losses after the cut bitwise equal: "
                   f"{[got[s] for s in sorted(got)]}; a pid without an "
                   f"agentlet skipped loudly [{card}]")
-    return {"cut": cut, "dump_s": dump_s, "losses": got}
+    return {"cut": cut, "dump_s": dump_s, "losses": got}, other
 
 
 # -- phase 10 ------------------------------------------------------------------
@@ -3036,10 +3067,11 @@ MOE_SERVE_MAX_LEN = 1024
 MOE_SERVE_PROMPTS = (700, 500, 230, 40)  # the 1024, 1024, 256 and 64 buckets
 MOE_SERVE_SWAP = (12, 3, 300)  # after round 12, slot 3 leaves; 300 join
 MOE_PREFILL = (230, 256)  # the masked-prefill check: prompt tokens, bucket
-# Phases 15 and 16: four ranks on the one card over gloo (a hop goes
-# through the host), started once for both phases.
+# Phases 15 and 16: four ranks on the one card over LOCAL_GLOO (a hop
+# goes between the ranks' device buffers), started once for both phases.
 N_RANKS = 4
 SP_SEQ = 8192             # phase 15: batch 1 at S 8192, 2048 positions a rank
+SP_LAYERS = 4             # phase 15's depth (13 until PR 12)
 PP_LAYERS = 12            # phase 16: the flagship widths at 12 layers (13
 PP_BATCH = 8              # does not divide by 4 stages), B 8 x S 2048 in
 PP_MICRO = 4              # 4 microbatches; the MoE model at its B 16 x S 512
@@ -3381,15 +3413,17 @@ def phase_parallel(torch, work: str, card: str, *, seed: int,
                    pp_cfg=None, pp_shape=(PP_BATCH, SEQ), moe_pp_cfg=None,
                    moe_pp_shape=(MOE_PP_BATCH, MOE_PP_SEQ),
                    pp_micro: int = PP_MICRO) -> tuple[dict, dict]:
-    """Phases 15 and 16: :data:`N_RANKS` ranks over gloo on the one card
+    """Phases 15 and 16: :data:`N_RANKS` ranks over ``LOCAL_GLOO`` on the one card
     (the configs and ``device`` other than the defaults only to rehearse
     at a small size on the CPU). Returns the two phases' records."""
     from dataclasses import replace  # noqa: PLC0415
 
     from grit_tpu_torch.models import llama, moe_llama  # noqa: PLC0415
+    from grit_tpu_torch.parallel.collectives import LOCAL_GLOO  # noqa: PLC0415
     from grit_tpu_torch.parallel.launch import run_ranks  # noqa: PLC0415
 
-    lc_cfg = lc_cfg or llama.LlamaConfig.flagship(n_layers=LAYERS, remat=True)
+    lc_cfg = lc_cfg or llama.LlamaConfig.flagship(n_layers=SP_LAYERS,
+                                                  remat=True)
     pp_cfg = pp_cfg or llama.LlamaConfig.flagship(n_layers=PP_LAYERS,
                                                   remat=True)
     moe_pp_cfg = moe_pp_cfg or moe_llama.MoeLlamaConfig.bench(remat=True)
@@ -3404,7 +3438,7 @@ def phase_parallel(torch, work: str, card: str, *, seed: int,
             "moe_pp_cfg": moe_pp_cfg, "moe_pp_shape": moe_pp_shape,
             "pp_micro": pp_micro}
     t0 = time.perf_counter()
-    ranks = run_ranks(parallel_rank, N_RANKS, spec, backend="gloo",
+    ranks = run_ranks(parallel_rank, N_RANKS, spec, backend=LOCAL_GLOO,
                       timeout=900)
     wall = time.perf_counter() - t0
     lc = long_context_checks([r["long_context"] for r in ranks], lc_cfg,
@@ -3419,8 +3453,9 @@ def long_context_checks(ranks: list[dict], cfg, seq: int, card: str,
     """Phase 15's lines and checks over the ranks' records."""
     L = cfg.n_layers
     failures = []
-    log("long_context", f"{N_RANKS} ranks on one card over gloo (every hop "
-                        f"through the host), launched and run in {wall:.1f} s"
+    log("long_context", f"{N_RANKS} ranks on one card over LOCAL_GLOO (every "
+                        f"hop between the ranks' device buffers), launched and "
+                        f"run in {wall:.1f} s"
                         f" with phase 16; dim {cfg.dim}, {cfg.n_heads} heads "
                         f"of {cfg.head_dim}, {L} layers, remat, B 1 x S {seq}"
                         f", {seq // N_RANKS} positions a rank [{card}]")
@@ -3586,6 +3621,7 @@ def pipeline_checks(ranks: list[dict], cfg, moe_cfg, shape, moe_shape,
 GANG_READY_STEP = 2   # every rank has taken this many steps before the dumps
 GANG_AFTER = 3        # sources and restored ranks run to cut + this
 GANG_LR = 1e-4
+GANG_LAYERS = 4       # one layer a stage (phase 16's 12 until PR 12)
 
 
 def gang_trainer(torch, cfg, rank: int, n: int, *, batch: int, seq: int,
@@ -3716,7 +3752,7 @@ def gang_spec(gwork: str, cfg, *, batch: int, seq: int, micro: int,
 
 
 class GangSources:
-    """Phase 17's source ranks: :func:`gang_rank` on ``N_RANKS`` gloo
+    """Phase 17's source ranks: :func:`gang_rank` on ``N_RANKS`` ``LOCAL_GLOO``
     ranks, launched from a thread; their pids, their agentlets' status,
     when every rank had first reached each step (``t_step``), and the
     stop file."""
@@ -3734,11 +3770,13 @@ class GangSources:
         self.thread.start()
 
     def _run(self, timeout: float) -> None:
+        from grit_tpu_torch.parallel.collectives import LOCAL_GLOO  # noqa: PLC0415
         from grit_tpu_torch.parallel.launch import run_ranks  # noqa: PLC0415
 
         try:
             self.box["sources"] = run_ranks(gang_rank, N_RANKS, self.spec,
-                                            backend="gloo", timeout=timeout)
+                                            backend=LOCAL_GLOO,
+                                            timeout=timeout)
         except BaseException as exc:  # noqa: BLE001 — raised in check()
             self.box["error"] = exc
 
@@ -3840,7 +3878,7 @@ def phase_gang(torch, work: str, card: str, *, seed: int,
                device: str = "cuda", cfg=None, batch: int = PP_BATCH,
                seq: int = SEQ, micro: int = PP_MICRO,
                stagger_s: float | None = None) -> dict:
-    """Phase 17: four pipeline stages sharing the card over gloo, cut by
+    """Phase 17: four pipeline stages sharing the card over ``LOCAL_GLOO``, cut by
     four port hooks' gang dumps that land staggered (about a step apart
     by default), into ``host-<k>``; every manifest must carry one step.
     The sources resume to cut + 3 (the reference); four fresh ranks
@@ -3849,9 +3887,10 @@ def phase_gang(torch, work: str, card: str, *, seed: int,
     from grit_tpu_torch.device.hook import HBM_SUBDIR, TpuDeviceCheckpointHook  # noqa: PLC0415
     from grit_tpu_torch.device.snapshot import SnapshotManifest  # noqa: PLC0415
     from grit_tpu_torch.models import llama  # noqa: PLC0415
+    from grit_tpu_torch.parallel.collectives import LOCAL_GLOO  # noqa: PLC0415
     from grit_tpu_torch.parallel.launch import run_ranks  # noqa: PLC0415
 
-    cfg = cfg or llama.LlamaConfig.flagship(n_layers=PP_LAYERS, remat=True)
+    cfg = cfg or llama.LlamaConfig.flagship(n_layers=GANG_LAYERS, remat=True)
     on_card = device == "cuda"
     if on_card:
         torch.cuda.empty_cache()
@@ -3899,7 +3938,7 @@ def phase_gang(torch, work: str, card: str, *, seed: int,
         t0 = time.perf_counter()
         restored = run_ranks(gang_rank, N_RANKS,
                              dict(spec, mode="restore", stop=cut + GANG_AFTER),
-                             backend="gloo", timeout=900)
+                             backend=LOCAL_GLOO, timeout=900)
         restore_wall = time.perf_counter() - t0
     finally:
         for k, v in saved.items():
@@ -3958,7 +3997,7 @@ def gang_checks(sources: list[dict], restored: list[dict], times: dict,
                     failures.append(f"{label} rank {k}: launches a step "
                                     f"{row}, want {step}")
     dumps = [s["dump"] for s in sources]
-    log("gang", f"{N_RANKS} pipeline stages on one card over gloo: dim "
+    log("gang", f"{N_RANKS} pipeline stages on one card over LOCAL_GLOO: dim "
                 f"{cfg.dim}, {cfg.n_layers} layers in stages of "
                 f"{cfg.n_layers // N_RANKS}, remat, B {B} x S {S} in {micro} "
                 f"microbatches, Adam {GANG_LR}; state a rank "
@@ -4000,6 +4039,440 @@ def gang_checks(sources: list[dict], restored: list[dict], times: dict,
             "launches_per_step": per_step,
             "launches": {n: sum(r["launches"][n] for r in sources + restored)
                          for n in KERNELS}}
+
+
+# -- phase 18 ------------------------------------------------------------------
+
+MESH_SOURCE = (1, 2, 2)   # (data, fsdp, model): the source's mesh
+MESH_OTHER = (2, 1, 2)    # the re-layout a fresh launch restores onto
+MESH_LAYERS = 4           # the flagship's widths at phase 8's depth
+MESH_STEPS = 3            # sharded steps before the snapshot
+MESH_AFTER = 2            # steps after it: the source's and each restore's
+MESH_LR = 1e-4
+MESH_LOSS_BOUND = 1e-3      # sharded against dense, bf16 (__graft_entry__.py:171-179)
+MESH_RELAYOUT_BOUND = 1e-2  # another layout (the JAX package's tests/test_trainer.py:80-96)
+
+
+def mesh_collectives(tr) -> dict:
+    """The local gloo group's own counts over the Trainer's mesh groups
+    and the world: ``{"<collective> <device type>": [calls, input
+    bytes]}`` (:class:`~grit_tpu_torch.parallel.collectives.LocalGloo`)."""
+    import torch.distributed as dist  # noqa: PLC0415
+
+    from grit_tpu_torch.parallel.collectives import local_gloo_counts  # noqa: PLC0415
+
+    return local_gloo_counts([dist.group.WORLD] + [
+        tr.mesh.get_group(name) for name in tr.mesh.mesh_dim_names])
+
+
+def mesh_trainer(torch, spec: dict, mesh_shape):
+    """The flagship at phase 18's depth on Zipf batches with Adam,
+    sharded by ``LLAMA_RULES`` on a (data, fsdp, model) mesh of
+    ``mesh_shape`` (None: one dense Trainer on this rank)."""
+    from grit_tpu_torch.models import llama  # noqa: PLC0415
+    from grit_tpu_torch.parallel.mesh import MeshSpec, build_mesh  # noqa: PLC0415
+    from grit_tpu_torch.train.optim import adam  # noqa: PLC0415
+    from grit_tpu_torch.train.trainer import Trainer, TrainerConfig  # noqa: PLC0415
+    from grit_tpu_torch.workload import zipf_batches  # noqa: PLC0415
+
+    cfg = spec["cfg"]
+    dev = torch.device(spec["device"])
+    mesh = (None if mesh_shape is None
+            else build_mesh(MeshSpec(*mesh_shape), dev.type))
+    return Trainer(
+        loss_fn=lambda p, b: llama.loss_fn(cfg, p, b[0], b[1]),
+        init_params=lambda gen, device: llama.init_params(cfg, gen, device),
+        batch_fn=zipf_batches(cfg.vocab_size, *spec["shape"]),
+        cfg=TrainerConfig(learning_rate=MESH_LR, seed=spec["seed"],
+                          batch_spec=llama.BATCH_SPEC),
+        device=dev, optimizer=adam(MESH_LR), mesh=mesh,
+        rules=None if mesh is None else llama.LLAMA_RULES)
+
+
+def _locals(tr) -> list:
+    """This rank's tensors of the Trainer's state (a DTensor's shard)."""
+    from grit_tpu_torch.parallel.sharding import local_shard  # noqa: PLC0415
+    from grit_tpu_torch.tree import flatten_with_names  # noqa: PLC0415
+
+    return [local_shard(x) for _, x in flatten_with_names(tr.state)]
+
+
+def _run_steps(torch, fa, tr, dev, n: int, alone: bool = False) -> dict:
+    """``n`` steps of ``tr``: losses, seconds and launches of each. Each
+    starts at a barrier of the ranks unless this rank steps ``alone``."""
+    out = {"losses": [], "step_s": [], "launches": []}
+    for _ in range(n):
+        fa.reset_launch_counts()
+        _sync(torch, dev)
+        t0 = time.perf_counter() if alone else _start(torch, dev)
+        out["losses"].append(tr.train_step()["loss"].item())
+        _sync(torch, dev)
+        out["step_s"].append(time.perf_counter() - t0)
+        out["launches"].append(dict(fa.LAUNCHES))
+    return out
+
+
+def reduce_checks(torch, dev) -> list[str]:
+    """One all-reduce over the world on ``dev`` (on the card, through the
+    ranks' device buffers) of each kind whose exact result an fp32
+    accumulator would lose or change: an int64 sum past 2^24, an fp64
+    sum below fp32's precision, a bf16 sum and an fp32 maximum, each
+    against its exact value. The failures, as lines."""
+    import torch.distributed as dist  # noqa: PLC0415
+
+    n, r = dist.get_world_size(), dist.get_rank()
+    tri = n * (n - 1) // 2
+    cases = {
+        "int64 sum": ([2 ** 40 + r, -(2 ** 33) * r], torch.int64,
+                      dist.ReduceOp.SUM, [n * 2 ** 40 + tri, -(2 ** 33) * tri]),
+        "float64 sum": ([1 + r * 2.0 ** -40], torch.float64,
+                        dist.ReduceOp.SUM, [n + tri * 2.0 ** -40]),
+        "bfloat16 sum": ([r + 1.0], torch.bfloat16, dist.ReduceOp.SUM,
+                         [n * (n + 1) / 2]),
+        "float32 max": ([float(r), -float(r)], torch.float32,
+                        dist.ReduceOp.MAX, [n - 1.0, 0.0]),
+    }
+    failures = []
+    for name, (mine, dtype, op, want) in cases.items():
+        x = torch.tensor(mine, dtype=dtype, device=dev)
+        dist.all_reduce(x, op=op)
+        got = x.cpu()
+        if not torch.equal(got, torch.tensor(want, dtype=dtype)):
+            failures.append(f"all_reduce {name} on {dev.type}: "
+                            f"{got.tolist()}, want {want}")
+    return failures
+
+
+def _fingerprint(torch, x) -> str:
+    """A digest of ``x``'s bytes computed on its device: the sums of each
+    block of 4096 32-bit words, each word weighted by its place in the
+    block (exact in int64), then sha256 over those sums, the dtype and
+    the shape on the host. A changed word, two words swapped and a block
+    moved each change it."""
+    b = x.detach().reshape(-1).contiguous().view(torch.uint8)
+    if b.numel() % 4:
+        b = torch.cat([b, b.new_zeros((-b.numel()) % 4)])
+    words = b.view(torch.int32).long()
+    if words.numel() % 4096:
+        words = torch.cat([words, words.new_zeros((-words.numel()) % 4096)])
+    sums = (words.view(-1, 4096) * torch.arange(
+        1, 4097, dtype=torch.int64, device=words.device)).sum(dim=1)
+    h = hashlib.sha256(f"{x.dtype} {tuple(x.shape)}".encode())
+    h.update(sums.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _state_digests(torch, tr) -> dict:
+    """:func:`_fingerprint` of each leaf of the Trainer's whole state, by
+    name: of a DTensor's gathered ``full_tensor()`` (every rank gathers
+    every leaf; rank ``r`` of ``n`` digests leaves ``r``, ``r + n``, ...),
+    of a plain tensor itself (a dense Trainer's rank digests them all).
+    The ranks' dicts merged are the state's."""
+    import torch.distributed as dist  # noqa: PLC0415
+
+    from grit_tpu_torch.parallel.sharding import is_dtensor  # noqa: PLC0415
+    from grit_tpu_torch.tree import flatten_with_names  # noqa: PLC0415
+
+    rank, n = ((0, 1) if tr.mesh is None
+               else (dist.get_rank(), dist.get_world_size()))
+    out = {}
+    for k, (name, x) in enumerate(flatten_with_names(tr.state)):
+        full = x.full_tensor() if is_dtensor(x) else x
+        if k % n == rank:
+            out[name] = _fingerprint(torch, full)
+    return out
+
+
+def mesh_rank(spec: dict) -> dict:
+    """Phase 18 on one rank. ``"source"``: :data:`MESH_STEPS` sharded
+    steps on :data:`MESH_SOURCE` (the collectives of the second counted),
+    the sharded snapshot, :data:`MESH_AFTER` more steps; rank 0 then runs
+    the dense Trainer's steps. ``"restore"``: a fresh rank restores the
+    snapshot onto :data:`MESH_SOURCE` and onto :data:`MESH_OTHER`, and
+    rank 0 into a dense Trainer, each stepping :data:`MESH_AFTER` times."""
+    import torch  # noqa: PLC0415
+    import torch.distributed as dist  # noqa: PLC0415
+
+    from grit_tpu_torch.device.snapshot import last_write  # noqa: PLC0415
+    from grit_tpu_torch.ops import flash_attention as fa  # noqa: PLC0415
+
+    dev = torch.device(spec["device"])
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+    rank = dist.get_rank()
+    out: dict = {"foreign": sorted(
+        m for m in sys.modules
+        if m.split(".")[0] in ("jax", "jaxlib", "grit_tpu"))}
+
+    def release(tr) -> None:
+        del tr
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+    if spec["mode"] == "source":
+        out["reduce_failures"] = reduce_checks(torch, dev)
+        tr = mesh_trainer(torch, spec, MESH_SOURCE)
+        _reset_peak(torch, dev)
+        out.update(_run_steps(torch, fa, tr, dev, 1))
+        before = mesh_collectives(tr)
+        more = _run_steps(torch, fa, tr, dev, MESH_STEPS - 1)
+        for k in ("losses", "step_s", "launches"):
+            out[k] += more[k]
+        out["collectives"] = {  # a step's, the mean of those after the first
+            k: [(c - before.get(k, [0, 0])[0]) / (MESH_STEPS - 1),
+                (b - before.get(k, [0, 0])[1]) / (MESH_STEPS - 1)]
+            for k, (c, b) in mesh_collectives(tr).items()}
+        out["peak"] = _peak(torch, dev)
+        out["state_bytes"] = sum(x.numel() * x.element_size()
+                                 for x in _locals(tr))
+        t0 = _start(torch, dev)
+        tr.snapshot(spec["snap"])
+        out["dump_s"] = time.perf_counter() - t0
+        out["dump"] = last_write()
+        out["cut"] = _state_digests(torch, tr)
+        out["after"] = _run_steps(torch, fa, tr, dev, MESH_AFTER)
+        out["digest"] = _digest(torch, _locals(tr))
+        release(tr)
+        if rank == 0:
+            dense = mesh_trainer(torch, spec, None)
+            out["dense"] = _run_steps(torch, fa, dense, dev, MESH_STEPS,
+                                      alone=True)
+            out["dense_state_bytes"] = sum(
+                x.numel() * x.element_size() for x in _locals(dense))
+            release(dense)
+        return out
+    for key, shape in (("same", MESH_SOURCE), ("other", MESH_OTHER)):
+        tr = mesh_trainer(torch, spec, shape)
+        t0 = _start(torch, dev)
+        step = tr.restore(spec["snap"])
+        _sync(torch, dev)
+        out[key] = {"step": step, "restore_s": time.perf_counter() - t0,
+                    "cut": _state_digests(torch, tr),
+                    **_run_steps(torch, fa, tr, dev, MESH_AFTER),
+                    "digest": _digest(torch, _locals(tr))}
+        release(tr)
+    if rank == 0:
+        tr = mesh_trainer(torch, spec, None)
+        t0 = time.perf_counter()
+        step = tr.restore(spec["snap"])
+        _sync(torch, dev)
+        out["dense"] = {"step": step, "restore_s": time.perf_counter() - t0,
+                        "cut": _state_digests(torch, tr),
+                        **_run_steps(torch, fa, tr, dev, MESH_AFTER,
+                                     alone=True)}
+        release(tr)
+    return out
+
+
+def mesh_manifest_checks(snap: str, dense_state_bytes: int) -> dict:
+    """The committed sharded snapshot: one manifest of :data:`N_RANKS`
+    processes whose arrays all carry the ``named`` descriptor of
+    :data:`MESH_SOURCE`, each array covered exactly once by its chunks
+    (disjoint boxes whose volumes sum to its size), the chunks' bytes
+    summing to the dense state's."""
+    with open(os.path.join(snap, "MANIFEST.json")) as f:
+        manifest = json.load(f)
+    failures = []
+    if manifest["process_count"] != N_RANKS:
+        failures.append(f"process_count {manifest['process_count']}")
+    total = 0
+    for rec in manifest["arrays"]:
+        desc = rec["sharding"]
+        if desc.get("type") != "named" or desc["mesh_shape"] != list(
+                MESH_SOURCE):
+            failures.append(f"{rec['name']}: descriptor {desc}")
+        boxes = [c["index"] for c in rec["chunks"]]
+        volume = sum(math.prod(b - a for a, b in box) for box in boxes)
+        overlap = any(all(max(a0, a1) < min(b0, b1) for (a0, b0), (a1, b1)
+                          in zip(p, q))
+                      for i, p in enumerate(boxes) for q in boxes[i + 1:])
+        if volume != math.prod(rec["shape"]) or overlap:
+            failures.append(f"{rec['name']}: chunks {boxes} do not cover "
+                            f"{rec['shape']} exactly once")
+        total += sum(c["nbytes"] for c in rec["chunks"])
+    if total != dense_state_bytes:
+        failures.append(f"chunk bytes {total} != the state's "
+                        f"{dense_state_bytes}")
+    return {"failures": failures, "arrays": len(manifest["arrays"]),
+            "chunks": sum(len(r["chunks"]) for r in manifest["arrays"]),
+            "bytes": total,
+            "wq": next(r["sharding"] for r in manifest["arrays"]
+                       if r["name"] == "['params']['layers']['attn']['wq']")}
+
+
+def phase_mesh(torch, work: str, card: str, *, seed: int,
+               device: str = "cuda", cfg=None,
+               shape: tuple = (BATCH, SEQ)) -> dict:
+    """Phase 18: the flagship at :data:`MESH_LAYERS` layers sharded over a
+    (1,2,2) mesh of four ranks sharing the card over ``LOCAL_GLOO``, its sharded
+    snapshot, and a fresh launch that restores it onto (1,2,2) (bitwise),
+    onto (2,1,2) and into a dense Trainer (within 1e-2). ``device`` and a
+    ``cfg`` other than the defaults rehearse it on the CPU."""
+    from grit_tpu_torch.models import llama  # noqa: PLC0415
+    from grit_tpu_torch.parallel.collectives import LOCAL_GLOO  # noqa: PLC0415
+    from grit_tpu_torch.parallel.launch import run_ranks  # noqa: PLC0415
+
+    cfg = cfg or llama.LlamaConfig.flagship(n_layers=MESH_LAYERS)
+    on_card = device == "cuda"
+    if on_card:
+        torch.cuda.empty_cache()
+    mwork = os.path.join(work, "mesh")
+    os.makedirs(mwork)
+    spec = {"device": device, "seed": seed, "cfg": cfg, "shape": shape,
+            "snap": os.path.join(mwork, "snap")}
+    try:
+        t0 = time.perf_counter()
+        sources = run_ranks(mesh_rank, N_RANKS, dict(spec, mode="source"),
+                            backend=LOCAL_GLOO, timeout=900)
+        source_wall = time.perf_counter() - t0
+        manifest = mesh_manifest_checks(spec["snap"],
+                                        sources[0]["dense_state_bytes"])
+        t0 = time.perf_counter()
+        restored = run_ranks(mesh_rank, N_RANKS, dict(spec, mode="restore"),
+                             backend=LOCAL_GLOO, timeout=900)
+        restore_wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(mwork, ignore_errors=True)
+    return mesh_checks(sources, restored, manifest, cfg, shape, card,
+                       on_card, source_wall, restore_wall)
+
+
+def _rel_gap(got: float, want: float) -> float:
+    return abs(got - want) / max(1.0, abs(want))
+
+
+def mesh_checks(sources: list[dict], restored: list[dict], manifest: dict,
+                cfg, shape, card: str, on_card: bool, source_wall: float,
+                restore_wall: float) -> dict:
+    """Phase 18's lines and checks over the ranks' records."""
+    failures = list(manifest["failures"])
+    B, S = shape
+    src0 = sources[0]
+    dense = src0["dense"]["losses"]
+    gaps = [_rel_gap(a, b) for a, b in zip(src0["losses"], dense)]
+    if max(gaps) >= MESH_LOSS_BOUND:
+        failures.append(f"sharded losses {src0['losses']} against dense "
+                        f"{dense}: gaps {gaps}")
+    for k, (s, r) in enumerate(zip(sources, restored)):
+        if s["losses"] != src0["losses"] or s["after"]["losses"] != \
+                src0["after"]["losses"]:
+            failures.append(f"rank {k}: its loss differs from rank 0's")
+        if r["same"]["step"] != MESH_STEPS or \
+                r["same"]["losses"] != s["after"]["losses"]:
+            failures.append(f"rank {k}: the (1,2,2) restore at step "
+                            f"{r['same']['step']} gave {r['same']['losses']}, "
+                            f"the source {s['after']['losses']}")
+        if r["same"]["digest"] != s["digest"]:
+            failures.append(f"rank {k}: the (1,2,2) restore's final shards "
+                            "differ from the source's")
+        if s["foreign"] or r["foreign"]:
+            failures.append(f"rank {k} loaded {s['foreign'] + r['foreign']}")
+    want = src0["after"]["losses"]
+    relayout = {"other": [_rel_gap(a, b) for a, b in
+                          zip(restored[0]["other"]["losses"], want)],
+                "dense": [_rel_gap(a, b) for a, b in
+                          zip(restored[0]["dense"]["losses"], want)]}
+    for key, g in relayout.items():
+        if max(g) >= MESH_RELAYOUT_BOUND:
+            failures.append(f"the {key} restore's losses are {g} from the "
+                            f"source's {want}")
+    cut = {k: v for s in sources for k, v in s["cut"].items()}
+    restored_cut = {
+        "(1,2,2)": {k: v for r in restored for k, v in r["same"]["cut"].items()},
+        "(2,1,2)": {k: v for r in restored
+                    for k, v in r["other"]["cut"].items()},
+        "dense": restored[0]["dense"]["cut"]}
+    for key, got in restored_cut.items():
+        if got != cut:
+            bad = sorted(k for k in cut.keys() | got.keys()
+                         if got.get(k) != cut.get(k))
+            failures.append(f"the {key} restore's state differs from the "
+                            f"source's at the cut in {bad[:4]} "
+                            f"({len(bad)} leaves)")
+    for k, s in enumerate(sources):
+        failures += [f"rank {k}: {f}" for f in s["reduce_failures"]]
+    colls = src0["collectives"]
+    if not colls:
+        failures.append("the sharded step issued no collective")
+    device_type = "cuda" if on_card else "cpu"
+    off_device = [k for k in colls if not k.endswith(" " + device_type)]
+    if off_device:
+        failures.append(f"collectives off the device: {off_device}")
+    per_step = [{n: row[n] for n in KERNELS}
+                for r in sources for row in r["launches"] + r["after"]["launches"]]
+    per_step += [{n: row[n] for n in KERNELS} for r in restored
+                 for key in ("same", "other") for row in r[key]["launches"]]
+    per_step += [{n: row[n] for n in KERNELS}
+                 for row in src0["dense"]["launches"]
+                 + restored[0]["dense"]["launches"]]
+    if on_card:
+        step = {n: cfg.n_layers for n in KERNELS}
+        bad = [row for row in per_step if row != step]
+        if bad:
+            failures.append(f"launches a rank a step {bad[:3]}, want {step}")
+    step_s = [round(median_after_first(s["step_s"]), 4) for s in sources]
+    log("mesh", f"{N_RANKS} ranks on one card over LOCAL_GLOO, mesh (data, "
+                f"fsdp, model) {MESH_SOURCE}: dim {cfg.dim}, {cfg.n_layers} layers, "
+                f"B {B} x S {S}, Adam {MESH_LR}; state a rank "
+                f"{[s['state_bytes'] for s in sources]} B of the dense "
+                f"{src0['dense_state_bytes']}; a sharded step "
+                f"{step_s} s a rank (dense {median_after_first(src0['dense']['step_s']):.4f}"
+                f" s); peak {[s['peak'] for s in sources]} B [{card}]")
+    log("mesh", f"losses sharded {src0['losses']}, dense {dense}: relative "
+                f"gaps {[f'{g:.2e}' for g in gaps]} (bound {MESH_LOSS_BOUND}) "
+                f"[{card}]")
+    log("mesh", "collectives a sharded step on rank 0, through LOCAL_GLOO "
+                "(LocalGloo's count; kind device: calls, input bytes): "
+                f"{colls}; every one on the ranks' device: {not off_device} "
+                f"[{card}]")
+    log("mesh", f"restored state against the source's at the cut, leaf by "
+                f"leaf (a digest of each whole tensor, {len(cut)} leaves): "
+                + ", ".join(f"{key} bitwise: {got == cut}"
+                            for key, got in restored_cut.items())
+                + f"; all-reduces int64, fp64, bf16 sums and an fp32 maximum "
+                f"exact on every rank: "
+                f"{not any(s['reduce_failures'] for s in sources)} [{card}]")
+    log("mesh", f"launches a rank a step {per_step[0]} (every sharded and "
+                f"dense step, source and restored, alike: "
+                f"{len({str(r) for r in per_step}) == 1}) [{card}]")
+    log("mesh", f"snapshot: {manifest['arrays']} arrays in "
+                f"{manifest['chunks']} named chunks, {manifest['bytes']} B, "
+                f"each array covered once; wq {manifest['wq']}; dump s "
+                f"{[round(s['dump_s'], 3) for s in sources]}, bytes a rank "
+                f"{[s['dump']['bytes'] for s in sources]} [{card}]")
+    log("mesh", f"restore s (1,2,2) "
+                f"{[round(r['same']['restore_s'], 3) for r in restored]}, "
+                f"(2,1,2) {[round(r['other']['restore_s'], 3) for r in restored]}"
+                f", dense {restored[0]['dense']['restore_s']:.3f}; (1,2,2) "
+                f"losses {restored[0]['same']['losses']} bitwise the source's:"
+                f" {not any('(1,2,2)' in f for f in failures)}; (2,1,2) and "
+                f"dense relative gaps {relayout} (bound {MESH_RELAYOUT_BOUND});"
+                f" step s after the restores (1,2,2) "
+                f"{[round(x, 3) for x in restored[0]['same']['step_s']]}, "
+                f"(2,1,2) {[round(x, 3) for x in restored[0]['other']['step_s']]};"
+                f" source launch {source_wall:.1f} s, restore launch "
+                f"{restore_wall:.1f} s [{card}]")
+    if failures:
+        raise AssertionError("mesh: " + "; ".join(failures))
+    return {"mesh": list(MESH_SOURCE), "other": list(MESH_OTHER),
+            "losses": src0["losses"], "dense_losses": dense,
+            "loss_gaps": gaps, "relayout_gaps": relayout,
+            "step_s": [s["step_s"] for s in sources],
+            "dense_step_s": src0["dense"]["step_s"],
+            "state_bytes": [s["state_bytes"] for s in sources],
+            "dense_state_bytes": src0["dense_state_bytes"],
+            "peak": [s["peak"] for s in sources],
+            "collectives": colls,
+            "dump_s": [s["dump_s"] for s in sources],
+            "dump_bytes": [s["dump"]["bytes"] for s in sources],
+            "restore_s": {k: [r[k]["restore_s"] for r in restored]
+                          for k in ("same", "other")},
+            "restored_step_s": {k: restored[0][k]["step_s"]
+                                for k in ("same", "other")},
+            "dense_restore_s": restored[0]["dense"]["restore_s"],
+            "launches_per_step": per_step[0],
+            "source_wall_s": source_wall, "restore_wall_s": restore_wall,
+            "launches": {n: sum(row[n] for row in per_step) for n in KERNELS}}
 
 
 # -- main ----------------------------------------------------------------------
@@ -4054,6 +4527,7 @@ def main(argv: list[str] | None = None) -> int:
         long_context, pipeline = phase_parallel(torch, work, device["smi"],
                                                 seed=args.seed)
         gang = phase_gang(torch, work, device["smi"], seed=args.seed)
+        mesh = phase_mesh(torch, work, device["smi"], seed=args.seed)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -4066,15 +4540,16 @@ def main(argv: list[str] | None = None) -> int:
         # Phase 4's steps, phase 9's frozen-trunk runs (the uninterrupted
         # one and the restored ones), phase 10's wire destinations, the
         # uninterrupted runs of phases 11 and 13, phase 12's two steps,
-        # every rank's Ulysses (15) and pipeline (16) runs, and every
-        # source and restored rank's steps of the gang (17).
+        # every rank's Ulysses (15) and pipeline (16) runs, every source
+        # and restored rank's steps of the gang (17), and every sharded
+        # and dense step of the mesh phase (18), sources and restores.
         "launches": (train["launches"][name] + frozen["launches_all"][name]
                      + wire["launches"][name] + lora["launches"][name]
                      + remat["launches"][name] + moe["launches"][name]
                      + long_context["ring"]["launches"][name]
                      + long_context["ulysses"]["launches"][name]
                      + pipeline["launches"][name]
-                     + gang["launches"][name]),
+                     + gang["launches"][name] + mesh["launches"][name]),
         "launches_by_path": {"adam": train["launches"][name],
                              "frozen_trunk": frozen["launches_all"][name],
                              "wire": wire["launches"][name],
@@ -4085,10 +4560,12 @@ def main(argv: list[str] | None = None) -> int:
                              "ring": long_context["ring"]["launches"][name],
                              "ulysses": long_context["ulysses"]["launches"][name],
                              "pipeline": pipeline["launches"][name],
-                             "gang": gang["launches"][name]},
+                             "gang": gang["launches"][name],
+                             "mesh": mesh["launches"][name]},
         "launches_per_step": {"lora_7b": lora["launches_per_step"][name],
                               "moe": moe["launches_per_step"][name],
-                              "gang": gang["launches_per_step"][0][0][name]},
+                              "gang": gang["launches_per_step"][0][0][name],
+                              "mesh": mesh["launches_per_step"][name]},
         "max_abs_err": main_shape["err"][name],
         "worst_tile_err_ratio": main_shape["tiles"][name],
         "ms": main_shape["ms"][name],
@@ -4125,7 +4602,9 @@ def main(argv: list[str] | None = None) -> int:
         "long_context": long_context,
         "pipeline": {k: v for k, v in pipeline.items() if k != "launches"},
         # Phase 17: the pipeline's gang cut and restore.
-        "gang": {k: v for k, v in gang.items() if k != "launches"}}
+        "gang": {k: v for k, v in gang.items() if k != "launches"},
+        # Phase 18: the sharded flagship, its snapshot and restores.
+        "mesh": {k: v for k, v in mesh.items() if k != "launches"}}
     log("total", f"chip_smoke.py took {time.perf_counter() - _T0:.1f} s")
     print(json.dumps(record), flush=True)
     print(device["smi"], flush=True)

@@ -17,6 +17,7 @@ from typing import Any, Callable
 
 import torch
 
+from grit_tpu_torch.parallel.sharding import local_shard
 from grit_tpu_torch.tree import flatten_with_names, tree_map
 
 
@@ -63,14 +64,15 @@ def clone_live_generation(state_fn: Callable[[], Any], *,
 
 def quiesce(state: Any = None) -> None:
     """Synchronise every CUDA device holding a tensor of ``state`` (all
-    visible devices when ``state`` is None). CPU-only state needs no
-    drain: PyTorch's CPU ops are synchronous."""
+    visible devices when ``state`` is None; a DTensor leaf's shard's
+    device). CPU-only state needs no drain: PyTorch's CPU ops are
+    synchronous."""
     if state is None:
         devices = ({torch.device("cuda", i)
                     for i in range(torch.cuda.device_count())}
                    if torch.cuda.is_available() else set())
     else:
-        devices = {leaf.device for _, leaf in flatten_with_names(state)
+        devices = {local_shard(leaf).device for _, leaf in flatten_with_names(state)
                    if isinstance(leaf, torch.Tensor) and leaf.is_cuda}
     for dev in sorted(devices, key=str):
         torch.cuda.synchronize(dev)

@@ -22,8 +22,17 @@ process's marker is there; a second ``barrier()`` follows. The defaults
 
 Arrays are named by their ``jax.tree_util.keystr`` path
 (:mod:`grit_tpu_torch.tree`), dtypes by numpy's names with ``bfloat16``
-for bf16, and every array is one chunk with ``{"type": "replicated"}``
-sharding. Chunk checksums are ``zlib.crc32`` (``"algo": "crc32"``). A
+for bf16. A dense leaf is one chunk with ``{"type": "replicated"}``
+sharding. A sharded state (``write_snapshot(shardings=)``, the
+Trainer's mesh) records each leaf's ``{"type": "named", "mesh_shape",
+"mesh_axes", "spec"}`` descriptor, as the JAX package writes it, and one
+chunk per distinct shard under its global ``index``, written by the one
+rank at coordinate 0 along every mesh dim that does not shard the leaf;
+process 0's merge joins one name's shards into one record. A restore
+takes each leaf's slice for its target, a whole array or this rank's
+shard of a DTensor ``like`` leaf, from the chunk with that index when
+there is one, else cut from every chunk that overlaps it: another mesh,
+or a dense Trainer, reads a snapshot written on any mesh. Chunk checksums are ``zlib.crc32`` (``"algo": "crc32"``). A
 JAX-written snapshot whose chunks carry ``crc32c`` (the JAX package's
 native IO plane) is verified with the port's crc32c library
 (:mod:`grit_tpu_torch.checksum`); where that cannot be built, its chunks
@@ -86,8 +95,7 @@ arrays) is placed before the call returns, the cold bulk by a background
 tail in the order its bytes are staged; :meth:`PostcopyRestore.wait`
 hands over the whole tree.
 
-Not in this package yet: sharded leaves recorded as global-index shards
-of one array (each process's leaves are whole arrays, merged by name), the
+Not in this package yet: post-copy restore onto a mesh, the
 reference's native drain and native container read (``libgritio``), and the
 reference's metrics, flight events and fault points of speculation,
 post-copy, the codec and the wire.
@@ -126,6 +134,7 @@ from grit_tpu_torch.metadata import (
     chunk_stream_signature,
     crc32_file,
 )
+from grit_tpu_torch.parallel.sharding import dtensor_index, is_dtensor, local_shard
 from grit_tpu_torch.tree import flatten_with_names, map_with_names
 from grit_tpu_torch.wire import Countdown
 
@@ -858,7 +867,8 @@ def write_snapshot(directory: str, state: Any, *, meta: dict | None = None,
                    base: str | None = None, hashes: bool = False,
                    mirror: str | None = None, wire=None,
                    speculative: bool = False,
-                   clean_names: frozenset | None = None) -> str:
+                   clean_names: frozenset | None = None,
+                   shardings: Any = None) -> str:
     """Serialize the tree ``state`` to ``directory`` atomically; returns it.
 
     ``barrier``, ``process_index``, ``process_count``: one process of a
@@ -898,6 +908,15 @@ def write_snapshot(directory: str, state: Any, *, meta: dict | None = None,
     device copies wait on nothing of the caller's stream, and the kernel
     libraries are not carried (the parked dump that validates against
     this pass carries them into the final directory).
+
+    ``shardings``: a tree shaped like ``state`` of
+    :class:`~grit_tpu_torch.parallel.sharding.NamedSharding` (or ``None``
+    leaves), the sharded state's layout. A leaf with one records the
+    ``named`` descriptor, and this process writes its shard (a DTensor
+    leaf's local tensor; a plain leaf is whole on every rank) only if it
+    is the replica at coordinate 0 along every mesh dim that does not
+    shard the leaf, so each distinct shard lands once in the merged
+    manifest. A DTensor leaf needs one.
 
     ``clean_names``: leaves the caller proved byte-identical to ``base``
     (:func:`validated_clean_names` against the clone ``base`` was written
@@ -950,6 +969,8 @@ def write_snapshot(directory: str, state: Any, *, meta: dict | None = None,
             directory, base, own_file=data_file(pidx) if shared else None)
     leaves = [(name, _as_tensor(leaf))
               for name, leaf in flatten_with_names(state)]
+    layout = (dict(flatten_with_names(shardings)) if shardings is not None
+              else {})
     mirror_work, tee = _open_mirror(mirror, wire, pidx=pidx, shared=shared)
     clean = clean_names or frozenset()
     d2h = _DeviceToHost(settled=speculative)
@@ -962,12 +983,19 @@ def write_snapshot(directory: str, state: Any, *, meta: dict | None = None,
     try:
         with open(os.path.join(work, data_file(pidx)), "wb") as f, \
                 ThreadPoolExecutor(max_workers=1) as hasher:
-            for name, t in leaves:
-                if t.dtype not in _DTYPE_NAMES:
-                    raise ValueError(f"{name}: unsupported dtype {t.dtype}")
-                dtype = _DTYPE_NAMES[t.dtype]
+            for name, leaf in leaves:
+                if leaf.dtype not in _DTYPE_NAMES:
+                    raise ValueError(f"{name}: unsupported dtype {leaf.dtype}")
+                dtype = _DTYPE_NAMES[leaf.dtype]
+                t, index, sharding, mine = _shard_of(name, leaf,
+                                                     layout.get(name))
+                record = {"name": name, "dtype": dtype,
+                          "shape": list(leaf.shape), "sharding": sharding,
+                          "chunks": []}
+                records.append(record)
+                if not mine:
+                    continue
                 nbytes = t.numel() * t.element_size()
-                index = [[0, int(d)] for d in t.shape]
                 bc = base_chunks.get((name, tuple(map(tuple, index)), nbytes,
                                       dtype))
                 chunk, known = None, {}
@@ -986,10 +1014,7 @@ def write_snapshot(directory: str, state: Any, *, meta: dict | None = None,
                                     fname=data_file(pidx))
                     written_pairs.append((chunk["crc"], nbytes))
                     offset += nbytes
-                records.append({"name": name, "dtype": dtype,
-                                "shape": list(t.shape),
-                                "sharding": {"type": "replicated"},
-                                "chunks": [chunk]})
+                record["chunks"].append(chunk)
     except BaseException:
         # The tee must never be left blocked, nor its work dir survive.
         if tee is not None:
@@ -1029,6 +1054,24 @@ def write_snapshot(directory: str, state: Any, *, meta: dict | None = None,
             mirror_bytes=tee.comp_written if tee is not None else 0,
             codec_wait=tee.codec_wait_s if tee is not None else 0.0)
     return directory
+
+
+def _shard_of(name: str, leaf: torch.Tensor, sharding
+              ) -> tuple[torch.Tensor, list[list[int]], dict, bool]:
+    """What this process writes of ``leaf``: ``(tensor, its global index,
+    the sharding descriptor, whether to write it)``."""
+    if sharding is None:
+        if is_dtensor(leaf):
+            raise ValueError(f"{name}: a DTensor leaf needs its sharding "
+                             "(write_snapshot(shardings=))")
+        return leaf, [[0, int(d)] for d in leaf.shape], \
+            {"type": "replicated"}, True
+    index = sharding.shard_index(leaf.shape)
+    local = local_shard(leaf)
+    if list(local.shape) != [b - a for a, b in index]:
+        raise ValueError(f"{name}: local shape {list(local.shape)} is not "
+                         f"the shard {index} of {sharding.spec}")
+    return local, index, sharding.descriptor(), sharding.writes()
 
 
 def _merge_indexes(work: str, own: list[dict], pcount: int) -> list[dict]:
@@ -1537,15 +1580,17 @@ def _coverage_complete(shape: list[int], indices: list[list]) -> bool:
     return bool(grid.all())
 
 
-def _read_array_host(directory: str, rec: dict, *, verify: bool,
-                     monitor: _StageMonitor | None) -> torch.Tensor:
-    """Disk phase of one array's restore (runs on a reader thread): its
-    bytes as a CPU tensor of its dtype and shape."""
+def _read_slice_host(directory: str, rec: dict, want: list[list[int]], *,
+                     verify: bool, monitor: _StageMonitor | None) -> torch.Tensor:
+    """Disk phase of one array's restore (runs on a reader thread): the
+    bytes of its slice ``want`` (``[[start, stop], ...]``, the whole array
+    or one shard of it) as a CPU tensor. A chunk whose index is ``want``
+    is read alone; otherwise the slice is cut from every chunk that
+    overlaps it, which must cover it."""
     dtype = _NAME_DTYPES.get(rec["dtype"])
     if dtype is None:
         raise SnapshotIntegrityError(f"array {rec['name']}: unsupported dtype "
                                      f"{rec['dtype']!r}")
-    shape = list(rec["shape"])
     itemsize = torch.empty((), dtype=dtype).element_size()
 
     def part(c: dict) -> torch.Tensor:
@@ -1561,15 +1606,52 @@ def _read_array_host(directory: str, rec: dict, *, verify: bool,
         return torch.from_numpy(raw).view(dtype).reshape(part_shape)
 
     chunks = rec["chunks"]
-    if len(chunks) == 1 and chunks[0]["index"] == [[0, d] for d in shape]:
-        return part(chunks[0])  # the read buffer is the array
-    full = torch.empty(shape, dtype=dtype)
+    exact = _exact_chunk(rec, want)
+    if exact is not None:
+        return part(exact)  # the read buffer is the slice
+    out = torch.empty([b - a for a, b in want], dtype=dtype)
+    covered = []
     for c in chunks:
-        full[tuple(slice(a, b) for a, b in c["index"])] = part(c)
-    if not _coverage_complete(shape, [c["index"] for c in chunks]):
+        inter = [[max(a, wa), min(b, wb)]
+                 for (a, b), (wa, wb) in zip(c["index"], want)]
+        if any(a >= b for a, b in inter) and out.numel():
+            continue
+        src = part(c)
+        out[tuple(slice(a - wa, b - wa) for (a, b), (wa, _) in
+                  zip(inter, want))] = src[tuple(
+                      slice(a - ca, b - ca)
+                      for (a, b), (ca, _) in zip(inter, c["index"]))]
+        covered.append([[a - wa, b - wa] for (a, b), (wa, _) in
+                        zip(inter, want)])
+    if not _coverage_complete(list(out.shape), covered):
         raise SnapshotIntegrityError(
             f"array {rec['name']}: chunks leave uncovered elements")
-    return full
+    return out
+
+
+def _exact_chunk(rec: dict, want: list[list[int]]) -> dict | None:
+    """The chunk of ``rec`` whose index is ``want``, if any."""
+    return next((c for c in rec["chunks"] if c["index"] == want), None)
+
+
+def _like_shard(local: torch.Tensor, like):
+    """``local`` as ``like`` holds it: this rank's shard of a DTensor leaf
+    wrapped in ``like``'s mesh and placements, else as it is."""
+    if not is_dtensor(like):
+        return local
+    from torch.distributed.tensor import DTensor  # noqa: PLC0415
+
+    return DTensor.from_local(local, like.device_mesh, like.placements,
+                              run_check=False, shape=like.shape,
+                              stride=like.stride())
+
+
+def _want(leaf, rec: dict) -> list[list[int]]:
+    """The slice of ``rec``'s array that ``leaf`` takes: this rank's shard
+    of a DTensor leaf, else the whole array."""
+    if is_dtensor(leaf):
+        return dtensor_index(leaf)
+    return [[0, int(d)] for d in rec["shape"]]
 
 
 def _begin_restore(directory: str) -> tuple[_StageMonitor | None,
@@ -1945,11 +2027,13 @@ class _Placer:
         self.targets = [
             (device if leaf.device.type == "meta" else leaf.device)
             if isinstance(leaf, torch.Tensor) else None for leaf in leaves]
+        self.wants = [_want(leaf, rec) for rec, leaf in zip(recs, leaves)]
+        self.exact = [_exact_chunk(rec, want)
+                      for rec, want in zip(recs, self.wants)]
         self.need = [
-            -(-rec["chunks"][0]["nbytes"] // _PIECE_BYTES)
-            if t is not None and t.type == "cuda" and len(rec["chunks"]) == 1
-            and rec["chunks"][0]["index"] == [[0, d] for d in rec["shape"]]
-            else 0 for rec, t in zip(recs, self.targets)]
+            -(-c["nbytes"] // _PIECE_BYTES)
+            if t is not None and t.type == "cuda" and c is not None else 0
+            for c, t in zip(self.exact, self.targets)]
         self.pool: _PinnedBlocks | None = None
 
     def open_pool(self, window: int) -> None:
@@ -1970,7 +2054,7 @@ class _Placer:
             blocks = self.pool.reserve(i if order is None else order,
                                        self.need[i])
             if blocks:
-                chunk = self.recs[i]["chunks"][0]
+                chunk = self.exact[i]
                 try:
                     _read_chunk_into(directory, chunk, self.pool.pieces(
                         blocks, chunk["nbytes"], host=True),
@@ -1979,8 +2063,8 @@ class _Placer:
                     self.pool.release(blocks)
                     raise
                 return blocks
-        return _read_array_host(directory, self.recs[i], verify=verify,
-                                monitor=monitor)
+        return _read_slice_host(directory, self.recs[i], self.wants[i],
+                                verify=verify, monitor=monitor)
 
     def place(self, i: int, got, stream: "torch.cuda.Stream | None" = None):
         """Array ``i`` on its target, from what :meth:`read` returned.
@@ -1989,10 +2073,11 @@ class _Placer:
         the result is the current stream's), and released only after
         their copies have landed."""
         target = self.targets[i]
+        leaf = self.leaves[i]
         if self.need[i]:
             rec = self.recs[i]
-            out = torch.empty(rec["shape"], dtype=_NAME_DTYPES[rec["dtype"]],
-                              device=target)
+            out = torch.empty([b - a for a, b in self.wants[i]],
+                              dtype=_NAME_DTYPES[rec["dtype"]], device=target)
             dst = out.reshape(-1).view(torch.uint8)
             current = torch.cuda.current_stream(target)
             if stream is None:
@@ -2007,10 +2092,9 @@ class _Placer:
                 done.record(stream)
             done.synchronize()
             self.pool.release(got)
-            return out
-        leaf = self.leaves[i]
+            return _like_shard(out, leaf)
         if isinstance(leaf, torch.Tensor):
-            return got.to(target)
+            return _like_shard(got.to(target), leaf)
         if isinstance(leaf, (int, float)):
             return type(leaf)(got.item())
         return got

@@ -10,6 +10,14 @@ views: one unbind per leaf, whose backward stacks the per-layer grads
 once (indexing ``leaf[l]`` per layer would allocate a full stacked-size
 zero gradient in every layer's backward).
 
+Sharded (the Trainer's mesh, :mod:`grit_tpu_torch.parallel.sharding`):
+``LLAMA_RULES`` and ``BATCH_SPEC`` are the JAX package's tables. Given
+DTensor parameters and tokens, the same functions run under DTensor's
+sharding propagation, with two local steps: the embedding gathers its
+table (:func:`embed`), and RoPE and the attention core run on each
+rank's own rows and heads as plain tensors (:func:`local_heads`), so the
+flash kernels never see a DTensor.
+
 Attention runs through :func:`grit_tpu_torch.ops.attention.causal_attention`:
 the CUDA flash kernels on the card at the training shape, plain tensor
 ops elsewhere. Serving (:func:`decode`, :func:`decode_ragged`) always
@@ -27,12 +35,14 @@ would clamp.
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
+from functools import partial
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from grit_tpu_torch.ops.attention import causal_attention
+from grit_tpu_torch.parallel.sharding import ShardingRules, is_dtensor
 from grit_tpu_torch.tree import flatten_with_names
 
 
@@ -83,6 +93,30 @@ class LlamaConfig:
             dtype=torch.bfloat16, param_dtype=torch.bfloat16,
         )
         return replace(cfg, **overrides)
+
+
+# Megatron-style partitioning over the (data, fsdp, model) mesh, the JAX
+# package's table (grit_tpu/models/llama.py). Stacked layer leaves carry a
+# leading n_layers axis (never sharded).
+LLAMA_RULES = ShardingRules(
+    rules=[
+        (r"tok_emb", ("model", "fsdp")),           # (vocab, dim)
+        (r"attn/wq", (None, "fsdp", "model")),     # (L, dim, n_heads*hd)
+        (r"attn/wk", (None, "fsdp", "model")),
+        (r"attn/wv", (None, "fsdp", "model")),
+        (r"attn/wo", (None, "model", "fsdp")),     # (L, n_heads*hd, dim)
+        (r"mlp/w_gate", (None, "fsdp", "model")),  # (L, dim, hidden)
+        (r"mlp/w_up", (None, "fsdp", "model")),
+        (r"mlp/w_down", (None, "model", "fsdp")),  # (L, hidden, dim)
+        (r"lm_head", ("fsdp", "model")),           # (dim, vocab)
+        (r"norm", ()),
+    ],
+    default=(),
+)
+
+# The batch rides both data-parallel axes; the sequence stays whole
+# (sequence parallelism is the long-context family's).
+BATCH_SPEC = (("data", "fsdp"),)
 
 
 def param_shapes(cfg: LlamaConfig, with_mlp: bool = True) -> dict:
@@ -146,6 +180,20 @@ def abstract_params(cfg: LlamaConfig) -> dict:
         shape, dtype=cfg.param_dtype, device="meta"))
 
 
+def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """The token embedding: rows of ``table`` (vocab, dim). A sharded table
+    (a DTensor) is gathered whole first: DTensor's own strategy for a
+    table sharded over two mesh dims (vocab and dim) failed on the
+    (fsdp, model) mesh. The gather's backward returns the gradient to
+    the shards."""
+    if is_dtensor(table):
+        from torch.distributed.tensor import Replicate  # noqa: PLC0415
+
+        table = table.redistribute(
+            placements=[Replicate()] * table.device_mesh.ndim)
+    return F.embedding(tokens, table)
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     dt = x.dtype
     x = x.float()
@@ -205,11 +253,13 @@ def _attn_block(cfg: LlamaConfig, p: dict, x: torch.Tensor,
     q = (x @ p["wq"].to(cfg.dtype)).reshape(B, S, cfg.n_heads, hd)
     k = (x @ p["wk"].to(cfg.dtype)).reshape(B, S, cfg.n_kv_heads, hd)
     v = (x @ p["wv"].to(cfg.dtype)).reshape(B, S, cfg.n_kv_heads, hd)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
     if cache is None:
-        out = (attn_fn or causal_attention)(q, k, v)
+        attend = partial(_rope_attend, cfg, attn_fn=attn_fn)
+        out = (local_heads(attend, q, k, v, positions)
+               if is_dtensor(q) else attend(q, k, v, positions))
     else:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
         k_cache, v_cache, cur_len = cache
         if isinstance(cur_len, int):
             if not 0 <= cur_len <= k_cache.shape[1] - S:
@@ -225,6 +275,33 @@ def _attn_block(cfg: LlamaConfig, p: dict, x: torch.Tensor,
                                kv_len=cur_len + S)
     out = out.reshape(B, S, cfg.n_heads * hd)
     return out @ p["wo"].to(cfg.dtype)
+
+
+def _rope_attend(cfg: LlamaConfig, q, k, v, positions, attn_fn=None):
+    """RoPE on ``q`` and ``k``, then the attention core."""
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    return (attn_fn or causal_attention)(q, k, v)
+
+
+def local_heads(fn, q, k, v, positions):
+    """``fn(q, k, v, positions)`` on each rank's own rows and heads of
+    DTensor inputs (B, S, heads, hd): the hand-written kernels read raw
+    pointers, so they get plain local tensors, never a DTensor. A mesh
+    dim that shards the batch (dim 0) or the heads (dim 2) of ``q`` keeps
+    that; any other is made replicated first. ``k`` and ``v`` take
+    ``q``'s placements (the GQA group of a local q head is local too when
+    the kv heads divide by the head-sharding mesh dims), ``positions``
+    (B, S) its batch ones."""
+    from torch.distributed.tensor import Replicate  # noqa: PLC0415
+    from torch.distributed.tensor.experimental import local_map  # noqa: PLC0415
+
+    qpl = tuple(p if p.is_shard(0) or p.is_shard(2) else Replicate()
+                for p in q.placements)
+    ppl = tuple(p if p.is_shard(0) else Replicate() for p in qpl)
+    return local_map(fn, out_placements=(qpl,),
+                     in_placements=(qpl, qpl, qpl, ppl),
+                     redistribute_inputs=True)(q, k, v, positions)
 
 
 def _mlp_block(cfg: LlamaConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
@@ -305,7 +382,13 @@ def forward_hidden(cfg: LlamaConfig, params: dict, tokens: torch.Tensor,
     B, S = tokens.shape
     if positions is None:
         positions = torch.arange(S, device=tokens.device).expand(B, S)
-    x = F.embedding(tokens, params["tok_emb"]).to(cfg.dtype)
+        if is_dtensor(tokens):
+            from torch.distributed.tensor import distribute_tensor  # noqa: PLC0415
+
+            # Every rank holds the same positions: each keeps its rows.
+            positions = distribute_tensor(positions, tokens.device_mesh,
+                                          tokens.placements, src_data_rank=None)
+    x = embed(tokens, params["tok_emb"]).to(cfg.dtype)
     x, auxes = layer_stack(cfg, params["layers"], x, positions,
                            mlp_fn=mlp_fn, attn_fn=attn_fn)
     hidden = rms_norm(x, params["final_norm"], cfg.norm_eps)

@@ -1,8 +1,7 @@
 """LoRA adapters for the llama model, in the merge formulation.
 
 Counterpart of ``grit_tpu/models/lora.py`` (``TARGETS``, ``LoraConfig``,
-``init_lora``, ``merge``, ``lora_loss_fn``; the sharding rules are not
-ported). The base weights stay frozen and ``W + (alpha/rank)·A@B`` is
+``init_lora``, ``merge``, ``lora_loss_fn``, ``LORA_RULES``). The base weights stay frozen and ``W + (alpha/rank)·A@B`` is
 materialised inside the loss, so the loss is a function of the adapter
 tree alone: autograd gives adapter-only gradients with no bookkeeping,
 and the optimizer state is rank-sized. The frozen base is not part of
@@ -20,6 +19,7 @@ from dataclasses import dataclass
 import torch
 
 from grit_tpu_torch.models.llama import LlamaConfig, loss_fn
+from grit_tpu_torch.parallel.sharding import ShardingRules
 
 TARGETS = ("wq", "wk", "wv", "wo")
 
@@ -29,6 +29,18 @@ class LoraConfig:
     rank: int = 8
     alpha: float = 16.0
     targets: tuple[str, ...] = ("wq", "wv")
+
+
+# A-factors shard like the base weight's input dim, B-factors like its
+# output dim; the rank axis stays replicated (it is tiny).
+LORA_RULES = ShardingRules(
+    rules=[
+        (r"/(wq|wk|wv|wo)_a$", (None, "fsdp", None)),
+        (r"/(wq|wk|wv)_b$", (None, None, "model")),
+        (r"/wo_b$", (None, None, "fsdp")),
+    ],
+    default=(),
+)
 
 
 def adapter_shapes(cfg: LlamaConfig, lcfg: LoraConfig) -> dict:

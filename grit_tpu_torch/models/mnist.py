@@ -2,8 +2,9 @@
 configs 1 and 2), the smallest pod the pipeline migrates end to end.
 
 Counterpart of ``grit_tpu/models/mnist.py``: the same parameter tree
-(``w0``, ``b0``, ..., ``w_out``, ``b_out``, float32), forward, loss and
-synthetic class-conditional batches. The batches are drawn from a
+(``w0``, ``b0``, ..., ``w_out``, ``b_out``, float32), its sharding
+rules (``MNIST_RULES``), forward, loss and synthetic class-conditional
+batches. The batches are drawn from a
 ``torch.Generator`` (the Trainer seeds one by (seed, step)), not from a
 threefry key: a stated divergence, as for the llama batches. The
 deterministic stream is what makes resume exact, with no dataloader
@@ -16,6 +17,8 @@ from dataclasses import dataclass
 
 import torch
 
+from grit_tpu_torch.parallel.sharding import ShardingRules
+
 
 @dataclass(frozen=True)
 class MnistConfig:
@@ -23,6 +26,16 @@ class MnistConfig:
     hidden_dim: int = 256
     n_classes: int = 10
     n_hidden: int = 2
+
+
+MNIST_RULES = ShardingRules(
+    rules=[
+        (r"w\d+$", ("fsdp", "model")),
+        (r"b\d+$", ("model",)),
+        (r"w_out", ("fsdp", None)),
+    ],
+    default=(),
+)
 
 
 def _dims(cfg: MnistConfig) -> list[int]:

@@ -16,8 +16,9 @@ A checkpoint interchanges with the dense layout: :func:`to_stage_params`
 and :func:`from_stage_params` are pure reshapes of the same tree. Each
 rank holds only its stage: :func:`stage_slice` of the staged tree, whose
 layer leaves are (L / n_stages, ...); the embedding, final norm and
-``lm_head`` are on every rank. ``stage_shardings`` is not ported: the
-port has no sharded state yet.
+``lm_head`` are on every rank. ``stage_shardings`` is not ported yet:
+the sharded state (:mod:`grit_tpu_torch.parallel.sharding`) has no
+pipeline axis.
 """
 
 from __future__ import annotations

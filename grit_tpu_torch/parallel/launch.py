@@ -30,6 +30,7 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+from grit_tpu_torch.parallel import collectives
 from grit_tpu_torch.train.trainer import enable_determinism
 
 
@@ -45,6 +46,8 @@ def _rank_main(fn: Callable, rank: int, n: int, backend: str,
     enable_determinism()
     try:
         args = torch.load(os.path.join(work, "args.pt"), weights_only=False)
+        if backend == collectives.LOCAL_GLOO:
+            collectives.register_local_gloo()
         dist.init_process_group(
             backend, store=dist.FileStore(os.path.join(work, "store"), n),
             rank=rank, world_size=n,
@@ -62,9 +65,10 @@ def _rank_main(fn: Callable, rank: int, n: int, backend: str,
 
 def run_ranks(fn: Callable, n: int, *args, backend: str,
               timeout: float = 600.0) -> list[Any]:
-    """Run ``fn(*args)`` on ``n`` ranks of a ``backend`` group (``gloo``
-    or ``nccl``: the caller names it, nothing picks one for it); returns
-    the results in rank order."""
+    """Run ``fn(*args)`` on ``n`` ranks of a ``backend`` group (``gloo``,
+    ``nccl``, or :data:`~grit_tpu_torch.parallel.collectives.LOCAL_GLOO`,
+    gloo through host copies: the caller names it, nothing picks one for
+    it); returns the results in rank order."""
     if n < 1:
         raise ValueError(f"cannot run {n} ranks")
     ctx = mp.get_context("spawn")

@@ -1,0 +1,84 @@
+"""Device-mesh construction over ``torch.distributed``.
+
+Counterpart of ``grit_tpu/parallel/mesh.py``, with the same axes,
+outermost to innermost:
+
+- ``data``  — pure data parallelism; gradients all-reduced.
+- ``fsdp``  — data parallelism with sharded parameters and optimizer
+  state (ZeRO-3): parameters gathered for use, gradients
+  reduce-scattered.
+- ``model`` — tensor parallelism (Megatron style); activations reduced.
+
+All three axes always exist (size 1 when unused), so partition specs and
+the sharding descriptors a snapshot records stay stable as a job is
+re-laid-out: restoring a dp=8 snapshot onto a dp=4×fsdp=2 mesh is a
+sharding change, not a format change.
+
+The mesh is a ``DeviceMesh`` of one process per device (rank), over the
+default process group, which the caller initialises. DTensors live on
+its :func:`active_mesh`, the sub-mesh of the axes larger than 1: an
+axis of size 1 shards nothing, and DTensor's sharding propagation
+searches over every mesh dim it is given.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+
+from grit_tpu_torch.device.placement import resolve_device
+
+DATA_AXIS = "data"
+FSDP_AXIS = "fsdp"
+MODEL_AXIS = "model"
+AXES = (DATA_AXIS, FSDP_AXIS, MODEL_AXIS)
+
+
+@dataclass(frozen=True)
+class MeshSpec:
+    """Logical decomposition of the ranks. ``data = -1`` absorbs the
+    ranks left over."""
+
+    data: int = -1
+    fsdp: int = 1
+    model: int = 1
+
+    def resolve(self, n_devices: int) -> tuple[int, int, int]:
+        data, fsdp, model = self.data, self.fsdp, self.model
+        fixed = fsdp * model
+        if data == -1:
+            if n_devices % fixed:
+                raise ValueError(
+                    f"{n_devices} devices not divisible by fsdp*model={fixed}"
+                )
+            data = n_devices // fixed
+        if data * fixed != n_devices:
+            raise ValueError(
+                f"mesh {data}x{fsdp}x{model} != {n_devices} devices"
+            )
+        return data, fsdp, model
+
+
+def build_mesh(spec: MeshSpec | None = None,
+               device: torch.device | str | None = None) -> DeviceMesh:
+    """A ``DeviceMesh`` with axes (data, fsdp, model) over the ranks of the
+    default process group, in rank order (the innermost axis, ``model``,
+    pairs neighbouring ranks). ``device`` gives the device type: by default
+    CUDA (with no GPU that raises: pass ``"cpu"``)."""
+    spec = spec or MeshSpec()
+    shape = spec.resolve(dist.get_world_size())
+    return init_device_mesh(resolve_device(device).type, shape,
+                            mesh_dim_names=AXES)
+
+
+def active_mesh(mesh: DeviceMesh) -> DeviceMesh:
+    """The sub-mesh of ``mesh``'s axes larger than 1 (its innermost axis
+    when every one is 1): where the DTensors of a sharded state live."""
+    names = [n for n, k in zip(mesh.mesh_dim_names, mesh.shape) if k > 1]
+    names = names or [mesh.mesh_dim_names[-1]]
+    if len(names) == mesh.ndim:
+        return mesh
+    return mesh[tuple(names)] if len(names) > 1 else mesh[names[0]]

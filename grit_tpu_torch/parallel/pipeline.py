@@ -19,8 +19,8 @@ part of their gradient: stage 0's) and the output leaves through
 rank builds the same graph, stage 0 included: it takes its injected
 microbatch through ``torch.where`` over what it received, as the
 reference's ``jnp.where`` does, so the hops' backward runs on every rank
-in the same order. ``stage_sharding`` is not ported: the port has no
-sharded state yet.
+in the same order. ``stage_sharding`` is not ported yet: the sharded
+state (:mod:`grit_tpu_torch.parallel.sharding`) has no pipeline axis.
 """
 
 from __future__ import annotations

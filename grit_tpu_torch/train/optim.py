@@ -34,6 +34,13 @@ optax's eager ``apply_updates``:
   gradient. XLA drops the gradients a ``set_to_zero`` never reads; the
   Trainer asks autograd only for the others, so a frozen trunk runs no
   backward.
+
+A sharded parameter (a DTensor, :mod:`grit_tpu_torch.parallel.sharding`)
+is updated shard by shard: its gradient is first redistributed to the
+parameter's placements, then the arithmetic runs on the local shards of
+the parameter, the gradient and the moments (which ``init`` makes with
+the parameter's placements). The update is elementwise, so each shard's
+bytes are the dense update's at the same elements.
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ from typing import Any, Callable, Hashable, Mapping, NamedTuple
 
 import torch
 
+from grit_tpu_torch.parallel.sharding import is_dtensor, local_shard
 from grit_tpu_torch.tree import flatten_with_names, map_with_names, tree_map
 
 
@@ -91,6 +99,19 @@ def _names(tree) -> list[str]:
 
 def _leaves(tree) -> list:
     return [x for _, x in flatten_with_names(tree)]
+
+
+def _grad_for(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """The gradient ``g`` of parameter ``p``, as ``p``'s local shard holds
+    it. A DTensor gradient off ``p``'s placements (``Partial`` where ranks
+    hold parts of its sum, as autograd returns the gradient of a
+    parameter used as it is stored) is first redistributed to ``p``'s:
+    the reduce-scatter over ``fsdp``, the all-reduce over ``data``."""
+    if is_dtensor(g):
+        if not is_dtensor(p):
+            raise TypeError("a DTensor gradient for a plain parameter")
+        g = g.redistribute(p.device_mesh, p.placements)
+    return local_shard(g)
 
 
 def _reads_every_grad(params) -> dict[str, bool]:
@@ -160,6 +181,7 @@ def adam(learning_rate: float, *, b1: float = 0.9, b2: float = 0.999,
         bc1, bc2 = _bias_corrections(count, b1, b2)
         for p, g, mu, nu in zip(_leaves(params), _leaves(grads),
                                 _leaves(st.mu), _leaves(st.nu)):
+            g, p, mu, nu = _grad_for(g, p), local_shard(p), local_shard(mu), local_shard(nu)
             u, m, v = _adam_leaf(g, mu, nu, bc1, bc2, **kw)
             mu.copy_(m)
             nu.copy_(v)
@@ -185,6 +207,7 @@ def sgd(learning_rate: float) -> GradientTransformation:
     @torch.no_grad()
     def apply_(params, grads, state):
         for p, g in zip(_leaves(params), _leaves(grads)):
+            g, p = _grad_for(g, p), local_shard(p)
             p.copy_((p + _weak(step_size, g) * g).to(p.dtype))
         return state
 

@@ -20,6 +20,24 @@ function of (seed, step) — drawn on the CPU from a ``torch.Generator``
 seeded by both, then moved to the device — so resuming needs no
 dataloader state.
 
+Sharded (``mesh=`` and ``rules=``, the JAX Trainer's sharding context):
+each leaf of the parameters and of the optimizer's moments is a DTensor
+placed by the rule table (:mod:`grit_tpu_torch.parallel.sharding`) on
+the (data, fsdp, model) mesh; a scalar leaf, or one whose spec is longer
+than its rank, is replicated, and ``step``, ``rng`` and Adam's ``count``
+stay plain host scalars every rank holds alike. A step gathers each
+parameter along every mesh axis but ``model`` (FSDP's all-gather; the
+tensor-parallel shards stay), and DTensor's sharding propagation takes
+GSPMD's place: the loss runs on the DTensors as it is written, issuing
+the collectives its placements need, and the gather's backward
+reduce-scatters each gradient to its parameter's placements, where the
+optimizer (which redistributes any gradient that still differs)
+updates the shards. The batch is drawn whole from the (seed, step) generator on
+every rank and then sharded by ``cfg.batch_spec``, so a sharded step
+sees the dense step's batch. Snapshots record each shard under its
+global index and the ``named`` descriptor; a restore takes each rank's
+shard onto the Trainer's own mesh, whatever mesh wrote it.
+
 Entry points run on CUDA unless the caller passes ``device="cpu"``; with
 no GPU and no explicit device they raise.
 """
@@ -31,6 +49,8 @@ from dataclasses import dataclass
 from typing import Any, Callable
 
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
 
 from grit_tpu_torch.api import config
 from grit_tpu_torch.device.hook import restore_dir_from_env
@@ -41,6 +61,13 @@ from grit_tpu_torch.device.snapshot import (
     restore_snapshot,
     restore_snapshot_postcopy,
     write_snapshot,
+)
+from grit_tpu_torch.parallel.mesh import MODEL_AXIS
+from grit_tpu_torch.parallel.sharding import (
+    NamedSharding,
+    ShardingRules,
+    is_dtensor,
+    path_str,
 )
 from grit_tpu_torch.train.optim import GradientTransformation, adam
 from grit_tpu_torch.tree import flatten_with_names, map_with_names, tree_map
@@ -59,6 +86,29 @@ def enable_determinism() -> None:
 class TrainerConfig:
     learning_rate: float = 1e-3
     seed: int = 0
+    batch_spec: tuple = ()  # a partition spec (parallel.sharding)
+
+
+def _compute_layout(p: torch.Tensor) -> torch.Tensor:
+    """A sharded parameter as the step computes with it: gathered along
+    every mesh dim but ``model`` (the FSDP all-gather; tensor parallelism
+    stays), differentiably, so its gradient comes back to the
+    parameter's own placements (the reduce-scatter). A plain tensor is
+    itself."""
+    if not is_dtensor(p):
+        return p
+    from torch.distributed.tensor import Replicate  # noqa: PLC0415
+
+    names = p.device_mesh.mesh_dim_names
+    return p.redistribute(placements=[
+        pl if name == MODEL_AXIS else Replicate()
+        for name, pl in zip(names, p.placements)])
+
+
+def _whole(loss: torch.Tensor) -> torch.Tensor:
+    """The loss as a plain tensor every rank holds (a DTensor loss of a
+    sharded step is gathered, differentiably)."""
+    return loss.full_tensor() if is_dtensor(loss) else loss
 
 
 def batch_seed(seed: int, step: int) -> int:
@@ -79,7 +129,12 @@ class Trainer:
       optimizer: an optax-style transform of
         :mod:`grit_tpu_torch.train.optim`; ``adam(cfg.learning_rate)`` by
         default, as the JAX Trainer's.
-      device: where params and optimizer state live (default CUDA).
+      device: where params and optimizer state live (default CUDA); with
+        a mesh, of the mesh's device type.
+      mesh / rules: the sharding context (a
+        :func:`~grit_tpu_torch.parallel.mesh.build_mesh` mesh and a
+        :class:`~grit_tpu_torch.parallel.sharding.ShardingRules`); both
+        or neither (None: one device).
     """
 
     def __init__(
@@ -90,10 +145,19 @@ class Trainer:
         cfg: TrainerConfig | None = None,
         device: torch.device | str | None = None,
         optimizer: GradientTransformation | None = None,
+        mesh: DeviceMesh | None = None,
+        rules: ShardingRules | None = None,
     ) -> None:
         self.cfg = cfg or TrainerConfig()
         self.optimizer = optimizer or adam(self.cfg.learning_rate)
         self.device = resolve_device(device)
+        if (mesh is None) != (rules is None):
+            raise ValueError("a sharded Trainer needs both mesh= and rules=")
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(f"the mesh is on {mesh.device_type}, the "
+                             f"Trainer's device is {self.device}")
+        self.mesh = mesh
+        self.rules = rules
         self.loss_fn = loss_fn
         self.batch_fn = batch_fn
         self._init_params = init_params
@@ -118,10 +182,54 @@ class Trainer:
             "rng": torch.tensor(self.cfg.seed, dtype=torch.int64),
         }
 
-    def abstract_state(self) -> dict:
-        """The state's shape skeleton (device tensors on the meta device):
-        the ``like`` tree of :meth:`restore`."""
+    def _dense_skeleton(self) -> dict:
         return self._make_state(self._init_params(None, torch.device("meta")))
+
+    def _sharding(self, name: str, leaf: torch.Tensor) -> NamedSharding | None:
+        """Where the state leaf ``name`` lives on the mesh (None: one
+        device); the rule table's spec, replicated for a scalar or a spec
+        longer than the leaf's rank."""
+        if self.mesh is None:
+            return None
+        spec = self.rules.spec_for(path_str(name))
+        return NamedSharding(self.mesh, spec if len(spec) <= leaf.dim() else ())
+
+    def shardings(self) -> Any:
+        """The state's layout, a tree of
+        :class:`~grit_tpu_torch.parallel.sharding.NamedSharding` (None on
+        one device): what a snapshot records for each leaf."""
+        if self.mesh is None:
+            return None
+        return map_with_names(self._sharding, self._dense_skeleton())
+
+    def _shard(self, name: str, leaf: torch.Tensor) -> torch.Tensor:
+        """``leaf`` (whole on every rank) as the state holds it: a DTensor
+        of its sharding on a mesh, unless it is a scalar."""
+        if self.mesh is None or leaf.dim() == 0:
+            return leaf
+        return self._sharding(name, leaf).distribute(leaf)
+
+    def abstract_state(self) -> dict:
+        """The state's shape skeleton (device tensors on the meta device;
+        on a mesh, meta DTensors that carry each leaf's placements): the
+        ``like`` tree of :meth:`restore`."""
+        skeleton = self._dense_skeleton()
+        if self.mesh is None:
+            return skeleton
+        from torch.distributed.tensor import DTensor  # noqa: PLC0415
+
+        def meta_shard(name: str, leaf: torch.Tensor) -> torch.Tensor:
+            if leaf.dim() == 0:
+                return leaf
+            sh = self._sharding(name, leaf)
+            local = torch.empty([b - a for a, b in sh.shard_index(leaf.shape)],
+                                dtype=leaf.dtype, device="meta")
+            return DTensor.from_local(local, sh.active,
+                                      sh.placements(leaf.dim()),
+                                      run_check=False, shape=leaf.shape,
+                                      stride=leaf.stride())
+
+        return map_with_names(meta_shard, skeleton)
 
     @property
     def state(self) -> dict:
@@ -136,7 +244,10 @@ class Trainer:
             self._state = resolved
         if self._state is None:
             gen = torch.Generator(device=self.device).manual_seed(self.cfg.seed)
-            self._state = self._make_state(self._init_params(gen, self.device))
+            params = map_with_names(
+                lambda name, p: self._shard(f"['params']{name}", p),
+                self._init_params(gen, self.device))
+            self._state = self._make_state(params)
         return self._state
 
     @state.setter
@@ -159,8 +270,14 @@ class Trainer:
     # -- step -------------------------------------------------------------------
 
     def batch(self, step: int) -> Any:
+        """Step ``step``'s batch on the device; on a mesh, every rank draws
+        it whole and keeps its shard of ``cfg.batch_spec``."""
         gen = torch.Generator().manual_seed(batch_seed(self.cfg.seed, step))
-        return tree_map(lambda x: x.to(self.device), self.batch_fn(gen))
+        batch = tree_map(lambda x: x.to(self.device), self.batch_fn(gen))
+        if self.mesh is None:
+            return batch
+        return tree_map(NamedSharding(self.mesh, self.cfg.batch_spec)
+                        .distribute, batch)
 
     def train_step(self) -> dict:
         state = self.state
@@ -172,11 +289,13 @@ class Trainer:
             p.requires_grad_(reads[name])
         batch = self.batch(int(state["step"]))
         if wanted:
-            loss = self.loss_fn(params, batch)
+            loss = _whole(self.loss_fn(tree_map(_compute_layout, params),
+                                       batch))
             grads = iter(torch.autograd.grad(loss, wanted))
         else:
             with torch.no_grad():
-                loss = self.loss_fn(params, batch)
+                loss = _whole(self.loss_fn(tree_map(_compute_layout, params),
+                                           batch))
         # A leaf whose transform reads no gradient gets a zero view of its
         # shape (stride 0: no memory, no kernel).
         grad_tree = map_with_names(
@@ -192,19 +311,31 @@ class Trainer:
 
     # -- snapshot / restore -----------------------------------------------------
 
-    def snapshot(self, directory: str, *, barrier=lambda: None,
+    def snapshot(self, directory: str, *, barrier=None,
                  base: str | None = None, hashes: bool = False) -> str:
         """Consistent cut at the current step boundary → committed dir.
 
         ``barrier``: the multi-process dump's synchronization
-        (:func:`~grit_tpu_torch.device.snapshot.write_snapshot`).
+        (:func:`~grit_tpu_torch.device.snapshot.write_snapshot`). On a
+        mesh every rank calls this: each writes its shards as process
+        ``rank`` of the world, and the barrier defaults to the default
+        group's.
         ``base``: delta-dump against an earlier committed snapshot (the
         pre-copy pattern: dump full while training, delta at the
         blackout). ``hashes``: record a sha256 per chunk, so a later delta
         against this dump matches by hash instead of reading it back."""
         quiesce(self.state)
+        if self.mesh is None:
+            return write_snapshot(directory, self.state,
+                                  meta={"step": self.step},
+                                  barrier=barrier or (lambda: None),
+                                  base=base, hashes=hashes)
         return write_snapshot(directory, self.state, meta={"step": self.step},
-                              barrier=barrier, base=base, hashes=hashes)
+                              barrier=barrier or dist.barrier,
+                              process_index=dist.get_rank(),
+                              process_count=dist.get_world_size(),
+                              base=base, hashes=hashes,
+                              shardings=self.shardings())
 
     def snapshot_coordinated(self, directory: str, coordinator) -> str:
         """Consistent-cut snapshot across all hosts of the slice: agree on
@@ -231,6 +362,10 @@ class Trainer:
         (normally the first ``train_step``) joins."""
         like = self.abstract_state()
         if config.RESTORE_POSTCOPY.get_flag():
+            if self.mesh is not None:
+                raise NotImplementedError(
+                    "post-copy restore onto a mesh is not ported; unset "
+                    "GRIT_RESTORE_POSTCOPY for a sharded Trainer")
             handle = restore_snapshot_postcopy(directory, like=like,
                                                device=self.device)
             step = handle.meta.get("step")

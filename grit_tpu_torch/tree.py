@@ -6,7 +6,9 @@ spelled exactly as ``jax.tree_util.keystr`` spells the matching JAX
 pytree path — ``['params']['layers']['attn']['wq']``,
 ``['opt_state'][0].mu['tok_emb']`` — because those names are the keys of
 the snapshot manifest both packages read. Dict children come in sorted
-key order, as JAX flattens them.
+key order, as JAX flattens them. A tensor is always a leaf: a DTensor
+(a sharded leaf, :mod:`grit_tpu_torch.parallel.sharding`) is one leaf
+under its keystr name, never its shards.
 """
 
 from __future__ import annotations

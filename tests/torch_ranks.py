@@ -15,6 +15,7 @@ a test process that has JAX loaded imports nothing of JAX
 
 from __future__ import annotations
 
+import json
 import os
 import sys
 from dataclasses import replace
@@ -22,12 +23,14 @@ from dataclasses import replace
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from grit_tpu_torch import convert
 from grit_tpu_torch.models import llama, long_context, moe_llama, pipeline_llama
 from grit_tpu_torch.ops.ring_attention import ring_attention
 from grit_tpu_torch.ops.ulysses import ulysses_attention
 from grit_tpu_torch.parallel import axis_index, axis_size
+from grit_tpu_torch.parallel.collectives import shift
 from grit_tpu_torch.parallel.pipeline import microbatch, pipeline_apply, pipeline_loss
 from grit_tpu_torch.tree import flatten_with_names, tree_map
 
@@ -354,3 +357,216 @@ def group_any_cases(inp: dict) -> dict:
         fns["twin_pair"] = group_any(axes["pair"])
     return {name: [fn(bool(p[rank])) for p in inp["patterns"]]
             for name, fn in fns.items()}
+
+
+# -- the mesh, the sharding rules and sharded state -----------------------------------
+
+
+def _local_np(x: torch.Tensor) -> np.ndarray:
+    """This rank's shard of ``x`` (a DTensor, or a plain tensor) as numpy,
+    bf16 as its int16 bits."""
+    t = x.to_local() if isinstance(x, DTensor) else x
+    t = t.detach().clone()  # a copy: the optimizer updates in place
+    return (t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def mesh_cases(inp: dict) -> dict:
+    """:func:`~grit_tpu_torch.parallel.mesh.build_mesh` of every spec in
+    ``inp["specs"]`` on the world: the mesh's shape, axes and this rank's
+    coordinate, its active sub-mesh, or the ``ValueError`` it raised."""
+    from grit_tpu_torch.parallel.mesh import MeshSpec, active_mesh, build_mesh  # noqa: PLC0415
+
+    out = {"foreign": foreign_modules()}
+    for key, spec in inp["specs"].items():
+        try:
+            mesh = build_mesh(MeshSpec(*spec), "cpu")
+        except ValueError as exc:
+            out[key] = {"error": str(exc)}
+            continue
+        act = active_mesh(mesh)
+        out[key] = {"shape": list(mesh.shape),
+                    "names": list(mesh.mesh_dim_names),
+                    "coord": list(mesh.get_coordinate()),
+                    "active": list(act.mesh_dim_names),
+                    "active_coord": list(act.get_coordinate())}
+    return out
+
+
+def placement_cases(inp: dict) -> dict:
+    """On each mesh of ``inp["meshes"]``: every tree of ``inp["trees"]``
+    (``{tree: (rule table, {leaf name: shape})}``, leaves valued
+    ``arange``) through :func:`shard_tree` under the port's rule table;
+    this rank's local shards, their :func:`dtensor_index`, and the
+    ``ValueError`` of each spec in ``inp["bad"]``."""
+    from grit_tpu_torch.models import lora, mnist  # noqa: PLC0415
+    from grit_tpu_torch.parallel.mesh import MeshSpec, build_mesh  # noqa: PLC0415
+    from grit_tpu_torch.parallel.sharding import dtensor_index, named_sharding, shard_tree  # noqa: PLC0415
+
+    tables = {"llama": llama.LLAMA_RULES, "mnist": mnist.MNIST_RULES,
+              "lora": lora.LORA_RULES}
+    out: dict = {"foreign": foreign_modules()}
+    for mshape in inp["meshes"]:
+        mesh = build_mesh(MeshSpec(*mshape), "cpu")
+        for tree, (table, shapes) in inp["trees"].items():
+            full = {name: torch.arange(int(np.prod(shape)),
+                                       dtype=torch.int32).reshape(shape)
+                    for name, shape in shapes.items()}
+            if table == "batch":
+                placed = {n: named_sharding(mesh, *llama.BATCH_SPEC)
+                          .distribute(x) for n, x in full.items()}
+            else:
+                placed = shard_tree(full, mesh, tables[table])
+            out[(tuple(mshape), tree)] = {
+                n: {"local": _local_np(x), "index": dtensor_index(x),
+                    "placements": [str(p) for p in x.placements]}
+                for n, x in placed.items()}
+        for key, (shape, spec) in inp["bad"].items():
+            try:
+                named_sharding(mesh, *spec).distribute(
+                    torch.zeros(shape, dtype=torch.int32))
+                out[(tuple(mshape), key)] = "placed"
+            except ValueError as exc:
+                out[(tuple(mshape), key)] = f"ValueError: {exc}"
+    return out
+
+
+def _llama_trainer(inp: dict, dtype, mesh):
+    """A Trainer of the tiny llama on ``inp``'s numpy weights and fixed
+    tokens (every step the same batch), sharded when ``mesh`` is given."""
+    from grit_tpu_torch.train.trainer import Trainer, TrainerConfig  # noqa: PLC0415
+
+    cfg = replace(llama.LlamaConfig.tiny(**inp["cfg"]), dtype=dtype,
+                  param_dtype=dtype)
+    toks = torch.from_numpy(inp["tokens"])
+
+    def init(_gen, device):
+        if torch.device(device).type == "meta":
+            return llama.abstract_params(cfg)
+        return tree_map(lambda a: a.to(dtype), _params(inp["params"]))
+
+    return Trainer(
+        loss_fn=lambda p, b: llama.loss_fn(cfg, p, b[0], b[1]),
+        init_params=init, batch_fn=lambda _gen: (toks[:, :-1], toks[:, 1:]),
+        cfg=TrainerConfig(learning_rate=1e-3, batch_spec=llama.BATCH_SPEC),
+        device="cpu", mesh=mesh, rules=None if mesh is None else llama.LLAMA_RULES)
+
+
+def _state_np(tr) -> dict:
+    """Every tensor leaf of the Trainer's state as this rank holds it:
+    ``{name: (index or None, numpy)}``."""
+    from grit_tpu_torch.parallel.sharding import dtensor_index  # noqa: PLC0415
+
+    return {name: (dtensor_index(x) if isinstance(x, DTensor) else None,
+                   _local_np(x))
+            for name, x in flatten_with_names(tr.state)}
+
+
+def _full_np(tr) -> dict:
+    """Every leaf of the Trainer's state, whole (a collective: every rank
+    calls it)."""
+    return {name: _local_np(x.full_tensor() if isinstance(x, DTensor) else x)
+            for name, x in flatten_with_names(tr.state)}
+
+
+def sharded_state_cases(inp: dict) -> dict:
+    """The tiny llama on the (1,2,2) mesh against dense: first-step
+    losses in bf16 and f32; a sharded snapshot, its bitwise resume, a
+    restore onto (2,1,2) and into a dense Trainer; a delta of the same
+    cut against it; restores of the JAX package's snapshots; the
+    port-written snapshot's state for the JAX package to restore."""
+    from grit_tpu_torch.device.snapshot import restore_snapshot  # noqa: PLC0415
+    from grit_tpu_torch.parallel.mesh import MeshSpec, build_mesh  # noqa: PLC0415
+    from grit_tpu_torch.parallel.sharding import dtensor_index  # noqa: PLC0415
+
+    work = inp["work"]
+    meshes = {k: build_mesh(MeshSpec(*v), "cpu") for k, v in
+              {"122": (1, 2, 2), "212": (2, 1, 2)}.items()}
+    out: dict = {"foreign": foreign_modules(), "rank": dist.get_rank()}
+    for label, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        out[label] = {
+            "sharded": _llama_trainer(inp, dtype, meshes["122"]).run(2),
+            "dense": _llama_trainer(inp, dtype, None).run(2)}
+
+    src = _llama_trainer(inp, torch.bfloat16, meshes["122"])
+    src.run(3)
+    snap = os.path.join(work, "port-snap")
+    src.snapshot(snap)
+    out["port_full"] = _full_np(src)
+    delta = os.path.join(work, "port-delta")
+    src.snapshot(delta, base=snap)
+    with open(os.path.join(delta, "MANIFEST.json")) as f:
+        out["delta_dirty"] = json.load(f).get("dirty")
+    out["source_after"] = src.run(3)
+    out["source_state"] = _state_np(src)
+    resumed = {}
+    for key, d in (("same", snap), ("delta", delta)):
+        tr = _llama_trainer(inp, torch.bfloat16, meshes["122"])
+        step = tr.restore(d)
+        resumed[key] = {"step": step, "losses": tr.run(3),
+                        "state": _state_np(tr)}
+    tr = _llama_trainer(inp, torch.bfloat16, meshes["212"])
+    tr.restore(snap)
+    resumed["212"] = {"losses": tr.run(3)}
+    tr = _llama_trainer(inp, torch.bfloat16, None)
+    tr.restore(snap)
+    resumed["dense"] = {"losses": tr.run(3)}
+    out["resumed"] = resumed
+
+    # The JAX package's snapshots, restored onto each mesh (rng aside:
+    # JAX keeps a threefry key, the port the seed).
+    out["jax_restored"] = {}
+    for key, mesh in meshes.items():
+        tr = _llama_trainer(inp, torch.bfloat16, mesh)
+        like = tr.abstract_state()
+        like.pop("rng")
+        got = restore_snapshot(inp["jax_dir"], like=like, device="cpu")
+        out["jax_restored"][key] = {
+            name: (dtensor_index(x) if isinstance(x, DTensor) else None,
+                   _local_np(x)) for name, x in flatten_with_names(got)}
+    return out
+
+
+def local_gloo_cases(inp: dict) -> dict:
+    """Every collective :class:`~grit_tpu_torch.parallel.collectives.LocalGloo`
+    implements, through ``torch.distributed`` and through the functional
+    collectives DTensor calls, and the ring hop :func:`shift` makes of
+    them, on the world and on this rank's pair, with rank ``r`` holding
+    ``inp["x"] + 10 r``; and the backend's name."""
+    import torch.distributed._functional_collectives as funcol  # noqa: PLC0415
+
+    rank = dist.get_rank()
+    out: dict = {"backend": dist.get_backend(), "foreign": foreign_modules()}
+    for name, axis in _axes().items():
+        group = dist.group.WORLD if axis is None else axis
+        n = dist.get_world_size(group)
+        x = torch.from_numpy(inp["x"]) + 10 * rank
+        res = {}
+        y = x.clone()
+        dist.all_reduce(y, group=group)
+        res["all_reduce"] = y
+        res["all_gather"] = torch.empty(n * x.numel())
+        dist.all_gather_into_tensor(res["all_gather"], x, group=group)
+        res["reduce_scatter"] = torch.empty(x.numel() // n)
+        dist.reduce_scatter_tensor(res["reduce_scatter"], x.clone(), group=group)
+        res["all_to_all"] = torch.empty_like(x)
+        dist.all_to_all_single(res["all_to_all"], x, group=group)
+        res["broadcast"] = x.clone()
+        dist.broadcast(res["broadcast"], dist.get_global_rank(group, 0),
+                       group=group)
+        dist.barrier(group=group)
+        res["f_all_gather"] = funcol.all_gather_tensor(x, 0, group).wait()
+        res["f_reduce_scatter"] = funcol.reduce_scatter_tensor(
+            x, "sum", 0, group).wait()
+        res["f_all_reduce"] = funcol.all_reduce(x, "sum", group).wait()
+        res["f_all_to_all"] = funcol.all_to_all_single(x, None, None,
+                                                       group).wait()
+        res["shift"] = shift(x, axis, 1)  # the ring hop: send, then receive
+        # The list forms of all-gather and reduce-scatter.
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x, group=group)
+        res["l_all_gather"] = torch.cat(parts)
+        res["l_reduce_scatter"] = torch.empty(x.numel() // n)
+        dist.reduce_scatter(res["l_reduce_scatter"],
+                            list(x.clone().chunk(n)), group=group)
+        out[name] = {k: _np(v) for k, v in res.items()}
+    return out
