@@ -202,6 +202,23 @@ non-zero without the final result line:
    leaf bitwise the source's at the cut (a digest of the whole tensor,
    gathered); each kernel launched 4 times a step on every rank.
    ``[mesh]`` lines.
+19. ep     — in phase 18's two launches: ``bench.py``'s MoE model (12
+   layers, 8 experts top-2 at capacity 1.25, bf16) sharded by
+   ``MOE_LLAMA_RULES`` over the same (1,2,2) mesh, expert-parallel (4
+   experts and 4 heads a rank) with the whole batch's routing, B 16 x S
+   512, Adam 1e-4: three steps within 1e-3 of a dense Trainer's on rank
+   0, the dropped share of routed slots, the step's collectives, a
+   sharded snapshot restored by the fresh launch onto (1,2,2) (bitwise),
+   (2,1,2) and one device (within 1e-2), every restored leaf the
+   source's at the cut, each kernel launched 12 times a step on every
+   rank. Then the serving grids sharded by ``KV_CACHE_RULES`` (slots over
+   fsdp, kv heads over model): phase 6's flagship grid at 4 layers (4
+   slots x 4096, temperature 1.0) and phase 14's MoE grid (4 x 1024,
+   greedy); each decodes 8 rounds with the single-device engine's tokens
+   (rank 0, same process), is snapshotted after round 4, and the fresh
+   launch restores it onto (1,2,2) (tokens and the written cache's
+   digest bitwise), (1,1,4) and one device (the source's tokens); no
+   kernel launches. ``[ep]`` lines.
 
 The second-to-last lines are the script's wall time, the kernels' JSON
 record (with the serving phase's numbers under ``serving``, phase 8's
@@ -209,8 +226,9 @@ under ``precopy``, phase 9's under ``frozen_trunk``, phase 10's under
 ``wire``, phase 7's crc32c and codec rates under ``io``, phases 11-13's
 under ``lora_7b``, ``remat`` and ``moe``, and phases 14-16's under
 ``moe_serving``, ``long_context`` and ``pipeline``, phase 17's under
-``gang``, phase 18's under ``mesh``; each kernel's ``launches`` sums
-phases 4, 9, 10, 11, 12, 13, 15, 16, 17 and 18, every rank's)
+``gang``, phase 18's under ``mesh``, phase 19's under ``ep``; each
+kernel's ``launches`` sums phases 4, 9, 10, 11, 12, 13, 15, 16, 17, 18
+and 19, every rank's)
 and the card's ``name, power limit``; the last line is the result JSON.
 ``--seed`` seeds the serving phases' and the parallel phases' weights
 and prompts (default 0). The script imports nothing of JAX or of the
@@ -4065,28 +4083,34 @@ def mesh_collectives(tr) -> dict:
         tr.mesh.get_group(name) for name in tr.mesh.mesh_dim_names])
 
 
-def mesh_trainer(torch, spec: dict, mesh_shape):
+def mesh_trainer(torch, spec: dict, mesh_shape, moe: bool = False):
     """The flagship at phase 18's depth on Zipf batches with Adam,
     sharded by ``LLAMA_RULES`` on a (data, fsdp, model) mesh of
-    ``mesh_shape`` (None: one dense Trainer on this rank)."""
-    from grit_tpu_torch.models import llama  # noqa: PLC0415
+    ``mesh_shape`` (None: one dense Trainer on this rank); with ``moe``,
+    phase 19's bench MoE by ``MOE_LLAMA_RULES``, its loss closing over
+    the mesh."""
+    from grit_tpu_torch.models import llama, moe_llama  # noqa: PLC0415
     from grit_tpu_torch.parallel.mesh import MeshSpec, build_mesh  # noqa: PLC0415
     from grit_tpu_torch.train.optim import adam  # noqa: PLC0415
     from grit_tpu_torch.train.trainer import Trainer, TrainerConfig  # noqa: PLC0415
     from grit_tpu_torch.workload import zipf_batches  # noqa: PLC0415
 
-    cfg = spec["cfg"]
+    cfg, shape = ((spec["ep"]["cfg"], spec["ep"]["shape"]) if moe
+                  else (spec["cfg"], spec["shape"]))
+    fam, rules = ((moe_llama, moe_llama.MOE_LLAMA_RULES) if moe
+                  else (llama, llama.LLAMA_RULES))
     dev = torch.device(spec["device"])
     mesh = (None if mesh_shape is None
             else build_mesh(MeshSpec(*mesh_shape), dev.type))
+    kw = {"mesh": mesh} if moe else {}
     return Trainer(
-        loss_fn=lambda p, b: llama.loss_fn(cfg, p, b[0], b[1]),
-        init_params=lambda gen, device: llama.init_params(cfg, gen, device),
-        batch_fn=zipf_batches(cfg.vocab_size, *spec["shape"]),
+        loss_fn=lambda p, b: fam.loss_fn(cfg, p, b[0], b[1], **kw),
+        init_params=lambda gen, device: fam.init_params(cfg, gen, device),
+        batch_fn=zipf_batches(cfg.vocab_size, *shape),
         cfg=TrainerConfig(learning_rate=MESH_LR, seed=spec["seed"],
                           batch_spec=llama.BATCH_SPEC),
         device=dev, optimizer=adam(MESH_LR), mesh=mesh,
-        rules=None if mesh is None else llama.LLAMA_RULES)
+        rules=None if mesh is None else rules)
 
 
 def _locals(tr) -> list:
@@ -4183,17 +4207,101 @@ def _state_digests(torch, tr) -> dict:
     return out
 
 
-def mesh_rank(spec: dict) -> dict:
-    """Phase 18 on one rank. ``"source"``: :data:`MESH_STEPS` sharded
-    steps on :data:`MESH_SOURCE` (the collectives of the second counted),
-    the sharded snapshot, :data:`MESH_AFTER` more steps; rank 0 then runs
-    the dense Trainer's steps. ``"restore"``: a fresh rank restores the
-    snapshot onto :data:`MESH_SOURCE` and onto :data:`MESH_OTHER`, and
-    rank 0 into a dense Trainer, each stepping :data:`MESH_AFTER` times."""
-    import torch  # noqa: PLC0415
+def train_source(torch, fa, spec: dict, dev, rank: int,
+                 moe: bool = False) -> dict:
+    """A source rank's training half of phase 18 (``moe``: of phase 19):
+    :data:`MESH_STEPS` sharded steps on :data:`MESH_SOURCE` (the first's
+    routed and kept expert slots counted, the collectives of those after
+    it), the sharded snapshot, :data:`MESH_AFTER` more steps; rank 0 then
+    runs the dense Trainer's steps."""
     import torch.distributed as dist  # noqa: PLC0415
 
     from grit_tpu_torch.device.snapshot import last_write  # noqa: PLC0415
+
+    out: dict = {}
+    tr = mesh_trainer(torch, spec, MESH_SOURCE, moe)
+    out["coord"] = list(tr.mesh.get_coordinate())
+    _reset_peak(torch, dev)
+    with RouteCounts() as routes:
+        out.update(_run_steps(torch, fa, tr, dev, 1))
+    out["routes"] = routes.totals()
+    before = mesh_collectives(tr)
+    more = _run_steps(torch, fa, tr, dev, MESH_STEPS - 1)
+    for k in ("losses", "step_s", "launches"):
+        out[k] += more[k]
+    out["collectives"] = {  # a step's, the mean of those after the first
+        k: [(c - before.get(k, [0, 0])[0]) / (MESH_STEPS - 1),
+            (b - before.get(k, [0, 0])[1]) / (MESH_STEPS - 1)]
+        for k, (c, b) in mesh_collectives(tr).items()}
+    out["peak"] = _peak(torch, dev)
+    out["state_bytes"] = sum(x.numel() * x.element_size()
+                             for x in _locals(tr))
+    t0 = _start(torch, dev)
+    tr.snapshot(spec["ep_snap" if moe else "snap"])
+    out["dump_s"] = time.perf_counter() - t0
+    out["dump"] = last_write()
+    out["cut"] = _state_digests(torch, tr)
+    out["after"] = _run_steps(torch, fa, tr, dev, MESH_AFTER)
+    out["digest"] = _digest(torch, _locals(tr))
+    del tr
+    _release(torch, dev)
+    if rank == 0:
+        dense = mesh_trainer(torch, spec, None, moe)
+        _reset_peak(torch, dev)
+        with RouteCounts() as routes:
+            out["dense"] = _run_steps(torch, fa, dense, dev, 1, alone=True)
+        out["dense"]["routes"] = routes.totals()
+        more = _run_steps(torch, fa, dense, dev, MESH_STEPS - 1, alone=True)
+        for k in ("losses", "step_s", "launches"):
+            out["dense"][k] += more[k]
+        out["dense"]["peak"] = _peak(torch, dev)
+        out["dense_state_bytes"] = sum(
+            x.numel() * x.element_size() for x in _locals(dense))
+        del dense
+        _release(torch, dev)
+    dist.barrier()
+    return out
+
+
+def train_restore(torch, fa, spec: dict, dev, rank: int,
+                  moe: bool = False) -> dict:
+    """A fresh rank's training half of phase 18 (``moe``: of phase 19):
+    the snapshot restored onto :data:`MESH_SOURCE` and onto
+    :data:`MESH_OTHER`, and on rank 0 into a dense Trainer, each one's
+    state at the cut digested and :data:`MESH_AFTER` steps taken."""
+    import torch.distributed as dist  # noqa: PLC0415
+
+    snap = spec["ep_snap" if moe else "snap"]
+    out: dict = {}
+    for key, shape in (("same", MESH_SOURCE), ("other", MESH_OTHER),
+                       ("dense", None)):
+        if shape is None and rank != 0:
+            continue
+        tr = mesh_trainer(torch, spec, shape, moe)
+        t0 = time.perf_counter() if shape is None else _start(torch, dev)
+        step = tr.restore(snap)
+        _sync(torch, dev)
+        out[key] = {"step": step, "restore_s": time.perf_counter() - t0,
+                    "cut": _state_digests(torch, tr),
+                    **_run_steps(torch, fa, tr, dev, MESH_AFTER,
+                                 alone=shape is None)}
+        if shape is not None:
+            out[key]["digest"] = _digest(torch, _locals(tr))
+        del tr
+        _release(torch, dev)
+    dist.barrier()
+    return out
+
+
+def mesh_rank(spec: dict) -> dict:
+    """Phases 18 and 19 on one rank. ``"source"``: the exact all-reduces,
+    then :func:`train_source` of the flagship; ``"restore"``:
+    :func:`train_restore` of it. With ``spec["ep"]`` (phase 19's models)
+    each mode then runs the same for the bench MoE and the serving grids'
+    half (:func:`grid_source`, :func:`grid_restore`)."""
+    import torch  # noqa: PLC0415
+    import torch.distributed as dist  # noqa: PLC0415
+
     from grit_tpu_torch.ops import flash_attention as fa  # noqa: PLC0415
 
     dev = torch.device(spec["device"])
@@ -4203,64 +4311,15 @@ def mesh_rank(spec: dict) -> dict:
     out: dict = {"foreign": sorted(
         m for m in sys.modules
         if m.split(".")[0] in ("jax", "jaxlib", "grit_tpu"))}
-
-    def release(tr) -> None:
-        del tr
-        if dev.type == "cuda":
-            torch.cuda.empty_cache()
-
-    if spec["mode"] == "source":
+    source = spec["mode"] == "source"
+    if source:
         out["reduce_failures"] = reduce_checks(torch, dev)
-        tr = mesh_trainer(torch, spec, MESH_SOURCE)
-        _reset_peak(torch, dev)
-        out.update(_run_steps(torch, fa, tr, dev, 1))
-        before = mesh_collectives(tr)
-        more = _run_steps(torch, fa, tr, dev, MESH_STEPS - 1)
-        for k in ("losses", "step_s", "launches"):
-            out[k] += more[k]
-        out["collectives"] = {  # a step's, the mean of those after the first
-            k: [(c - before.get(k, [0, 0])[0]) / (MESH_STEPS - 1),
-                (b - before.get(k, [0, 0])[1]) / (MESH_STEPS - 1)]
-            for k, (c, b) in mesh_collectives(tr).items()}
-        out["peak"] = _peak(torch, dev)
-        out["state_bytes"] = sum(x.numel() * x.element_size()
-                                 for x in _locals(tr))
-        t0 = _start(torch, dev)
-        tr.snapshot(spec["snap"])
-        out["dump_s"] = time.perf_counter() - t0
-        out["dump"] = last_write()
-        out["cut"] = _state_digests(torch, tr)
-        out["after"] = _run_steps(torch, fa, tr, dev, MESH_AFTER)
-        out["digest"] = _digest(torch, _locals(tr))
-        release(tr)
-        if rank == 0:
-            dense = mesh_trainer(torch, spec, None)
-            out["dense"] = _run_steps(torch, fa, dense, dev, MESH_STEPS,
-                                      alone=True)
-            out["dense_state_bytes"] = sum(
-                x.numel() * x.element_size() for x in _locals(dense))
-            release(dense)
-        return out
-    for key, shape in (("same", MESH_SOURCE), ("other", MESH_OTHER)):
-        tr = mesh_trainer(torch, spec, shape)
-        t0 = _start(torch, dev)
-        step = tr.restore(spec["snap"])
-        _sync(torch, dev)
-        out[key] = {"step": step, "restore_s": time.perf_counter() - t0,
-                    "cut": _state_digests(torch, tr),
-                    **_run_steps(torch, fa, tr, dev, MESH_AFTER),
-                    "digest": _digest(torch, _locals(tr))}
-        release(tr)
-    if rank == 0:
-        tr = mesh_trainer(torch, spec, None)
-        t0 = time.perf_counter()
-        step = tr.restore(spec["snap"])
-        _sync(torch, dev)
-        out["dense"] = {"step": step, "restore_s": time.perf_counter() - t0,
-                        "cut": _state_digests(torch, tr),
-                        **_run_steps(torch, fa, tr, dev, MESH_AFTER,
-                                     alone=True)}
-        release(tr)
+    train, grid = ((train_source, grid_source) if source
+                   else (train_restore, grid_restore))
+    out.update(train(torch, fa, spec, dev, rank))
+    if spec.get("ep"):
+        out["ep"] = train(torch, fa, spec, dev, rank, moe=True)
+        out["grid"] = grid(torch, fa, spec, dev, rank)
     return out
 
 
@@ -4302,12 +4361,16 @@ def mesh_manifest_checks(snap: str, dense_state_bytes: int) -> dict:
 
 def phase_mesh(torch, work: str, card: str, *, seed: int,
                device: str = "cuda", cfg=None,
-               shape: tuple = (BATCH, SEQ)) -> dict:
+               shape: tuple = (BATCH, SEQ), ep: dict | None = None) -> dict:
     """Phase 18: the flagship at :data:`MESH_LAYERS` layers sharded over a
     (1,2,2) mesh of four ranks sharing the card over ``LOCAL_GLOO``, its sharded
     snapshot, and a fresh launch that restores it onto (1,2,2) (bitwise),
     onto (2,1,2) and into a dense Trainer (within 1e-2). ``device`` and a
-    ``cfg`` other than the defaults rehearse it on the CPU."""
+    ``cfg`` other than the defaults rehearse it on the CPU.
+
+    ``ep`` (:func:`ep_config`): phase 19 in the same two launches, the bench
+    MoE expert-parallel and both serving grids sharded, its record under
+    ``"ep"``."""
     from grit_tpu_torch.models import llama  # noqa: PLC0415
     from grit_tpu_torch.parallel.collectives import LOCAL_GLOO  # noqa: PLC0415
     from grit_tpu_torch.parallel.launch import run_ranks  # noqa: PLC0415
@@ -4319,7 +4382,9 @@ def phase_mesh(torch, work: str, card: str, *, seed: int,
     mwork = os.path.join(work, "mesh")
     os.makedirs(mwork)
     spec = {"device": device, "seed": seed, "cfg": cfg, "shape": shape,
-            "snap": os.path.join(mwork, "snap")}
+            "snap": os.path.join(mwork, "snap"), "ep": ep,
+            "ep_snap": os.path.join(mwork, "ep-snap"),
+            "grid_snap": os.path.join(mwork, "grids")}
     try:
         t0 = time.perf_counter()
         sources = run_ranks(mesh_rank, N_RANKS, dict(spec, mode="source"),
@@ -4327,14 +4392,21 @@ def phase_mesh(torch, work: str, card: str, *, seed: int,
         source_wall = time.perf_counter() - t0
         manifest = mesh_manifest_checks(spec["snap"],
                                         sources[0]["dense_state_bytes"])
+        if ep:
+            ep_manifest = ep_manifest_checks(
+                spec["ep_snap"], sources[0]["ep"]["dense_state_bytes"])
         t0 = time.perf_counter()
         restored = run_ranks(mesh_rank, N_RANKS, dict(spec, mode="restore"),
                              backend=LOCAL_GLOO, timeout=900)
         restore_wall = time.perf_counter() - t0
     finally:
         shutil.rmtree(mwork, ignore_errors=True)
-    return mesh_checks(sources, restored, manifest, cfg, shape, card,
-                       on_card, source_wall, restore_wall)
+    out = mesh_checks(sources, restored, manifest, cfg, shape, card,
+                      on_card, source_wall, restore_wall)
+    if ep:
+        out["ep"] = ep_checks(sources, restored, ep_manifest, ep, card,
+                              on_card)
+    return out
 
 
 def _rel_gap(got: float, want: float) -> float:
@@ -4475,6 +4547,448 @@ def mesh_checks(sources: list[dict], restored: list[dict], manifest: dict,
             "launches": {n: sum(row[n] for row in per_step) for n in KERNELS}}
 
 
+# -- phase 19 ------------------------------------------------------------------
+
+EP_LAYERS = 12           # the bench MoE at its full depth (MESH_LAYERS if cut)
+EP_SHAPE = (16, 512)     # B x S, phase 13's
+GRID_OTHER = (1, 1, 4)   # the grids' re-layout: it cuts across the heads
+GRID_ROUNDS = 8          # decode rounds each grid's source runs
+GRID_CUT = 4             # rounds before its snapshot
+
+
+def ep_config(torch, *, moe_cfg=None, shape: tuple = EP_SHAPE,
+              flagship=None, moe_grid=None) -> dict:
+    """Phase 19's models: the bench MoE trained on the mesh, and the two
+    serving grids (phase 6's flagship grid at :data:`MESH_LAYERS`, phase
+    14's MoE grid), each ``{"cfg", "slots", "max_len", "temperature",
+    "prompts", "buckets"}``. The defaults are the card's; the CPU
+    rehearsal passes tiny ones."""
+    from grit_tpu_torch.models import llama, moe_llama  # noqa: PLC0415
+
+    moe_cfg = moe_cfg or moe_llama.MoeLlamaConfig.bench(n_layers=EP_LAYERS)
+    return {
+        "cfg": moe_cfg, "shape": tuple(shape),
+        "grids": {
+            "flagship": flagship or {
+                "cfg": llama.LlamaConfig.flagship(n_layers=MESH_LAYERS),
+                "slots": SERVE_SLOTS, "max_len": SERVE_MAX_LEN,
+                "temperature": 1.0, "prompts": SERVE_PROMPTS,
+                "buckets": (16, 64, 256, 1024)},
+            "moe": moe_grid or {
+                "cfg": moe_cfg, "slots": SERVE_SLOTS,
+                "max_len": MOE_SERVE_MAX_LEN, "temperature": 0.0,
+                "prompts": MOE_SERVE_PROMPTS,
+                "buckets": (16, 64, 256, 1024)}}}
+
+
+class RouteCounts:
+    """Counts the routed and the kept slots of every expert layer while it
+    is entered (the route's dispatch one-hot summed on the device; read
+    after the step): the dropped share of routed slots."""
+
+    def __init__(self) -> None:
+        self.parts: list = []
+
+    def __enter__(self):
+        from grit_tpu_torch.ops import moe  # noqa: PLC0415
+
+        self._route = route = moe.route
+
+        def counting(topk_idx, gates, mask_f, *args, **kw):
+            out = route(topk_idx, gates, mask_f, *args, **kw)
+            self.parts.append((out[0].sum(dtype=mask_f.dtype),
+                               mask_f.sum() * topk_idx.shape[1]))
+            return out
+
+        moe.route = counting
+        return self
+
+    def __exit__(self, *exc) -> None:
+        from grit_tpu_torch.ops import moe  # noqa: PLC0415
+
+        moe.route = self._route
+
+    def totals(self) -> tuple[int, int]:
+        """(kept, routed) over every layer entered."""
+        return (sum(int(k) for k, _ in self.parts),
+                sum(int(r) for _, r in self.parts))
+
+
+_GRID_PARAMS: dict = {}
+
+
+def grid_engine(torch, spec: dict, name: str, mesh_shape):
+    """Grid ``name``'s continuous-batching engine on a (data, fsdp, model)
+    mesh of ``mesh_shape`` (None: one device), on weights drawn from the
+    phase's seed (made once a process, alike on every rank)."""
+    from grit_tpu_torch.models import llama, moe_llama, serving  # noqa: PLC0415
+    from grit_tpu_torch.parallel.mesh import MeshSpec, build_mesh  # noqa: PLC0415
+
+    g = spec["ep"]["grids"][name]
+    dev = torch.device(spec["device"])
+    if name not in _GRID_PARAMS:
+        fam = moe_llama if isinstance(g["cfg"], moe_llama.MoeLlamaConfig) \
+            else llama
+        _GRID_PARAMS[name] = fam.init_params(
+            g["cfg"], torch.Generator(device=dev).manual_seed(spec["seed"]),
+            dev)
+    mesh = (None if mesh_shape is None
+            else build_mesh(MeshSpec(*mesh_shape), dev.type))
+    return serving.ContinuousBatchingEngine(
+        g["cfg"], _GRID_PARAMS[name], serving.BatchingConfig(
+            n_slots=g["slots"], max_seq_len=g["max_len"],
+            temperature=g["temperature"], seed=spec["seed"],
+            prefill_buckets=tuple(g["buckets"])),
+        device=dev, mesh=mesh)
+
+
+def _written_digest(torch, eng) -> str:
+    """:func:`_fingerprint` of this rank's cache shard (``k`` then ``v``)
+    with every page no step has written zeroed: positions at or past each
+    active slot's length, and inactive slots' rows."""
+    from grit_tpu_torch.parallel.sharding import dtensor_index, local_shard  # noqa: PLC0415
+
+    st = eng.state
+    parts = []
+    for name in ("k", "v"):
+        x = st["cache"][name]
+        local = local_shard(x)
+        b0, b1 = (dtensor_index(x)[1] if local is not x
+                  else (0, local.shape[1]))
+        dev = local.device
+        lengths = st["lengths"][b0:b1].to(dev)[None, :, None, None, None]
+        active = st["active"][b0:b1].to(dev)[None, :, None, None, None]
+        pos = torch.arange(local.shape[2], device=dev)[None, None, :, None,
+                                                       None]
+        parts.append(_fingerprint(torch, torch.where(
+            active & (pos < lengths), local,
+            torch.zeros((), dtype=local.dtype, device=dev))))
+    return hashlib.sha256("".join(parts).encode()).hexdigest()
+
+
+def _margins(torch, eng, sink: list) -> None:
+    """Record each round's top-2 logit margin of this rank's slots (the
+    engine's ragged step wrapped)."""
+    fn = eng._ragged_fn
+
+    def wrapped(*args, **kw):
+        logits, cache = fn(*args, **kw)
+        top = torch.topk(logits[:, -1, :].float(), 2, dim=-1).values
+        sink.append((top[:, 0] - top[:, 1]).tolist())
+        return logits, cache
+
+    eng._ragged_fn = wrapped
+
+
+def _rounds(torch, eng, dev, n: int, alone: bool = False) -> tuple:
+    """``n`` decode rounds: each round's tokens and seconds (each from a
+    barrier of the ranks unless ``alone``)."""
+    toks, secs = [], []
+    for _ in range(n):
+        t0 = time.perf_counter() if alone else _start(torch, dev)
+        toks.append(eng.step())
+        _sync(torch, dev)
+        secs.append(time.perf_counter() - t0)
+    return toks, secs
+
+
+def grid_source(torch, fa, spec: dict, dev, rank: int) -> dict:
+    """Phase 19's serving half on a source rank, for each grid: its
+    prompts admitted on :data:`MESH_SOURCE`, :data:`GRID_CUT` rounds, the
+    sharded snapshot, the rounds up to :data:`GRID_ROUNDS` (each round's
+    top-2 logit margins recorded), the written cache's digest; rank 0
+    then runs the single-device engine's rounds. No kernel may launch."""
+    import torch.distributed as dist  # noqa: PLC0415
+
+    from grit_tpu_torch.parallel.sharding import local_shard  # noqa: PLC0415
+
+    out: dict = {}
+    fa.reset_launch_counts()
+    for name, g in spec["ep"]["grids"].items():
+        gen = torch.Generator().manual_seed(spec["seed"] + 7)
+        prompts = [zipf_tokens(torch, n, g["cfg"].vocab_size, gen)
+                   for n in g["prompts"]]
+        eng = grid_engine(torch, spec, name, MESH_SOURCE)
+        margins: list = []
+        _margins(torch, eng, margins)
+        t0 = _start(torch, dev)
+        for p in prompts:
+            eng.submit(p)
+        _sync(torch, dev)
+        res = {"slots": [eng._slots.start, eng._slots.stop],
+               "prefill_s": time.perf_counter() - t0}
+        res["tokens"], res["round_s"] = _rounds(torch, eng, dev, GRID_CUT)
+        t0 = _start(torch, dev)
+        eng.snapshot(os.path.join(spec["grid_snap"], name))
+        res["dump_s"] = time.perf_counter() - t0
+        after, secs = _rounds(torch, eng, dev, GRID_ROUNDS - GRID_CUT)
+        res["tokens"] += after
+        res["round_s"] += secs
+        res["margins"] = margins
+        res["written"] = _written_digest(torch, eng)
+        res["cache_bytes"] = sum(  # this rank's shards
+            local_shard(x).numel() * x.element_size()
+            for x in (eng.state["cache"]["k"], eng.state["cache"]["v"]))
+        del eng
+        if rank == 0:
+            solo = grid_engine(torch, spec, name, None)
+            for p in prompts:
+                solo.submit(p)
+            res["solo_tokens"], res["solo_round_s"] = _rounds(
+                torch, solo, dev, GRID_ROUNDS, alone=True)
+            del solo
+        _release(torch, dev)
+        dist.barrier()
+        out[name] = res
+    out["launches"] = dict(fa.LAUNCHES)
+    return out
+
+
+def grid_restore(torch, fa, spec: dict, dev, rank: int) -> dict:
+    """Phase 19's serving half on a fresh rank, for each grid: the
+    snapshot restored onto :data:`MESH_SOURCE` (the rounds after the cut,
+    the written cache's digest), onto :data:`GRID_OTHER`, and on rank 0
+    onto one device, each decoding the rounds after the cut."""
+    import torch.distributed as dist  # noqa: PLC0415
+
+    out: dict = {}
+    fa.reset_launch_counts()
+    for name in spec["ep"]["grids"]:
+        snap = os.path.join(spec["grid_snap"], name)
+        res: dict = {}
+        for key, shape in (("same", MESH_SOURCE), ("other", GRID_OTHER),
+                           ("dense", None)):
+            if shape is None and rank != 0:
+                continue
+            eng = grid_engine(torch, spec, name, shape)
+            t0 = time.perf_counter() if shape is None else _start(torch, dev)
+            eng.restore(snap)
+            _sync(torch, dev)
+            res[key] = {"restore_s": time.perf_counter() - t0}
+            res[key]["tokens"], res[key]["round_s"] = _rounds(
+                torch, eng, dev, GRID_ROUNDS - GRID_CUT, alone=shape is None)
+            if key == "same":
+                res[key]["written"] = _written_digest(torch, eng)
+            del eng
+            _release(torch, dev)
+        dist.barrier()
+        out[name] = res
+    out["launches"] = dict(fa.LAUNCHES)
+    return out
+
+
+def _release(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _first_mismatch(got: list, want: list) -> int | None:
+    return next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+                None if len(got) == len(want) else min(len(got), len(want)))
+
+
+def ep_checks(sources: list[dict], restored: list[dict], manifest: dict,
+              ep: dict, card: str, on_card: bool) -> dict:
+    """Phase 19's lines and checks over the ranks' records."""
+    failures = list(manifest["failures"])
+    cfg = ep["cfg"]
+    B, S = ep["shape"]
+    src = [s["ep"] for s in sources]
+    dst = [r["ep"] for r in restored]
+    s0 = src[0]
+    dense = s0["dense"]["losses"]
+    gaps = [_rel_gap(a, b) for a, b in zip(s0["losses"], dense)]
+    if max(gaps) >= MESH_LOSS_BOUND:
+        failures.append(f"sharded MoE losses {s0['losses']} against dense "
+                        f"{dense}: gaps {gaps}")
+    for k, (s, r) in enumerate(zip(src, dst)):
+        if s["losses"] != s0["losses"] or \
+                s["after"]["losses"] != s0["after"]["losses"]:
+            failures.append(f"rank {k}: its MoE loss differs from rank 0's")
+        if r["same"]["step"] != MESH_STEPS or \
+                r["same"]["losses"] != s["after"]["losses"]:
+            failures.append(f"rank {k}: the MoE (1,2,2) restore at step "
+                            f"{r['same']['step']} gave {r['same']['losses']},"
+                            f" the source {s['after']['losses']}")
+        if r["same"]["digest"] != s["digest"]:
+            failures.append(f"rank {k}: the MoE (1,2,2) restore's final "
+                            "shards differ from the source's")
+    want = s0["after"]["losses"]
+    relayout = {key: [_rel_gap(a, b) for a, b in
+                      zip(dst[0][key]["losses"], want)]
+                for key in ("other", "dense")}
+    for key, g in relayout.items():
+        if max(g) >= MESH_RELAYOUT_BOUND:
+            failures.append(f"the MoE {key} restore's losses are {g} from "
+                            f"the source's {want}")
+    cut = {k: v for s in src for k, v in s["cut"].items()}
+    restored_cut = {
+        "(1,2,2)": {k: v for r in dst for k, v in r["same"]["cut"].items()},
+        "(2,1,2)": {k: v for r in dst for k, v in r["other"]["cut"].items()},
+        "dense": dst[0]["dense"]["cut"]}
+    for key, got in restored_cut.items():
+        if got != cut:
+            bad = sorted(k for k in cut.keys() | got.keys()
+                         if got.get(k) != cut.get(k))
+            failures.append(f"the MoE {key} restore's state differs from "
+                            f"the source's at the cut in {bad[:4]} "
+                            f"({len(bad)} leaves)")
+    colls = s0["collectives"]
+    device_type = "cuda" if on_card else "cpu"
+    off_device = [k for k in colls if not k.endswith(" " + device_type)]
+    if not colls or off_device:
+        failures.append(f"the sharded MoE step's collectives {colls}: off "
+                        f"the device {off_device}")
+    per_step = [{n: row[n] for n in KERNELS}
+                for s in src for row in s["launches"] + s["after"]["launches"]]
+    per_step += [{n: row[n] for n in KERNELS} for r in dst
+                 for key in ("same", "other") for row in r[key]["launches"]]
+    per_step += [{n: row[n] for n in KERNELS} for row in
+                 s0["dense"]["launches"] + dst[0]["dense"]["launches"]]
+    if on_card:
+        step = {n: cfg.n_layers for n in KERNELS}
+        bad = [row for row in per_step if row != step]
+        if bad:
+            failures.append(f"MoE launches a rank a step {bad[:3]}, want "
+                            f"{step}")
+    # The drops over the whole batch: the ranks of model coordinate 0
+    # hold every batch shard once.
+    kept = sum(s["routes"][0] for s in src if s["coord"][-1] == 0)
+    routed = sum(s["routes"][1] for s in src if s["coord"][-1] == 0)
+    dkept, drouted = s0["dense"]["routes"]
+    drops = {"sharded": 1 - kept / routed, "dense": 1 - dkept / drouted}
+
+    grids = {}
+    gsrc = [s["grid"] for s in sources]
+    gdst = [r["grid"] for r in restored]
+    for name, g in ep["grids"].items():
+        s = gsrc[0][name]
+        if s["tokens"] != s["solo_tokens"]:
+            i = _first_mismatch(s["tokens"], s["solo_tokens"])
+            failures.append(f"grid {name}: round {i + 1} gave "
+                            f"{s['tokens'][i]} on the mesh, "
+                            f"{s['solo_tokens'][i]} on one device")
+        if any(x[name]["tokens"] != s["tokens"] for x in gsrc):
+            failures.append(f"grid {name}: the ranks' tokens differ")
+        want_after = s["tokens"][GRID_CUT:]
+        for key in ("same", "other", "dense"):
+            got = gdst[0][name][key]["tokens"]
+            if got != want_after:
+                i = _first_mismatch(got, want_after)
+                margin = [m for x in gsrc for m in x[name]["margins"][
+                    GRID_CUT + i]] if i is not None and \
+                    GRID_CUT + i < len(s["margins"]) else None
+                failures.append(
+                    f"grid {name}: the {key} restore's round {GRID_CUT + i + 1}"
+                    f" gave {got[i]}, the source {want_after[i]}; the "
+                    f"source's top-2 logit margins there {margin}")
+        for k, (a, b) in enumerate(zip(gsrc, gdst)):
+            if a[name]["written"] != b[name]["same"]["written"]:
+                failures.append(f"grid {name}, rank {k}: the (1,2,2) "
+                                "restore's written cache differs from the "
+                                "source's")
+        round_ms = median_after_first(s["round_s"]) * 1e3
+        solo_ms = median_after_first(s["solo_round_s"]) * 1e3
+        grids[name] = {
+            "tokens": sum(len(t) for t in s["tokens"]),
+            "round_ms": round_ms, "solo_round_ms": solo_ms,
+            "prefill_s": [x[name]["prefill_s"] for x in gsrc],
+            "dump_s": [x[name]["dump_s"] for x in gsrc],
+            "cache_bytes": [x[name]["cache_bytes"] for x in gsrc],
+            "restore_s": {key: [x[name][key]["restore_s"] for x in gdst
+                                if key in x[name]]
+                          for key in ("same", "other", "dense")},
+            "min_margin": min(m for x in gsrc for r in x[name]["margins"]
+                              for m in r)}
+        log("ep", f"grid {name}: dim {g['cfg'].dim}, {g['cfg'].n_layers} "
+                  f"layers, {g['slots']} slots x {g['max_len']}, temperature "
+                  f"{g['temperature']}, prompts {tuple(g['prompts'])}; on "
+                  f"{MESH_SOURCE} slots a rank "
+                  f"{[x[name]['slots'] for x in gsrc]}; {GRID_ROUNDS} rounds"
+                  f" ({grids[name]['tokens']} tokens) equal to one device's:"
+                  f" {s['tokens'] == s['solo_tokens']}; decode round "
+                  f"{round_ms:.3f} ms sharded, {solo_ms:.3f} ms on one "
+                  f"device; smallest top-2 logit margin "
+                  f"{grids[name]['min_margin']:.4f} [{card}]")
+        log("ep", f"grid {name}: snapshot after round {GRID_CUT} (cache "
+                  f"{sum(grids[name]['cache_bytes'])} B over the ranks), dump"
+                  f" s {[round(x, 3) for x in grids[name]['dump_s']]}; "
+                  f"restore s "
+                  + ", ".join(f"{k} {[round(x, 3) for x in v]}" for k, v in
+                              grids[name]['restore_s'].items())
+                  + f"; the (1,2,2), (1,1,4) and dense restores' rounds "
+                  f"equal the source's: "
+                  f"{[gdst[0][name][k]['tokens'] == want_after for k in ('same', 'other', 'dense')]}"
+                  f" [{card}]")
+    serve_launches = {n: sum(x["launches"].get(n, 0) for x in gsrc + gdst)
+                      for n in KERNELS}
+    if any(serve_launches.values()):
+        failures.append(f"the grids launched kernels: {serve_launches}")
+
+    step_s = [round(median_after_first(s["step_s"]), 4) for s in src]
+    dense_s = median_after_first(s0["dense"]["step_s"])
+    log("ep", f"bench MoE (dim {cfg.dim}, {cfg.n_heads} heads of "
+              f"{cfg.head_dim}, hidden {cfg.hidden_dim}, {cfg.n_experts} "
+              f"experts, top-{cfg.top_k}, capacity {cfg.capacity_factor}, "
+              f"{cfg.n_layers} layers) by MOE_LLAMA_RULES on {MESH_SOURCE}, "
+              f"B {B} x S {S}, Adam {MESH_LR}: a sharded step {step_s} s a "
+              f"rank, dense {dense_s:.4f} s; state a rank "
+              f"{[s['state_bytes'] for s in src]} B of the dense "
+              f"{s0['dense_state_bytes']}; peak "
+              f"{[s['peak'] for s in src]} B (dense {s0['dense']['peak']}) "
+              f"[{card}]")
+    log("ep", f"MoE losses sharded {s0['losses']}, dense {dense}: relative "
+              f"gaps {[f'{x:.2e}' for x in gaps]} (bound {MESH_LOSS_BOUND});"
+              f" dropped share of routed slots in the first step: sharded "
+              f"{drops['sharded']:.4f}, dense {drops['dense']:.4f} [{card}]")
+    log("ep", f"collectives a sharded MoE step on rank 0 (LocalGloo's count;"
+              f" kind device: calls, input bytes): {colls} [{card}]")
+    log("ep", f"MoE snapshot: {manifest['arrays']} arrays in "
+              f"{manifest['chunks']} named chunks, {manifest['bytes']} B; "
+              f"w_in {manifest['w_in']}; dump s "
+              f"{[round(s['dump_s'], 3) for s in src]}; restore s (1,2,2) "
+              f"{[round(r['same']['restore_s'], 3) for r in dst]}, (2,1,2) "
+              f"{[round(r['other']['restore_s'], 3) for r in dst]}, dense "
+              f"{dst[0]['dense']['restore_s']:.3f}; (1,2,2) bitwise: "
+              f"{not any('(1,2,2) restore' in f and 'MoE' in f for f in failures)}"
+              f"; (2,1,2) and dense gaps {relayout}; restored state at the "
+              f"cut, leaf by leaf: "
+              + ", ".join(f"{k} {got == cut}" for k, got in restored_cut.items())
+              + f"; launches a rank a step {per_step[0]} [{card}]")
+    if failures:
+        raise AssertionError("ep: " + "; ".join(failures))
+    return {"mesh": list(MESH_SOURCE), "other": list(MESH_OTHER),
+            "grid_other": list(GRID_OTHER), "shape": [B, S],
+            "losses": s0["losses"], "dense_losses": dense, "loss_gaps": gaps,
+            "relayout_gaps": relayout, "drops": drops,
+            "step_s": [s["step_s"] for s in src],
+            "dense_step_s": s0["dense"]["step_s"],
+            "state_bytes": [s["state_bytes"] for s in src],
+            "dense_state_bytes": s0["dense_state_bytes"],
+            "peak": [s["peak"] for s in src], "dense_peak": s0["dense"]["peak"],
+            "collectives": colls,
+            "dump_s": [s["dump_s"] for s in src],
+            "dump_bytes": [s["dump"]["bytes"] for s in src],
+            "restore_s": {k: [r[k]["restore_s"] for r in dst]
+                          for k in ("same", "other")},
+            "dense_restore_s": dst[0]["dense"]["restore_s"],
+            "launches_per_step": per_step[0], "grids": grids,
+            "launches": {n: sum(row[n] for row in per_step) for n in KERNELS}}
+
+
+def ep_manifest_checks(snap: str, dense_state_bytes: int) -> dict:
+    """The MoE snapshot, as :func:`mesh_manifest_checks` holds phase 18's,
+    and ``w_in``'s descriptor."""
+    out = mesh_manifest_checks(snap, dense_state_bytes)
+    with open(os.path.join(snap, "MANIFEST.json")) as f:
+        arrays = json.load(f)["arrays"]
+    out["w_in"] = next(r["sharding"] for r in arrays if r["name"] ==
+                       "['params']['layers']['moe']['w_in']")
+    if out["w_in"]["spec"] != [None, "model", "fsdp", None]:
+        out["failures"].append(f"w_in's descriptor {out['w_in']}")
+    return out
+
+
 # -- main ----------------------------------------------------------------------
 
 
@@ -4527,7 +5041,9 @@ def main(argv: list[str] | None = None) -> int:
         long_context, pipeline = phase_parallel(torch, work, device["smi"],
                                                 seed=args.seed)
         gang = phase_gang(torch, work, device["smi"], seed=args.seed)
-        mesh = phase_mesh(torch, work, device["smi"], seed=args.seed)
+        mesh = phase_mesh(torch, work, device["smi"], seed=args.seed,
+                          ep=ep_config(torch))
+        ep = mesh.pop("ep")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -4541,15 +5057,17 @@ def main(argv: list[str] | None = None) -> int:
         # one and the restored ones), phase 10's wire destinations, the
         # uninterrupted runs of phases 11 and 13, phase 12's two steps,
         # every rank's Ulysses (15) and pipeline (16) runs, every source
-        # and restored rank's steps of the gang (17), and every sharded
-        # and dense step of the mesh phase (18), sources and restores.
+        # and restored rank's steps of the gang (17), every sharded and
+        # dense step of the mesh phase (18) and of the expert-parallel MoE
+        # (19), sources and restores.
         "launches": (train["launches"][name] + frozen["launches_all"][name]
                      + wire["launches"][name] + lora["launches"][name]
                      + remat["launches"][name] + moe["launches"][name]
                      + long_context["ring"]["launches"][name]
                      + long_context["ulysses"]["launches"][name]
                      + pipeline["launches"][name]
-                     + gang["launches"][name] + mesh["launches"][name]),
+                     + gang["launches"][name] + mesh["launches"][name]
+                     + ep["launches"][name]),
         "launches_by_path": {"adam": train["launches"][name],
                              "frozen_trunk": frozen["launches_all"][name],
                              "wire": wire["launches"][name],
@@ -4561,11 +5079,13 @@ def main(argv: list[str] | None = None) -> int:
                              "ulysses": long_context["ulysses"]["launches"][name],
                              "pipeline": pipeline["launches"][name],
                              "gang": gang["launches"][name],
-                             "mesh": mesh["launches"][name]},
+                             "mesh": mesh["launches"][name],
+                             "ep": ep["launches"][name]},
         "launches_per_step": {"lora_7b": lora["launches_per_step"][name],
                               "moe": moe["launches_per_step"][name],
                               "gang": gang["launches_per_step"][0][0][name],
-                              "mesh": mesh["launches_per_step"][name]},
+                              "mesh": mesh["launches_per_step"][name],
+                              "ep": ep["launches_per_step"][name]},
         "max_abs_err": main_shape["err"][name],
         "worst_tile_err_ratio": main_shape["tiles"][name],
         "ms": main_shape["ms"][name],
@@ -4604,7 +5124,9 @@ def main(argv: list[str] | None = None) -> int:
         # Phase 17: the pipeline's gang cut and restore.
         "gang": {k: v for k, v in gang.items() if k != "launches"},
         # Phase 18: the sharded flagship, its snapshot and restores.
-        "mesh": {k: v for k, v in mesh.items() if k != "launches"}}
+        "mesh": {k: v for k, v in mesh.items() if k != "launches"},
+        # Phase 19: the expert-parallel MoE and the sharded serving grids.
+        "ep": {k: v for k, v in ep.items() if k != "launches"}}
     log("total", f"chip_smoke.py took {time.perf_counter() - _T0:.1f} s")
     print(json.dumps(record), flush=True)
     print(device["smi"], flush=True)

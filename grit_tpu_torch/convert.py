@@ -5,7 +5,7 @@ Both sides speak numpy: the JAX side converts its pytree with
 ``jax.tree.map(np.asarray, tree)``, and these functions turn such a tree
 into the port's tensors (and back). The walk is generic: a llama, LoRA
 adapter or MoE parameter tree, and its Adam state, carry over by their
-leaf names alike. bf16 arrives as an ml_dtypes
+leaf names alike, and a sharded state (DTensor leaves) comes back whole. bf16 arrives as an ml_dtypes
 ``bfloat16`` array, which ``torch.from_numpy`` refuses; its bytes are
 reinterpreted through int16 instead, so this module needs no ml_dtypes.
 """
@@ -17,8 +17,9 @@ from typing import Any
 import numpy as np
 import torch
 
+from grit_tpu_torch.parallel.sharding import is_dtensor
 from grit_tpu_torch.train.optim import EmptyState, ScaleByAdamState
-from grit_tpu_torch.tree import tree_map
+from grit_tpu_torch.tree import flatten_with_names, map_with_names, tree_map
 
 
 def tensor_from_numpy(a, device: torch.device | str = "cpu") -> torch.Tensor:
@@ -30,7 +31,11 @@ def tensor_from_numpy(a, device: torch.device | str = "cpu") -> torch.Tensor:
 
 
 def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
-    """bf16 comes back as float32 (exact): numpy has no bf16 of its own."""
+    """bf16 comes back as float32 (exact): numpy has no bf16 of its own. A
+    DTensor comes back whole (a collective: every rank of its mesh calls
+    this)."""
+    if is_dtensor(t):
+        t = t.full_tensor()
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
         t = t.float()
@@ -61,19 +66,26 @@ def state_from_jax(state: Any, *, seed: int,
 
 
 def serving_state_from_jax(state: Any,
-                           device: torch.device | str = "cpu") -> dict:
+                           device: torch.device | str = "cpu",
+                           shardings: Any = None) -> dict:
     """A JAX serving engine's state (numpy leaves; lock-step or
     continuous batching) → the port engine's state: the KV cache on
     ``device``, and the lock-step engine's ``last_token``, which its next
     step feeds back; the bookkeeping on the host. The RNG leaves carry
     over as their uint32 words; the port reads them in its own encoding
-    (:mod:`grit_tpu_torch.models.serving`)."""
+    (:mod:`grit_tpu_torch.models.serving`). ``shardings``: a sharded
+    engine's (its ``_state_shardings``): each rank keeps its shard of
+    every leaf they split, as a DTensor."""
     out = tree_map(tensor_from_numpy, state)
     out["cache"] = {**out["cache"], "k": out["cache"]["k"].to(device),
                     "v": out["cache"]["v"].to(device)}
     if "rng" in out:  # the lock-step engine
         out["last_token"] = out["last_token"].to(device)
-    return out
+    if shardings is None:
+        return out
+    where = dict(flatten_with_names(shardings))
+    return map_with_names(lambda name, t: where[name].distribute(t)
+                          if where[name].shards() else t, out)
 
 
 def state_to_numpy(state: Any) -> Any:

@@ -134,7 +134,12 @@ from grit_tpu_torch.metadata import (
     chunk_stream_signature,
     crc32_file,
 )
-from grit_tpu_torch.parallel.sharding import dtensor_index, is_dtensor, local_shard
+from grit_tpu_torch.parallel.sharding import (
+    dtensor_index,
+    is_dtensor,
+    like_dtensor,
+    local_shard,
+)
 from grit_tpu_torch.tree import flatten_with_names, map_with_names
 from grit_tpu_torch.wire import Countdown
 
@@ -1637,13 +1642,7 @@ def _exact_chunk(rec: dict, want: list[list[int]]) -> dict | None:
 def _like_shard(local: torch.Tensor, like):
     """``local`` as ``like`` holds it: this rank's shard of a DTensor leaf
     wrapped in ``like``'s mesh and placements, else as it is."""
-    if not is_dtensor(like):
-        return local
-    from torch.distributed.tensor import DTensor  # noqa: PLC0415
-
-    return DTensor.from_local(local, like.device_mesh, like.placements,
-                              run_check=False, shape=like.shape,
-                              stride=like.stride())
+    return like_dtensor(local, like) if is_dtensor(like) else local
 
 
 def _want(leaf, rec: dict) -> list[list[int]]:

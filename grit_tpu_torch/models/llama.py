@@ -30,6 +30,17 @@ token buys nothing here) and return the cache dict with the new
 its step: every cache write is bounds-checked on the host, with no device
 sync, and an out-of-range write raises where ``lax.dynamic_update_slice``
 would clamp.
+
+On a serving mesh (``decode(mesh=)``, ``decode_ragged(mesh=)``; the
+engines' cache sharded by ``serving.KV_CACHE_RULES``: slots over the
+mesh's axes but ``model``, kv heads over ``model``) each rank runs its own
+slots and writes its own cache rows and heads at local indices
+(:func:`kv_shard`). It projects q, k and v for every head, keeps its own
+heads' for the cache and the attention, and gathers the heads' outputs
+over ``model`` before ``wo``: ``wo``, the feed-forward and ``lm_head``
+then run as on one device, so no sum over ``model`` makes the logits
+depend on the layout. The functions return the logits of this rank's
+slots.
 """
 
 from __future__ import annotations
@@ -38,11 +49,14 @@ from dataclasses import dataclass, replace
 from functools import partial
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from grit_tpu_torch.ops.attention import causal_attention
-from grit_tpu_torch.parallel.sharding import ShardingRules, is_dtensor
+from grit_tpu_torch.parallel.collectives import all_gather, shard_index
+from grit_tpu_torch.parallel.mesh import MODEL_AXIS, axis_groups
+from grit_tpu_torch.parallel.sharding import ShardingRules, is_dtensor, local_shard
 from grit_tpu_torch.tree import flatten_with_names
 
 
@@ -230,11 +244,45 @@ def _ragged_cache_write(cache: torch.Tensor, new: torch.Tensor,
     cache[rows, pos] = torch.where(active[:, None, None, None], new, cur)
 
 
+@dataclass(frozen=True)
+class KVShard:
+    """This rank's part of a serving step on a mesh: its ``slots`` of the
+    grid, its query ``heads`` and the ``kv_heads`` they read, and the
+    group over which the heads' outputs are gathered (None: every head is
+    local)."""
+
+    slots: slice
+    heads: slice
+    kv_heads: slice
+    group: object = None
+
+
+def kv_shard(cfg: LlamaConfig, mesh, cache: dict) -> KVShard:
+    """Where this rank's cache rows sit on ``mesh``: slots split over the
+    axes but ``model`` (major first), kv heads over ``model``, each query
+    head with its GQA group's kv head."""
+    local = local_shard(cache["k"])
+    names = [n for n in mesh.mesh_dim_names if n != MODEL_AXIS]
+    n_slots = local.shape[1]
+    first = shard_index(axis_groups(mesh, names)) * n_slots
+    group = (axis_groups(mesh, [MODEL_AXIS]) or [None])[0]
+    m = 1 if group is None else dist.get_world_size(group)
+    kvh = cfg.n_kv_heads // m
+    if kvh * m != cfg.n_kv_heads or local.shape[3] != kvh:
+        raise ValueError(f"a cache shard of {local.shape[3]} kv heads is not "
+                         f"1/{m} of {cfg.n_kv_heads}")
+    j = 0 if group is None else dist.get_rank(group)
+    rep = cfg.n_heads // cfg.n_kv_heads
+    return KVShard(slots=slice(first, first + n_slots),
+                   heads=slice(j * kvh * rep, (j + 1) * kvh * rep),
+                   kv_heads=slice(j * kvh, (j + 1) * kvh), group=group)
+
+
 def _attn_block(cfg: LlamaConfig, p: dict, x: torch.Tensor,
                 positions: torch.Tensor,
                 cache: tuple | None = None,
                 active: torch.Tensor | None = None,
-                attn_fn=None) -> torch.Tensor:
+                attn_fn=None, shard: KVShard | None = None) -> torch.Tensor:
     """Self-attention; with ``cache=(k_cache, v_cache, cur_len)`` it runs
     the serving path: write the new K/V at ``cur_len`` into the caches
     (in place) and attend into them.
@@ -247,7 +295,8 @@ def _attn_block(cfg: LlamaConfig, p: dict, x: torch.Tensor,
 
     ``attn_fn(q, k, v) -> out`` replaces the cache-less attention core
     (the long-context family runs ring or Ulysses attention through it,
-    the same pattern as ``mlp_fn``)."""
+    the same pattern as ``mlp_fn``). ``shard``: the serving path on a
+    mesh, the cache holding this rank's heads (:func:`kv_shard`)."""
     B, S, _ = x.shape
     hd = cfg.head_dim
     q = (x @ p["wq"].to(cfg.dtype)).reshape(B, S, cfg.n_heads, hd)
@@ -258,6 +307,9 @@ def _attn_block(cfg: LlamaConfig, p: dict, x: torch.Tensor,
         out = (local_heads(attend, q, k, v, positions)
                if is_dtensor(q) else attend(q, k, v, positions))
     else:
+        if shard is not None:
+            q, k, v = (q[:, :, shard.heads], k[:, :, shard.kv_heads],
+                       v[:, :, shard.kv_heads])
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
         k_cache, v_cache, cur_len = cache
@@ -273,6 +325,8 @@ def _attn_block(cfg: LlamaConfig, p: dict, x: torch.Tensor,
             _ragged_cache_write(v_cache, v, cur_len, active)
         out = causal_attention(q, k_cache, v_cache, q_offset=cur_len,
                                kv_len=cur_len + S)
+        if shard is not None and shard.group is not None:
+            out = all_gather(out, 2, shard.group)
     out = out.reshape(B, S, cfg.n_heads * hd)
     return out @ p["wo"].to(cfg.dtype)
 
@@ -312,7 +366,7 @@ def _mlp_block(cfg: LlamaConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
 
 def layer_body(cfg: LlamaConfig, layer_params: dict, x: torch.Tensor,
                positions: torch.Tensor, cache=None, active=None,
-               mlp_fn=None, attn_fn=None
+               mlp_fn=None, attn_fn=None, shard: KVShard | None = None
                ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """One transformer layer (attn_norm → attn → residual → mlp_norm →
     FFN → residual), the single copy of the layer math for training and
@@ -321,11 +375,12 @@ def layer_body(cfg: LlamaConfig, layer_params: dict, x: torch.Tensor,
     ``mlp_fn(layer_params, normed) -> (y, aux)`` replaces the dense
     feed-forward (the MoE family runs through this hook) and
     ``attn_fn(q, k, v) -> out`` the attention core (the long-context
-    family). Returns ``(h, aux)``; the dense FFN's aux is None."""
+    family). ``shard`` as :func:`_attn_block` takes it. Returns ``(h,
+    aux)``; the dense FFN's aux is None."""
     h = x + _attn_block(cfg, layer_params["attn"],
                         rms_norm(x, layer_params["attn_norm"], cfg.norm_eps),
                         positions, cache=cache, active=active,
-                        attn_fn=attn_fn)
+                        attn_fn=attn_fn, shard=shard)
     normed = rms_norm(h, layer_params["mlp_norm"], cfg.norm_eps)
     if mlp_fn is None:
         y, aux = _mlp_block(cfg, layer_params["mlp"], normed), None
@@ -428,26 +483,30 @@ def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int | None = None, *,
 def _cached_trunk(cfg: LlamaConfig, params: dict, tokens: torch.Tensor,
                   cache: dict, positions: torch.Tensor, cur_len,
                   active: torch.Tensor | None = None,
-                  mlp_fn=None) -> torch.Tensor:
+                  mlp_fn=None, shard: KVShard | None = None) -> torch.Tensor:
     """Embedding, the layer stack against the cache (in place), final norm
     and ``lm_head``: fp32 logits. The single copy of the serving trunk for
     :func:`decode` and :func:`decode_ragged`; ``mlp_fn(layer_params,
-    normed) -> y`` as they take it."""
+    normed) -> y`` as they take it. On a mesh (``shard``) ``tokens``,
+    ``cur_len`` and ``active`` are this rank's slots' and ``cache`` holds
+    its own rows and heads."""
     ffn = None if mlp_fn is None else (
         lambda layer_params, normed: (mlp_fn(layer_params, normed), None))
     x = F.embedding(tokens, params["tok_emb"]).to(cfg.dtype)
     layers = zip(_unstack(params["layers"], cfg.n_layers),
-                 torch.unbind(cache["k"], 0), torch.unbind(cache["v"], 0))
+                 torch.unbind(local_shard(cache["k"]), 0),
+                 torch.unbind(local_shard(cache["v"]), 0))
     for layer_params, kc, vc in layers:
         x, _ = layer_body(cfg, layer_params, x, positions,
-                          cache=(kc, vc, cur_len), active=active, mlp_fn=ffn)
+                          cache=(kc, vc, cur_len), active=active, mlp_fn=ffn,
+                          shard=shard)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return (x @ params["lm_head"].to(cfg.dtype)).float()
 
 
 @torch.no_grad()
 def decode(cfg: LlamaConfig, params: dict, tokens: torch.Tensor,
-           cache: dict, mlp_fn=None) -> tuple[torch.Tensor, dict]:
+           cache: dict, mlp_fn=None, mesh=None) -> tuple[torch.Tensor, dict]:
     """Serving step: append ``tokens`` (B, S) at ``cache['length']``,
     attend into the cache, return (logits (B, S, vocab) fp32, the cache
     with ``length`` advanced by S). Prefill (S = prompt length) and
@@ -457,12 +516,18 @@ def decode(cfg: LlamaConfig, params: dict, tokens: torch.Tensor,
     ``mlp_fn(layer_params, normed) -> y`` replaces the dense feed-forward
     (the MoE family serves through this function with its expert layer,
     so the cache and position semantics cannot drift between the
-    families). Unlike :func:`layer_body`'s hook it returns ``y`` alone."""
+    families). Unlike :func:`layer_body`'s hook it returns ``y`` alone.
+
+    ``mesh``: the cache is sharded on it (see the module's note); every
+    rank passes every slot's ``tokens`` and gets its own slots' logits."""
+    shard = None if mesh is None else kv_shard(cfg, mesh, cache)
+    if shard is not None:
+        tokens = tokens[shard.slots]
     B, S = tokens.shape
     cur_len = int(cache["length"])
     positions = (cur_len + torch.arange(S, device=tokens.device)).expand(B, S)
     logits = _cached_trunk(cfg, params, tokens, cache, positions, cur_len,
-                           mlp_fn=mlp_fn)
+                           mlp_fn=mlp_fn, shard=shard)
     return logits, {**cache, "length": torch.tensor(cur_len + S,
                                                     dtype=torch.int32)}
 
@@ -470,7 +535,7 @@ def decode(cfg: LlamaConfig, params: dict, tokens: torch.Tensor,
 @torch.no_grad()
 def decode_ragged(cfg: LlamaConfig, params: dict, tokens: torch.Tensor,
                   cache: dict, lengths: torch.Tensor, active: torch.Tensor,
-                  mlp_fn=None) -> tuple[torch.Tensor, dict]:
+                  mlp_fn=None, mesh=None) -> tuple[torch.Tensor, dict]:
     """Continuous-batching serving step: one new token per slot, each slot
     at its own position in the cache.
 
@@ -479,8 +544,9 @@ def decode_ragged(cfg: LlamaConfig, params: dict, tokens: torch.Tensor,
     ``active`` (B,) bool: inactive slots compute (the batch is the step's
     shape) but their cache rows stay byte-identical. ``cache['length']``
     is ignored and returned as is. An active slot at the cache's end
-    raises ``ValueError`` before anything is written. ``mlp_fn`` as
-    :func:`decode` takes it. Returns (logits (B, 1, vocab) fp32, cache)."""
+    raises ``ValueError`` before anything is written. ``mlp_fn`` and
+    ``mesh`` as :func:`decode` takes them. Returns (logits (B, 1, vocab)
+    fp32, or of this rank's slots on a mesh, cache)."""
     B, S = tokens.shape
     if S != 1:
         raise ValueError("decode_ragged is the per-token step; use "
@@ -491,10 +557,15 @@ def decode_ragged(cfg: LlamaConfig, params: dict, tokens: torch.Tensor,
         raise ValueError(f"KV cache write at {lengths.tolist()} overruns "
                          f"max_len={max_len} in active slots "
                          f"{over.nonzero().flatten().tolist()}")
+    shard = None if mesh is None else kv_shard(cfg, mesh, cache)
+    if shard is not None:
+        tokens, lengths, active = (tokens[shard.slots], lengths[shard.slots],
+                                   active[shard.slots])
     dev = cache["k"].device
     lengths, active = lengths.to(dev), active.to(dev)
     logits = _cached_trunk(cfg, params, tokens.to(dev), cache,
-                           lengths[:, None], lengths, active, mlp_fn=mlp_fn)
+                           lengths[:, None], lengths, active, mlp_fn=mlp_fn,
+                           shard=shard)
     return logits, cache
 
 

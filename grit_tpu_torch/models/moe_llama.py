@@ -18,8 +18,16 @@ Tokens compete for expert capacity within one call, so a prefill, a
 decode step and a pipeline microbatch drop differently from a whole
 training batch when capacity binds (the reference's capacity note); with
 ``capacity_factor >= n_experts`` nothing drops and all of them agree with
-:func:`forward`. The expert sharding (``MOE_LLAMA_RULES``,
-``pp_stage_shardings``) is not ported.
+:func:`forward`.
+
+Sharded (``MOE_LLAMA_RULES``, the JAX package's table): llama's rules,
+the experts over ``model`` and their hidden dims over ``fsdp``, the
+router replicated. ``mesh=`` on :func:`forward_with_aux`, :func:`forward`,
+:func:`loss_fn`, :func:`decode` and :func:`decode_ragged` runs the expert
+layer expert-parallel over ``EXPERT_MESH_AXIS`` with the whole batch's
+routing (:func:`grit_tpu_torch.ops.moe.moe_mlp`): the sharded Trainer's
+loss closes over its mesh, and the serving engines pass theirs.
+``pp_stage_shardings`` (the pipe axis) is not ported.
 """
 
 from __future__ import annotations
@@ -30,8 +38,16 @@ from dataclasses import dataclass
 import torch
 
 from grit_tpu_torch.models import llama, pipeline_llama
-from grit_tpu_torch.models.llama import LlamaConfig, token_cross_entropy
+from grit_tpu_torch.models.llama import (  # noqa: F401  (BATCH_SPEC: re-export)
+    BATCH_SPEC,
+    LlamaConfig,
+    token_cross_entropy,
+)
 from grit_tpu_torch.ops.moe import moe_mlp, moe_param_shapes
+from grit_tpu_torch.parallel.sharding import ShardingRules
+
+# Experts ride the tensor-parallel axis, as in the reference.
+EXPERT_MESH_AXIS = "model"
 
 
 @dataclass(frozen=True)
@@ -63,6 +79,19 @@ class MoeLlamaConfig(LlamaConfig):
         return dataclasses.replace(cfg, **overrides)
 
 
+# llama's rules plus the expert weights: experts over 'model', hidden dims
+# over 'fsdp', the router replicated (the JAX package's table).
+MOE_LLAMA_RULES = ShardingRules(
+    rules=[
+        *llama.LLAMA_RULES.rules,
+        (r"moe/router", (None, None, None)),            # (L, dim, E)
+        (r"moe/w_in", (None, "model", "fsdp", None)),   # (L, E, dim, hid)
+        (r"moe/w_out", (None, "model", None, "fsdp")),  # (L, E, hid, dim)
+    ],
+    default=llama.LLAMA_RULES.default,
+)
+
+
 def _moe_shapes(cfg: MoeLlamaConfig) -> dict:
     return {name: ((cfg.n_layers, *shape), scale) for name, (shape, scale)
             in moe_param_shapes(cfg.dim, cfg.hidden_dim, cfg.n_experts).items()}
@@ -81,62 +110,79 @@ def init_params(cfg: MoeLlamaConfig, generator: torch.Generator,
     return params
 
 
-def _moe_ffn(cfg: MoeLlamaConfig, B: int, S: int,
+def _moe_ffn(cfg: MoeLlamaConfig, mesh=None,
              token_mask: torch.Tensor | None = None):
-    """The FFN hook for llama's trunk: the expert layer over the B·S
-    tokens, which compete for capacity within the batch. ``token_mask``
-    (B·S,) bool keeps rows (bucket padding, released serving slots) out
-    of the routing, so they never take a real token's capacity."""
+    """The FFN hook for llama's trunk: the expert layer over the (B, S)
+    tokens it is given, which compete for capacity within the batch (over
+    every shard of it on a ``mesh``). ``token_mask`` (B·S,) bool keeps rows
+    (bucket padding, released serving slots) out of the routing, so they
+    never take a real token's capacity."""
 
     def ffn(layer_params, normed):
-        y, aux = moe_mlp(layer_params["moe"], normed.reshape(B * S, cfg.dim),
-                         capacity_factor=cfg.capacity_factor,
-                         top_k=cfg.top_k, token_mask=token_mask)
-        return y.reshape(B, S, cfg.dim), aux
+        y, aux = moe_mlp(layer_params["moe"], normed.reshape(-1, cfg.dim),
+                         capacity_factor=cfg.capacity_factor, mesh=mesh,
+                         axis=EXPERT_MESH_AXIS, top_k=cfg.top_k,
+                         token_mask=token_mask)
+        return y.reshape(normed.shape), aux
 
     return ffn
 
 
-def forward_with_aux(cfg: MoeLlamaConfig, params: dict, tokens: torch.Tensor
-                     ) -> tuple[torch.Tensor, torch.Tensor]:
+def forward_with_aux(cfg: MoeLlamaConfig, params: dict, tokens: torch.Tensor,
+                     mesh=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Tokens (B, S) → (logits (B, S, vocab) fp32, the mean aux over the
-    layers)."""
-    B, S = tokens.shape
+    layers). ``mesh``: the expert layer runs expert-parallel on it (the
+    sharded Trainer's DTensors)."""
     x, aux = llama.forward_hidden(cfg, params, tokens,
-                                  mlp_fn=_moe_ffn(cfg, B, S), return_aux=True)
+                                  mlp_fn=_moe_ffn(cfg, mesh), return_aux=True)
     logits = (x @ params["lm_head"].to(cfg.dtype)).float()
     return logits, aux.mean()
 
 
-def forward(cfg: MoeLlamaConfig, params: dict,
-            tokens: torch.Tensor) -> torch.Tensor:
-    return forward_with_aux(cfg, params, tokens)[0]
+def forward(cfg: MoeLlamaConfig, params: dict, tokens: torch.Tensor,
+            mesh=None) -> torch.Tensor:
+    return forward_with_aux(cfg, params, tokens, mesh=mesh)[0]
+
+
+def _local_mask(cfg: MoeLlamaConfig, mesh, cache: dict, B: int, S: int,
+                token_mask: torch.Tensor | None) -> torch.Tensor | None:
+    """This rank's rows of a (B·S,) token mask on a serving mesh (its
+    slots')."""
+    if mesh is None or token_mask is None:
+        return token_mask
+    slots = llama.kv_shard(cfg, mesh, cache).slots
+    return token_mask.reshape(B, S)[slots].reshape(-1)
 
 
 def decode(cfg: MoeLlamaConfig, params: dict, tokens: torch.Tensor,
-           cache: dict, token_mask: torch.Tensor | None = None
+           cache: dict, token_mask: torch.Tensor | None = None, mesh=None
            ) -> tuple[torch.Tensor, dict]:
     """Serving step (prefill or S = 1 decode): llama's cached attention
     with the expert feed-forward; the cache layout is llama's, so the
     serving engines migrate MoE generations unchanged. ``token_mask``
-    (B·S,) as :func:`_moe_ffn` takes it; the aux is dropped."""
+    (B·S,) as :func:`_moe_ffn` takes it; the aux is dropped. ``mesh``: a
+    cache sharded by the serving rules (:func:`llama.decode`), the experts
+    over its ``model`` axis, the routing over every slot's tokens."""
     B, S = tokens.shape
-    ffn = _moe_ffn(cfg, B, S, token_mask=token_mask)
+    ffn = _moe_ffn(cfg, mesh, _local_mask(cfg, mesh, cache, B, S, token_mask))
     return llama.decode(cfg, params, tokens, cache,
-                        mlp_fn=lambda lp, normed: ffn(lp, normed)[0])
+                        mlp_fn=lambda lp, normed: ffn(lp, normed)[0],
+                        mesh=mesh)
 
 
 def decode_ragged(cfg: MoeLlamaConfig, params: dict, tokens: torch.Tensor,
-                  cache: dict, lengths: torch.Tensor, active: torch.Tensor
-                  ) -> tuple[torch.Tensor, dict]:
+                  cache: dict, lengths: torch.Tensor, active: torch.Tensor,
+                  mesh=None) -> tuple[torch.Tensor, dict]:
     """The continuous-batching step for the MoE family: llama's ragged
     step with the expert feed-forward, released slots' stale tokens
-    masked out of the routing."""
+    masked out of the routing (``mesh`` as :func:`decode` takes it)."""
     B, S = tokens.shape
-    mask = active.to(cache["k"].device).repeat_interleave(S)
-    ffn = _moe_ffn(cfg, B, S, token_mask=mask)
+    mask = _local_mask(cfg, mesh, cache, B, S,
+                       active.to(cache["k"].device).repeat_interleave(S))
+    ffn = _moe_ffn(cfg, mesh, token_mask=mask)
     return llama.decode_ragged(cfg, params, tokens, cache, lengths, active,
-                               mlp_fn=lambda lp, normed: ffn(lp, normed)[0])
+                               mlp_fn=lambda lp, normed: ffn(lp, normed)[0],
+                               mesh=mesh)
 
 
 init_kv_cache = llama.init_kv_cache  # the same cache layout
@@ -150,13 +196,15 @@ def forward_pp(cfg: MoeLlamaConfig, stage_params: dict, tokens: torch.Tensor,
     aux is dropped, as the reference's stage drops it."""
     return pipeline_llama.forward_pp(
         cfg, stage_params, tokens, n_microbatches=n_microbatches,
-        axis=axis, mlp_fn_builder=lambda mb, S: _moe_ffn(cfg, mb, S))
+        axis=axis, mlp_fn_builder=lambda _mb, _S: _moe_ffn(cfg))
 
 
 def loss_fn(cfg: MoeLlamaConfig, params: dict, tokens: torch.Tensor,
-            targets: torch.Tensor, mask: torch.Tensor | None = None
-            ) -> torch.Tensor:
+            targets: torch.Tensor, mask: torch.Tensor | None = None,
+            mesh=None) -> torch.Tensor:
     """Next-token cross entropy (llama's, same masking) plus the weighted
-    load-balancing aux."""
-    logits, aux = forward_with_aux(cfg, params, tokens)
+    load-balancing aux. A sharded Trainer's loss closes over its ``mesh``,
+    so the expert layer runs expert-parallel with the whole batch's
+    routing."""
+    logits, aux = forward_with_aux(cfg, params, tokens, mesh=mesh)
     return token_cross_entropy(logits, targets, mask) + cfg.aux_weight * aux

@@ -46,6 +46,20 @@ same cache layout, the expert feed-forward), any other llama config
 through :mod:`llama`'s. The MoE prefill masks the bucket's pad positions
 out of the expert routing, so a pad never takes a real token's capacity.
 
+**Sharded grids** (``mesh=``, every rank of the mesh running the same
+engine calls). The KV cache is sharded by :data:`KV_CACHE_RULES` (slots
+over the data axes, kv heads over ``model``) as DTensors whose local
+shards each rank writes in place; every other leaf is replicated and
+lives as on one device. A step decodes each rank's own slots against its
+own heads (:func:`llama.decode` with ``mesh=``; the MoE family's expert
+layer over ``model`` with the whole grid's routing), samples them, each
+slot from its own stream, and gathers the tokens over the slot axes, so
+every rank keeps the same bookkeeping. A prompt is prefilled by the ranks
+that hold its slot. ``snapshot`` writes every rank's shards with the
+``named`` descriptors; ``restore`` lays a snapshot written on any mesh,
+or on one device, out on the engine's own. Post-copy restore onto a mesh
+is not ported.
+
 Engines given no device run on the current CUDA device and raise without
 one (pass ``device="cpu"`` explicitly).
 """
@@ -56,6 +70,7 @@ import contextlib
 import hashlib
 import struct
 from dataclasses import dataclass
+from functools import partial
 
 import torch
 
@@ -69,8 +84,76 @@ from grit_tpu_torch.device.snapshot import (
     write_snapshot,
 )
 from grit_tpu_torch.models import llama, moe_llama
+from grit_tpu_torch.parallel.collectives import gather_shards
+from grit_tpu_torch.parallel.mesh import MODEL_AXIS, axis_groups
+from grit_tpu_torch.parallel.sharding import (
+    ShardingRules,
+    is_dtensor,
+    like_dtensor,
+    local_shard,
+)
+from grit_tpu_torch.tree import flatten_with_names, map_with_names
 
 _WORD = 1 << 32
+
+# KV cache leaves (L, B, max_len, kv_heads, hd): slots over the data axes,
+# kv heads over 'model' (the attention weights' split); every other leaf
+# replicated (the JAX package's table).
+KV_CACHE_RULES = ShardingRules(
+    rules=[(r"cache/(k|v)$", (None, ("data", "fsdp"), None, "model", None))],
+    default=(),
+)
+
+
+def _init_state(fresh_fn, mesh, device, *, abstract: bool = False):
+    """``(state, shardings)`` of an engine's decode state, the single copy
+    of this logic for both engines. ``fresh_fn(device)`` builds the state
+    on one device (its device leaves on ``"meta"`` for a skeleton). On a
+    ``mesh`` the cache leaves become DTensors by :data:`KV_CACHE_RULES`,
+    each rank allocating only its shard; ``abstract`` leaves the device
+    leaves on the meta device (a restore's ``like`` tree)."""
+    if mesh is None:
+        return fresh_fn("meta" if abstract else device), None
+    skeleton = fresh_fn("meta")
+    shardings = KV_CACHE_RULES.tree_shardings(skeleton, mesh)
+    where = dict(flatten_with_names(shardings))
+    target = "meta" if abstract else device
+
+    def place(name: str, leaf: torch.Tensor) -> torch.Tensor:
+        if where[name].shards():
+            return where[name].zeros(leaf.shape, leaf.dtype, target)
+        if leaf.device.type == "meta" and not abstract:
+            return torch.zeros(leaf.shape, dtype=leaf.dtype, device=device)
+        return leaf
+
+    return map_with_names(place, skeleton), shardings
+
+
+def _check_mesh(mesh, device: torch.device) -> None:
+    if mesh is not None and mesh.device_type != device.type:
+        raise ValueError(f"the mesh is on {mesh.device_type}, the engine's "
+                         f"device is {device}")
+
+
+def _gather_slots(tokens: torch.Tensor, mesh) -> torch.Tensor:
+    """Every slot's tokens from each rank's own (on the host, in slot
+    order): gathered over the mesh's slot axes."""
+    names = [n for n in mesh.mesh_dim_names if n != MODEL_AXIS]
+    parts = gather_shards(tokens.cpu(), axis_groups(mesh, names))
+    return parts.reshape(-1, *tokens.shape[1:])
+
+
+def _dump(directory: str, state: dict, meta: dict, shardings) -> str:
+    """``write_snapshot`` of an engine's state: on a mesh every rank writes
+    its shards as process ``rank`` of the world."""
+    if shardings is None:
+        return write_snapshot(directory, state, meta=meta)
+    import torch.distributed as dist  # noqa: PLC0415
+
+    return write_snapshot(directory, state, meta=meta, barrier=dist.barrier,
+                          process_index=dist.get_rank(),
+                          process_count=dist.get_world_size(),
+                          shardings=shardings)
 
 
 def stream_key(seed: int, stream: int) -> list[int]:
@@ -117,16 +200,22 @@ class InferenceEngine:
 
     def __init__(self, cfg: llama.LlamaConfig, params: dict,
                  scfg: ServingConfig | None = None,
-                 device: torch.device | str | None = None) -> None:
+                 device: torch.device | str | None = None,
+                 mesh=None) -> None:
         self.cfg = cfg
         self.scfg = scfg or ServingConfig()
         self.params = params
         self.device = resolve_device(device)
+        _check_mesh(mesh, self.device)
+        self.mesh = mesh
         # Family dispatch: the MoE family decodes through moe_llama.
-        self._decode_fn = (moe_llama.decode
-                           if isinstance(cfg, moe_llama.MoeLlamaConfig)
-                           else llama.decode)
-        self.state = self._fresh_state(self.device)
+        fn = (moe_llama.decode if isinstance(cfg, moe_llama.MoeLlamaConfig)
+              else llama.decode)
+        self._decode_fn = fn if mesh is None else partial(fn, mesh=mesh)
+        self.state, self._state_shardings = _init_state(
+            self._fresh_state, mesh, self.device)
+        self._slots = (slice(None) if mesh is None else llama.kv_shard(
+            cfg, mesh, self.state["cache"]).slots)
         # Host mirror of cache['length'], so the capacity guard reads no
         # state; resynced on restore.
         self._cache_len = 0
@@ -172,12 +261,17 @@ class InferenceEngine:
         st = self.state
         logits, cache = self._decode_fn(self.cfg, self.params, tokens,
                                         st["cache"])
-        last = logits[:, -1, :]
+        last = logits[:, -1, :]  # this rank's slots on a mesh
         t = self.scfg.temperature
         if t > 0.0:
+            # One draw for the whole batch; a rank keeps its slots' rows.
             seed = sample_seed(st["rng"].tolist(), int(st["n_generated"]))
-            last = last / t + _gumbel(last.shape, seed, last.device)
+            noise = _gumbel((tokens.shape[0], last.shape[-1]), seed,
+                            last.device)
+            last = last / t + noise[self._slots]
         tok = torch.argmax(last, dim=-1, keepdim=True).to(torch.int32)
+        if self.mesh is not None:
+            tok = _gather_slots(tok, self.mesh).to(self.device)
         self.state = {"cache": cache, "last_token": tok, "rng": st["rng"],
                       "n_generated": st["n_generated"] + 1}
         return tok
@@ -188,14 +282,17 @@ class InferenceEngine:
         """Dump the decode state (not params: those ship with the pod
         image, once, not per migration)."""
         quiesce(self.state)
-        return write_snapshot(
-            directory, self.state,
-            meta={"n_generated": int(self.state["n_generated"])})
+        return _dump(directory, self.state,
+                     {"n_generated": int(self.state["n_generated"])},
+                     self._state_shardings)
 
     def restore(self, directory: str) -> int:
-        """Load the decode state; returns its ``n_generated``."""
-        self.state = restore_snapshot(
-            directory, like=self._fresh_state("meta"), device=self.device)
+        """Load the decode state onto the engine's own layout, whatever
+        mesh wrote it; returns its ``n_generated``."""
+        like, _ = _init_state(self._fresh_state, self.mesh, self.device,
+                              abstract=True)
+        self.state = restore_snapshot(directory, like=like,
+                                      device=self.device)
         self._cache_len = int(self.state["cache"]["length"])
         return int(self.state["n_generated"])
 
@@ -229,18 +326,29 @@ class ContinuousBatchingEngine:
 
     def __init__(self, cfg: llama.LlamaConfig, params: dict,
                  bcfg: BatchingConfig | None = None,
-                 device: torch.device | str | None = None) -> None:
+                 device: torch.device | str | None = None,
+                 mesh=None) -> None:
         self.cfg = cfg
         self.bcfg = bcfg or BatchingConfig()
         self.params = params
         self.device = resolve_device(device)
+        _check_mesh(mesh, self.device)
+        self.mesh = mesh
         # Family dispatch, as the lock-step engine's; the MoE prefill
         # masks its bucket's pads out of the expert routing.
         self._masked = isinstance(cfg, moe_llama.MoeLlamaConfig)
         fam = moe_llama if self._masked else llama
-        self._decode_fn, self._ragged_fn = fam.decode, fam.decode_ragged
+        self._decode_fn = fam.decode
+        self._ragged_fn = (fam.decode_ragged if mesh is None
+                           else partial(fam.decode_ragged, mesh=mesh))
         self._submissions = 0  # the next admission's RNG stream (monotonic)
-        self.state = self._fresh_state(self.device)
+        self.state, self._state_shardings = _init_state(
+            self._fresh_state, mesh, self.device)
+        # This rank's slots; a prompt is prefilled by the ranks holding
+        # its slot, its heads split over the model axis alone.
+        self._slots = (slice(0, self.bcfg.n_slots) if mesh is None else
+                       llama.kv_shard(cfg, mesh, self.state["cache"]).slots)
+        self._prefill_mesh = None if mesh is None else mesh[MODEL_AXIS]
         # Post-copy clone (snapshot fan-out): while the cold KV cache is
         # still landing, _parked_mask marks the slots the source had in
         # flight (neither admitted into nor stepped until their rows
@@ -296,8 +404,10 @@ class ContinuousBatchingEngine:
         padded = torch.zeros((1, bucket), dtype=torch.int32)
         padded[0, :n] = prompt
         st = self.state
-        _cb_prefill(self.cfg, self._decode_fn, self._masked, self.params,
-                    padded.to(self.device), n, slot, st["cache"])
+        if self._slots.start <= slot < self._slots.stop:
+            _cb_prefill(self.cfg, self._decode_fn, self._masked, self.params,
+                        padded.to(self.device), n, slot - self._slots.start,
+                        st["cache"], mesh=self._prefill_mesh)
         # lengths = n-1 with the prompt's last token as last_token: the
         # next step() re-derives position n-1 (rewriting identical K/V)
         # and samples generated token 1, so every emitted token comes
@@ -334,7 +444,8 @@ class ContinuousBatchingEngine:
             return {}
         self.state, toks = _cb_step(self.cfg, self.bcfg.temperature,
                                     self.bcfg.eos_id, self._ragged_fn,
-                                    self.params, self.state)
+                                    self.params, self.state,
+                                    slots=self._slots, mesh=self.mesh)
         out = toks.tolist()
         return {i: out[i] for i in torch.nonzero(was_active).flatten().tolist()}
 
@@ -361,9 +472,13 @@ class ContinuousBatchingEngine:
         if self._postcopy is not None:
             self.absorb_restored()
         st = self.state
+        ck, cv = st["cache"]["k"], st["cache"]["v"]
         with _on(self.device):
-            k, v = _tag_elidable_kv(st["cache"]["k"], st["cache"]["v"],
-                                    st["lengths"], st["active"])
+            k, v = _tag_elidable_kv(local_shard(ck), local_shard(cv),
+                                    st["lengths"][self._slots],
+                                    st["active"][self._slots])
+        if is_dtensor(ck):
+            k, v = like_dtensor(k, ck), like_dtensor(v, cv)
         return {**st, "cache": {**st["cache"], "k": k, "v": v}}
 
     def snapshot(self, directory: str, *, base: str | None = None) -> str:
@@ -374,12 +489,16 @@ class ContinuousBatchingEngine:
         if self._postcopy is not None:
             self.absorb_restored()
         quiesce(self.state)
-        return write_snapshot(directory, self.snapshot_state(),
-                              meta=self.snapshot_meta())
+        return _dump(directory, self.snapshot_state(), self.snapshot_meta(),
+                     self._state_shardings)
 
     def restore(self, directory: str) -> None:
-        self.state = restore_snapshot(
-            directory, like=self._fresh_state("meta"), device=self.device)
+        """Load the decode state onto the engine's own layout (its mesh's
+        shards, or one device), whatever mesh wrote it."""
+        like, _ = _init_state(self._fresh_state, self.mesh, self.device,
+                              abstract=True)
+        self.state = restore_snapshot(directory, like=like,
+                                      device=self.device)
         self._submissions = int(
             SnapshotManifest.load(directory).meta.get("submissions", 0))
         self._postcopy = self._parked_mask = self._fresh_mask = None
@@ -395,7 +514,12 @@ class ContinuousBatchingEngine:
         tail lands) merges the restored rows in; from then on the
         migrated streams continue bit-identically. When the hot set does
         not hold the bookkeeping (``GRIT_RESTORE_POSTCOPY_HOT_MB`` too
-        small), the restore completes as the blocking one does."""
+        small), the restore completes as the blocking one does. Not
+        ported onto a mesh: a sharded engine raises."""
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "post-copy restore onto a mesh is not ported; restore a "
+                "sharded engine with restore()")
         if self._postcopy is not None:
             # Two outstanding tails over one state cannot merge.
             self.absorb_restored()
@@ -480,7 +604,7 @@ def _tag_elidable_kv(cache_k: torch.Tensor, cache_v: torch.Tensor,
 
 def _cb_prefill(cfg: llama.LlamaConfig, decode_fn, masked: bool,
                 params: dict, padded: torch.Tensor, length: int, slot: int,
-                cache: dict) -> None:
+                cache: dict, mesh=None) -> None:
     """Prefill one slot: run the (1, bucket) prompt through ``decode_fn``
     against the slot's cache rows, which it writes in place. Pad positions
     beyond the true prompt (``length`` tokens) leave K/V that is never
@@ -489,36 +613,47 @@ def _cb_prefill(cfg: llama.LlamaConfig, decode_fn, masked: bool,
     pads are also masked out of the expert routing: a pad competing for
     capacity would change which real tokens get their experts, and the
     prefill would diverge from the unpadded prompt's. The logits are
-    dropped: prefill never samples."""
-    slot_cache = {"k": cache["k"][:, slot:slot + 1],
-                  "v": cache["v"][:, slot:slot + 1],
+    dropped: prefill never samples. On a sharded cache ``slot`` is the
+    local row of this rank's shard, and ``mesh`` the model axis its heads
+    and experts split over."""
+    slot_cache = {"k": local_shard(cache["k"])[:, slot:slot + 1],
+                  "v": local_shard(cache["v"])[:, slot:slot + 1],
                   "length": torch.zeros((), dtype=torch.int32)}
+    kw = {} if mesh is None else {"mesh": mesh}
     if masked:
         mask = torch.arange(padded.shape[1], device=padded.device) < length
-        decode_fn(cfg, params, padded, slot_cache, token_mask=mask)
+        decode_fn(cfg, params, padded, slot_cache, token_mask=mask, **kw)
     else:
-        decode_fn(cfg, params, padded, slot_cache)
+        decode_fn(cfg, params, padded, slot_cache, **kw)
 
 
 def _cb_step(cfg: llama.LlamaConfig, temperature: float, eos_id: int | None,
-             ragged_fn, params: dict, state: dict
+             ragged_fn, params: dict, state: dict, *,
+             slots: slice | None = None, mesh=None
              ) -> tuple[dict, torch.Tensor]:
     """The continuous-batching step: ragged decode (``ragged_fn``, the
     family's), per-slot sample and slot bookkeeping for the whole grid.
+    On a ``mesh`` this rank decodes and samples its ``slots`` (each from
+    its own stream) and the tokens are gathered over the slot axes.
     Returns (new state, tokens (B,) int32 on the host)."""
     active = state["active"]
     logits, cache = ragged_fn(
         cfg, params, state["last_token"], state["cache"], state["lengths"],
         active)
-    last = logits[:, -1, :]  # (B, vocab)
+    last = logits[:, -1, :]  # (B, vocab): this rank's slots on a mesh
+    first = 0 if slots is None else slots.start
     if temperature > 0.0:
         noise = torch.zeros_like(last)
-        for b in torch.nonzero(active).flatten().tolist():
+        for i in torch.nonzero(active[first:first + last.shape[0]]
+                               ).flatten().tolist():
+            b = first + i
             seed = sample_seed(state["rngs"][b].tolist(),
                                int(state["n_generated"][b]))
-            noise[b] = _gumbel(last.shape[1:], seed, last.device)
+            noise[i] = _gumbel(last.shape[1:], seed, last.device)
         last = last / temperature + noise
     tok = torch.argmax(last, dim=-1).to(torch.int32).cpu()
+    if mesh is not None:
+        tok = _gather_slots(tok, mesh)
     tok = torch.where(active, tok, state["last_token"][:, 0])
     new_lengths = state["lengths"] + active.to(torch.int32)
     still = active & (new_lengths < cache["k"].shape[2])

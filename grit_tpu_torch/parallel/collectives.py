@@ -14,6 +14,11 @@ operations to it:
   ``split_dim`` is cut into ``size`` chunks, chunk ``j`` goes to rank
   ``j``, and what rank ``i`` sent lands at position ``i`` along
   ``concat_dim``; its backward is the all-to-all back;
+- :func:`all_gather`: ``lax.all_gather(..., tiled=True)``: every rank's
+  input concatenated along a dim in rank order; its backward keeps this
+  rank's part of the cotangent, which every rank holds whole (every rank
+  computes the same thing from the gathered tensor, as after
+  :func:`reduce_sum`);
 - :func:`reduce_sum` and :func:`replicate`, the two halves of ``psum``
   and its transpose. ``reduce_sum`` sums over the axis and passes the
   cotangent through unchanged: every rank then computes the same loss
@@ -136,6 +141,16 @@ def _all_to_all(x: torch.Tensor, split_dim: int, concat_dim: int,
                      dim=concat_dim)
 
 
+def _all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    n = dist.get_world_size(group)
+    if n == 1:
+        return x
+    send = _contiguous(x, group).reshape(-1)
+    recv = torch.empty(n * send.numel(), dtype=send.dtype, device=send.device)
+    dist.all_gather_into_tensor(recv, send, group=group)
+    return torch.cat(recv.view(n, *x.shape).unbind(0), dim=dim)
+
+
 def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
     buf = _contiguous(x, group, fresh=True)
     dist.all_reduce(buf, group=group)
@@ -163,6 +178,19 @@ class _AllToAll(torch.autograd.Function):
     def backward(ctx, g):
         split_dim, concat_dim = ctx.dims
         return _all_to_all(g, concat_dim, split_dim, ctx.group), None, None, None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _all_gather(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = dist.get_world_size(ctx.group)
+        part = g.chunk(n, dim=ctx.dim)[dist.get_rank(ctx.group)]
+        return part.contiguous(), None, None
 
 
 class _ReduceSum(torch.autograd.Function):
@@ -199,6 +227,33 @@ def all_to_all(x: torch.Tensor, split_dim: int, concat_dim: int,
     """``lax.all_to_all(x, axis, split_dim, concat_dim, tiled=True)``:
     contiguous output. Differentiable."""
     return _AllToAll.apply(x, split_dim, concat_dim, process_group(axis))
+
+
+def all_gather(x: torch.Tensor, dim: int, axis=None) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim`` in rank order
+    (``lax.all_gather(x, axis, axis=dim, tiled=True)``). Differentiable:
+    the backward keeps this rank's part of the cotangent (see the module's
+    note)."""
+    return _AllGather.apply(x, dim, process_group(axis))
+
+
+def gather_shards(x: torch.Tensor, groups) -> torch.Tensor:
+    """Every shard's ``x`` stacked along a new leading dim in shard order,
+    on every rank, without a gradient: ``groups`` split the shards, major
+    first (:func:`shard_index` numbers them so)."""
+    out = x.detach()[None]
+    for group in reversed(list(groups)):  # minor first
+        out = _all_gather(out, 0, group)
+    return out
+
+
+def shard_index(groups) -> int:
+    """This rank's shard among those ``groups`` split, major first: the
+    row-major number of its coordinates along them."""
+    index = 0
+    for group in groups:
+        index = index * dist.get_world_size(group) + dist.get_rank(group)
+    return index
 
 
 def reduce_sum(x: torch.Tensor, axis=None) -> torch.Tensor:

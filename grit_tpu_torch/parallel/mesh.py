@@ -82,3 +82,11 @@ def active_mesh(mesh: DeviceMesh) -> DeviceMesh:
     if len(names) == mesh.ndim:
         return mesh
     return mesh[tuple(names)] if len(names) > 1 else mesh[names[0]]
+
+
+def axis_groups(mesh: DeviceMesh, names) -> list:
+    """The process groups of ``mesh``'s axes among ``names`` that are larger
+    than 1, in mesh order (major first): the groups that split what those
+    axes shard."""
+    return [mesh.get_group(n) for n, k in zip(mesh.mesh_dim_names, mesh.shape)
+            if n in names and k > 1]

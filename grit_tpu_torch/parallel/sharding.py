@@ -76,6 +76,13 @@ class ShardingRules:
         return map_with_names(lambda name, _leaf: self.spec_for(path_str(name)),
                               tree)
 
+    def tree_shardings(self, tree, mesh: DeviceMesh) -> Any:
+        """A tree of :class:`NamedSharding` on ``mesh`` shaped like
+        ``tree``: each leaf's spec from the table."""
+        return map_with_names(
+            lambda name, _leaf: NamedSharding(mesh, self.spec_for(
+                path_str(name))), tree)
+
 
 def spec_for(rules: ShardingRules, tree) -> Any:
     return rules.tree_specs(tree)
@@ -156,6 +163,16 @@ def dtensor_index(x: DTensor) -> list[list[int]]:
                    for d in range(x.dim())], x.placements)
 
 
+def like_dtensor(local: torch.Tensor, like: DTensor) -> DTensor:
+    """``local``, this rank's shard, as a DTensor of ``like``'s mesh,
+    placements, shape and stride (no communication)."""
+    from torch.distributed.tensor import DTensor  # noqa: PLC0415
+
+    return DTensor.from_local(local, like.device_mesh, like.placements,
+                              run_check=False, shape=like.shape,
+                              stride=like.stride())
+
+
 def placements(spec: tuple, mesh: DeviceMesh, ndim: int) -> tuple[Placement, ...]:
     """DTensor placements of ``spec`` on ``mesh``, one per mesh dim: the
     mesh dim of an axis named at tensor dim ``d`` is ``Shard(d)``, every
@@ -225,6 +242,25 @@ class NamedSharding:
                 "mesh_axes": list(self.mesh.mesh_dim_names),
                 "spec": [list(e) if isinstance(e, (tuple, list)) else e
                          for e in self.spec]}
+
+    def shards(self) -> bool:
+        """Whether the spec splits any dim (else every rank holds the leaf
+        whole)."""
+        return any(_axes_of(entry) for entry in self.spec)
+
+    def zeros(self, shape, dtype: torch.dtype, device) -> DTensor:
+        """A DTensor of this sharding whose local shard is zeros on
+        ``device`` (``"meta"``: a shape skeleton): nothing of the whole
+        tensor is ever allocated."""
+        from torch.distributed.tensor import DTensor  # noqa: PLC0415
+
+        local = torch.zeros([b - a for a, b in self.shard_index(shape)],
+                            dtype=dtype, device=device)
+        stride = torch.empty(shape, device="meta").stride()
+        return DTensor.from_local(local, self.active,
+                                  self.placements(len(shape)),
+                                  run_check=False, shape=torch.Size(shape),
+                                  stride=stride)
 
     def distribute(self, x: torch.Tensor) -> DTensor:
         """``x``, which every rank holds whole and alike, as a DTensor of

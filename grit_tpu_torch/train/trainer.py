@@ -216,18 +216,12 @@ class Trainer:
         skeleton = self._dense_skeleton()
         if self.mesh is None:
             return skeleton
-        from torch.distributed.tensor import DTensor  # noqa: PLC0415
 
         def meta_shard(name: str, leaf: torch.Tensor) -> torch.Tensor:
             if leaf.dim() == 0:
                 return leaf
-            sh = self._sharding(name, leaf)
-            local = torch.empty([b - a for a, b in sh.shard_index(leaf.shape)],
-                                dtype=leaf.dtype, device="meta")
-            return DTensor.from_local(local, sh.active,
-                                      sh.placements(leaf.dim()),
-                                      run_check=False, shape=leaf.shape,
-                                      stride=leaf.stride())
+            return self._sharding(name, leaf).zeros(leaf.shape, leaf.dtype,
+                                                    "meta")
 
         return map_with_names(meta_shard, skeleton)
 

@@ -2,13 +2,16 @@
 models' rule tables) against the JAX package's.
 
 Each rule table's ``spec_for`` equals the JAX table's for every leaf path
-of the JAX model's own tree. On four gloo CPU ranks (one launch), every
-leaf of the tiny llama, MNIST and LoRA trees is placed by ``shard_tree``
-on a (1,2,2) and a (2,1,2) mesh: each rank's local shard (its values and
-its global index) is the slice ``NamedSharding.devices_indices_map``
-gives the JAX device at the same mesh coordinate, among the test
-process's eight virtual CPU devices. A dim that does not divide raises
-in both packages; a tuple of axes out of mesh order raises in the port.
+of the JAX model's own tree: llama, MNIST, LoRA, the MoE llama
+(``MOE_LLAMA_RULES``) and a serving grid's state (``KV_CACHE_RULES``);
+``tree_shardings`` and ``expert_shardings`` give the JAX package's specs.
+On four gloo CPU ranks (one launch), every leaf of those trees is placed
+by ``shard_tree`` on a (1,2,2) and a (2,1,2) mesh: each rank's local
+shard (its values and its global index) is the slice
+``NamedSharding.devices_indices_map`` gives the JAX device at the same
+mesh coordinate, among the test process's eight virtual CPU devices. A
+dim that does not divide raises in both packages; a tuple of axes out of
+mesh order raises in the port.
 """
 
 from __future__ import annotations
@@ -25,18 +28,35 @@ import torch_ranks
 from grit_tpu.models import llama as jllama
 from grit_tpu.models import lora as jlora
 from grit_tpu.models import mnist as jmnist
+from grit_tpu.models import moe_llama as jmoe
+from grit_tpu.models import serving as jserving
+from grit_tpu.ops import moe as jmoe_ops
 from grit_tpu.parallel.mesh import MeshSpec, build_mesh
 from grit_tpu.parallel.sharding import _path_str
 from grit_tpu_torch.models import llama as pllama
 from grit_tpu_torch.models import lora as plora
 from grit_tpu_torch.models import mnist as pmnist
+from grit_tpu_torch.models import moe_llama as pmoe
+from grit_tpu_torch.models import serving as pserving
+from grit_tpu_torch.ops import moe as pmoe_ops
 from grit_tpu_torch.parallel.launch import run_ranks
 from grit_tpu_torch.parallel.sharding import ShardingRules, path_str
 
 LLAMA_CFG = jllama.LlamaConfig.tiny(dim=128, n_layers=4, n_heads=8,
                                     n_kv_heads=4, dtype=jnp.float32)
+MOE_CFG = jmoe.MoeLlamaConfig.tiny(dim=128, n_layers=4, n_heads=8,
+                                   n_kv_heads=4, dtype=jnp.float32)
 MNIST_CFG = jmnist.MnistConfig()
 LORA_CFG = jlora.LoraConfig(rank=4, targets=jlora.TARGETS)
+
+
+def _grid_state():
+    """A continuous-batching grid's fresh state (4 slots), as the JAX
+    engine builds it."""
+    params = jmoe.init_params(MOE_CFG, jax.random.PRNGKey(0))
+    eng = jserving.ContinuousBatchingEngine(
+        MOE_CFG, params, jserving.BatchingConfig(n_slots=4, max_seq_len=32))
+    return jax.eval_shape(eng._fresh_state)
 
 
 def _jax_trees() -> dict:
@@ -50,14 +70,19 @@ def _jax_trees() -> dict:
         "lora": (jlora.LORA_RULES, "lora",
                  jax.eval_shape(partial(jlora.init_lora, LLAMA_CFG, LORA_CFG),
                                 key)),
+        "moe": (jmoe.MOE_LLAMA_RULES, "moe",
+                jax.eval_shape(partial(jmoe.init_params, MOE_CFG), key)),
+        "kv_cache": (jserving.KV_CACHE_RULES, "kv_cache", _grid_state()),
     }
 
 
 PORT_TABLES = {"llama": pllama.LLAMA_RULES, "mnist": pmnist.MNIST_RULES,
-               "lora": plora.LORA_RULES}
+               "lora": plora.LORA_RULES, "moe": pmoe.MOE_LLAMA_RULES,
+               "kv_cache": pserving.KV_CACHE_RULES}
+TREES = ["llama", "mnist", "lora", "moe", "kv_cache"]
 
 
-@pytest.mark.parametrize("tree", ["llama", "mnist", "lora"])
+@pytest.mark.parametrize("tree", TREES)
 def test_rule_table_matches_jax(tree):
     jrules, name, jtree = _jax_trees()[tree]
     flat = jax.tree_util.tree_flatten_with_path(jtree)[0]
@@ -104,7 +129,7 @@ def _jax_mesh(shape):
 
 
 @pytest.mark.parametrize("mshape", MESHES, ids=["122", "212"])
-@pytest.mark.parametrize("tree", ["llama", "mnist", "lora", "batch"])
+@pytest.mark.parametrize("tree", TREES + ["batch"])
 def test_local_shards_match_devices_indices_map(placed, mshape, tree):
     jm = _jax_mesh(mshape)
     if tree == "batch":
@@ -169,6 +194,49 @@ def test_placements_of_a_spec():
     active = FakeMesh(("fsdp", "model"))
     assert placements((("data", "fsdp"), "model"), active, 2) == (
         Shard(0), Shard(1))
+
+
+class _FakeMesh:
+    """The attributes a port ``NamedSharding`` reads of its mesh."""
+
+    mesh_dim_names = ("data", "fsdp", "model")
+    ndim = 3
+    shape = (1, 2, 2)
+
+
+@pytest.mark.parametrize("tree", ["moe", "kv_cache"])
+def test_tree_shardings_match_jax(tree):
+    """``ShardingRules.tree_shardings``: one ``NamedSharding`` a leaf, on
+    the mesh given, with the JAX package's spec for that leaf."""
+    jrules, name, jtree = _jax_trees()[tree]
+    jmesh = build_mesh(MeshSpec(1, 2, 2), jax.devices()[:4])
+    want = {jax.tree_util.keystr(p): tuple(s.spec) for p, s in
+            jax.tree_util.tree_flatten_with_path(
+                jrules.tree_shardings(jtree, jmesh),
+                is_leaf=lambda x: isinstance(x, NamedSharding))[0]}
+    from grit_tpu_torch.tree import flatten_with_names  # noqa: PLC0415
+
+    skeleton = {jax.tree_util.keystr(p): leaf for p, leaf in
+                jax.tree_util.tree_flatten_with_path(jtree)[0]}
+    got = PORT_TABLES[name].tree_shardings(jtree, _FakeMesh())
+    flat = dict(flatten_with_names(got))
+    assert flat.keys() == want.keys() == skeleton.keys()
+    for leaf, sh in flat.items():
+        assert sh.mesh is not None and sh.spec == want[leaf], leaf
+        assert sh.descriptor()["spec"] == [
+            list(e) if isinstance(e, tuple) else e for e in want[leaf]]
+
+
+def test_expert_shardings_match_jax():
+    jmesh = build_mesh(MeshSpec(1, 2, 2), jax.devices()[:4])
+    want = jmoe_ops.expert_shardings(jmesh, "model")
+    got = pmoe_ops.expert_shardings(_FakeMesh(), "model")
+    assert got.keys() == want.keys()
+    for leaf, sh in got.items():
+        assert sh.spec == tuple(want[leaf].spec), leaf
+    assert pmoe_ops.EXPERT_AXIS == jmoe_ops.EXPERT_AXIS
+    assert pmoe.EXPERT_MESH_AXIS == jmoe.EXPERT_MESH_AXIS
+    assert pmoe.BATCH_SPEC == tuple(jmoe.BATCH_SPEC)
 
 
 def test_a_dense_workload_loads_no_dtensor_module():

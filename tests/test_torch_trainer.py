@@ -182,7 +182,8 @@ def test_port_imports_nothing_of_jax():
                      "grit_tpu_torch.models.long_context",
                      "grit_tpu_torch.models.pipeline_llama",
                      "grit_tpu_torch.parallel.mesh",
-                     "grit_tpu_torch.parallel.sharding"):
+                     "grit_tpu_torch.parallel.sharding",
+                     "grit_tpu_torch.models.serving"):
             assert want in names, names
         for name in names:
             importlib.import_module(name)

@@ -19,6 +19,7 @@ import json
 import os
 import sys
 from dataclasses import replace
+from functools import partial
 
 import numpy as np
 import torch
@@ -402,8 +403,11 @@ def placement_cases(inp: dict) -> dict:
     from grit_tpu_torch.parallel.mesh import MeshSpec, build_mesh  # noqa: PLC0415
     from grit_tpu_torch.parallel.sharding import dtensor_index, named_sharding, shard_tree  # noqa: PLC0415
 
+    from grit_tpu_torch.models import serving  # noqa: PLC0415
+
     tables = {"llama": llama.LLAMA_RULES, "mnist": mnist.MNIST_RULES,
-              "lora": lora.LORA_RULES}
+              "lora": lora.LORA_RULES, "moe": moe_llama.MOE_LLAMA_RULES,
+              "kv_cache": serving.KV_CACHE_RULES}
     out: dict = {"foreign": foreign_modules()}
     for mshape in inp["meshes"]:
         mesh = build_mesh(MeshSpec(*mshape), "cpu")
@@ -431,24 +435,33 @@ def placement_cases(inp: dict) -> dict:
 
 
 def _llama_trainer(inp: dict, dtype, mesh):
-    """A Trainer of the tiny llama on ``inp``'s numpy weights and fixed
+    """A Trainer of the tiny llama (the tiny MoE llama when ``inp["moe"]``,
+    its loss closing over ``mesh``) on ``inp``'s numpy weights and fixed
     tokens (every step the same batch), sharded when ``mesh`` is given."""
     from grit_tpu_torch.train.trainer import Trainer, TrainerConfig  # noqa: PLC0415
 
-    cfg = replace(llama.LlamaConfig.tiny(**inp["cfg"]), dtype=dtype,
-                  param_dtype=dtype)
+    if inp.get("moe"):
+        cfg = replace(moe_llama.MoeLlamaConfig.tiny(**inp["cfg"]),
+                      dtype=dtype, param_dtype=dtype)
+        loss = partial(moe_llama.loss_fn, cfg, mesh=mesh)
+        rules = moe_llama.MOE_LLAMA_RULES
+    else:
+        cfg = replace(llama.LlamaConfig.tiny(**inp["cfg"]), dtype=dtype,
+                      param_dtype=dtype)
+        loss, rules = partial(llama.loss_fn, cfg), llama.LLAMA_RULES
     toks = torch.from_numpy(inp["tokens"])
 
     def init(_gen, device):
         if torch.device(device).type == "meta":
-            return llama.abstract_params(cfg)
+            return tree_map(lambda a: torch.empty_like(
+                a, dtype=dtype, device="meta"), _params(inp["params"]))
         return tree_map(lambda a: a.to(dtype), _params(inp["params"]))
 
     return Trainer(
-        loss_fn=lambda p, b: llama.loss_fn(cfg, p, b[0], b[1]),
+        loss_fn=lambda p, b: loss(p, b[0], b[1]),
         init_params=init, batch_fn=lambda _gen: (toks[:, :-1], toks[:, 1:]),
         cfg=TrainerConfig(learning_rate=1e-3, batch_spec=llama.BATCH_SPEC),
-        device="cpu", mesh=mesh, rules=None if mesh is None else llama.LLAMA_RULES)
+        device="cpu", mesh=mesh, rules=None if mesh is None else rules)
 
 
 def _state_np(tr) -> dict:
@@ -469,11 +482,13 @@ def _full_np(tr) -> dict:
 
 
 def sharded_state_cases(inp: dict) -> dict:
-    """The tiny llama on the (1,2,2) mesh against dense: first-step
-    losses in bf16 and f32; a sharded snapshot, its bitwise resume, a
-    restore onto (2,1,2) and into a dense Trainer; a delta of the same
-    cut against it; restores of the JAX package's snapshots; the
-    port-written snapshot's state for the JAX package to restore."""
+    """The tiny llama (the tiny MoE llama with ``inp["moe"]``) on the
+    (1,2,2) mesh against dense: first-step losses in bf16 and f32; a
+    sharded snapshot, its bitwise resume, a restore onto (2,1,2) and into
+    a dense Trainer (each one's whole state at the cut, and its losses); a
+    delta of the same cut against it; restores of the JAX package's
+    snapshots; the port-written snapshot's state for the JAX package to
+    restore."""
     from grit_tpu_torch.device.snapshot import restore_snapshot  # noqa: PLC0415
     from grit_tpu_torch.parallel.mesh import MeshSpec, build_mesh  # noqa: PLC0415
     from grit_tpu_torch.parallel.sharding import dtensor_index  # noqa: PLC0415
@@ -504,12 +519,11 @@ def sharded_state_cases(inp: dict) -> dict:
         step = tr.restore(d)
         resumed[key] = {"step": step, "losses": tr.run(3),
                         "state": _state_np(tr)}
-    tr = _llama_trainer(inp, torch.bfloat16, meshes["212"])
-    tr.restore(snap)
-    resumed["212"] = {"losses": tr.run(3)}
-    tr = _llama_trainer(inp, torch.bfloat16, None)
-    tr.restore(snap)
-    resumed["dense"] = {"losses": tr.run(3)}
+    for key, mesh in (("212", meshes["212"]), ("dense", None)):
+        tr = _llama_trainer(inp, torch.bfloat16, mesh)
+        tr.restore(snap)
+        cut = _full_np(tr)
+        resumed[key] = {"cut": cut, "losses": tr.run(3)}
     out["resumed"] = resumed
 
     # The JAX package's snapshots, restored onto each mesh (rng aside:
@@ -569,4 +583,134 @@ def local_gloo_cases(inp: dict) -> dict:
         dist.reduce_scatter(res["l_reduce_scatter"],
                             list(x.clone().chunk(n)), group=group)
         out[name] = {k: _np(v) for k, v in res.items()}
+    return out
+
+
+# -- sharded serving grids --------------------------------------------------------
+
+
+def _serving_cfg(inp: dict, fam: str):
+    kind = moe_llama.MoeLlamaConfig if fam == "moe" else llama.LlamaConfig
+    return kind.tiny(**inp["cfg"][fam], dtype=torch.float32)
+
+
+def _drive(eng, prompts, rounds: int, script=None) -> list[dict]:
+    """Admit ``prompts`` (the first two at once, the rest after the first
+    round) and step ``rounds`` times: each round's ``{slot: token}``."""
+    out = []
+    for p in prompts[:2]:
+        eng.submit(p)
+    for r in range(rounds):
+        if r == 1:
+            for p in prompts[2:]:
+                eng.submit(p)
+        out.append(eng.step())
+    return out
+
+
+def _written_np(state) -> dict:
+    """This rank's shard of the cache's ``k`` and ``v`` (and its index),
+    every page no step has written yet zeroed: positions at or past each
+    active slot's length, and inactive slots' rows."""
+    from grit_tpu_torch.parallel.sharding import dtensor_index  # noqa: PLC0415
+
+    out = {}
+    for name in ("k", "v"):
+        x = state["cache"][name]
+        index = dtensor_index(x) if isinstance(x, DTensor) else None
+        local = x.to_local() if isinstance(x, DTensor) else x
+        b0, b1 = (0, local.shape[1]) if index is None else index[1]
+        lengths = state["lengths"][b0:b1][None, :, None, None, None]
+        active = state["active"][b0:b1][None, :, None, None, None]
+        pos = torch.arange(local.shape[2])[None, None, :, None, None]
+        out[name] = (index, _local_np(torch.where(
+            active & (pos < lengths), local, torch.zeros((), dtype=local.dtype))))
+    return out
+
+
+def serving_mesh_cases(inp: dict) -> dict:
+    """Both serving engines, dense and MoE llama, sharded by
+    ``KV_CACHE_RULES`` on (1,2,2) against the single-device engine, greedy
+    and sampled; a (1,2,2) grid snapshot restored onto (1,2,2) (tokens and
+    the cache's shards bitwise), onto (1,1,4) and onto one device; the JAX
+    package's grid snapshots restored onto (1,2,2); the port's grid state
+    whole for the JAX package to hold its restore to; post-copy onto a
+    mesh."""
+    from grit_tpu_torch.models import serving  # noqa: PLC0415
+    from grit_tpu_torch.parallel.mesh import MeshSpec, build_mesh  # noqa: PLC0415
+    from grit_tpu_torch.parallel.sharding import dtensor_index  # noqa: PLC0415
+
+    work = inp["work"]
+    meshes = {k: build_mesh(MeshSpec(*v), "cpu") for k, v in
+              {"122": (1, 2, 2), "114": (1, 1, 4)}.items()}
+    rounds, cut = inp["rounds"], inp["cut"]
+    out: dict = {"foreign": foreign_modules(), "rank": dist.get_rank()}
+    for fam in ("dense", "moe"):
+        cfg = _serving_cfg(inp, fam)
+        params = _params(inp["params"][fam])
+        prompts = [torch.from_numpy(p) for p in inp["prompts"]]
+        res: dict = {}
+
+        def grid(temperature: float, mesh):
+            return serving.ContinuousBatchingEngine(
+                cfg, params, serving.BatchingConfig(
+                    n_slots=4, max_seq_len=inp["max_len"],
+                    temperature=temperature, seed=7,
+                    prefill_buckets=(16, 32)),
+                device="cpu", mesh=mesh)
+
+        for label, t in (("greedy", 0.0), ("sampled", 1.0)):
+            res[label] = {
+                "solo": _drive(grid(t, None), prompts, rounds),
+                "mesh": _drive(grid(t, meshes["122"]), prompts, rounds)}
+            lock = {}
+            for key, mesh in (("solo", None), ("mesh", meshes["122"])):
+                eng = serving.InferenceEngine(
+                    cfg, params, serving.ServingConfig(
+                        batch_size=4, max_seq_len=inp["max_len"],
+                        temperature=t, seed=7), device="cpu", mesh=mesh)
+                first = eng.prefill(torch.from_numpy(inp["batch_prompt"]))
+                lock[key] = torch.cat([first, eng.generate(rounds)],
+                                      1).tolist()
+            res[f"lockstep_{label}"] = lock
+
+        # A grid snapshot taken mid-flight and its restores.
+        src = grid(0.0, meshes["122"])
+        before = _drive(src, prompts, cut)
+        snap = os.path.join(work, f"port-grid-{fam}")
+        src.snapshot(snap)
+        res["port_full"] = {  # as the snapshot holds it (written pages)
+            name: convert.tensor_to_numpy(x)
+            for name, x in flatten_with_names(src.snapshot_state())}
+        res["source"] = {"before": before,
+                         "after": [src.step() for _ in range(rounds - cut)],
+                         "cache": _written_np(src.state)}
+        for key, mesh in (("122", meshes["122"]), ("114", meshes["114"]),
+                          ("dense", None)):
+            dst = grid(0.0, mesh)
+            dst.restore(snap)
+            res[key] = {"after": [dst.step() for _ in range(rounds - cut)],
+                        "cache": _written_np(dst.state)}
+        try:
+            grid(0.0, meshes["122"]).restore_postcopy(snap)
+            res["postcopy"] = "restored"
+        except NotImplementedError as exc:
+            res["postcopy"] = f"NotImplementedError: {exc}"
+
+        # The JAX package's grid snapshot onto this rank's mesh.
+        dst = grid(0.0, meshes["122"])
+        dst.restore(inp["jax_dirs"][fam])
+        res["jax_restored"] = {
+            name: (dtensor_index(x) if isinstance(x, DTensor) else None,
+                   _local_np(x))
+            for name, x in flatten_with_names(dst.state)}
+        res["jax_after"] = [dst.step() for _ in range(rounds - cut)]
+        # The same JAX state carried over as numpy, each rank keeping its
+        # shards of it.
+        dst = grid(0.0, meshes["122"])
+        dst.state = convert.serving_state_from_jax(
+            inp["jax_states"][fam], shardings=dst._state_shardings)
+        res["jax_converted_after"] = [dst.step()
+                                      for _ in range(rounds - cut)]
+        out[fam] = res
     return out
