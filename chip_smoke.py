@@ -30,9 +30,10 @@ non-zero without the final result line:
    phase 9's frozen-trunk optimizer, timed the same way: losses finite,
    the forward launched layers × steps times, the backward kernels never.
 5. migrate — the system's path: ``python -m grit_tpu_torch.workload``
-   trains, is quiesced and dumped through its agentlet, SIGKILLed, and a
-   fresh process restores from the snapshot; its losses after the cut
-   must equal an uninterrupted run's bit for bit. The dump's and the
+   trains, is quiesced and dumped through its agentlet, and a fresh
+   process restores from the snapshot while the source stays parked;
+   its losses after the cut must equal the source's own run, resumed
+   once the destination is done, bit for bit. The dump's and the
    restore's data path (pinned staging ring, restore readers) and their
    legs are printed.
 6. serve   — the serving path at the flagship widths: a continuous-
@@ -98,10 +99,10 @@ non-zero without the final result line:
    bitwise too (hot set, READY, first step and tail printed). Then the
    harness's MNIST workload (``--model mnist``) migrated once through
    ``AutoDeviceHook``, bitwise, and a pid without an agentlet skipped
-   loudly; the MNIST reference, the MNIST destination and the
-   uninterrupted frozen-trunk run (the launch counts' run) start
-   together after the MNIST dump, where nothing is timed. ``[frozen]``
-   lines.
+   loudly; the MNIST reference, the MNIST destination, the
+   uninterrupted frozen-trunk run (the launch counts' run) and the
+   post-copy destination start together after the MNIST dump (so the
+   post-copy numbers are taken beside them). ``[frozen]`` lines.
 10. wire   — phase 5's flagship at 4 layers migrated over the wire into
    this script's own receiver (the reference's frames and journal: frame
    crc, codec records decoded and checked against their crc of the raw
@@ -139,7 +140,10 @@ non-zero without the final result line:
    layers, 8 heads of 128, hidden 3584, 8 experts, top-2, bf16, about
    0.82 B params) at batch 16 x seq 512: the bench's forward tokens/s,
    then ``--model moe`` trained with Adam and migrated as phase 11 is,
-   bitwise, each kernel launched 12 times a step. ``[moe]`` lines.
+   bitwise, each kernel launched 12 times a step; the source stays
+   parked while the destination runs and then resumes to the end as
+   the reference (two such models fit on the card; LoRA-7B's do not).
+   ``[moe]`` lines.
 14. moe_serve — phase 6's serving path for the same MoE model (both
    engines dispatch on ``MoeLlamaConfig``): a continuous-batching engine
    of 4 slots x 1024 positions at temperature 1.0, Zipf prompts of 700,
@@ -184,7 +188,14 @@ non-zero without the final result line:
    on every rank. The cut, each rank's step at its request and barrier
    wait, dump seconds and bytes, the gang blackout (first request to the
    last commit), restore seconds and launches a rank a step print as
-   ``[gang]`` lines.
+   ``[gang]`` lines. Then phase 20's pipe axis, in the same restore
+   launch: the restored stages' state taken over by a pipelined Trainer
+   on a pipe mesh (``STAGE_RULES``) writes one manifest (layer leaves
+   staged (4, ...), each rank its stage's chunk, the rest once), a fresh
+   pipelined Trainer restores it and both take a step, bitwise alike;
+   rank 0 restores the staged arrays into a dense model
+   (``from_stage_params``) whose loss on that step's batch must be the
+   pipeline's within 1e-3.
 
 18. mesh   — the flagship at 4 layers (phase 8's depth) sharded by
    ``LLAMA_RULES`` over a (data 1, fsdp 2, model 2) mesh of four ranks
@@ -219,6 +230,23 @@ non-zero without the final result line:
    launch restores it onto (1,2,2) (tokens and the written cache's
    digest bitwise), (1,1,4) and one device (the source's tokens); no
    kernel launches. ``[ep]`` lines.
+20. gang_mesh — in phase 18's two launches: the sharded flagship, once
+   phase 18's steps are done, trains on behind each rank's
+   ``Agentlet(lambda: tr.state)`` (no ``shardings=``: the leaves describe
+   themselves) with a slice gate over a file rendezvous and the lockstep
+   collective; four port hooks (``TpuDeviceCheckpointHook`` under
+   ``GRIT_SLICE_HOSTS=4``) started a step apart cut it into ``host-<k>``
+   legs (each rank's own shards as process k of 4, through the
+   speculative pass): one step in every leg, every rank parked there.
+   The sources resume to cut + 3; the fresh launch restores each rank's
+   leg onto (1,2,2) with ``GRIT_RESTORE_POSTCOPY=1`` (losses and final
+   shards bitwise the source's) and the legs' merged view
+   (``merge_legs``) onto (2,1,2) (within 1e-2); each serving grid of
+   phase 19 is restored onto (1,2,2) by post-copy too (the source's
+   slots parked until the cache lands), its tokens and written cache
+   bitwise the blocking restore's. The pipe axis runs in phase 17's
+   restore launch. Gang blackout, each leg's dump, hot-set and tail
+   seconds, launches: ``[gang_mesh]`` lines.
 
 The second-to-last lines are the script's wall time, the kernels' JSON
 record (with the serving phase's numbers under ``serving``, phase 8's
@@ -226,9 +254,11 @@ under ``precopy``, phase 9's under ``frozen_trunk``, phase 10's under
 ``wire``, phase 7's crc32c and codec rates under ``io``, phases 11-13's
 under ``lora_7b``, ``remat`` and ``moe``, and phases 14-16's under
 ``moe_serving``, ``long_context`` and ``pipeline``, phase 17's under
-``gang``, phase 18's under ``mesh``, phase 19's under ``ep``; each
-kernel's ``launches`` sums phases 4, 9, 10, 11, 12, 13, 15, 16, 17, 18
-and 19, every rank's)
+``gang`` (phase 20's pipe axis under ``gang.pipe``), phase 18's under
+``mesh``, phase 19's under ``ep`` (phase 20's grids under
+``ep.grids.*.postcopy``), phase 20's under ``gang_mesh``; each kernel's
+``launches`` sums phases 4, 9, 10, 11, 12, 13, 15, 16, 17, 18, 19 and 20,
+every rank's)
 and the card's ``name, power limit``; the last line is the result JSON.
 ``--seed`` seeds the serving phases' and the parallel phases' weights
 and prompts (default 0). The script imports nothing of JAX or of the
@@ -810,6 +840,12 @@ class Workload:
                 return m
         return None
 
+    def arrival(self, pattern: str) -> float:
+        """The host clock at the arrival of the first line already read
+        that matches ``pattern``."""
+        return next(t for line, t in zip(self.lines, self.times)
+                    if re.match(pattern, line))
+
     def kernels(self) -> dict:
         """The ``KERNELS`` line: launches, libraries built and loaded."""
         line = next(x for x in self.lines if x.startswith("KERNELS "))
@@ -860,11 +896,6 @@ def phase_migrate(work: str, card: str) -> dict:
     env = {"GRIT_TPU_SOCKET_DIR": socks}
     procs: list[Workload] = []
     try:
-        ref = Workload(MIGRATE_STEPS, env)
-        procs.append(ref)
-        ref.finish()
-        ref_losses = ref.losses()
-
         src = Workload(1000, env)
         procs.append(src)
         src.wait_for("READY")
@@ -876,8 +907,6 @@ def phase_migrate(work: str, card: str) -> dict:
         t_dump = time.perf_counter()
         dump_legs = client.dump(snap)["legs"]
         t_dumped = time.perf_counter()
-        client.close()
-        src.kill()
         nbytes = snapshot_nbytes(snap)
 
         dst = Workload(MIGRATE_STEPS, {**env, "GRIT_TPU_RESTORE_DIR": snap})
@@ -892,6 +921,15 @@ def phase_migrate(work: str, card: str) -> dict:
         dst.wait_for(r"STEP \d+ ")
         t_first = time.perf_counter()
         dst.finish()
+        # The source, parked (idle) while the destination ran, resumes to
+        # the destination's last step: its own run is the uninterrupted
+        # reference.
+        client.resume()
+        client.close()
+        src.wait_for(rf"STEP {MIGRATE_STEPS} ")
+        src.kill()
+        ref_losses = {k: v for k, v in src.losses().items()
+                      if k <= MIGRATE_STEPS}
     finally:
         for p in procs:
             p.kill()
@@ -900,12 +938,13 @@ def phase_migrate(work: str, card: str) -> dict:
     if restored != cut:
         raise AssertionError(f"restored step {restored}, quiesced at {cut}")
     want = {s: x for s, x in ref_losses.items() if s > cut}
-    if got != want:
+    if got != want or len(want) != MIGRATE_STEPS - cut:
         raise AssertionError(f"losses after the cut differ from the "
-                             f"uninterrupted run: {got} vs {want}")
+                             f"source's resumed run: {got} vs {want}")
     quiesce_s, dump_s = t_dump - t_quiesce, t_dumped - t_dump
     log("migrate", f"cut at step {cut}; losses after the cut bitwise equal "
-                   f"to the uninterrupted run: {got}")
+                   f"to the source's own run, resumed once the destination "
+                   f"was done: {got}")
     log("migrate", f"snapshot {nbytes} bytes; quiesce {quiesce_s:.4f} s; "
                    f"dump {dump_s:.3f} s = {nbytes / dump_s / 1e9:.3f} GB/s; "
                    f"restore {restore_s:.3f} s = "
@@ -917,7 +956,7 @@ def phase_migrate(work: str, card: str) -> dict:
                    f"through {pipe['staging']} with {pipe['workers']} "
                    f"readers, seconds {fmt_legs(pipe, RESTORE_LEGS)}, "
                    f"overlap fraction {pipe['overlap_fraction']:.3f} [{card}]")
-    log("migrate", f"restart: kill + spawn {dst.started - t_dumped:.3f} s; "
+    log("migrate", f"restart: spawn {dst.started - t_dumped:.3f} s; "
                    f"spawn → RESTORED {t_restored - dst.started:.3f} s = "
                    f"interpreter and imports "
                    f"{t_restored - dst.started - init_s - restore_s:.3f} s + "
@@ -1958,13 +1997,13 @@ def phase_frozen(work: str, card: str, *, train: dict) -> dict:
     against the probe, then the validated re-ship of what the last step
     touched), the carried kernel libraries uploaded beside the mirrors, a
     streamed stage of all three trees into a destination whose
-    ``GRIT_TPU_COMPILE_CACHE`` is empty, which restores and continues; then
-    a second destination restores the staged tree by post-copy
-    (``GRIT_RESTORE_POSTCOPY=1``). Then the harness's MNIST workload,
-    migrated through ``AutoDeviceHook``; the uninterrupted frozen-trunk
-    run, long enough to pass the cut, runs beside the MNIST twin's
-    reference and destination, where nothing is timed. ``train``: phase
-    4's record, whose step times this phase prints."""
+    ``GRIT_TPU_COMPILE_CACHE`` is empty, which restores and continues.
+    Then the harness's MNIST workload, migrated through
+    ``AutoDeviceHook``; the uninterrupted frozen-trunk run, long enough to
+    pass the cut, and a second destination that restores the staged tree
+    by post-copy (``GRIT_RESTORE_POSTCOPY=1``) run beside the MNIST
+    twin's reference and destination. ``train``: phase 4's record, whose
+    step times this phase prints."""
     from grit_tpu_torch.device.agentlet import ToggleClient  # noqa: PLC0415
     from grit_tpu_torch.device.hook import TpuDeviceCheckpointHook  # noqa: PLC0415
     from grit_tpu_torch.device.snapshot import (  # noqa: PLC0415
@@ -2118,32 +2157,28 @@ def phase_frozen(work: str, card: str, *, train: dict) -> dict:
         t_first = time.perf_counter()
         dst.finish()
         dst_kernels = dst.kernels()
-
-        # The post-copy destination, from the staged tree: READY follows
-        # the hot set, the first step joins the tail.
-        pc = Workload(n_steps, {**dst_env, "GRIT_RESTORE_POSTCOPY": "1"},
-                      args=args)
-        procs.append(pc)
-        pc_restored = int(pc.wait_for(r"RESTORED (\d+)").group(1))
-        pc_hot_s = float(pc.wait_for(r"RESTORE_SECONDS (\S+)").group(1))
-        pc_pipe = json.loads(pc.wait_for(r"RESTORE_PIPELINE (.+)").group(1))
-        pc.wait_for("READY")
-        pc_ready = time.perf_counter()
-        pc.wait_for(r"STEP \d+ ")
-        pc_first = time.perf_counter()
-        pc_tail = json.loads(pc.wait_for(r"RESTORE_POSTCOPY (.+)").group(1))
-        pc.finish()
-        pc_kernels = pc.kernels()
     finally:
         for p in procs:
             p.kill()
         shutil.rmtree(pvc, ignore_errors=True)
-        shutil.rmtree(dst_root, ignore_errors=True)
 
-    # The uninterrupted run, long enough to pass the cut, starts beside
-    # the MNIST twin's reference and destination, where nothing is timed.
-    mnist, ref = mnist_twin(work, card,
-                            beside=lambda: Workload(n_steps, env, args=args))
+    # The uninterrupted run, long enough to pass the cut, and the post-copy
+    # destination from the staged tree (READY follows the hot set, the
+    # first step joins the tail) start beside the MNIST twin's reference
+    # and destination, where nothing else is timed.
+    try:
+        mnist, (ref, pc) = mnist_twin(work, card, beside=lambda: [
+            Workload(n_steps, env, args=args),
+            Workload(n_steps, {**dst_env, "GRIT_RESTORE_POSTCOPY": "1"},
+                     args=args)])
+    finally:
+        shutil.rmtree(dst_root, ignore_errors=True)
+    pc_restored = int(pc.find(r"RESTORED (\d+)").group(1))
+    pc_hot_s = float(pc.find(r"RESTORE_SECONDS (\S+)").group(1))
+    pc_pipe = json.loads(pc.find(r"RESTORE_PIPELINE (.+)").group(1))
+    pc_ready, pc_first = pc.arrival("READY"), pc.arrival(r"STEP \d+ ")
+    pc_tail = json.loads(pc.find(r"RESTORE_POSTCOPY (.+)").group(1))
+    pc_kernels = pc.kernels()
     ref_losses, ref_kernels = ref.losses(), ref.kernels()
     got, pc_got = dst.losses(), pc.losses()
     want = {s: x for s, x in ref_losses.items() if s > cut}
@@ -2261,12 +2296,14 @@ def phase_frozen(work: str, card: str, *, train: dict) -> dict:
             "cut": cut, "mnist": mnist}
 
 
-def mnist_twin(work: str, card: str, beside) -> tuple[dict, Workload]:
+def mnist_twin(work: str, card: str, beside
+               ) -> tuple[dict, list[Workload]]:
     """The harness's MNIST workload migrated once through the port's
     ``AutoDeviceHook``; with no agentlet (this process), the hook skips
     loudly. After the dump, its uninterrupted reference, its destination
-    and the workload ``beside()`` starts run at once (none of them is
-    timed); returns the twin's record and that workload, finished."""
+    and the workloads ``beside()`` starts run at once (none of the MNIST
+    ones is timed); returns the twin's record and those workloads,
+    finished."""
     from grit_tpu_torch.device.hook import HBM_SUBDIR, AutoDeviceHook  # noqa: PLC0415
 
     socks = os.path.join(work, "socks-mnist")
@@ -2291,8 +2328,8 @@ def mnist_twin(work: str, card: str, beside) -> tuple[dict, Workload]:
         src.kill()
         snap = os.path.join(ckpt, HBM_SUBDIR)
         cut = json.load(open(os.path.join(snap, "MANIFEST.json")))["meta"]["step"]
-        other = beside()
-        procs.append(other)
+        others = beside()
+        procs.extend(others)
         ref = Workload(cut + MNIST_AFTER, env, args=MNIST_ARGS)
         procs.append(ref)
         dst = Workload(cut + MNIST_AFTER, {**env, "GRIT_TPU_RESTORE_DIR": snap},
@@ -2301,7 +2338,8 @@ def mnist_twin(work: str, card: str, beside) -> tuple[dict, Workload]:
         ref.finish()
         restored = int(dst.wait_for(r"RESTORED (\d+)").group(1))
         dst.finish()
-        other.finish()
+        for other in others:
+            other.finish()
     finally:
         warnings.close()
         if saved is None:
@@ -2325,7 +2363,7 @@ def mnist_twin(work: str, card: str, beside) -> tuple[dict, Workload]:
                   f"{MNIST_AFTER} losses after the cut bitwise equal: "
                   f"{[got[s] for s in sorted(got)]}; a pid without an "
                   f"agentlet skipped loudly [{card}]")
-    return {"cut": cut, "dump_s": dump_s, "losses": got}, other
+    return {"cut": cut, "dump_s": dump_s, "losses": got}, others
 
 
 # -- phase 10 ------------------------------------------------------------------
@@ -2826,14 +2864,20 @@ def step_seconds(w: Workload) -> list[float]:
 
 def migrate_model(work: str, card: str, label: str, args: list[str], *,
                   n_steps: int, cut: int, layers: int, tokens: int,
-                  want_per_step: dict) -> dict:
+                  want_per_step: dict, parked_reference: bool = False) -> dict:
     """An uninterrupted run of ``n_steps`` of the workload ``args``, then a
     run quiesced after step ``cut`` through its agentlet, dumped, killed,
     and a fresh process restored from the snapshot that continues to
     ``n_steps``: its losses must equal the uninterrupted run's bit for
     bit, and each kernel's launches a step in the uninterrupted run must
     be ``want_per_step``. ``tokens``: a step's tokens. Returns the numbers
-    phases 11 and 13 print."""
+    phases 11 and 13 print.
+
+    ``parked_reference`` (a model of which two fit on the card at once):
+    no separate uninterrupted run; the source stays parked (idle) while
+    the destination runs, then resumes to ``n_steps`` as the reference:
+    step times come from its steps after the resume, launches a step and
+    the peak memory from the destination."""
     from grit_tpu_torch.device.agentlet import ToggleClient  # noqa: PLC0415
     from grit_tpu_torch.device.snapshot import snapshot_nbytes  # noqa: PLC0415
 
@@ -2843,14 +2887,15 @@ def migrate_model(work: str, card: str, label: str, args: list[str], *,
     env = {"GRIT_TPU_SOCKET_DIR": socks}
     procs: list[Workload] = []
     try:
-        ref = Workload(n_steps, env, args=args)
-        procs.append(ref)
-        ref.finish()
-        ref_losses = ref.losses()
-        launches = ref.kernels()["launches"]
-        m = ref.find(r"MEMORY (\d+)")  # printed on the card only
-        peak = int(m.group(1)) if m else None
-        steps_s = step_seconds(ref)
+        if not parked_reference:
+            ref = Workload(n_steps, env, args=args)
+            procs.append(ref)
+            ref.finish()
+            ref_losses = ref.losses()
+            launches = ref.kernels()["launches"]
+            m = ref.find(r"MEMORY (\d+)")  # printed on the card only
+            peak = int(m.group(1)) if m else None
+            steps_s = step_seconds(ref)
 
         src = Workload(1000, env, args=args)
         procs.append(src)
@@ -2863,8 +2908,9 @@ def migrate_model(work: str, card: str, label: str, args: list[str], *,
         t_dump = time.perf_counter()
         client.dump(snap)
         t_dumped = time.perf_counter()
-        client.close()
-        src.kill()
+        if not parked_reference:
+            client.close()
+            src.kill()
         nbytes = snapshot_nbytes(snap)
 
         dst = Workload(n_steps, {**env, "GRIT_TPU_RESTORE_DIR": snap}, args=args)
@@ -2886,6 +2932,18 @@ def migrate_model(work: str, card: str, label: str, args: list[str], *,
         dst.wait_for(r"STEP \d+ ")
         t_first = time.perf_counter()
         dst.finish()
+        if parked_reference:
+            client.resume()
+            client.close()
+            src.wait_for(rf"STEP {n_steps} ")
+            src.kill()
+            ref_losses = {k: v for k, v in src.losses().items()
+                          if k <= n_steps}
+            # The steps after the resume (the park spans the one before).
+            steps_s = step_seconds(src)[got_cut:n_steps - 1]
+            launches = dst.kernels()["launches"]
+            m = dst.find(r"MEMORY (\d+)")  # printed on the card only
+            peak = int(m.group(1)) if m else None
     finally:
         for p in procs:
             p.kill()
@@ -2900,15 +2958,19 @@ def migrate_model(work: str, card: str, label: str, args: list[str], *,
                              f"uninterrupted run: {got} vs {want}")
     if not all(math.isfinite(x) for x in ref_losses.values()):
         raise AssertionError(f"{label}: non-finite loss {ref_losses}")
-    per_step = {n: launches[n] / n_steps for n in KERNELS}
+    # The uninterrupted run's launches, or the destination's steps'.
+    counted = n_steps - got_cut if parked_reference else n_steps
+    per_step = {n: launches[n] / counted for n in KERNELS}
     if per_step != want_per_step:
         raise AssertionError(f"{label}: launches a step {per_step}, want "
                              f"{want_per_step}")
     steady = median_after_first(steps_s)
     start_s = t_restored - dst.started - init_s - restore_s
     blackout = t_first - t_quiesce
+    reference = ("the source's own run, resumed once the destination was "
+                 "done" if parked_reference else "the uninterrupted run")
     log(label, f"cut at step {got_cut}; losses after the cut bitwise equal to "
-               f"the uninterrupted run: {got}")
+               f"{reference}: {got}")
     log(label, f"{layers} layers; step seconds {[round(x, 4) for x in steps_s]}"
                f"; median after the first {steady:.4f} s = "
                f"{tokens / steady:.0f} tokens/s; max_memory_allocated "
@@ -2916,7 +2978,8 @@ def migrate_model(work: str, card: str, label: str, args: list[str], *,
                f"{per_step} [{card}]")
     log(label, f"snapshot {nbytes} bytes; quiesce {t_dump - t_quiesce:.4f} s; "
                f"dump {t_dumped - t_dump:.3f} s; blackout (quiesce → first "
-               f"post-restore step) {blackout:.3f} s = kill + spawn "
+               f"post-restore step) {blackout:.3f} s = "
+               f"{'spawn' if parked_reference else 'kill + spawn'} "
                f"{dst.started - t_dumped:.3f} + process start (interpreter "
                f"and imports) {start_s:.3f} + base rebuild {base_s:.3f} + "
                f"other set-up {init_s - base_s:.3f} + restore {restore_s:.3f} "
@@ -3072,7 +3135,8 @@ def phase_moe(torch, fa, work: str, card: str) -> dict:
     out = migrate_model(work, card, "moe", MOE_ARGS, n_steps=MOE_STEPS,
                         cut=MOE_CUT, layers=MOE_LAYERS,
                         tokens=MOE_BATCH * MOE_SEQ,
-                        want_per_step={n: MOE_LAYERS for n in KERNELS})
+                        want_per_step={n: MOE_LAYERS for n in KERNELS},
+                        parked_reference=True)
     return {**out, **fwd}
 
 
@@ -3192,6 +3256,13 @@ def _digest(torch, tensors) -> str:
         h.update(t.detach().reshape(-1).contiguous().view(torch.uint8)
                  .cpu().numpy().tobytes())
     return h.hexdigest()
+
+
+def _device_digest(torch, tensors) -> str:
+    """A digest of ``tensors`` in order, each by :func:`_fingerprint`
+    (computed on its device: no copy of the bytes to the host)."""
+    return hashlib.sha256("".join(
+        _fingerprint(torch, t) for t in tensors).encode()).hexdigest()
 
 
 def _bits_equal(torch, a, b) -> bool:
@@ -3719,7 +3790,11 @@ def gang_rank(spec: dict) -> dict:
         while tr.step < spec["stop"]:
             loss = tr.train_step()["loss"].item()
             out["losses"][tr.step] = loss
-        return finish(steps=tr.step - first)
+        res = finish(steps=tr.step - first)
+        # Phase 20's pipe axis, on the restored stages (their record is
+        # taken: its steps update these tensors in place).
+        res["pipe"] = pipe_axis_round(torch, fa, spec, tr, rank, n, dev)
+        return res
     os.environ["GRIT_TPU_SOCKET_DIR"] = spec["sockdir"]
     gate = SliceQuiesceGate(
         SliceCoordinator(FileRendezvous(os.path.join(work, "rdv"), rank, n),
@@ -3752,6 +3827,97 @@ def gang_rank(spec: dict) -> dict:
                   peak=_peak(torch, dev))
 
 
+def pipe_axis_round(torch, fa, spec: dict, tr, rank: int, n: int,
+                    dev) -> dict:
+    """Phase 20's pipe axis in phase 17's restore launch: a pipelined
+    Trainer on a pipe mesh (``STAGE_RULES``) takes over the restored
+    stage ``tr``'s state (a rank's stage is its shard of the staged
+    tree) and writes one manifest; a fresh one restores it; each takes a
+    step, which must be bitwise the other's; rank 0 restores the staged
+    arrays into a dense model (``from_stage_params``), whose loss on
+    that step's batch must be the pipeline's within 1e-3."""
+    import torch.distributed as dist  # noqa: PLC0415
+
+    from grit_tpu_torch.device.snapshot import (  # noqa: PLC0415
+        SnapshotManifest,
+        last_write,
+        restore_snapshot,
+    )
+    from grit_tpu_torch.models import llama, pipeline_llama  # noqa: PLC0415
+    from grit_tpu_torch.parallel.mesh import build_pipe_mesh  # noqa: PLC0415
+    from grit_tpu_torch.train.optim import adam  # noqa: PLC0415
+    from grit_tpu_torch.train.trainer import Trainer, TrainerConfig  # noqa: PLC0415
+    from grit_tpu_torch.workload import zipf_batches  # noqa: PLC0415
+
+    t_round = time.perf_counter()
+    cfg = spec["cfg"]
+    mesh = build_pipe_mesh(dev.type)
+
+    def staged(gen, device):
+        full = (llama.abstract_params(cfg)
+                if torch.device(device).type == "meta"
+                else llama.init_params(cfg, gen, device))
+        return pipeline_llama.to_stage_params(cfg, full, n)
+
+    def make():
+        return Trainer(
+            loss_fn=lambda p, b: pipeline_llama.loss_fn_pp(
+                cfg, p, b[0], b[1], n_microbatches=spec["micro"]),
+            init_params=staged,
+            batch_fn=zipf_batches(cfg.vocab_size, spec["batch"], spec["seq"]),
+            cfg=TrainerConfig(learning_rate=GANG_LR, seed=spec["seed"]),
+            device=dev, optimizer=adam(GANG_LR), mesh=mesh,
+            rules=pipeline_llama.STAGE_RULES)
+
+    snap = os.path.join(spec["work"], "pipe-snap")
+    src = make()
+    src.state = tr.state
+    t0 = _start(torch, dev)
+    src.snapshot(snap)
+    out = {"dump_s": time.perf_counter() - t0, "dump": last_write(),
+           "cut": src.step}
+    if rank == 0:
+        m = SnapshotManifest.load(snap)
+        layers = [r for r in m.arrays if "['layers']" in r["name"]]
+        out["manifest"] = {
+            "process_count": m.process_count, "arrays": len(m.arrays),
+            "staged": all(r["shape"][0] == n and sorted(
+                c["index"][0] for c in r["chunks"]) == [[s, s + 1] for s in
+                                                       range(n)]
+                for r in layers),
+            "once": all(len(r["chunks"]) == 1 for r in m.arrays
+                        if r not in layers),
+            "layer_leaves": len(layers),
+            "spec": next(r["sharding"] for r in layers)}
+    dst = make()
+    t0 = _start(torch, dev)
+    out["restored"] = dst.restore(snap)
+    _sync(torch, dev)
+    out["restore_s"] = time.perf_counter() - t0
+    out["same_state"] = (_device_digest(torch, _locals(dst))
+                         == _device_digest(torch, _locals(src)))
+    batch = src.batch(src.step)
+    fa.reset_launch_counts()
+    out["loss"] = src.train_step()["loss"].item()
+    out["restored_loss"] = dst.train_step()["loss"].item()
+    out["launches"] = dict(fa.LAUNCHES)
+    out["after_equal"] = (_device_digest(torch, _locals(dst))
+                          == _device_digest(torch, _locals(src)))
+    del dst
+    if rank == 0:
+        like = {"params": pipeline_llama.to_stage_params(
+            cfg, llama.abstract_params(cfg), n)}
+        dense = pipeline_llama.from_stage_params(
+            restore_snapshot(snap, like=like, device=dev)["params"])
+        with torch.no_grad():
+            out["dense_loss"] = llama.loss_fn(cfg, dense, *batch).item()
+        del dense
+    _release(torch, dev)
+    dist.barrier()
+    out["wall_s"] = time.perf_counter() - t_round
+    return out
+
+
 def _write_atomic(path: str, text: str) -> None:
     with open(path + ".tmp", "w") as f:
         f.write(text)
@@ -3770,14 +3936,17 @@ def gang_spec(gwork: str, cfg, *, batch: int, seq: int, micro: int,
 
 
 class GangSources:
-    """Phase 17's source ranks: :func:`gang_rank` on ``N_RANKS`` ``LOCAL_GLOO``
-    ranks, launched from a thread; their pids, their agentlets' status,
-    when every rank had first reached each step (``t_step``), and the
-    stop file."""
+    """A gang's source ranks: ``fn`` (phase 17's :func:`gang_rank`, phase
+    20's :func:`mesh_rank`) on ``N_RANKS`` ``LOCAL_GLOO`` ranks, launched
+    from a thread; their pids, their agentlets' status, when every rank
+    had first reached each step (``t_step``), and the stop file (the pid
+    and stop files under ``spec["work"]``, the sockets under
+    ``spec["sockdir"]``)."""
 
-    def __init__(self, spec: dict, timeout: float = 900.0) -> None:
+    def __init__(self, spec: dict, timeout: float = 900.0, fn=None) -> None:
         import threading  # noqa: PLC0415
 
+        self.fn = fn or gang_rank
         self.spec = spec
         self.box: dict = {}
         self.t_step: dict[int, float] = {}
@@ -3792,7 +3961,7 @@ class GangSources:
         from grit_tpu_torch.parallel.launch import run_ranks  # noqa: PLC0415
 
         try:
-            self.box["sources"] = run_ranks(gang_rank, N_RANKS, self.spec,
+            self.box["sources"] = run_ranks(self.fn, N_RANKS, self.spec,
                                             backend=LOCAL_GLOO,
                                             timeout=timeout)
         except BaseException as exc:  # noqa: BLE001 — raised in check()
@@ -4014,6 +4183,33 @@ def gang_checks(sources: list[dict], restored: list[dict], times: dict,
                 if row != step:
                     failures.append(f"{label} rank {k}: launches a step "
                                     f"{row}, want {step}")
+    pipes = [r["pipe"] for r in restored]
+    p0 = pipes[0]
+    man = p0["manifest"]
+    if man["process_count"] != N_RANKS or not man["staged"] \
+            or not man["once"]:
+        failures.append(f"pipe axis: the manifest is not one of staged "
+                        f"layer leaves, each stage once: {man}")
+    for k, p in enumerate(pipes):
+        if p["restored"] != p["cut"] or not p["same_state"] or \
+                p["restored_loss"] != p["loss"] or not p["after_equal"]:
+            failures.append(
+                f"pipe axis, rank {k}: restored at {p['restored']} (cut "
+                f"{p['cut']}), state equal {p['same_state']}, step losses "
+                f"{p['loss']} / {p['restored_loss']}, after "
+                f"{p['after_equal']}")
+    if any(p["loss"] != p0["loss"] for p in pipes):
+        failures.append("pipe axis: the pipelined loss differs between ranks")
+    dense_gap = _rel_gap(p0["dense_loss"], p0["loss"])
+    if dense_gap >= MESH_LOSS_BOUND:
+        failures.append(f"pipe axis: the dense model's loss "
+                        f"{p0['dense_loss']} is {dense_gap:.2e} from the "
+                        f"pipeline's {p0['loss']}")
+    if on_card:
+        two = {n: 2 * v for n, v in step.items()}
+        bad = [p["launches"] for p in pipes if p["launches"] != two]
+        if bad:
+            failures.append(f"pipe axis: launches {bad[:2]}, want {two}")
     dumps = [s["dump"] for s in sources]
     log("gang", f"{N_RANKS} pipeline stages on one card over LOCAL_GLOO: dim "
                 f"{cfg.dim}, {cfg.n_layers} layers in stages of "
@@ -4042,6 +4238,21 @@ def gang_checks(sources: list[dict], restored: list[dict], times: dict,
                 f"{per_step[0][0]}; {per_step[1][0]}; source launch "
                 f"{source_wall:.1f} s, restore launch {restore_wall:.1f} s "
                 f"[{card}]")
+    log("gang", f"pipe axis (phase 20): the restored stages' pipelined "
+                f"Trainer on a pipe mesh wrote one manifest at step "
+                f"{p0['cut']} ({man['arrays']} arrays; {man['layer_leaves']} "
+                f"layer leaves staged ({N_RANKS}, ...), {man['spec']}, a "
+                f"stage's chunk from each rank; embedding, norm, lm_head "
+                f"once: {man['once']}); dump s "
+                f"{[round(p['dump_s'], 3) for p in pipes]}, bytes a rank "
+                f"{[p['dump']['bytes'] for p in pipes]}; a fresh pipelined "
+                f"Trainer's restore s {[round(p['restore_s'], 3) for p in pipes]}"
+                f", its state and next step bitwise: "
+                f"{all(p['same_state'] and p['after_equal'] for p in pipes)}; "
+                f"the dense model from the staged arrays: loss "
+                f"{p0['dense_loss']} against the pipeline's {p0['loss']} "
+                f"(gap {dense_gap:.2e}, bound {MESH_LOSS_BOUND}); the round"
+                f" took {p0['wall_s']:.1f} s [{card}]")
     if failures:
         raise AssertionError("gang: " + "; ".join(failures))
     return {"cut": cut, "request_steps": [s["request_step"] for s in sources],
@@ -4055,7 +4266,16 @@ def gang_checks(sources: list[dict], restored: list[dict], times: dict,
             "state_bytes": [s["state_bytes"] for s in sources],
             "peak": [s["peak"] for s in sources],
             "launches_per_step": per_step,
+            "pipe": {"cut": p0["cut"], "manifest": man,
+                     "dump_s": [p["dump_s"] for p in pipes],
+                     "dump_bytes": [p["dump"]["bytes"] for p in pipes],
+                     "restore_s": [p["restore_s"] for p in pipes],
+                     "loss": p0["loss"], "dense_loss": p0["dense_loss"],
+                     "dense_gap": dense_gap,
+                     "launches": {n: sum(p["launches"][n] for p in pipes)
+                                  for n in KERNELS}},
             "launches": {n: sum(r["launches"][n] for r in sources + restored)
+                         + sum(p["launches"][n] for p in pipes)
                          for n in KERNELS}}
 
 
@@ -4069,6 +4289,8 @@ MESH_AFTER = 2            # steps after it: the source's and each restore's
 MESH_LR = 1e-4
 MESH_LOSS_BOUND = 1e-3      # sharded against dense, bf16 (__graft_entry__.py:171-179)
 MESH_RELAYOUT_BOUND = 1e-2  # another layout (the JAX package's tests/test_trainer.py:80-96)
+GANG_MESH_READY = MESH_STEPS + MESH_AFTER + 1  # phase 20: the sources' step
+GANG_MESH_AFTER = 3  # before the hooks; sources and restores run to cut + 3
 
 
 def mesh_collectives(tr) -> dict:
@@ -4243,6 +4465,8 @@ def train_source(torch, fa, spec: dict, dev, rank: int,
     out["cut"] = _state_digests(torch, tr)
     out["after"] = _run_steps(torch, fa, tr, dev, MESH_AFTER)
     out["digest"] = _digest(torch, _locals(tr))
+    if spec.get("gang") and not moe:
+        out["gang"] = gang_mesh_source(torch, fa, spec, dev, rank, tr)
     del tr
     _release(torch, dev)
     if rank == 0:
@@ -4289,7 +4513,111 @@ def train_restore(torch, fa, spec: dict, dev, rank: int,
             out[key]["digest"] = _digest(torch, _locals(tr))
         del tr
         _release(torch, dev)
+    if spec.get("gang") and not moe:
+        out["gang"] = gang_mesh_restore(torch, fa, spec, dev, rank)
     dist.barrier()
+    return out
+
+
+def gang_mesh_source(torch, fa, spec: dict, dev, rank: int, tr) -> dict:
+    """Phase 20 on a source rank, in phase 18's launch: the sharded
+    flagship ``tr`` trains on behind an ``Agentlet(lambda: tr.state)``
+    whose slice gate meets the other ranks over a file rendezvous, with
+    the lockstep collective; the pid is published for the port's hooks,
+    and the loop steps until the stop file names a step reached. Its
+    losses, the gate's numbers, its leg's dump and final shards'
+    digest."""
+    import torch.distributed as dist  # noqa: PLC0415
+
+    from grit_tpu_torch.device.agentlet import Agentlet  # noqa: PLC0415
+    from grit_tpu_torch.device.snapshot import last_write  # noqa: PLC0415
+    from grit_tpu_torch.parallel.coordination import (  # noqa: PLC0415
+        FileRendezvous,
+        SliceCoordinator,
+        SliceQuiesceGate,
+        group_any,
+    )
+
+    t_gang = time.perf_counter()
+    g = spec["gang"]
+    n = dist.get_world_size()
+    os.environ["GRIT_TPU_SOCKET_DIR"] = g["sockdir"]
+    gate = SliceQuiesceGate(
+        SliceCoordinator(FileRendezvous(os.path.join(g["work"], "rdv"), rank,
+                                        n), process_index=rank,
+                         process_count=n),
+        lockstep=group_any())
+    agentlet = Agentlet(lambda: tr.state, step_fn=lambda: tr.step,
+                        slice_gate=gate).start()
+    _write_atomic(os.path.join(g["work"], f"pid-{rank}"), str(os.getpid()))
+    stop_file = os.path.join(g["work"], "stop")
+    out: dict = {"losses": {}, "step_s": []}
+    first = tr.step
+    fa.reset_launch_counts()
+    try:
+        while True:
+            t0 = time.perf_counter()
+            loss = tr.train_step()["loss"].item()
+            out["step_s"].append(time.perf_counter() - t0)
+            out["losses"][tr.step] = loss
+            agentlet.checkpoint_point()
+            try:
+                with open(stop_file) as f:
+                    stop = int(f.read())
+            except (OSError, ValueError):
+                stop = None
+            if stop is not None and tr.step >= stop:
+                break
+    finally:
+        agentlet.stop()
+    out.update(steps=tr.step - first, launches=dict(fa.LAUNCHES),
+               request_step=gate.request_step, wait_s=gate.wait_s,
+               failed=gate.failed, dump=last_write(),
+               digest=_device_digest(torch, _locals(tr)),
+               wall_s=time.perf_counter() - t_gang)
+    return out
+
+
+def gang_mesh_restore(torch, fa, spec: dict, dev, rank: int) -> dict:
+    """Phase 20 on a fresh rank: its own leg restored onto
+    :data:`MESH_SOURCE` by post-copy (``GRIT_RESTORE_POSTCOPY``: the hot
+    set, then the tail joined by the first step), and the legs' merged
+    view onto :data:`MESH_OTHER` blocking; each steps to the sources'
+    stop."""
+    t_gang = time.perf_counter()
+    g = spec["gang"]
+    out: dict = {}
+    for key, shape in (("same", MESH_SOURCE), ("other", MESH_OTHER)):
+        postcopy = key == "same"
+        tr = mesh_trainer(torch, spec, shape)
+        if postcopy:
+            os.environ["GRIT_RESTORE_POSTCOPY"] = "1"
+        try:
+            t0 = _start(torch, dev)
+            step = tr.restore(os.path.join(g["work"], f"host-{rank}", "hbm")
+                              if postcopy else g["merged"])
+            _sync(torch, dev)
+            res = {"step": step, "restore_s": time.perf_counter() - t0}
+        finally:
+            os.environ.pop("GRIT_RESTORE_POSTCOPY", None)
+        handle = tr.postcopy
+        res["pending"] = handle is not None
+        res["losses"], res["step_s"] = {}, []
+        fa.reset_launch_counts()
+        while tr.step < g["stop"]:
+            t0 = time.perf_counter()
+            loss = tr.train_step()["loss"].item()
+            res["step_s"].append(time.perf_counter() - t0)
+            res["losses"][tr.step] = loss
+        res["launches"] = dict(fa.LAUNCHES)
+        res["steps"] = len(res["losses"])
+        if handle is not None:
+            res["hot_s"], res["tail_s"] = handle.hot_s, handle.tail_s
+        res["digest"] = _device_digest(torch, _locals(tr))
+        out[key] = res
+        del tr
+        _release(torch, dev)
+    out["wall_s"] = time.perf_counter() - t_gang
     return out
 
 
@@ -4361,7 +4689,8 @@ def mesh_manifest_checks(snap: str, dense_state_bytes: int) -> dict:
 
 def phase_mesh(torch, work: str, card: str, *, seed: int,
                device: str = "cuda", cfg=None,
-               shape: tuple = (BATCH, SEQ), ep: dict | None = None) -> dict:
+               shape: tuple = (BATCH, SEQ), ep: dict | None = None,
+               gang: bool = False) -> dict:
     """Phase 18: the flagship at :data:`MESH_LAYERS` layers sharded over a
     (1,2,2) mesh of four ranks sharing the card over ``LOCAL_GLOO``, its sharded
     snapshot, and a fresh launch that restores it onto (1,2,2) (bitwise),
@@ -4370,7 +4699,14 @@ def phase_mesh(torch, work: str, card: str, *, seed: int,
 
     ``ep`` (:func:`ep_config`): phase 19 in the same two launches, the bench
     MoE expert-parallel and both serving grids sharded, its record under
-    ``"ep"``."""
+    ``"ep"``; with it, phase 20's post-copy restore of each grid.
+
+    ``gang``: phase 20 in the same two launches: the sharded flagship
+    trains on behind each rank's agentlet and slice gate, four port hooks
+    under ``GRIT_SLICE_HOSTS`` cut it at one step into ``host-<k>`` legs,
+    and the fresh launch restores each rank's leg onto (1,2,2) by
+    post-copy (bitwise) and the legs' merged view onto (2,1,2) (within
+    1e-2); its record under ``"gang"``."""
     from grit_tpu_torch.models import llama  # noqa: PLC0415
     from grit_tpu_torch.parallel.collectives import LOCAL_GLOO  # noqa: PLC0415
     from grit_tpu_torch.parallel.launch import run_ranks  # noqa: PLC0415
@@ -4385,10 +4721,14 @@ def phase_mesh(torch, work: str, card: str, *, seed: int,
             "snap": os.path.join(mwork, "snap"), "ep": ep,
             "ep_snap": os.path.join(mwork, "ep-snap"),
             "grid_snap": os.path.join(mwork, "grids")}
+    cut_rec = None
     try:
         t0 = time.perf_counter()
-        sources = run_ranks(mesh_rank, N_RANKS, dict(spec, mode="source"),
-                            backend=LOCAL_GLOO, timeout=900)
+        if gang:
+            sources, cut_rec = gang_mesh_cut(spec, mwork)
+        else:
+            sources = run_ranks(mesh_rank, N_RANKS, dict(spec, mode="source"),
+                                backend=LOCAL_GLOO, timeout=900)
         source_wall = time.perf_counter() - t0
         manifest = mesh_manifest_checks(spec["snap"],
                                         sources[0]["dense_state_bytes"])
@@ -4406,7 +4746,182 @@ def phase_mesh(torch, work: str, card: str, *, seed: int,
     if ep:
         out["ep"] = ep_checks(sources, restored, ep_manifest, ep, card,
                               on_card)
+    if gang:
+        out["gang"] = gang_mesh_checks(sources, restored, cut_rec, cfg,
+                                       card, on_card)
     return out
+
+
+def gang_mesh_cut(spec: dict, mwork: str) -> tuple[list[dict], dict]:
+    """Phase 20's cut, around phase 18's source launch (run from a
+    thread): once every rank is past :data:`GANG_MESH_READY`, four port
+    hooks under ``GRIT_SLICE_HOSTS`` dump one rank each into
+    ``host-<k>`` from four threads started a step apart; every leg must
+    record one step and every rank be parked there. The sources then
+    resume to the cut + :data:`GANG_MESH_AFTER`, and the legs are merged
+    for the restore launch (``spec["gang"]`` gains ``stop`` and
+    ``merged``). Returns the source ranks' records and the cut's."""
+    from grit_tpu_torch.device.hook import HBM_SUBDIR, TpuDeviceCheckpointHook  # noqa: PLC0415
+    from grit_tpu_torch.device.snapshot import SnapshotManifest, merge_legs  # noqa: PLC0415
+
+    gwork = os.path.join(mwork, "gang")
+    sockdir = os.path.join(gwork, "s")
+    os.makedirs(sockdir)
+    spec["gang"] = {"work": gwork, "sockdir": sockdir}
+    saved = {k: os.environ.get(k) for k in (
+        "GRIT_TPU_SOCKET_DIR", "GRIT_SLICE_HOSTS", "GRIT_SLICE_NONCE")}
+    os.environ.update(GRIT_TPU_SOCKET_DIR=sockdir,
+                      GRIT_SLICE_HOSTS=str(N_RANKS), GRIT_SLICE_NONCE="20")
+    src = GangSources(dict(spec, mode="source", work=gwork, sockdir=sockdir),
+                      fn=mesh_rank)
+    try:
+        pids = src.pids()
+        src.wait_steps(GANG_MESH_READY + 1)
+        step_s = src.t_step[GANG_MESH_READY + 1] - src.t_step[GANG_MESH_READY]
+        hook = TpuDeviceCheckpointHook(timeout=600)
+        times = gang_dumps(hook, pids, gwork, range(N_RANKS), step_s)
+        bad = {k: v[2] for k, v in times.items() if v[2] is not None}
+        if bad or len(times) != N_RANKS:
+            raise AssertionError(f"gang_mesh: dumps failed: {bad}")
+        legs = [os.path.join(gwork, f"host-{k}", HBM_SUBDIR)
+                for k in range(N_RANKS)]
+        manifests = [SnapshotManifest.load(d) for d in legs]
+        cuts = [m.meta["step"] for m in manifests]
+        if len(set(cuts)) != 1:
+            raise AssertionError(f"gang_mesh: the legs' steps differ: {cuts}")
+        cut = cuts[0]
+        parked = [src.status(p) for p in pids]
+        if not all(st["paused"] and st["slice"]["cut"] == cut
+                   for st in parked):
+            raise AssertionError(f"gang_mesh: not every rank parked at "
+                                 f"{cut}: {parked}")
+        blackout = max(v[1] for v in times.values()) - min(
+            v[0] for v in times.values())
+        src.stop_at(cut + GANG_MESH_AFTER)
+        for p in pids:
+            hook.resume(p)
+        sources = src.join()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        src.close()
+    legs_info = [{"process_count": m.process_count,
+                  "files": sorted({c["file"] for r in m.arrays
+                                   for c in r["chunks"]}),
+                  "named": all(r["sharding"].get("type") == "named"
+                               for r in m.arrays)} for m in manifests]
+    t0 = time.perf_counter()
+    merged = merge_legs(os.path.join(gwork, "merged"), legs)
+    spec["gang"].update(stop=cut + GANG_MESH_AFTER, merged=merged)
+    return sources, {"cut": cut, "times": times, "blackout": blackout,
+                     "step_s": step_s, "legs": legs_info,
+                     "merge_s": time.perf_counter() - t0}
+
+
+def gang_mesh_checks(sources: list[dict], restored: list[dict], rec: dict,
+                     cfg, card: str, on_card: bool) -> dict:
+    """Phase 20's lines and checks over the ranks' records."""
+    failures = []
+    cut, times = rec["cut"], rec["times"]
+    stop = cut + GANG_MESH_AFTER
+    want = list(range(cut + 1, stop + 1))
+    src = [s["gang"] for s in sources]
+    dst = [r["gang"] for r in restored]
+    for k, leg in enumerate(rec["legs"]):
+        if leg["process_count"] != N_RANKS or not leg["named"] or \
+                leg["files"] != [f"data-h{k:04d}.bin"]:
+            failures.append(f"leg {k}: {leg}, want rank {k}'s own shards, "
+                            "named, as process k of the world")
+    for k, (s, r) in enumerate(zip(src, dst)):
+        if s["failed"] is not None or s["request_step"] is None \
+                or s["wait_s"] is None:
+            failures.append(f"rank {k}: the gate failed, or saw no request "
+                            f"or barrier: {s['failed']}, "
+                            f"{s['request_step']}, {s['wait_s']}")
+        ref = {t: s["losses"][t] for t in want if t in s["losses"]}
+        same = r["same"]
+        if same["step"] != cut or not same["pending"] or \
+                sorted(same["losses"]) != want or same["losses"] != ref:
+            failures.append(f"rank {k}: the post-copy (1,2,2) restore at "
+                            f"{same['step']} (cut {cut}, tail pending "
+                            f"{same['pending']}) gave {same['losses']}, the "
+                            f"source {ref}")
+        if same["digest"] != s["digest"]:
+            failures.append(f"rank {k}: the post-copy (1,2,2) restore's "
+                            "final shards differ from the source's")
+        other = r["other"]
+        gaps = [_rel_gap(other["losses"].get(t, math.inf), ref.get(t, 0.0))
+                for t in want]
+        if other["step"] != cut or max(gaps) >= MESH_RELAYOUT_BOUND:
+            failures.append(f"rank {k}: the (2,1,2) restore of the merged "
+                            f"legs at {other['step']} gave {other['losses']},"
+                            f" gaps {gaps} from the source {ref}")
+    if any(s["losses"] != src[0]["losses"] for s in src):
+        failures.append("the ranks' losses differ")
+    per_step = [{n: x["launches"][n] / max(1, x["steps"]) for n in KERNELS}
+                for x in src + [r[key] for r in dst
+                                for key in ("same", "other")]]
+    if on_card:
+        step = {n: float(cfg.n_layers) for n in KERNELS}
+        bad = [row for row in per_step if row != step]
+        if bad:
+            failures.append(f"launches a rank a step {bad[:3]}, want {step}")
+    dumps = [s["dump"] for s in src]
+    hook_s = [times[k][1] - times[k][0] for k in range(N_RANKS)]
+    log("gang_mesh", f"the sharded flagship ({cfg.n_layers} layers, "
+                     f"{MESH_SOURCE}) behind each rank's agentlet and slice "
+                     f"gate: four port hooks under GRIT_SLICE_HOSTS={N_RANKS}"
+                     f" started {rec['step_s']:.3f} s apart (a step) cut it "
+                     f"at step {cut} in every leg; requests at steps "
+                     f"{[s['request_step'] for s in src]}, barrier wait s "
+                     f"{[s['wait_s'] and round(s['wait_s'], 4) for s in src]}"
+                     f" [{card}]")
+    log("gang_mesh", f"leg dump s a rank {[round(d['wall'], 3) for d in dumps]}"
+                     f", bytes written {[d['bytes'] for d in dumps]} of "
+                     f"{[d['total_bytes'] for d in dumps]} (the rest from "
+                     f"the -spec pass); hook dump s (request to commit) "
+                     f"{[round(x, 3) for x in hook_s]}; gang blackout "
+                     f"(first request to the last leg's commit) "
+                     f"{rec['blackout']:.3f} s; legs merged in "
+                     f"{rec['merge_s']:.3f} s [{card}]")
+    log("gang_mesh", f"fresh ranks: own leg onto {MESH_SOURCE} by post-copy: "
+                     f"hot s {[round(r['same']['hot_s'], 4) for r in dst]}, "
+                     f"tail s {[round(r['same']['tail_s'], 4) for r in dst]}"
+                     f" (joined by the first step), restore call s "
+                     f"{[round(r['same']['restore_s'], 4) for r in dst]}; "
+                     f"losses {want} and final shards bitwise the source's: "
+                     f"{not any('post-copy' in f for f in failures)}; the "
+                     f"merged legs onto {MESH_OTHER}: restore s "
+                     f"{[round(r['other']['restore_s'], 3) for r in dst]}, "
+                     f"within {MESH_RELAYOUT_BOUND}: "
+                     f"{not any('merged' in f for f in failures)}; launches"
+                     f" a rank a step {per_step[0]}; the sources' gang "
+                     f"section {src[0]['wall_s']:.1f} s, the restores' "
+                     f"{dst[0]['wall_s']:.1f} s [{card}]")
+    if failures:
+        raise AssertionError("gang_mesh: " + "; ".join(failures))
+    return {"cut": cut, "blackout_s": rec["blackout"],
+            "hook_dump_s": hook_s, "step_s": rec["step_s"],
+            "request_steps": [s["request_step"] for s in src],
+            "barrier_wait_s": [s["wait_s"] for s in src],
+            "dump_s": [d["wall"] for d in dumps],
+            "dump_bytes": [d["bytes"] for d in dumps],
+            "total_bytes": [d["total_bytes"] for d in dumps],
+            "merge_s": rec["merge_s"],
+            "postcopy": {k: [r["same"][k] for r in dst]
+                         for k in ("restore_s", "hot_s", "tail_s")},
+            "other_restore_s": [r["other"]["restore_s"] for r in dst],
+            "other_gaps": [[_rel_gap(r["other"]["losses"][t],
+                                     s["losses"][t]) for t in want]
+                           for s, r in zip(src, dst)],
+            "launches_per_step": per_step[0],
+            "launches": {n: sum(x["launches"][n] for x in src
+                                + [r[key] for r in dst
+                                   for key in ("same", "other")])
+                         for n in KERNELS}}
 
 
 def _rel_gap(got: float, want: float) -> float:
@@ -4771,6 +5286,21 @@ def grid_restore(torch, fa, spec: dict, dev, rank: int) -> dict:
                 res[key]["written"] = _written_digest(torch, eng)
             del eng
             _release(torch, dev)
+        # Phase 20: the same snapshot onto (1,2,2) by post-copy (the
+        # hot bookkeeping, then the cache's shards through the tail).
+        eng = grid_engine(torch, spec, name, MESH_SOURCE)
+        t0 = _start(torch, dev)
+        handle = eng.restore_postcopy(snap)
+        res["postcopy"] = {"restore_s": time.perf_counter() - t0,
+                           "parked": not eng.resumed_all}
+        eng.absorb_restored()
+        _sync(torch, dev)
+        res["postcopy"].update(hot_s=handle.hot_s, tail_s=handle.tail_s)
+        res["postcopy"]["tokens"], _ = _rounds(torch, eng, dev,
+                                               GRID_ROUNDS - GRID_CUT)
+        res["postcopy"]["written"] = _written_digest(torch, eng)
+        del eng
+        _release(torch, dev)
         dist.barrier()
         out[name] = res
     out["launches"] = dict(fa.LAUNCHES)
@@ -4887,6 +5417,28 @@ def ep_checks(sources: list[dict], restored: list[dict], manifest: dict,
                 failures.append(f"grid {name}, rank {k}: the (1,2,2) "
                                 "restore's written cache differs from the "
                                 "source's")
+            pc = b[name]["postcopy"]
+            if pc["tokens"] != b[name]["same"]["tokens"] or \
+                    pc["written"] != b[name]["same"]["written"] or \
+                    not pc["parked"]:
+                failures.append(
+                    f"grid {name}, rank {k}: the (1,2,2) post-copy restore "
+                    f"(parked {pc['parked']}) gave {pc['tokens']}, the "
+                    f"blocking one {b[name]['same']['tokens']}, written "
+                    f"cache equal {pc['written'] == b[name]['same']['written']}")
+        postcopy = {key: [x[name]["postcopy"][key] for x in gdst]
+                    for key in ("restore_s", "hot_s", "tail_s")}
+        log("gang_mesh", f"grid {name} (phase 20): restored onto "
+                         f"{MESH_SOURCE} by post-copy, the source's slots "
+                         f"parked until the cache landed, then rounds "
+                         f"equal to the blocking restore's and the written "
+                         f"cache bitwise on every rank: "
+                         f"{all(x[name]['postcopy']['tokens'] == x[name]['same']['tokens'] for x in gdst)}"
+                         f"; restore_postcopy s "
+                         f"{[round(x, 4) for x in postcopy['restore_s']]}, "
+                         f"hot s {[round(x, 4) for x in postcopy['hot_s']]}, "
+                         f"tail s {[round(x, 4) for x in postcopy['tail_s']]}"
+                         f" [{card}]")
         round_ms = median_after_first(s["round_s"]) * 1e3
         solo_ms = median_after_first(s["solo_round_s"]) * 1e3
         grids[name] = {
@@ -4899,7 +5451,8 @@ def ep_checks(sources: list[dict], restored: list[dict], manifest: dict,
                                 if key in x[name]]
                           for key in ("same", "other", "dense")},
             "min_margin": min(m for x in gsrc for r in x[name]["margins"]
-                              for m in r)}
+                              for m in r),
+            "postcopy": postcopy}
         log("ep", f"grid {name}: dim {g['cfg'].dim}, {g['cfg'].n_layers} "
                   f"layers, {g['slots']} slots x {g['max_len']}, temperature "
                   f"{g['temperature']}, prompts {tuple(g['prompts'])}; on "
@@ -5042,8 +5595,9 @@ def main(argv: list[str] | None = None) -> int:
                                                 seed=args.seed)
         gang = phase_gang(torch, work, device["smi"], seed=args.seed)
         mesh = phase_mesh(torch, work, device["smi"], seed=args.seed,
-                          ep=ep_config(torch))
+                          ep=ep_config(torch), gang=True)
         ep = mesh.pop("ep")
+        gang_mesh = mesh.pop("gang")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -5055,11 +5609,13 @@ def main(argv: list[str] | None = None) -> int:
         "replaces": replaces,
         # Phase 4's steps, phase 9's frozen-trunk runs (the uninterrupted
         # one and the restored ones), phase 10's wire destinations, the
-        # uninterrupted runs of phases 11 and 13, phase 12's two steps,
+        # uninterrupted run of phase 11, phase 13's destination, phase
+        # 12's two steps,
         # every rank's Ulysses (15) and pipeline (16) runs, every source
-        # and restored rank's steps of the gang (17), every sharded and
-        # dense step of the mesh phase (18) and of the expert-parallel MoE
-        # (19), sources and restores.
+        # and restored rank's steps of the gang (17, with phase 20's pipe
+        # axis steps), every sharded and dense step of the mesh phase (18)
+        # and of the expert-parallel MoE (19), sources and restores, and
+        # phase 20's gang steps, sources and both restores.
         "launches": (train["launches"][name] + frozen["launches_all"][name]
                      + wire["launches"][name] + lora["launches"][name]
                      + remat["launches"][name] + moe["launches"][name]
@@ -5067,7 +5623,7 @@ def main(argv: list[str] | None = None) -> int:
                      + long_context["ulysses"]["launches"][name]
                      + pipeline["launches"][name]
                      + gang["launches"][name] + mesh["launches"][name]
-                     + ep["launches"][name]),
+                     + ep["launches"][name] + gang_mesh["launches"][name]),
         "launches_by_path": {"adam": train["launches"][name],
                              "frozen_trunk": frozen["launches_all"][name],
                              "wire": wire["launches"][name],
@@ -5080,12 +5636,15 @@ def main(argv: list[str] | None = None) -> int:
                              "pipeline": pipeline["launches"][name],
                              "gang": gang["launches"][name],
                              "mesh": mesh["launches"][name],
-                             "ep": ep["launches"][name]},
+                             "ep": ep["launches"][name],
+                             "gang_mesh": gang_mesh["launches"][name]},
         "launches_per_step": {"lora_7b": lora["launches_per_step"][name],
                               "moe": moe["launches_per_step"][name],
                               "gang": gang["launches_per_step"][0][0][name],
                               "mesh": mesh["launches_per_step"][name],
-                              "ep": ep["launches_per_step"][name]},
+                              "ep": ep["launches_per_step"][name],
+                              "gang_mesh":
+                                  gang_mesh["launches_per_step"][name]},
         "max_abs_err": main_shape["err"][name],
         "worst_tile_err_ratio": main_shape["tiles"][name],
         "ms": main_shape["ms"][name],
@@ -5126,7 +5685,11 @@ def main(argv: list[str] | None = None) -> int:
         # Phase 18: the sharded flagship, its snapshot and restores.
         "mesh": {k: v for k, v in mesh.items() if k != "launches"},
         # Phase 19: the expert-parallel MoE and the sharded serving grids.
-        "ep": {k: v for k, v in ep.items() if k != "launches"}}
+        "ep": {k: v for k, v in ep.items() if k != "launches"},
+        # Phase 20: the sharded flagship's gang cut through the hooks, its
+        # post-copy restore on a mesh (the grids' under "ep"), the pipe
+        # axis (under "gang", phase 17's launch).
+        "gang_mesh": {k: v for k, v in gang_mesh.items() if k != "launches"}}
     log("total", f"chip_smoke.py took {time.perf_counter() - _T0:.1f} s")
     print(json.dumps(record), flush=True)
     print(device["smi"], flush=True)

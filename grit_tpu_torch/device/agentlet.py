@@ -45,7 +45,8 @@ reference serves it:
 A dump's ``wire`` (``{"endpoint": "host:port", "prefix", "streams"?}``,
 the agent's wire-mode migration) streams the snapshot's data file to the
 destination's receiver while the dump drains, as
-``<prefix>/data-h0000.bin`` (:mod:`grit_tpu_torch.wire`). The response
+``<prefix>/data-h0000.bin`` (a sharded rank's leg: ``data-h<k>.bin``;
+:mod:`grit_tpu_torch.wire`). The response
 carries ``"wire": {"ok": true, "files": {rel: raw bytes}, "sent_bytes",
 "dump_overlap_bytes", "send_s", "stall_s"}``, or ``{"ok": false, "error"}``
 when the connect failed or the wire dropped: never a failed dump (the
@@ -69,6 +70,16 @@ the barrier's timeout, its request cleared. ``resume`` resets the gate;
 ignores the gate. With the gate's ``lockstep`` collective (ranks that
 share collectives), every boundary runs it, and a rank whose peer has a
 slice quiesce pending holds at that boundary for its own.
+
+Sharded state (any DTensor leaf: a ``Trainer(mesh=, rules=)``'s, a
+sharded grid's): every dump, the speculative pass, the probe, a delta,
+the mirror and the wire tee, writes this rank's own leg, process ``k``
+of the world's ``n`` (``write_snapshot(leg=True)``): every shard the
+rank holds, each leaf described by its own sharding, into
+``data-h<k>.bin``, committed by the rank alone. So each host of a gang
+cut ships a tree that restores alone onto the same mesh, and a restore
+onto another layout reads the legs of one cut through
+:func:`~grit_tpu_torch.device.snapshot.merge_legs`.
 
 Wiring: the training loop calls :meth:`Agentlet.checkpoint_point` once
 per step (one lock check when idle). On a pending quiesce the loop drains
@@ -98,8 +109,8 @@ from grit_tpu_torch.api import config
 from grit_tpu_torch.device.quiesce import clone_generation, quiesce
 from grit_tpu_torch.ops import build
 from grit_tpu_torch.device.snapshot import (
-    DATA_FILE,
     SpeculativeDump,
+    data_file,
     last_write,
     snapshot_delta_nbytes,
     snapshot_nbytes,
@@ -107,6 +118,7 @@ from grit_tpu_torch.device.snapshot import (
     validated_clean_names,
     write_snapshot,
 )
+from grit_tpu_torch.parallel.sharding import is_dtensor
 from grit_tpu_torch.tree import flatten_with_names
 from grit_tpu_torch.wire import WireDumpSink, WireSender
 
@@ -124,6 +136,18 @@ def _hbm(clone: Any) -> dict | None:
     return {"clone_bytes": sum(x.numel() * x.element_size() for x in leaves),
             "allocated": sum(torch.cuda.memory_allocated(d) for d in devices),
             "peak": sum(torch.cuda.max_memory_allocated(d) for d in devices)}
+
+
+def leg_of(state: Any) -> dict:
+    """The ``write_snapshot`` arguments of this rank's own leg when
+    ``state`` holds a DTensor (process ``rank`` of the default group's
+    world), else ``{}``: a dense state's single-process dump."""
+    if not any(is_dtensor(x) for _, x in flatten_with_names(state)):
+        return {}
+    import torch.distributed as dist  # noqa: PLC0415
+
+    return {"process_index": dist.get_rank(),
+            "process_count": dist.get_world_size(), "leg": True}
 
 
 def socket_path(pid: int | None = None) -> str:
@@ -464,7 +488,8 @@ class Agentlet:
                                meta={"step": at_step, **at_meta},
                                base=req.get("base"),
                                hashes=bool(req.get("hashes")),
-                               mirror=req.get("mirror"), speculative=True)
+                               mirror=req.get("mirror"), speculative=True,
+                               **leg_of(clone))
                 legs = last_write()
             if hbm is not None:
                 hbm["peak_after"] = _hbm(clone)["peak"]
@@ -497,7 +522,7 @@ class Agentlet:
                 str(dump_spec["dir"]), clone, already_cloned=True,
                 meta={"step": at_step, **at_meta},
                 base=dump_spec.get("base"), mirror=dump_spec.get("mirror"),
-                dump_lock=self._dump_lock)
+                dump_lock=self._dump_lock, **leg_of(clone))
             spec.hbm = _hbm(clone)
             with self._cond:
                 self._speculative = spec
@@ -616,17 +641,18 @@ class Agentlet:
         return {"ok": True, "step": int(self.step_fn())}
 
     @staticmethod
-    def _wire_sink(spec: dict | None):
-        """The dump's wire tee from a request's ``wire`` spec: ``(sink,
-        sender, error_result)``. A connect failure is reported in the
-        response's ``wire`` block, never raised: the agent falls back to
-        the PVC path loudly, and the snapshot is never lost."""
+    def _wire_sink(spec: dict | None, fname: str):
+        """The dump's wire tee from a request's ``wire`` spec, carrying
+        the data file ``fname``: ``(sink, sender, error_result)``. A
+        connect failure is reported in the response's ``wire`` block,
+        never raised: the agent falls back to the PVC path loudly, and
+        the snapshot is never lost."""
         if not spec:
             return None, None, None
         try:
             sender = WireSender(str(spec["endpoint"]),
                                 streams=int(spec.get("streams", 2)))
-            rel = posixpath.join(str(spec.get("prefix", "")), DATA_FILE)
+            rel = posixpath.join(str(spec.get("prefix", "")), fname)
             return WireDumpSink(sender, rel), sender, None
         except Exception as exc:  # noqa: BLE001 — reported, never raised
             return None, None, {"ok": False,
@@ -640,17 +666,20 @@ class Agentlet:
         wire_result: dict | None = None
         try:
             directory = req["dir"]
-            sink, sender, wire_result = self._wire_sink(req.get("wire"))
+            state = self.state_fn()
+            leg = leg_of(state)
+            sink, sender, wire_result = self._wire_sink(
+                req.get("wire"), data_file(leg.get("process_index", 0)))
             try:
                 base, clean, spec_info = self._consume_speculation(
                     directory, req.get("base"))
                 with self._dump_lock:
-                    write_snapshot(directory, self.state_fn(),
+                    write_snapshot(directory, state,
                                    meta={"step": int(self.step_fn()),
                                          **self.meta_fn()},
                                    base=base, hashes=bool(req.get("hashes")),
                                    mirror=req.get("mirror"), wire=sink,
-                                   clean_names=clean)
+                                   clean_names=clean, **leg)
                     legs = last_write()
             finally:
                 if sender is not None:

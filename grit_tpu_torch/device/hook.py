@@ -103,7 +103,11 @@ class TpuDeviceCheckpointHook:
         asks for the slice cut: the workload's gate parks every host at the
         same agreed step, its rendezvous names scoped by
         ``GRIT_SLICE_NONCE`` ("0" when unset). Pre-copy passes
-        (:meth:`predump`) stay per host."""
+        (:meth:`predump`) stay per host. A rank of a sharded job (a
+        ``Trainer(mesh=, rules=)``) dumps its own leg into ``hbm``: its
+        shards, described by the leaves themselves, as process ``k`` of
+        the world (:func:`~grit_tpu_torch.device.snapshot.merge_legs`
+        joins a cut's legs for a restore onto another layout)."""
         hbm_dir = os.path.join(dest_dir, HBM_SUBDIR)
         hbm_mirror = (os.path.join(mirror, HBM_SUBDIR)
                       if mirror is not None else None)
@@ -229,10 +233,11 @@ class AutoDeviceHook:
 # -- the workload's restore side ----------------------------------------------------
 
 
-def restore_dir_from_env() -> str | None:
+def restore_dir_from_env(rank: int = 0) -> str | None:
     """The snapshot dir to restore from: ``GRIT_TPU_RESTORE_DIR`` when it
-    holds a committed snapshot, else None."""
-    d = config.TPU_RESTORE_DIR.get()
+    holds a committed snapshot, else None. A ``{rank}`` in it names each
+    rank's own leg of a sharded job (``rank`` substituted)."""
+    d = config.TPU_RESTORE_DIR.get().replace("{rank}", str(rank))
     if not d:
         return None
     return d if snapshot_exists(d) else None

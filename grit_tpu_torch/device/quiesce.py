@@ -17,8 +17,23 @@ from typing import Any, Callable
 
 import torch
 
-from grit_tpu_torch.parallel.sharding import local_shard
+from grit_tpu_torch.parallel.sharding import (
+    is_dtensor,
+    like_dtensor,
+    local_shard,
+)
 from grit_tpu_torch.tree import flatten_with_names, tree_map
+
+
+def _clone_leaf(x):
+    """A tensor leaf's copy: a DTensor's local shard copied and wrapped
+    as the leaf is, with its sharding (no collective); other leaves as
+    they are."""
+    if not isinstance(x, torch.Tensor):
+        return x
+    if is_dtensor(x):
+        return like_dtensor(_clone_leaf(local_shard(x).detach()), x)
+    return x.detach().clone(memory_format=torch.contiguous_format)
 
 
 def clone_generation(state: Any) -> Any:
@@ -35,11 +50,10 @@ def clone_generation(state: Any) -> Any:
     :func:`quiesce` does: an event recorded right after the copies is
     waited on before the clone is handed over, so its bytes are complete
     on every stream and a writer on another thread need not wait on the
-    loop's stream (which by then holds later steps)."""
-    clone = tree_map(
-        lambda x: x.detach().clone(memory_format=torch.contiguous_format)
-        if isinstance(x, torch.Tensor) else x, state)
-    devices = {leaf.device for _, leaf in flatten_with_names(clone)
+    loop's stream (which by then holds later steps). A DTensor leaf's clone
+    is its local shard's, wrapped as the leaf (its sharding too)."""
+    clone = tree_map(_clone_leaf, state)
+    devices = {local_shard(leaf).device for _, leaf in flatten_with_names(clone)
                if isinstance(leaf, torch.Tensor) and leaf.is_cuda}
     for dev in sorted(devices, key=str):
         done = torch.cuda.Event()

@@ -32,7 +32,17 @@ process 0's merge joins one name's shards into one record. A restore
 takes each leaf's slice for its target, a whole array or this rank's
 shard of a DTensor ``like`` leaf, from the chunk with that index when
 there is one, else cut from every chunk that overlaps it: another mesh,
-or a dense Trainer, reads a snapshot written on any mesh. Chunk checksums are ``zlib.crc32`` (``"algo": "crc32"``). A
+or a dense Trainer, reads a snapshot written on any mesh. Without
+``shardings=`` a DTensor leaf's descriptor comes from the leaf itself
+(:func:`~grit_tpu_torch.parallel.sharding.sharding_of`). A pipe mesh's
+stage leaves (each rank holds its stage of a stacked array) record the
+stacked array and each rank's stage as its chunk.
+
+Per-host legs (``write_snapshot(leg=True)``, a sharded job cut by the
+gang): each rank commits its own tree of every shard it holds into
+``data-h<k>.bin``, so the leg restores alone onto the same mesh; a
+restore onto another layout reads :func:`merge_legs`, a manifest over
+the legs of one cut whose chunks reference the legs' bytes. Chunk checksums are ``zlib.crc32`` (``"algo": "crc32"``). A
 JAX-written snapshot whose chunks carry ``crc32c`` (the JAX package's
 native IO plane) is verified with the port's crc32c library
 (:mod:`grit_tpu_torch.checksum`); where that cannot be built, its chunks
@@ -93,10 +103,10 @@ the speculative pass without reading them from the device.
 Post-copy restore (:func:`restore_snapshot_postcopy`): the hot set (small
 arrays) is placed before the call returns, the cold bulk by a background
 tail in the order its bytes are staged; :meth:`PostcopyRestore.wait`
-hands over the whole tree.
+hands over the whole tree. On a mesh each rank's hot set and tail place
+its own shards.
 
-Not in this package yet: post-copy restore onto a mesh, the
-reference's native drain and native container read (``libgritio``), and the
+Not in this package yet: the reference's native drain and native container read (``libgritio``), and the
 reference's metrics, flight events and fault points of speculation,
 post-copy, the codec and the wire.
 """
@@ -135,10 +145,13 @@ from grit_tpu_torch.metadata import (
     crc32_file,
 )
 from grit_tpu_torch.parallel.sharding import (
+    NamedSharding,
     dtensor_index,
     is_dtensor,
     like_dtensor,
     local_shard,
+    sharding_of,
+    spec_from_descriptor,
 )
 from grit_tpu_torch.tree import flatten_with_names, map_with_names
 from grit_tpu_torch.wire import Countdown
@@ -193,6 +206,8 @@ _DTYPE_NAMES = {
     torch.bool: "bool",
 }
 _NAME_DTYPES = {v: k for k, v in _DTYPE_NAMES.items()}
+_DTYPE_BYTES = {v: torch.empty((), dtype=k).element_size()
+                for k, v in _DTYPE_NAMES.items()}
 
 
 class SnapshotIntegrityError(RuntimeError):
@@ -822,9 +837,9 @@ def _mark_mirror(mirror_work: str, work: str,
                     mirror_work, exc)
 
 
-def _commit_mirror(mirror: str, committed: str, pcount: int = 1) -> bool:
-    """Seal the mirror: require the marker of every one of ``pcount``
-    processes, copy the committed manifest, write a COMMIT whose second
+def _commit_mirror(mirror: str, committed: str, procs=(0,)) -> bool:
+    """Seal the mirror: require the marker of every process of ``procs``
+    (the process indices whose files it holds), copy the committed manifest, write a COMMIT whose second
     line is ``{"files": {rel: {size, sig|crc}}}`` (what the agent's
     upload-skip pass verifies) and rename it into place. Any gap abandons
     the mirror — never a half-committed destination. True when the
@@ -834,7 +849,8 @@ def _commit_mirror(mirror: str, committed: str, pcount: int = 1) -> bool:
         return False
     try:
         files: dict = {}
-        for k in range(pcount):
+        procs = list(procs)
+        for k in procs:
             marker = os.path.join(work, mirror_marker(k))
             if not os.path.isfile(marker):
                 raise OSError(f"mirror marker h{k:04d} missing")
@@ -844,7 +860,7 @@ def _commit_mirror(mirror: str, committed: str, pcount: int = 1) -> bool:
             except ValueError as exc:
                 raise OSError(f"mirror marker h{k:04d} malformed: {exc}"
                               ) from exc
-        for k in range(pcount):
+        for k in procs:
             os.unlink(os.path.join(work, mirror_marker(k)))
         manifest = os.path.join(work, MANIFEST_FILE)
         shutil.copyfile(os.path.join(committed, MANIFEST_FILE), manifest)
@@ -873,7 +889,7 @@ def write_snapshot(directory: str, state: Any, *, meta: dict | None = None,
                    mirror: str | None = None, wire=None,
                    speculative: bool = False,
                    clean_names: frozenset | None = None,
-                   shardings: Any = None) -> str:
+                   shardings: Any = None, leg: bool = False) -> str:
     """Serialize the tree ``state`` to ``directory`` atomically; returns it.
 
     ``barrier``, ``process_index``, ``process_count``: one process of a
@@ -918,10 +934,23 @@ def write_snapshot(directory: str, state: Any, *, meta: dict | None = None,
     :class:`~grit_tpu_torch.parallel.sharding.NamedSharding` (or ``None``
     leaves), the sharded state's layout. A leaf with one records the
     ``named`` descriptor, and this process writes its shard (a DTensor
-    leaf's local tensor; a plain leaf is whole on every rank) only if it
-    is the replica at coordinate 0 along every mesh dim that does not
-    shard the leaf, so each distinct shard lands once in the merged
-    manifest. A DTensor leaf needs one.
+    leaf's local tensor; a plain leaf is whole on every rank, or on a
+    pipe mesh a stage leaf's stage) only if it is the replica at
+    coordinate 0 along every mesh dim that does not shard the leaf, so
+    each distinct shard lands once in the merged manifest. Without
+    ``shardings`` each DTensor leaf's comes from the leaf
+    (:func:`~grit_tpu_torch.parallel.sharding.sharding_of`, as the JAX
+    package reads ``arr.sharding``), and every plain leaf of such a state
+    is replicated on its mesh (every rank holds it alike); a DTensor that
+    no sharding describes raises, never written whole. A sharded dump
+    that is not a ``leg`` is one process of the mesh's whole world.
+
+    ``leg``: this process's own tree of a per-host dump (the gang's
+    ``host-<k>`` legs): every shard it holds, replicas included, into
+    ``data-h<process_index>.bin``, committed by this process alone with
+    no ``barrier``. A leg restores alone onto the same mesh (each rank
+    reads its own shards), and the legs of one cut together through
+    :func:`merge_legs`.
 
     ``clean_names``: leaves the caller proved byte-identical to ``base``
     (:func:`validated_clean_names` against the clone ``base`` was written
@@ -938,10 +967,10 @@ def write_snapshot(directory: str, state: Any, *, meta: dict | None = None,
     t_start = time.perf_counter()
     pidx = 0 if process_index is None else int(process_index)
     pcount = 1 if process_count is None else int(process_count)
-    shared = pcount > 1
+    shared = pcount > 1 and not leg
     work = directory + WORK_SUFFIX
     old = directory + ".old"
-    if pidx == 0:
+    if pidx == 0 or leg:
         # Crash recovery: a leftover .old from a crash mid-commit holds the
         # previous committed snapshot — put it back before overwriting.
         if snapshot_exists(old) and not snapshot_exists(directory):
@@ -972,10 +1001,18 @@ def write_snapshot(directory: str, state: Any, *, meta: dict | None = None,
     if base is not None:
         base_chunks, base_rel, base_abs = _load_base_chunks(
             directory, base, own_file=data_file(pidx) if shared else None)
-    leaves = [(name, _as_tensor(leaf))
-              for name, leaf in flatten_with_names(state)]
+    raw = flatten_with_names(state)
+    leaves = [(name, _as_tensor(leaf)) for name, leaf in raw]
+    # From the leaves themselves: a DTensor's detached copy no longer
+    # carries the sharding that placed it.
     layout = (dict(flatten_with_names(shardings)) if shardings is not None
-              else {})
+              else _derived_layout(raw))
+    mesh = next((sh.mesh for sh in layout.values() if sh is not None), None)
+    if mesh is not None and not leg and pcount != mesh.size():
+        raise ValueError(
+            f"a sharded state on {mesh.size()} ranks dumped as {pcount} "
+            "process(es): every rank of the mesh writes its shards "
+            "(process_index/process_count), or each its own leg (leg=True)")
     mirror_work, tee = _open_mirror(mirror, wire, pidx=pidx, shared=shared)
     clean = clean_names or frozenset()
     d2h = _DeviceToHost(settled=speculative)
@@ -992,13 +1029,12 @@ def write_snapshot(directory: str, state: Any, *, meta: dict | None = None,
                 if leaf.dtype not in _DTYPE_NAMES:
                     raise ValueError(f"{name}: unsupported dtype {leaf.dtype}")
                 dtype = _DTYPE_NAMES[leaf.dtype]
-                t, index, sharding, mine = _shard_of(name, leaf,
-                                                     layout.get(name))
-                record = {"name": name, "dtype": dtype,
-                          "shape": list(leaf.shape), "sharding": sharding,
-                          "chunks": []}
+                t, index, shape, sharding, mine = _shard_of(
+                    name, leaf, layout.get(name))
+                record = {"name": name, "dtype": dtype, "shape": shape,
+                          "sharding": sharding, "chunks": []}
                 records.append(record)
-                if not mine:
+                if not (mine or leg):
                     continue
                 nbytes = t.numel() * t.element_size()
                 bc = base_chunks.get((name, tuple(map(tuple, index)), nbytes,
@@ -1034,14 +1070,20 @@ def write_snapshot(directory: str, state: Any, *, meta: dict | None = None,
         _mark_mirror(mirror_work, work, written_pairs, tee.sidecar_path,
                      pidx=pidx)
 
-    barrier()
+    if not leg:
+        barrier()
     mirrored = False
-    if pidx == 0:
+    if leg:
+        _commit(directory, work, old, records, pcount, meta, base_rel)
+        mirrored = mirror is not None and _commit_mirror(mirror, directory,
+                                                         [pidx])
+    elif pidx == 0:
         _commit(directory, work, old, _merge_indexes(work, records, pcount),
                 pcount, meta, base_rel)
         mirrored = mirror is not None and _commit_mirror(mirror, directory,
-                                                         pcount)
-    barrier()
+                                                         range(pcount))
+    if not leg:
+        barrier()
     if not speculative:
         _carry_kernels(directory)
     with _RECORD_LOCK:
@@ -1062,21 +1104,116 @@ def write_snapshot(directory: str, state: Any, *, meta: dict | None = None,
 
 
 def _shard_of(name: str, leaf: torch.Tensor, sharding
-              ) -> tuple[torch.Tensor, list[list[int]], dict, bool]:
+              ) -> tuple[torch.Tensor, list[list[int]], list[int], dict,
+                         bool]:
     """What this process writes of ``leaf``: ``(tensor, its global index,
-    the sharding descriptor, whether to write it)``."""
+    the array's global shape, the sharding descriptor, whether this
+    process is the one replica that writes it)``."""
     if sharding is None:
         if is_dtensor(leaf):
             raise ValueError(f"{name}: a DTensor leaf needs its sharding "
                              "(write_snapshot(shardings=))")
-        return leaf, [[0, int(d)] for d in leaf.shape], \
+        shape = [int(d) for d in leaf.shape]
+        return leaf, [[0, d] for d in shape], shape, \
             {"type": "replicated"}, True
-    index = sharding.shard_index(leaf.shape)
+    shape = (list(leaf.shape) if is_dtensor(leaf)
+             else sharding.global_shape(leaf.shape))
+    index = sharding.shard_index(shape)
     local = local_shard(leaf)
-    if list(local.shape) != [b - a for a, b in index]:
+    if list(local.shape) != sharding.held_shape(index):
         raise ValueError(f"{name}: local shape {list(local.shape)} is not "
                          f"the shard {index} of {sharding.spec}")
-    return local, index, sharding.descriptor(), sharding.writes()
+    return local, index, shape, sharding.descriptor(), sharding.writes()
+
+
+def _mesh_key(mesh) -> tuple:
+    return (tuple(mesh.shape), tuple(mesh.mesh_dim_names),
+            tuple(mesh.mesh.flatten().tolist()))
+
+
+def _derived_layout(leaves: list[tuple[str, Any]]) -> dict:
+    """The layout of a state dumped without ``shardings=``: each DTensor
+    leaf's own sharding and, when there is one, every plain leaf
+    replicated on that mesh; ``{}`` for a state with no DTensor. Raises
+    for a DTensor no sharding describes and for DTensors of two meshes."""
+    named: dict = {}
+    for name, x in leaves:
+        if is_dtensor(x):
+            try:
+                named[name] = sharding_of(x)
+            except ValueError as exc:
+                raise ValueError(f"{name}: {exc}") from None
+    if not named:
+        return {}
+    meshes = {_mesh_key(sh.mesh): sh.mesh for sh in named.values()}
+    if len(meshes) > 1:
+        raise ValueError(f"the state's DTensors live on {len(meshes)} "
+                         "meshes; a snapshot describes one")
+    mesh = next(iter(meshes.values()))
+    return {name: named.get(name) or NamedSharding(mesh, ())
+            for name, _ in leaves}
+
+
+def merge_legs(directory: str, legs: list[str]) -> str:
+    """One committed snapshot at ``directory`` over the legs of one
+    per-host cut (each a process's own tree, ``write_snapshot(leg=True)``):
+    every leg's records joined by name, each distinct shard once (the
+    first leg's chunk of that index), every chunk referencing its leg's
+    bytes (``ref_dir``), so it holds no data file of its own. A restore
+    onto another mesh, into one device, or by the JAX package reads it as
+    any snapshot. The legs must be committed and agree on the meta and on
+    every array's dtype, shape and descriptor, and together cover every
+    array; otherwise this raises :class:`SnapshotIntegrityError`."""
+    if not legs:
+        raise ValueError("merge_legs needs at least one leg")
+    target = os.path.abspath(directory)
+    merged: dict[str, dict] = {}
+    seen: dict[str, set] = {}
+    meta = None
+    for leg_dir in legs:
+        if not snapshot_exists(leg_dir):
+            raise SnapshotIntegrityError(f"leg {leg_dir} is not a committed "
+                                         "snapshot")
+        m = SnapshotManifest.load(leg_dir)
+        if meta is None:
+            meta = m.meta
+        elif m.meta != meta:
+            raise SnapshotIntegrityError(
+                f"leg {leg_dir} is of another cut: meta {m.meta}, the first "
+                f"leg's {meta}")
+        for rec in m.arrays:
+            name = rec["name"]
+            mine = merged.get(name)
+            if mine is None:
+                mine = merged[name] = {k: v for k, v in rec.items()
+                                       if k != "chunks"}
+                mine["chunks"] = []
+                seen[name] = set()
+            elif any(mine[k] != rec[k] for k in ("dtype", "shape",
+                                                  "sharding")):
+                raise SnapshotIntegrityError(
+                    f"{name}: leg {leg_dir} records another array")
+            for c in rec["chunks"]:
+                key = tuple(map(tuple, c["index"]))
+                if key in seen[name]:
+                    continue
+                seen[name].add(key)
+                held = os.path.normpath(os.path.join(
+                    os.path.abspath(leg_dir), c.get("ref_dir") or ""))
+                mine["chunks"].append(
+                    {**c, "ref_dir": os.path.relpath(held, target)})
+    for rec in merged.values():
+        if not _coverage_complete(rec["shape"],
+                                  [c["index"] for c in rec["chunks"]]):
+            raise SnapshotIntegrityError(
+                f"{rec['name']}: the legs leave elements uncovered (a "
+                "host's leg is missing)")
+    work = directory + WORK_SUFFIX
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    _commit(directory, work, directory + ".old", list(merged.values()),
+            len(legs), meta, None)
+    return directory
 
 
 def _merge_indexes(work: str, own: list[dict], pcount: int) -> list[dict]:
@@ -1199,8 +1336,8 @@ def start_speculative_dump(directory: str, state: Any, *,
                            already_cloned: bool = False,
                            meta: dict | None = None, base: str | None = None,
                            mirror: str | None = None,
-                           dump_lock: threading.Lock | None = None
-                           ) -> SpeculativeDump:
+                           dump_lock: threading.Lock | None = None,
+                           **leg) -> SpeculativeDump:
     """Launch the concurrent pass of a quiesce in progress.
 
     ``directory`` is the final dump directory; the pass commits to its
@@ -1213,7 +1350,8 @@ def start_speculative_dump(directory: str, state: Any, *,
     ``speculative=True`` while holding ``dump_lock`` (the agentlet's
     snapshot serializer): callers join the handle before they take it.
     Raises whatever the clone raises; callers degrade to the parked dump
-    on any exception."""
+    on any exception. ``leg``: ``process_index``, ``process_count`` and
+    ``leg`` of a rank's own leg (:func:`write_snapshot`)."""
     from grit_tpu_torch.device.quiesce import (  # noqa: PLC0415
         clone_generation,
         clone_live_generation,
@@ -1238,7 +1376,7 @@ def start_speculative_dump(directory: str, state: Any, *,
                 write_snapshot(handle.directory, state_ref, meta=meta,
                                base=base, hashes=True,
                                mirror=(mirror + SPEC_SUFFIX) if mirror else None,
-                               speculative=True)
+                               speculative=True, **leg)
                 handle.legs = last_write()
         except BaseException as exc:  # noqa: BLE001 — surfaced via handle.error
             handle.error = exc
@@ -1272,7 +1410,8 @@ def validated_clean_names(state: Any, clone: Any) -> set | None:
         return None
     verdicts: dict[torch.device, list[tuple[str, torch.Tensor]]] = {}
     for (name, a), (_, b) in zip(flat_s, flat_c):
-        a, b = _as_tensor(a), _as_tensor(b)
+        # A DTensor's local shards: each rank validates what it writes.
+        a, b = local_shard(_as_tensor(a)), local_shard(_as_tensor(b))
         if a.shape != b.shape or a.dtype != b.dtype or a.device != b.device:
             return None
         view = _INT_VIEW[a.element_size()]
@@ -1641,16 +1780,35 @@ def _exact_chunk(rec: dict, want: list[list[int]]) -> dict | None:
 
 def _like_shard(local: torch.Tensor, like):
     """``local`` as ``like`` holds it: this rank's shard of a DTensor leaf
-    wrapped in ``like``'s mesh and placements, else as it is."""
-    return like_dtensor(local, like) if is_dtensor(like) else local
+    wrapped in ``like``'s mesh and placements, a pipe-axis stage with its
+    stacked dim dropped, else as it is."""
+    if is_dtensor(like):
+        return like_dtensor(local, like)
+    if isinstance(like, torch.Tensor) and local.shape != like.shape:
+        return local.reshape(like.shape)
+    return local
 
 
-def _want(leaf, rec: dict) -> list[list[int]]:
+def _want(leaf, rec: dict, sharding=None) -> list[list[int]]:
     """The slice of ``rec``'s array that ``leaf`` takes: this rank's shard
-    of a DTensor leaf, else the whole array."""
+    of a DTensor leaf or of a plain leaf placed by ``sharding`` (a pipe
+    mesh's stage), else the whole array."""
     if is_dtensor(leaf):
         return dtensor_index(leaf)
+    if sharding is not None:
+        return sharding.shard_index(rec["shape"])
     return [[0, int(d)] for d in rec["shape"]]
+
+
+def _chunks_for(rec: dict, want: list[list[int]]) -> list[dict]:
+    """The chunks a restore of the slice ``want`` reads: the one of that
+    index, else every chunk that overlaps it."""
+    exact = _exact_chunk(rec, want)
+    if exact is not None:
+        return [exact]
+    return [c for c in rec["chunks"]
+            if all(max(a, wa) < min(b, wb) for (a, b), (wa, wb) in
+                   zip(c["index"], want))]
 
 
 def _begin_restore(directory: str) -> tuple[_StageMonitor | None,
@@ -1688,7 +1846,8 @@ def _begin_restore(directory: str) -> tuple[_StageMonitor | None,
 
 def restore_snapshot(directory: str, *, like: Any = None,
                      device: torch.device | str | None = None,
-                     verify: bool = True) -> Any:
+                     verify: bool = True, mesh=None,
+                     shardings: Any = None) -> Any:
     """Load a committed snapshot.
 
     ``like``: a tree of the wanted structure. A tensor leaf on the meta
@@ -1696,8 +1855,18 @@ def restore_snapshot(directory: str, *, like: Any = None,
     (with no GPU that raises: pass ``device="cpu"`` to restore onto the
     CPU); any other tensor leaf onto its own device; a Python int/float
     leaf comes back as that type. Dtypes and shapes must match the
-    manifest. Without ``like`` the result is a flat ``{keystr name: CPU
-    tensor}`` dict. ``verify``: check every chunk's crc32.
+    manifest. A DTensor leaf takes this rank's shard, cut from the chunks
+    that overlap it. Without ``like`` the result is a flat ``{keystr
+    name: CPU tensor}`` dict. ``verify``: check every chunk's crc32.
+
+    ``shardings`` (a tree like ``like`` of
+    :class:`~grit_tpu_torch.parallel.sharding.NamedSharding` or None) and
+    ``mesh`` place plain ``like`` leaves, as the JAX package's arguments
+    do: a leaf's sharding from ``shardings``, else, with ``mesh``, the
+    descriptor the manifest records re-realised on ``mesh``. Such a leaf
+    comes back a DTensor of that sharding, or on a pipe mesh this rank's
+    plain tensor (a stage leaf's stage); the shape it is given is then
+    the one a rank holds.
 
     Reader threads (``GRIT_TPU_RESTORE_WORKERS``; ``GRIT_RESTORE_PIPELINE=0``
     reads serially) read and checksum arrays ahead of the in-order place on
@@ -1710,39 +1879,80 @@ def restore_snapshot(directory: str, *, like: Any = None,
         return dict(zip(names, _restore_leaves(
             directory, _Placer(recs, [None] * len(recs), None),
             verify=verify, monitor=monitor, seeded=seeded)))
-    recs, leaves, device = _like_plan(directory, by_name, like, device)
-    out = iter(_restore_leaves(directory, _Placer(recs, leaves, device),
+    recs, leaves, layouts, device = _like_plan(directory, by_name, like,
+                                               device, mesh, shardings)
+    out = iter(_restore_leaves(directory,
+                               _Placer(recs, leaves, device, layouts),
                                verify=verify, monitor=monitor, seeded=seeded))
     return map_with_names(lambda _name, _leaf: next(out), like)
 
 
+def _placed_like(name: str, leaf, rec: dict, sharding):
+    """``(leaf as the restore targets it, the sharding that cuts a plain
+    leaf's slice)`` under ``sharding``: on a pipe mesh the leaf stays
+    plain and ``sharding`` cuts its slice (a stage leaf's stage); on a
+    DTensor mesh a plain tensor leaf that ``sharding`` splits becomes a
+    DTensor of it (on the meta device when it was there); one it does not
+    split stays whole, as the Trainer keeps its scalars."""
+    if sharding is None or is_dtensor(leaf) or not isinstance(
+            leaf, torch.Tensor):
+        return leaf, None
+    from grit_tpu_torch.parallel.mesh import is_pipe_mesh  # noqa: PLC0415
+
+    if is_pipe_mesh(sharding.mesh):
+        return leaf, sharding
+    if not sharding.shards():
+        return leaf, None
+    if list(rec["shape"]) != list(leaf.shape):
+        raise ValueError(f"{name}: snapshot holds {list(rec['shape'])}, "
+                         f"want {list(leaf.shape)}")
+    return sharding.zeros(rec["shape"], leaf.dtype, leaf.device), None
+
+
 def _like_plan(directory: str, by_name: dict, like: Any,
-               device: torch.device | str | None
-               ) -> tuple[list[dict], list, torch.device | None]:
+               device: torch.device | str | None, mesh=None,
+               shardings: Any = None
+               ) -> tuple[list[dict], list, list, torch.device | None]:
     """The manifest records and leaves of ``like`` in its flattening
-    order, checked against the manifest, and the device its meta leaves
+    order, each placed by ``shardings``/``mesh`` (:func:`restore_snapshot`)
+    and checked against the manifest, the sharding that cuts each plain
+    leaf's slice (a pipe mesh's) or None, and the device its meta leaves
     go to (resolved only when it has one)."""
-    leaves = flatten_with_names(like)
-    missing = [n for n, _ in leaves if n not in by_name]
+    named = flatten_with_names(like)
+    missing = [n for n, _ in named if n not in by_name]
     if missing:
         raise KeyError(f"snapshot {directory} lacks arrays: {missing[:5]}")
-    for name, leaf in leaves:
+    given = (dict(flatten_with_names(shardings)) if shardings is not None
+             else {})
+    leaves, layouts = [], []
+    for name, leaf in named:
+        rec = by_name[name]
+        sharding = given.get(name)
+        if (sharding is None and mesh is not None
+                and rec["sharding"].get("type") == "named"):
+            sharding = NamedSharding(mesh,
+                                     spec_from_descriptor(rec["sharding"]))
+        leaf, layout = _placed_like(name, leaf, rec, sharding)
         if isinstance(leaf, torch.Tensor):
-            rec = by_name[name]
             held = _NAME_DTYPES.get(rec["dtype"], rec["dtype"])
-            if held != leaf.dtype or list(rec["shape"]) != list(leaf.shape):
+            shape = (layout.global_shape(leaf.shape) if layout is not None
+                     else list(leaf.shape))
+            if held != leaf.dtype or list(rec["shape"]) != list(shape):
                 raise ValueError(
                     f"{name}: snapshot holds {held} {list(rec['shape'])}, "
-                    f"want {leaf.dtype} {list(leaf.shape)}")
+                    f"want {leaf.dtype} {list(shape)}")
+        leaves.append(leaf)
+        layouts.append(layout)
     if any(isinstance(x, torch.Tensor) and x.device.type == "meta"
-           for _, x in leaves):
+           for x in leaves):
         device = resolve_device(device)
-    return [by_name[n] for n, _ in leaves], [x for _, x in leaves], device
+    return [by_name[n] for n, _ in named], leaves, layouts, device
 
 
 def restore_snapshot_postcopy(directory: str, *, like: Any,
                               device: torch.device | str | None = None,
-                              verify: bool = True) -> "PostcopyRestore":
+                              verify: bool = True, mesh=None,
+                              shardings: Any = None) -> "PostcopyRestore":
     """Post-copy (lazy) :func:`restore_snapshot`: place the hot set (arrays
     of at most ``GRIT_RESTORE_POSTCOPY_HOT_MB`` each: step counters,
     norms, serving bookkeeping) now, through the blocking restore's
@@ -1750,27 +1960,35 @@ def restore_snapshot_postcopy(directory: str, *, like: Any,
     background tail places the cold bulk in the order its bytes are
     staged. The caller resumes at once; :meth:`PostcopyRestore.wait`
     hands over the whole tree. ``like`` is required (the handle rebuilds
-    the caller's tree); ``device`` and ``verify`` as for
-    :func:`restore_snapshot`, whose checks every chunk still passes."""
+    the caller's tree); ``device``, ``verify``, ``mesh`` and
+    ``shardings`` as for :func:`restore_snapshot`, whose checks every
+    chunk still passes. On a mesh every rank places its own shards: the
+    hot set and the tail each cut a rank's shard from the chunks that
+    overlap it, never a whole array, and the split between them, by each
+    array's whole size, is the same on every rank."""
     if like is None:
         raise ValueError("post-copy restore requires `like` (the handle "
                          "rebuilds the caller's tree)")
     t0 = time.monotonic()
     monitor, manifest, seeded = _begin_restore(directory)
     by_name = {rec["name"]: rec for rec in manifest.arrays}
-    recs, leaves, device = _like_plan(directory, by_name, like, device)
+    recs, leaves, layouts, device = _like_plan(directory, by_name, like,
+                                               device, mesh, shardings)
     hot_cut = max(0.0, config.RESTORE_POSTCOPY_HOT_MB.get_float()) * 1e6
-    sizes = [sum(c["nbytes"] for c in rec["chunks"]) for rec in recs]
+    # The whole array's bytes: every rank of a mesh splits alike.
+    sizes = [_DTYPE_BYTES.get(rec["dtype"], 0) * int(
+        np.prod(rec["shape"], dtype=np.int64)) for rec in recs]
     hot = [i for i, n in enumerate(sizes) if n <= hot_cut]
     cold = [i for i, n in enumerate(sizes) if n > hot_cut]
     placed = _restore_leaves(
         directory, _Placer([recs[i] for i in hot], [leaves[i] for i in hot],
-                           device),
+                           device, [layouts[i] for i in hot]),
         verify=verify, monitor=monitor, seeded=seeded)
     handle = PostcopyRestore(
-        directory, like=like, recs=recs, leaves=leaves, device=device,
-        monitor=monitor, verify=verify, results=dict(zip(hot, placed)),
-        cold=cold, meta=dict(manifest.meta))
+        directory, like=like, recs=recs, leaves=leaves, layouts=layouts,
+        device=device, monitor=monitor, verify=verify,
+        results=dict(zip(hot, placed)), cold=cold,
+        meta=dict(manifest.meta), mesh=mesh, shardings=shardings)
     handle.hot_s = time.monotonic() - t0
     handle.start()
     return handle
@@ -1792,16 +2010,20 @@ class PostcopyRestore:
     uses."""
 
     def __init__(self, directory: str, *, like: Any, recs: list[dict],
-                 leaves: list, device: torch.device | None,
+                 leaves: list, layouts: list, device: torch.device | None,
                  monitor: _StageMonitor | None, verify: bool,
-                 results: dict, cold: list[int], meta: dict) -> None:
+                 results: dict, cold: list[int], meta: dict, mesh=None,
+                 shardings: Any = None) -> None:
         self.directory = directory
         self.meta = meta
         self.hot_s = 0.0   # restore call → hot set placed
         self.tail_s = 0.0  # the tail's wall time
         self._like = like
+        self._mesh = mesh
+        self._shardings = shardings
         self._recs = recs
         self._leaves = leaves
+        self._layouts = layouts
         self._names = [rec["name"] for rec in recs]
         self._device = device
         self._monitor = monitor
@@ -1850,7 +2072,8 @@ class PostcopyRestore:
         try:
             placer = _Placer([self._recs[i] for i in self._cold],
                              [self._leaves[i] for i in self._cold],
-                             self._device)
+                             self._device,
+                             [self._layouts[i] for i in self._cold])
             placer.open_pool(1)
             stream = (torch.cuda.Stream(self._device)
                       if self._device is not None
@@ -1876,8 +2099,12 @@ class PostcopyRestore:
                 self._cond.notify_all()
 
     def _array_ready(self, j: int) -> bool:
-        """Every chunk of cold array ``j`` appears staged (a hint)."""
-        for chunk in self._recs[self._cold[j]]["chunks"]:
+        """Every chunk cold array ``j``'s slice reads appears staged (a
+        hint)."""
+        i = self._cold[j]
+        rec = self._recs[i]
+        for chunk in _chunks_for(rec, _want(self._leaves[i], rec,
+                                            self._layouts[i])):
             d = self.directory
             if chunk.get("ref_dir"):
                 d = os.path.normpath(os.path.join(d, chunk["ref_dir"]))
@@ -1936,7 +2163,8 @@ class PostcopyRestore:
             try:
                 return restore_snapshot(self.directory, like=self._like,
                                         device=self._device,
-                                        verify=self._verify)
+                                        verify=self._verify, mesh=self._mesh,
+                                        shardings=self._shardings)
             except (SnapshotIntegrityError, OSError) as exc:
                 if time.monotonic() > deadline:
                     raise SnapshotIntegrityError(
@@ -2020,13 +2248,16 @@ class _Placer:
     threads, places on the caller's thread in manifest order."""
 
     def __init__(self, recs: list[dict], leaves: list,
-                 device: torch.device | None) -> None:
+                 device: torch.device | None, layouts: list | None = None
+                 ) -> None:
         self.recs = recs
         self.leaves = leaves
         self.targets = [
             (device if leaf.device.type == "meta" else leaf.device)
             if isinstance(leaf, torch.Tensor) else None for leaf in leaves]
-        self.wants = [_want(leaf, rec) for rec, leaf in zip(recs, leaves)]
+        layouts = layouts or [None] * len(leaves)
+        self.wants = [_want(leaf, rec, lay)
+                      for rec, leaf, lay in zip(recs, leaves, layouts)]
         self.exact = [_exact_chunk(rec, want)
                       for rec, want in zip(recs, self.wants)]
         self.need = [

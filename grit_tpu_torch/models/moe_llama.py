@@ -27,7 +27,8 @@ router replicated. ``mesh=`` on :func:`forward_with_aux`, :func:`forward`,
 layer expert-parallel over ``EXPERT_MESH_AXIS`` with the whole batch's
 routing (:func:`grit_tpu_torch.ops.moe.moe_mlp`): the sharded Trainer's
 loss closes over its mesh, and the serving engines pass theirs.
-``pp_stage_shardings`` (the pipe axis) is not ported.
+:func:`pp_stage_shardings` is the pipelined MoE's layout: the pipeline's,
+with the experts' dim (axis 2 of a staged leaf) over the expert axis.
 """
 
 from __future__ import annotations
@@ -44,7 +45,8 @@ from grit_tpu_torch.models.llama import (  # noqa: F401  (BATCH_SPEC: re-export)
     token_cross_entropy,
 )
 from grit_tpu_torch.ops.moe import moe_mlp, moe_param_shapes
-from grit_tpu_torch.parallel.sharding import ShardingRules
+from grit_tpu_torch.parallel.sharding import NamedSharding, ShardingRules
+from grit_tpu_torch.tree import map_with_names
 
 # Experts ride the tensor-parallel axis, as in the reference.
 EXPERT_MESH_AXIS = "model"
@@ -197,6 +199,19 @@ def forward_pp(cfg: MoeLlamaConfig, stage_params: dict, tokens: torch.Tensor,
     return pipeline_llama.forward_pp(
         cfg, stage_params, tokens, n_microbatches=n_microbatches,
         axis=axis, mlp_fn_builder=lambda _mb, _S: _moe_ffn(cfg))
+
+
+def pp_stage_shardings(mesh, stage_params: dict, pipe_axis: str = "pipe",
+                       expert_axis: str = "expert") -> dict:
+    """The pipelined MoE's layout: :func:`pipeline_llama.stage_shardings`
+    (layer leaves over ``pipe_axis``, the rest replicated) with the
+    expert weights ``w_in``/``w_out``, staged (n_stages, per, E, ...),
+    sharding their expert dim, axis 2, over ``expert_axis``."""
+    base = pipeline_llama.stage_shardings(mesh, stage_params, axis=pipe_axis)
+    return map_with_names(
+        lambda name, sh: NamedSharding(mesh, (pipe_axis, None, expert_axis))
+        if name.startswith("['layers']") and name.endswith(
+            ("['w_in']", "['w_out']")) else sh, base)
 
 
 def loss_fn(cfg: MoeLlamaConfig, params: dict, tokens: torch.Tensor,

@@ -16,9 +16,11 @@ A checkpoint interchanges with the dense layout: :func:`to_stage_params`
 and :func:`from_stage_params` are pure reshapes of the same tree. Each
 rank holds only its stage: :func:`stage_slice` of the staged tree, whose
 layer leaves are (L / n_stages, ...); the embedding, final norm and
-``lm_head`` are on every rank. ``stage_shardings`` is not ported yet:
-the sharded state (:mod:`grit_tpu_torch.parallel.sharding`) has no
-pipeline axis.
+``lm_head`` are on every rank. On a pipe mesh a rank's stage tree is
+its shard of the staged tree (:func:`stage_shardings`, the JAX package's
+layout: layer leaves over ``pipe``, the rest replicated), so a pipelined
+Trainer (rules :data:`STAGE_RULES`) writes one manifest of the staged
+arrays, which :func:`from_stage_params` turns into the dense tree.
 """
 
 from __future__ import annotations
@@ -28,8 +30,17 @@ import torch.nn.functional as F
 
 from grit_tpu_torch.models import llama
 from grit_tpu_torch.models.llama import LlamaConfig, rms_norm, token_cross_entropy
-from grit_tpu_torch.parallel.pipeline import microbatch, pipeline_apply
-from grit_tpu_torch.tree import tree_map
+from grit_tpu_torch.parallel.pipeline import (
+    PIPE_AXIS,
+    microbatch,
+    pipeline_apply,
+)
+from grit_tpu_torch.parallel.sharding import NamedSharding, ShardingRules
+from grit_tpu_torch.tree import map_with_names, tree_map
+
+# A pipelined Trainer's table (the JAX package's tests/test_pipeline_llama.py
+# rules): the staged layer leaves over the stages, everything else whole.
+STAGE_RULES = ShardingRules(rules=[(r"layers/", (PIPE_AXIS,))])
 
 
 def to_stage_params(cfg: LlamaConfig, params: dict, n_stages: int) -> dict:
@@ -55,6 +66,14 @@ def stage_slice(stage_params: dict, stage: int) -> dict:
     the replicated embedding, final norm and ``lm_head``."""
     return {**stage_params,
             "layers": tree_map(lambda a: a[stage], stage_params["layers"])}
+
+
+def stage_shardings(mesh, params: dict, axis: str = PIPE_AXIS) -> dict:
+    """Layer leaves sharded over ``axis``; embedding, final norm and
+    ``lm_head`` replicated (a tree like ``params``)."""
+    return map_with_names(
+        lambda name, _leaf: NamedSharding(
+            mesh, (axis,) if name.startswith("['layers']") else ()), params)
 
 
 def _stage_fn(cfg: LlamaConfig, mlp_fn_builder=None):

@@ -56,9 +56,11 @@ layer over ``model`` with the whole grid's routing), samples them, each
 slot from its own stream, and gathers the tokens over the slot axes, so
 every rank keeps the same bookkeeping. A prompt is prefilled by the ranks
 that hold its slot. ``snapshot`` writes every rank's shards with the
-``named`` descriptors; ``restore`` lays a snapshot written on any mesh,
-or on one device, out on the engine's own. Post-copy restore onto a mesh
-is not ported.
+``named`` descriptors; ``restore`` and ``restore_postcopy`` lay a
+snapshot written on any mesh, or on one device, out on the engine's own.
+A post-copy clone on a mesh places every rank's hot bookkeeping before
+its cache shards, and its ranks merge the landed cache at the first step
+boundary where every rank's tail has landed (one host all-reduce).
 
 Engines given no device run on the current CUDA device and raise without
 one (pass ``device="cpu"`` explicitly).
@@ -435,7 +437,7 @@ class ContinuousBatchingEngine:
         """One ragged decode for every active slot. Returns ``{slot:
         token}`` for the slots that emitted; slots hitting EOS or the
         cache limit deactivate (their final token is still reported)."""
-        if self._postcopy is not None and self._postcopy.done:
+        if self._postcopy is not None and self._tail_landed():
             # A batch boundary is the merge point: the cold tail has
             # landed, so the restored streams join this step.
             self.absorb_restored()
@@ -514,17 +516,17 @@ class ContinuousBatchingEngine:
         tail lands) merges the restored rows in; from then on the
         migrated streams continue bit-identically. When the hot set does
         not hold the bookkeeping (``GRIT_RESTORE_POSTCOPY_HOT_MB`` too
-        small), the restore completes as the blocking one does. Not
-        ported onto a mesh: a sharded engine raises."""
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "post-copy restore onto a mesh is not ported; restore a "
-                "sharded engine with restore()")
+        small), the restore completes as the blocking one does. On a
+        mesh every rank runs it: each places its shards of the cache, and
+        the choice to park or to block, made on the hot set (the same on
+        every rank), is the same everywhere."""
         if self._postcopy is not None:
             # Two outstanding tails over one state cannot merge.
             self.absorb_restored()
-        handle = restore_snapshot_postcopy(
-            directory, like=self._fresh_state("meta"), device=self.device)
+        like, _ = _init_state(self._fresh_state, self.mesh, self.device,
+                              abstract=True)
+        handle = restore_snapshot_postcopy(directory, like=like,
+                                           device=self.device)
         self._submissions = int(handle.meta.get("submissions", 0))
         # The hot set, never the tail's progress: with a cut that keeps
         # the bookkeeping cold, whether the clone parks must not depend on
@@ -536,7 +538,7 @@ class ContinuousBatchingEngine:
             self.state = handle.wait()
             self._postcopy = self._parked_mask = self._fresh_mask = None
             return handle
-        fresh = self._fresh_state(self.device)
+        fresh, _ = _init_state(self._fresh_state, self.mesh, self.device)
         # Copies: admissions write the bookkeeping in place, and the
         # handle hands these same tensors to the merge.
         self.state = {**{k: v.clone() for k, v in book.items()},
@@ -547,6 +549,18 @@ class ContinuousBatchingEngine:
         self._parked_mask = book["active"].clone()
         self._fresh_mask = torch.zeros_like(self._parked_mask)
         return handle
+
+    def _tail_landed(self) -> bool:
+        """Whether the post-copy tail has landed: on a mesh, on every
+        rank (every rank's grid merges at the same step)."""
+        done = self._postcopy.done
+        if self.mesh is None:
+            return done
+        import torch.distributed as dist  # noqa: PLC0415
+
+        flag = torch.tensor([int(done)], dtype=torch.int32)
+        dist.all_reduce(flag, op=dist.ReduceOp.MIN)
+        return bool(flag.item())
 
     @property
     def resumed_all(self) -> bool:
@@ -565,13 +579,19 @@ class ContinuousBatchingEngine:
         full = self._postcopy.wait(
             **({} if timeout is None else {"timeout": timeout}))
         fresh, cur = self._fresh_mask, self.state
-        page = fresh.to(cur["cache"]["k"].device)[None, :, None, None, None]
+
+        def rows(key: str) -> torch.Tensor:
+            # This rank's slots (all of them on one device), merged on
+            # the cache's local shards.
+            got = full["cache"][key]
+            mine = local_shard(got)
+            page = fresh[self._slots].to(mine.device)[None, :, None, None,
+                                                       None]
+            out = torch.where(page, local_shard(cur["cache"][key]), mine)
+            return like_dtensor(out, got) if is_dtensor(got) else out
+
         self.state = {
-            "cache": {**full["cache"],
-                      "k": torch.where(page, cur["cache"]["k"],
-                                       full["cache"]["k"]),
-                      "v": torch.where(page, cur["cache"]["v"],
-                                       full["cache"]["v"])},
+            "cache": {**full["cache"], "k": rows("k"), "v": rows("v")},
             "lengths": torch.where(fresh, cur["lengths"], full["lengths"]),
             "active": torch.where(fresh, cur["active"], full["active"]),
             "last_token": torch.where(fresh[:, None], cur["last_token"],

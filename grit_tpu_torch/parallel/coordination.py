@@ -12,7 +12,11 @@ join, and a dump taken there is not one cut of the job. So:
    then no collective is in flight anywhere and each host parks.
 3. **Snapshot**: each host writes its own files; process 0 merges the
    indexes and commits one manifest
-   (:func:`~grit_tpu_torch.device.snapshot.write_snapshot`'s ``barrier``).
+   (:func:`~grit_tpu_torch.device.snapshot.write_snapshot`'s ``barrier``);
+   a sharded state's DTensors describe their own shards. Cut through the
+   node hooks instead, each rank of a sharded job writes its own leg
+   (the agentlet's dump), and
+   :func:`~grit_tpu_torch.device.snapshot.merge_legs` joins them.
 4. **Restore**: each host restores, then a barrier gates the first step.
 
 Transports (:class:`Rendezvous`): :class:`LocalRendezvous` (threads of one

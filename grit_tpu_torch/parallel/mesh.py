@@ -14,6 +14,14 @@ the sharding descriptors a snapshot records stay stable as a job is
 re-laid-out: restoring a dp=8 snapshot onto a dp=4×fsdp=2 mesh is a
 sharding change, not a format change.
 
+A pipelined job runs on a mesh of its own, one ``pipe`` axis of one rank
+a stage (:func:`build_pipe_mesh`, the JAX package's ``pipe_mesh``). Its
+state is never a DTensor: each rank holds its stage of the stacked layer
+leaves, the stage dim dropped (``pipeline_llama.stage_slice``), and the
+rest whole, and the pipeline's own collectives run the step; the mesh
+gives a snapshot its descriptors and each rank its chunk
+(:mod:`grit_tpu_torch.parallel.sharding`).
+
 The mesh is a ``DeviceMesh`` of one process per device (rank), over the
 default process group, which the caller initialises. DTensors live on
 its :func:`active_mesh`, the sub-mesh of the axes larger than 1: an
@@ -35,6 +43,7 @@ DATA_AXIS = "data"
 FSDP_AXIS = "fsdp"
 MODEL_AXIS = "model"
 AXES = (DATA_AXIS, FSDP_AXIS, MODEL_AXIS)
+PIPE_AXIS = "pipe"
 
 
 @dataclass(frozen=True)
@@ -74,14 +83,47 @@ def build_mesh(spec: MeshSpec | None = None,
                             mesh_dim_names=AXES)
 
 
+def build_pipe_mesh(device: torch.device | str | None = None) -> DeviceMesh:
+    """A one-axis ``DeviceMesh`` named ``pipe`` over the default process
+    group's ranks in rank order: rank ``s`` is stage ``s``."""
+    return init_device_mesh(resolve_device(device).type,
+                            (dist.get_world_size(),),
+                            mesh_dim_names=(PIPE_AXIS,))
+
+
+def is_pipe_mesh(mesh: DeviceMesh) -> bool:
+    """Whether ``mesh`` is a pipeline's (it has a ``pipe`` axis): its
+    state stays plain tensors, a stage a rank."""
+    return PIPE_AXIS in (mesh.mesh_dim_names or ())
+
+
+# The sub-mesh -> its full mesh, for a DTensor whose descriptor names the
+# full mesh (set by active_mesh on the sub-mesh it hands out).
+_FULL_MESH = "_grit_full_mesh"
+
+
 def active_mesh(mesh: DeviceMesh) -> DeviceMesh:
     """The sub-mesh of ``mesh``'s axes larger than 1 (its innermost axis
-    when every one is 1): where the DTensors of a sharded state live."""
+    when every one is 1): where the DTensors of a sharded state live. It
+    remembers ``mesh`` (:func:`full_mesh`)."""
     names = [n for n, k in zip(mesh.mesh_dim_names, mesh.shape) if k > 1]
     names = names or [mesh.mesh_dim_names[-1]]
     if len(names) == mesh.ndim:
-        return mesh
-    return mesh[tuple(names)] if len(names) > 1 else mesh[names[0]]
+        sub = mesh
+    else:
+        sub = mesh[tuple(names)] if len(names) > 1 else mesh[names[0]]
+    setattr(sub, _FULL_MESH, mesh)
+    return sub
+
+
+def full_mesh(mesh: DeviceMesh) -> DeviceMesh | None:
+    """The (data, fsdp, model) mesh whose :func:`active_mesh` ``mesh`` is
+    (``mesh`` itself when it is such a mesh), else None: a mesh the port
+    did not build cannot name its axes of size 1."""
+    full = getattr(mesh, _FULL_MESH, None)
+    if full is not None:
+        return full
+    return mesh if tuple(mesh.mesh_dim_names or ()) == AXES else None
 
 
 def axis_groups(mesh: DeviceMesh, names) -> list:

@@ -19,8 +19,13 @@ part of their gradient: stage 0's) and the output leaves through
 rank builds the same graph, stage 0 included: it takes its injected
 microbatch through ``torch.where`` over what it received, as the
 reference's ``jnp.where`` does, so the hops' backward runs on every rank
-in the same order. ``stage_sharding`` is not ported yet: the sharded
-state (:mod:`grit_tpu_torch.parallel.sharding`) has no pipeline axis.
+in the same order.
+
+:func:`stage_sharding` is the stacked stage parameters' layout on a pipe
+mesh (:func:`~grit_tpu_torch.parallel.mesh.build_pipe_mesh`): the stage
+dim over ``pipe``. A rank holds its stage with that dim dropped, so a
+pipelined job's snapshot is one manifest of the stacked arrays
+(:mod:`grit_tpu_torch.parallel.sharding`).
 """
 
 from __future__ import annotations
@@ -36,9 +41,9 @@ from grit_tpu_torch.parallel.collectives import (
     replicate,
     ring_shift,
 )
+from grit_tpu_torch.parallel.mesh import PIPE_AXIS
+from grit_tpu_torch.parallel.sharding import NamedSharding
 from grit_tpu_torch.tree import flatten_with_names, map_with_names
-
-PIPE_AXIS = "pipe"
 
 # StageFn: (stage_params, activation) -> activation, applied by every
 # stage to its resident microbatch each tick.
@@ -83,6 +88,12 @@ def pipeline_apply(stage_fn: StageFn, params_local: Any, x_mb: torch.Tensor,
     y = _spmd_pipeline(stage_fn, n_stages, stage, params_local, x_mb, axis)
     last = torch.tensor(stage == n_stages - 1, device=y.device)
     return reduce_sum(torch.where(last, y, torch.zeros_like(y)), axis)
+
+
+def stage_sharding(mesh, axis: str = PIPE_AXIS) -> NamedSharding:
+    """The sharding of stacked stage parameters: the leading stage dim
+    over ``axis`` (a rank holds its stage, the dim dropped)."""
+    return NamedSharding(mesh, (axis,))
 
 
 def microbatch(x: torch.Tensor, n_microbatches: int) -> torch.Tensor:

@@ -21,6 +21,22 @@ splits a dim sharded over several mesh dims in mesh-dim order, so a
 tuple must list its axes in mesh order (``("data", "fsdp")``, never
 ``("fsdp", "data")``); another order raises rather than transpose the
 shards silently.
+
+A DTensor carries the :class:`NamedSharding` that placed it (:func:`tag`;
+``distribute``, ``zeros`` and :func:`like_dtensor` set it), and
+:func:`sharding_of` reads it back, as the JAX package reads
+``arr.sharding``: a snapshot needs no ``shardings=`` to describe a
+sharded leaf, axes of size 1 included, which placements alone cannot
+name. A DTensor without one is described from its placements on the full
+mesh its own is the active sub-mesh of; one that neither can describe (a
+pending reduction, a mesh the port did not build) raises.
+
+The pipe axis (:data:`~grit_tpu_torch.parallel.mesh.PIPE_AXIS`, a
+pipeline's one-axis mesh) holds no DTensor: a leaf whose spec starts
+with ``pipe`` is stacked over the stages, and each rank holds its stage
+with that dim dropped (the port's one-process-a-rank ``stage_slice``);
+every other leaf is whole on every rank. The spec, the descriptor and
+the chunk index are the stacked array's, as the JAX package's.
 """
 
 from __future__ import annotations
@@ -34,7 +50,12 @@ from typing import TYPE_CHECKING, Any
 import torch
 from torch.distributed.device_mesh import DeviceMesh
 
-from grit_tpu_torch.parallel.mesh import active_mesh
+from grit_tpu_torch.parallel.mesh import (
+    PIPE_AXIS,
+    active_mesh,
+    full_mesh,
+    is_pipe_mesh,
+)
 
 if TYPE_CHECKING:
     from torch.distributed.tensor import DTensor, Placement
@@ -100,7 +121,7 @@ def _check(spec: tuple, mesh: DeviceMesh, ndim: int) -> None:
         raise ValueError(f"spec {spec} has more entries than the tensor's "
                          f"{ndim} dims")
     seen: list[str] = []
-    for entry in spec:
+    for d, entry in enumerate(spec):
         axes = _axes_of(entry)
         for a in axes:
             if a not in names:
@@ -109,6 +130,9 @@ def _check(spec: tuple, mesh: DeviceMesh, ndim: int) -> None:
             if a in seen:
                 raise ValueError(f"spec {spec} uses axis {a!r} twice")
             seen.append(a)
+        if PIPE_AXIS in axes and (d or len(axes) > 1):
+            raise ValueError(f"spec {spec}: the pipe axis shards the "
+                             "stacked stage dim alone, dim 0")
         order = [names.index(a) for a in axes]
         if order != sorted(order):
             raise ValueError(
@@ -165,12 +189,70 @@ def dtensor_index(x: DTensor) -> list[list[int]]:
 
 def like_dtensor(local: torch.Tensor, like: DTensor) -> DTensor:
     """``local``, this rank's shard, as a DTensor of ``like``'s mesh,
-    placements, shape and stride (no communication)."""
+    placements, shape and stride (no communication), carrying its
+    sharding (:func:`tag`)."""
     from torch.distributed.tensor import DTensor  # noqa: PLC0415
 
-    return DTensor.from_local(local, like.device_mesh, like.placements,
-                              run_check=False, shape=like.shape,
-                              stride=like.stride())
+    out = DTensor.from_local(local, like.device_mesh, like.placements,
+                             run_check=False, shape=like.shape,
+                             stride=like.stride())
+    held = getattr(like, _TAG, None)
+    return tag(out, held) if held is not None else out
+
+
+# The NamedSharding a DTensor was placed by (jax.Array.sharding's role).
+_TAG = "_grit_named_sharding"
+
+
+def tag(x: torch.Tensor, sharding: "NamedSharding") -> torch.Tensor:
+    """Record on the DTensor ``x`` the sharding that placed it, which
+    :func:`sharding_of` reads back; returns ``x``."""
+    setattr(x, _TAG, sharding)
+    return x
+
+
+def sharding_of(x: DTensor) -> "NamedSharding":
+    """The :class:`NamedSharding` of the DTensor ``x``, as the JAX package
+    takes a leaf's from ``arr.sharding``: the one that placed it
+    (:func:`tag`), else its placements read as a spec on the full mesh
+    whose active sub-mesh ``x`` lives on (each dim sharded by the axes
+    whose placement is ``Shard`` of it, in mesh order). Raises
+    ``ValueError`` for a DTensor no spec describes: a pending reduction
+    (``Partial``), a strided shard, or a mesh the port did not build."""
+    held = getattr(x, _TAG, None)
+    if held is not None:
+        return held
+    from torch.distributed.tensor import Replicate, Shard  # noqa: PLC0415
+
+    mesh = x.device_mesh
+    full = full_mesh(mesh)
+    if full is None or mesh.mesh_dim_names is None:
+        raise ValueError(
+            f"cannot describe a DTensor on mesh {mesh}: it is not a "
+            "(data, fsdp, model) mesh of build_mesh nor its active sub-mesh")
+    entries: list[list[str]] = [[] for _ in range(x.dim())]
+    for name, p in zip(mesh.mesh_dim_names, x.placements):
+        if type(p) is Shard:
+            entries[p.dim % max(1, x.dim())].append(name)
+        elif type(p) is not Replicate:
+            raise ValueError(f"cannot describe a DTensor placed {p} on "
+                             f"axis {name!r}: no spec names it")
+    spec = [None if not a else a[0] if len(a) == 1 else tuple(a)
+            for a in entries]
+    while spec and spec[-1] is None:
+        spec.pop()
+    out = NamedSharding(full, tuple(spec))
+    if tuple(out.active.mesh_dim_names) != tuple(mesh.mesh_dim_names):
+        raise ValueError(f"cannot describe a DTensor on the sub-mesh "
+                         f"{mesh.mesh_dim_names} of {full.mesh_dim_names}: "
+                         "the port's DTensors live on the active sub-mesh")
+    return out
+
+
+def spec_from_descriptor(desc: dict) -> tuple:
+    """A ``named`` descriptor's spec as a spec tuple (lists → tuples)."""
+    return tuple(tuple(e) if isinstance(e, list) else e
+                 for e in desc["spec"])
 
 
 def placements(spec: tuple, mesh: DeviceMesh, ndim: int) -> tuple[Placement, ...]:
@@ -204,6 +286,27 @@ class NamedSharding:
     @property
     def active(self) -> DeviceMesh:
         return active_mesh(self.mesh)
+
+    @property
+    def stage(self) -> bool:
+        """A pipe-axis leaf: stacked over the stages, each rank holding
+        its stage with the stacked dim dropped."""
+        return bool(self.spec) and _axes_of(self.spec[0]) == (PIPE_AXIS,)
+
+    def global_shape(self, local_shape) -> list[int]:
+        """The stacked array's shape of a leaf this rank holds as
+        ``local_shape`` (a plain leaf on a pipe mesh; otherwise it is its
+        own)."""
+        if not self.stage:
+            return [int(d) for d in local_shape]
+        return [int(self.mesh.size(self.mesh.mesh_dim_names.index(
+            PIPE_AXIS)))] + [int(d) for d in local_shape]
+
+    def held_shape(self, index: list[list[int]]) -> list[int]:
+        """The shape a rank holds of the shard at ``index``: the shard's,
+        with a stage leaf's stacked dim dropped."""
+        shape = [b - a for a, b in index]
+        return shape[1:] if self.stage else shape
 
     def placements(self, ndim: int) -> tuple[Placement, ...]:
         _check(self.spec, self.mesh, ndim)
@@ -248,28 +351,39 @@ class NamedSharding:
         whole)."""
         return any(_axes_of(entry) for entry in self.spec)
 
-    def zeros(self, shape, dtype: torch.dtype, device) -> DTensor:
+    def zeros(self, shape, dtype: torch.dtype, device) -> torch.Tensor:
         """A DTensor of this sharding whose local shard is zeros on
         ``device`` (``"meta"``: a shape skeleton): nothing of the whole
-        tensor is ever allocated."""
+        tensor is ever allocated. On a pipe mesh, the plain tensor a rank
+        holds (its stage of a stage leaf)."""
+        index = self.shard_index(shape)
+        if is_pipe_mesh(self.mesh):
+            return torch.zeros(self.held_shape(index), dtype=dtype,
+                               device=device)
         from torch.distributed.tensor import DTensor  # noqa: PLC0415
 
-        local = torch.zeros([b - a for a, b in self.shard_index(shape)],
-                            dtype=dtype, device=device)
+        local = torch.zeros([b - a for a, b in index], dtype=dtype,
+                            device=device)
         stride = torch.empty(shape, device="meta").stride()
-        return DTensor.from_local(local, self.active,
-                                  self.placements(len(shape)),
-                                  run_check=False, shape=torch.Size(shape),
-                                  stride=stride)
+        return tag(DTensor.from_local(local, self.active,
+                                      self.placements(len(shape)),
+                                      run_check=False,
+                                      shape=torch.Size(shape),
+                                      stride=stride), self)
 
-    def distribute(self, x: torch.Tensor) -> DTensor:
+    def distribute(self, x: torch.Tensor) -> torch.Tensor:
         """``x``, which every rank holds whole and alike, as a DTensor of
-        this sharding: each rank keeps its own shard (no communication)."""
+        this sharding: each rank keeps its own shard (no communication).
+        On a pipe mesh, the plain tensor a rank holds: its stage (a copy)
+        of a stage leaf, else ``x``."""
+        index = self.shard_index(x.shape)  # the divisibility check
+        if is_pipe_mesh(self.mesh):
+            return x[index[0][0]].clone() if self.stage else x
         from torch.distributed.tensor import distribute_tensor  # noqa: PLC0415
 
-        self.shard_index(x.shape)  # the divisibility check
-        return distribute_tensor(x, self.active, self.placements(x.dim()),
-                                 src_data_rank=None)
+        return tag(distribute_tensor(x, self.active,
+                                     self.placements(x.dim()),
+                                     src_data_rank=None), self)
 
 
 def named_sharding(mesh: DeviceMesh, *spec) -> NamedSharding:

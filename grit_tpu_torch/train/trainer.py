@@ -36,7 +36,19 @@ updates the shards. The batch is drawn whole from the (seed, step) generator on
 every rank and then sharded by ``cfg.batch_spec``, so a sharded step
 sees the dense step's batch. Snapshots record each shard under its
 global index and the ``named`` descriptor; a restore takes each rank's
-shard onto the Trainer's own mesh, whatever mesh wrote it.
+shard onto the Trainer's own mesh, whatever mesh wrote it, post-copy too
+(``GRIT_RESTORE_POSTCOPY``). Each DTensor of the state carries its
+sharding (:func:`~grit_tpu_torch.parallel.sharding.tag`), so a dump that
+gets the state alone (the agentlet's) describes it as :meth:`shardings`
+does.
+
+On a pipe mesh (:func:`~grit_tpu_torch.parallel.mesh.build_pipe_mesh`,
+rules whose layer leaves name ``pipe``, as the JAX package's pipelined
+Trainer) the state stays plain tensors: each rank keeps its stage of
+``init_params``' stacked layer leaves and the rest whole, every rank
+takes the whole batch, and the loss (``pipeline_llama.loss_fn_pp``) runs
+the pipeline's collectives. Its snapshot is one manifest of the stacked
+arrays, each rank writing its stage.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``; with
 no GPU and no explicit device they raise.
@@ -68,6 +80,7 @@ from grit_tpu_torch.parallel.sharding import (
     ShardingRules,
     is_dtensor,
     path_str,
+    tag,
 )
 from grit_tpu_torch.train.optim import GradientTransformation, adam
 from grit_tpu_torch.tree import flatten_with_names, map_with_names, tree_map
@@ -241,8 +254,17 @@ class Trainer:
             params = map_with_names(
                 lambda name, p: self._shard(f"['params']{name}", p),
                 self._init_params(gen, self.device))
-            self._state = self._make_state(params)
+            self._state = self._tagged(self._make_state(params))
         return self._state
+
+    def _tagged(self, state: dict) -> dict:
+        """``state`` with each DTensor leaf carrying its sharding (the
+        optimizer's moments are made from the parameters with none)."""
+        if self.mesh is None:
+            return state
+        return map_with_names(
+            lambda name, x: tag(x, self._sharding(name, x))
+            if is_dtensor(x) else x, state)
 
     @state.setter
     def state(self, value: dict) -> None:
@@ -353,15 +375,15 @@ class Trainer:
         With ``GRIT_RESTORE_POSTCOPY`` set the restore is lazy: the hot set
         is placed now, the step comes from the manifest, and the cold bulk
         lands through a background tail that the first touch of the state
-        (normally the first ``train_step``) joins."""
+        (normally the first ``train_step``) joins; on a mesh each rank's
+        hot set and tail place its own shards, and the join hands back
+        DTensors of the Trainer's placements."""
         like = self.abstract_state()
+        shardings = self.shardings()
         if config.RESTORE_POSTCOPY.get_flag():
-            if self.mesh is not None:
-                raise NotImplementedError(
-                    "post-copy restore onto a mesh is not ported; unset "
-                    "GRIT_RESTORE_POSTCOPY for a sharded Trainer")
             handle = restore_snapshot_postcopy(directory, like=like,
-                                               device=self.device)
+                                               device=self.device,
+                                               shardings=shardings)
             step = handle.meta.get("step")
             if isinstance(step, (int, float)):
                 self._state = None
@@ -371,6 +393,7 @@ class Trainer:
             # No recorded step: the caller needs it now.
             self.state = handle.wait()
             return self.step
-        self.state = restore_snapshot(directory, like=like, device=self.device)
+        self.state = restore_snapshot(directory, like=like, device=self.device,
+                                      shardings=shardings)
         return self.step
 

@@ -42,14 +42,35 @@ The LoRA fine-tune at the example's shape, and the bench's MoE model::
 
     python -m grit_tpu_torch.workload --model lora --remat --batch 8
     python -m grit_tpu_torch.workload --model moe --seq 512 --batch 16
+
+``--mesh DATA,FSDP,MODEL`` is the JAX example's sharded Trainer: this
+process starts one process a rank (``DATA × FSDP × MODEL`` of them,
+:func:`~grit_tpu_torch.parallel.launch.run_ranks`; on the card over
+``LOCAL_GLOO``, the kernels built first), and each rank trains its
+shards of a ``Trainer(mesh=, rules=)`` under the model's rule table
+(:data:`MESH_RULES`) and serves its own agentlet, whose slice gate (a
+file rendezvous of the ranks, the lockstep collective) lets the node
+hooks of a gang (``GRIT_SLICE_HOSTS``) cut every rank at one step; each
+hook's dump is its rank's own leg. Every rank prints ``PID <rank>
+<pid>`` before ``READY``; rank 0 alone prints the lines above. A
+``GRIT_TPU_RESTORE_DIR`` holding ``{rank}`` names each rank's leg (its
+rank substituted: the same mesh); otherwise every rank restores the one
+snapshot there (any layout: a ``Trainer.snapshot``, or
+:func:`~grit_tpu_torch.device.snapshot.merge_legs` of a gang's legs)::
+
+    N_STEPS=8 python -m grit_tpu_torch.workload --config tiny \\
+        --device cpu --seq 128 --mesh 1,2,2
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
+import shutil
 import sys
+import tempfile
 import time
 from dataclasses import replace
 
@@ -88,6 +109,9 @@ CONFIGS = {  # model family -> {config name: factory}
 }
 CONFIGS["lora"] = CONFIGS["llama"]
 DEFAULT_CONFIG = {"llama": "flagship", "lora": "llama2_7b", "moe": "moe"}
+# --mesh: each model's rule table, the JAX package's.
+MESH_RULES = {"llama": llama.LLAMA_RULES, "lora": lora.LORA_RULES,
+              "moe": moe_llama.MOE_LLAMA_RULES, "mnist": mnist.MNIST_RULES}
 
 
 def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
@@ -115,7 +139,17 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                         "backward instead of keeping its activations")
     p.add_argument("--device", default=None,
                    help="torch device (default: the current CUDA device)")
+    p.add_argument("--mesh", default=None, metavar="DATA,FSDP,MODEL",
+                   help="shard over a (data, fsdp, model) mesh, one "
+                        "process a rank started here, by the model's rules")
     args = p.parse_args(argv)
+    if args.mesh is not None:
+        try:
+            args.mesh = tuple(int(k) for k in args.mesh.split(","))
+        except ValueError:
+            args.mesh = ()
+        if len(args.mesh) != 3 or min(args.mesh) < 1:
+            p.error("--mesh takes three positive sizes: DATA,FSDP,MODEL")
     if args.model != "llama" and args.optimizer != "adam":
         p.error("--optimizer frozen-trunk is llama's fine-tune")
     if args.model == "mnist":
@@ -137,33 +171,44 @@ def model_config(args: argparse.Namespace):
     return replace(cfg, remat=args.remat)
 
 
-def build_trainer(args: argparse.Namespace, base: dict | None = None
-                  ) -> Trainer:
+def build_trainer(args: argparse.Namespace, base: dict | None = None,
+                  mesh=None) -> Trainer:
     """The Trainer the flags name; ``base`` is the LoRA fine-tune's frozen
-    base, built here when not given."""
+    base, built here when not given. ``mesh``: shard it by the model's
+    :data:`MESH_RULES` (every rank of the mesh builds it)."""
     if args.model == "mnist":
-        return mnist_trainer(device=args.device)
+        return mnist_trainer(device=args.device, mesh=mesh)
     cfg = model_config(args)
     if args.model == "lora":
         return lora_trainer(cfg, lora.LoraConfig(rank=args.lora_rank),
                             batch=args.batch, seq=args.seq, base=base,
-                            device=args.device)
+                            device=args.device, mesh=mesh)
     if args.model == "moe":
         return moe_trainer(cfg, batch=args.batch, seq=args.seq,
-                           device=args.device)
+                           device=args.device, mesh=mesh)
     optimizer = (optim.frozen_trunk(FROZEN_TRUNK_LR)
                  if args.optimizer == "frozen-trunk" else None)
     return llama_trainer(cfg, batch=args.batch, seq=args.seq,
-                         optimizer=optimizer, device=args.device)
+                         optimizer=optimizer, device=args.device, mesh=mesh)
 
 
-def mnist_trainer(device: torch.device | str | None = None) -> Trainer:
+def _sharded(model: str, mesh, tcfg: TrainerConfig) -> dict:
+    """The Trainer's sharding arguments on ``mesh`` (none without one):
+    the model's rule table, the batch split over the data axes."""
+    if mesh is None:
+        return {"cfg": tcfg}
+    return {"cfg": replace(tcfg, batch_spec=llama.BATCH_SPEC), "mesh": mesh,
+            "rules": MESH_RULES[model]}
+
+
+def mnist_trainer(device: torch.device | str | None = None,
+                  mesh=None) -> Trainer:
     """The harness's MNIST trainer."""
     return Trainer(
         loss_fn=lambda params, b: mnist.loss_fn(MNIST, params, b),
         init_params=lambda gen, dev: mnist.init_params(MNIST, gen, dev),
         batch_fn=lambda gen: mnist.synthetic_batch(MNIST, gen, MNIST_BATCH),
-        device=device)
+        device=device, **_sharded("mnist", mesh, TrainerConfig()))
 
 
 def zipf_batches(vocab_size: int, batch: int, seq: int):
@@ -184,14 +229,16 @@ def zipf_batches(vocab_size: int, batch: int, seq: int):
 def llama_trainer(cfg: llama.LlamaConfig, *, batch: int, seq: int,
                   tcfg: TrainerConfig | None = None,
                   optimizer: optim.GradientTransformation | None = None,
-                  device: torch.device | str | None = None) -> Trainer:
+                  device: torch.device | str | None = None,
+                  mesh=None) -> Trainer:
     """A Trainer of ``cfg`` on Zipf batches (:func:`zipf_batches`)."""
     return Trainer(
         loss_fn=lambda params, b: llama.loss_fn(cfg, params, *b),
         init_params=lambda gen, dev: llama.init_params(cfg, gen, dev),
         batch_fn=zipf_batches(cfg.vocab_size, batch, seq),
-        cfg=tcfg or TrainerConfig(learning_rate=LEARNING_RATE),
-        device=device, optimizer=optimizer)
+        device=device, optimizer=optimizer,
+        **_sharded("llama", mesh,
+                   tcfg or TrainerConfig(learning_rate=LEARNING_RATE)))
 
 
 def lora_base(cfg: llama.LlamaConfig,
@@ -207,43 +254,112 @@ def lora_base(cfg: llama.LlamaConfig,
 def lora_trainer(cfg: llama.LlamaConfig, lcfg: lora.LoraConfig, *,
                  batch: int, seq: int, base: dict | None = None,
                  tcfg: TrainerConfig | None = None,
-                 device: torch.device | str | None = None) -> Trainer:
+                 device: torch.device | str | None = None,
+                 mesh=None) -> Trainer:
     """The JAX example's LoRA Trainer: the state is the adapter tree and
     its Adam state; ``base`` (default :func:`lora_base`) is a constant of
-    the loss, never part of the state."""
+    the loss, never part of the state. On a ``mesh`` the base is
+    replicated there, whole on every rank (no communication)."""
     device = resolve_device(device)
     if base is None:
         base = lora_base(cfg, device)
+    if mesh is not None:
+        from grit_tpu_torch.parallel.sharding import NamedSharding  # noqa: PLC0415
+        from grit_tpu_torch.tree import tree_map  # noqa: PLC0415
+
+        base = tree_map(NamedSharding(mesh, ()).distribute, base)
     return Trainer(
         loss_fn=lambda lp, b: lora.lora_loss_fn(cfg, lcfg, base, lp, *b),
         init_params=lambda gen, dev: lora.init_lora(cfg, lcfg, gen, dev),
-        batch_fn=zipf_batches(cfg.vocab_size, batch, seq),
-        cfg=tcfg or TrainerConfig(learning_rate=LORA_LR), device=device)
+        batch_fn=zipf_batches(cfg.vocab_size, batch, seq), device=device,
+        **_sharded("lora", mesh, tcfg or TrainerConfig(learning_rate=LORA_LR)))
 
 
 def moe_trainer(cfg: moe_llama.MoeLlamaConfig, *, batch: int, seq: int,
                 tcfg: TrainerConfig | None = None,
-                device: torch.device | str | None = None) -> Trainer:
+                device: torch.device | str | None = None,
+                mesh=None) -> Trainer:
     """A Trainer of the MoE model on Zipf batches, Adam at the flagship's
-    rate (bf16 parameters, no warmup)."""
+    rate (bf16 parameters, no warmup); on a ``mesh`` the loss closes over
+    it (the expert layer runs expert-parallel)."""
     return Trainer(
-        loss_fn=lambda params, b: moe_llama.loss_fn(cfg, params, *b),
+        loss_fn=lambda params, b: moe_llama.loss_fn(cfg, params, *b,
+                                                    mesh=mesh),
         init_params=lambda gen, dev: moe_llama.init_params(cfg, gen, dev),
-        batch_fn=zipf_batches(cfg.vocab_size, batch, seq),
-        cfg=tcfg or TrainerConfig(learning_rate=LEARNING_RATE),
-        device=device)
+        batch_fn=zipf_batches(cfg.vocab_size, batch, seq), device=device,
+        **_sharded("moe", mesh,
+                   tcfg or TrainerConfig(learning_rate=LEARNING_RATE)))
 
 
 def main(argv: list[str] | None = None) -> None:
+    t_main = time.perf_counter()
+    enable_determinism()
+    args = parse_args(argv)
+    if args.mesh is not None:
+        _launch_mesh(args)
+        return
+    _train(args, t_main)
+
+
+def _launch_mesh(args: argparse.Namespace) -> None:
+    """``--mesh``: one process a rank of the mesh, each running
+    :func:`_mesh_rank`, until every rank is done."""
+    from grit_tpu_torch.parallel.collectives import LOCAL_GLOO  # noqa: PLC0415
+    from grit_tpu_torch.parallel.launch import run_ranks  # noqa: PLC0415
+
+    on_card = resolve_device(args.device).type == "cuda"
+    if on_card:
+        from grit_tpu_torch.ops import build  # noqa: PLC0415
+
+        build.build_all()  # the ranks load the libraries, never race to build
+    rdv = tempfile.mkdtemp(prefix="grit-mesh-rdv-")
+    try:
+        run_ranks(_mesh_rank, math.prod(args.mesh), args, rdv,
+                  backend=LOCAL_GLOO if on_card else "gloo",
+                  timeout=float("inf"))
+    finally:
+        shutil.rmtree(rdv, ignore_errors=True)
+
+
+def _mesh_rank(args: argparse.Namespace, rdv: str) -> None:
+    """One rank of ``--mesh``: its shards of the sharded Trainer and its
+    own agentlet, whose slice gate meets the other ranks' in ``rdv``."""
+    import torch.distributed as dist  # noqa: PLC0415
+
+    from grit_tpu_torch.parallel.coordination import (  # noqa: PLC0415
+        FileRendezvous,
+        SliceCoordinator,
+        SliceQuiesceGate,
+        group_any,
+    )
+    from grit_tpu_torch.parallel.mesh import MeshSpec, build_mesh  # noqa: PLC0415
+
+    t_main = time.perf_counter()
+    rank, n = dist.get_rank(), dist.get_world_size()
+    if args.device is None:
+        torch.cuda.set_device(0)
+    mesh = build_mesh(MeshSpec(*args.mesh), args.device)
+    gate = SliceQuiesceGate(
+        SliceCoordinator(FileRendezvous(rdv, rank, n), process_index=rank,
+                         process_count=n),
+        lockstep=group_any())
+    _train(args, t_main, mesh=mesh, rank=rank, gate=gate)
+
+
+def _train(args: argparse.Namespace, t_main: float, *, mesh=None,
+           rank: int = 0, gate=None) -> None:
+    """Build, restore, serve the agentlet and train, printing the
+    protocol lines (on a mesh, rank 0's; every rank its ``PID``)."""
     from grit_tpu_torch.device.agentlet import Agentlet  # noqa: PLC0415
     from grit_tpu_torch.device.hook import restore_dir_from_env  # noqa: PLC0415
     from grit_tpu_torch.device.snapshot import last_restore_pipeline  # noqa: PLC0415
     from grit_tpu_torch.ops import build  # noqa: PLC0415
     from grit_tpu_torch.ops import flash_attention as fa  # noqa: PLC0415
 
-    t_main = time.perf_counter()
-    enable_determinism()
-    args = parse_args(argv)
+    def say(line: str) -> None:
+        if rank == 0:
+            print(line, flush=True)
+
     base = None
     if args.model == "lora":
         t_base = time.perf_counter()
@@ -251,26 +367,26 @@ def main(argv: list[str] | None = None) -> None:
         if base["tok_emb"].is_cuda:
             torch.cuda.synchronize(base["tok_emb"].device)
         base_s = time.perf_counter() - t_base
-    tr = build_trainer(args, base=base)
+    tr = build_trainer(args, base=base, mesh=mesh)
     if "jax" in sys.modules:
         raise RuntimeError("the PyTorch workload imported jax")
-    restore_dir = restore_dir_from_env()
+    restore_dir = restore_dir_from_env(rank)
     if restore_dir is not None:
         # A streamed stage may still be writing the data: the line lets
         # a stager (or a test) act at the moment the restore starts.
-        print("RESTORE_BEGIN", flush=True)
+        say("RESTORE_BEGIN")
         t0 = time.perf_counter()
         restored = tr.restore(restore_dir)
-        print(f"RESTORED {restored}", flush=True)
-        print(f"RESTORE_SECONDS {time.perf_counter() - t0!r}", flush=True)
+        say(f"RESTORED {restored}")
+        say(f"RESTORE_SECONDS {time.perf_counter() - t0!r}")
         pipeline = last_restore_pipeline()
         if tr.postcopy is not None:
             pipeline.update(postcopy=True, hot_s=tr.postcopy.hot_s)
-        print(f"RESTORE_PIPELINE {json.dumps(pipeline)}", flush=True)
+        say(f"RESTORE_PIPELINE {json.dumps(pipeline)}")
         if args.model == "lora":
             # The frozen base's rebuild alone, inside the set-up before.
-            print(f"BASE_SECONDS {base_s!r}", flush=True)
-        print(f"INIT_SECONDS {t0 - t_main!r}", flush=True)
+            say(f"BASE_SECONDS {base_s!r}")
+        say(f"INIT_SECONDS {t0 - t_main!r}")
     postcopy = tr.postcopy
     if postcopy is None:
         # Materialize the state here, on the loop thread: the agentlet's
@@ -279,28 +395,28 @@ def main(argv: list[str] | None = None) -> None:
         # the first step joins it, and no dump can come before that step.
         tr.state  # noqa: B018
     agentlet = Agentlet(lambda: tr.state, step_fn=lambda: tr.step,
-                        reload_fn=tr.restore).start()
-    print("READY", flush=True)
+                        reload_fn=tr.restore, slice_gate=gate).start()
+    if mesh is not None:
+        print(f"PID {rank} {os.getpid()}", flush=True)
+    say("READY")
     n_steps = int(os.environ.get("N_STEPS", "10"))
     try:
         while tr.step < n_steps:
             loss = float(tr.train_step()["loss"])
-            print(f"STEP {tr.step} {loss!r}", flush=True)
+            say(f"STEP {tr.step} {loss!r}")
             if postcopy is not None:
-                print("RESTORE_POSTCOPY " + json.dumps(
-                    {"hot_s": postcopy.hot_s, "tail_s": postcopy.tail_s}),
-                    flush=True)
+                say("RESTORE_POSTCOPY " + json.dumps(
+                    {"hot_s": postcopy.hot_s, "tail_s": postcopy.tail_s}))
                 postcopy = None
             agentlet.checkpoint_point()
     finally:
         agentlet.stop()
-    print("KERNELS " + json.dumps({"launches": fa.LAUNCHES,
-                                   "built": build.BUILT,
-                                   "loaded": build.LOADED}), flush=True)
+    say("KERNELS " + json.dumps({"launches": fa.LAUNCHES,
+                                 "built": build.BUILT,
+                                 "loaded": build.LOADED}))
     if tr.device.type == "cuda":
-        print(f"MEMORY {torch.cuda.max_memory_allocated(tr.device)}",
-              flush=True)
-    print("DONE", flush=True)
+        say(f"MEMORY {torch.cuda.max_memory_allocated(tr.device)}")
+    say("DONE")
 
 
 if __name__ == "__main__":

@@ -691,11 +691,11 @@ def serving_mesh_cases(inp: dict) -> dict:
             dst.restore(snap)
             res[key] = {"after": [dst.step() for _ in range(rounds - cut)],
                         "cache": _written_np(dst.state)}
-        try:
-            grid(0.0, meshes["122"]).restore_postcopy(snap)
-            res["postcopy"] = "restored"
-        except NotImplementedError as exc:
-            res["postcopy"] = f"NotImplementedError: {exc}"
+        dst = grid(0.0, meshes["122"])
+        dst.restore_postcopy(snap)
+        dst.absorb_restored()
+        res["postcopy"] = {"after": [dst.step() for _ in range(rounds - cut)],
+                           "cache": _written_np(dst.state)}
 
         # The JAX package's grid snapshot onto this rank's mesh.
         dst = grid(0.0, meshes["122"])
@@ -713,4 +713,352 @@ def serving_mesh_cases(inp: dict) -> dict:
         res["jax_converted_after"] = [dst.step()
                                       for _ in range(rounds - cut)]
         out[fam] = res
+    return out
+
+
+# -- the agentlet's sharded dump, post-copy onto a mesh, the pipe axis ----------------
+
+
+def _drive_hook(agentlet, steps) -> list[str]:
+    """Run ``steps`` (callables of the port's node hook) on a thread while
+    this loop offers the agentlet its checkpoint points, as a training
+    loop parked between steps does; returns the errors they raised."""
+    import threading  # noqa: PLC0415
+    import time  # noqa: PLC0415
+
+    errors: list[str] = []
+
+    def drive():
+        try:
+            for step in steps:
+                step()
+        except Exception as exc:  # noqa: BLE001 — the test reads it
+            errors.append(f"{type(exc).__name__}: {exc}")
+
+    t = threading.Thread(target=drive)
+    t.start()
+    while t.is_alive():
+        agentlet.checkpoint_point()
+        time.sleep(0.01)
+    return errors
+
+
+def _descriptors(d: str) -> dict:
+    with open(os.path.join(d, "MANIFEST.json")) as f:
+        return {rec["name"]: rec["sharding"] for rec in json.load(f)["arrays"]}
+
+
+def sharded_agentlet_cases(inp: dict) -> dict:
+    """A (1,2,2) Trainer of the tiny llama (bf16, ``inp``'s weights) takes
+    two steps and snapshots through ``Trainer.snapshot``; then, with no
+    ``shardings=`` anywhere, each rank's ``Agentlet(lambda: tr.state)`` is
+    cut by the port's node hook into its own leg (speculation on, so a
+    ``-spec`` pass and a delta against it), reloads the JAX package's
+    sharded snapshot through the hook's re-attach, and rank 0 merges the
+    legs. A fresh (1,2,2) Trainer restores each rank's leg and a (2,1,2)
+    one the merged view. Also: a (2,1,2) state's leg written without
+    shardings, and DTensors no sharding describes."""
+    import torch.distributed.tensor as dt  # noqa: PLC0415
+    from torch.distributed.device_mesh import init_device_mesh  # noqa: PLC0415
+
+    from grit_tpu_torch.device.agentlet import Agentlet  # noqa: PLC0415
+    from grit_tpu_torch.device.hook import TpuDeviceCheckpointHook  # noqa: PLC0415
+    from grit_tpu_torch.device.snapshot import (  # noqa: PLC0415
+        merge_legs,
+        restore_snapshot,
+        write_snapshot,
+    )
+    from grit_tpu_torch.parallel.mesh import MeshSpec, active_mesh, build_mesh  # noqa: PLC0415
+    from grit_tpu_torch.parallel.sharding import dtensor_index, sharding_of  # noqa: PLC0415
+
+    work, rank = inp["work"], dist.get_rank()
+    os.environ["GRIT_TPU_SOCKET_DIR"] = os.path.join(work, "s")
+    os.makedirs(os.environ["GRIT_TPU_SOCKET_DIR"], exist_ok=True)
+    meshes = {k: build_mesh(MeshSpec(*v), "cpu") for k, v in
+              {"122": (1, 2, 2), "212": (2, 1, 2)}.items()}
+    out: dict = {"foreign": foreign_modules(), "rank": rank}
+    tr = _llama_trainer(inp, torch.bfloat16, meshes["122"])
+    tr.run(2)
+    tr.snapshot(os.path.join(work, "trainer-snap"))
+    out["cut_state"] = _state_np(tr)
+    out["cut_full"] = _full_np(tr)
+    wq = tr.state["params"]["layers"]["attn"]["wq"]
+    out["derived_wq"] = sharding_of(wq.detach()).descriptor()
+
+    reloaded: dict = {}
+
+    def reload(d: str) -> None:
+        like = tr.abstract_state()
+        like.pop("rng")  # JAX keeps a threefry key, the port the seed
+        got = restore_snapshot(d, like=like, device="cpu")
+        reloaded.update({name: (dtensor_index(x) if isinstance(x, DTensor)
+                                else None, _local_np(x))
+                         for name, x in flatten_with_names(got)})
+
+    agentlet = Agentlet(lambda: tr.state, step_fn=lambda: tr.step,
+                        reload_fn=reload).start()
+    hook = TpuDeviceCheckpointHook(timeout=120)
+    leg = os.path.join(work, "legs", f"host-{rank}")
+    mirrored = os.path.join(work, "mlegs", f"host-{rank}")
+    try:
+        out["hook_errors"] = _drive_hook(agentlet, [
+            lambda: hook.dump(os.getpid(), leg),
+            lambda: hook.reattach(os.getpid(), inp["jax_parent"])])
+        # A second cut, its leg teed into a mirror (the agent's upload).
+        out["hook_errors"] += _drive_hook(agentlet, [
+            lambda: hook.dump(os.getpid(), mirrored,
+                              mirror=mirrored + "-mirror"),
+            lambda: hook.resume(os.getpid())])
+    finally:
+        agentlet.stop()
+    out["reloaded"] = reloaded
+    out["source_after"] = tr.run(2)
+    dist.barrier()
+    merged = os.path.join(work, "merged")
+    if rank == 0:
+        merge_legs(merged, [os.path.join(work, "legs", f"host-{k}", "hbm")
+                            for k in range(dist.get_world_size())])
+    dist.barrier()
+
+    same = _llama_trainer(inp, torch.bfloat16, meshes["122"])
+    out["leg_step"] = same.restore(os.path.join(leg, "hbm"))
+    out["leg_state"] = _state_np(same)
+    out["leg_after"] = same.run(2)
+    other = _llama_trainer(inp, torch.bfloat16, meshes["212"])
+    other.restore(merged)
+    out["merged_full"] = _full_np(other)
+    out["merged_after"] = other.run(2)
+
+    # A (2,1,2) state's leg, described by its leaves alone: fsdp (size 1)
+    # stays named in every spec, as Trainer.shardings() names it.
+    t212 = _llama_trainer(inp, torch.bfloat16, meshes["212"])
+    leg212 = os.path.join(work, "leg212", f"host-{rank}")
+    write_snapshot(leg212, t212.state, process_index=rank,
+                   process_count=dist.get_world_size(), leg=True)
+    out["leg212"] = _descriptors(leg212)
+    out["shardings212"] = {name: s.descriptor() for name, s in
+                           flatten_with_names(t212.shardings())}
+
+    # DTensors that no sharding describes raise, and nothing is written.
+    act = active_mesh(meshes["122"])
+    bad = {
+        "partial": dt.DTensor.from_local(torch.ones(4, 4), act,
+                                         [dt.Partial(), dt.Replicate()]),
+        "foreign_mesh": dt.distribute_tensor(
+            torch.ones(4, 4), init_device_mesh("cpu", (4,),
+                                               mesh_dim_names=("x",)),
+            [dt.Shard(0)]),
+    }
+    out["undescribable"] = {}
+    for key, x in bad.items():
+        d = os.path.join(work, f"bad-{key}-{rank}")
+        try:
+            write_snapshot(d, {"x": x}, process_index=rank,
+                           process_count=dist.get_world_size(), leg=True)
+            out["undescribable"][key] = "written"
+        except ValueError as exc:
+            out["undescribable"][key] = (f"ValueError: {exc}",
+                                         os.path.exists(d))
+    return out
+
+
+def _hold_tail():
+    """Patch the post-copy tail to wait for the returned event before it
+    places anything (a tail whose cold bytes have not landed)."""
+    import threading  # noqa: PLC0415
+    from unittest import mock  # noqa: PLC0415
+
+    from grit_tpu_torch.device.snapshot import PostcopyRestore  # noqa: PLC0415
+
+    gate = threading.Event()
+    real = PostcopyRestore._pick_ready
+
+    def held(self, pending):
+        gate.wait(60)
+        return real(self, pending)
+
+    return gate, mock.patch.object(PostcopyRestore, "_pick_ready", held)
+
+
+def postcopy_mesh_cases(inp: dict) -> dict:
+    """Post-copy restores onto a (1,2,2) mesh against the blocking restore
+    of the same snapshot: the raw handle with its tail held (the hot set
+    placed, the cold leaves not) and released; ``Trainer.restore`` under
+    ``GRIT_RESTORE_POSTCOPY``; both families' grid ``restore_postcopy``
+    with the bookkeeping hot (the clone parks the source's slots) and
+    with nothing hot (it blocks)."""
+    from grit_tpu_torch.device.snapshot import (  # noqa: PLC0415
+        restore_snapshot,
+        restore_snapshot_postcopy,
+    )
+    from grit_tpu_torch.models import serving  # noqa: PLC0415
+    from grit_tpu_torch.parallel.mesh import MeshSpec, build_mesh  # noqa: PLC0415
+
+    work, rank = inp["work"], dist.get_rank()
+    mesh = build_mesh(MeshSpec(1, 2, 2), "cpu")
+    out: dict = {"foreign": foreign_modules(), "rank": rank}
+    src = _llama_trainer(inp, torch.bfloat16, mesh)
+    src.run(2)
+    snap = os.path.join(work, "snap")
+    src.snapshot(snap)
+
+    blocking = _llama_trainer(inp, torch.bfloat16, mesh)
+    like = blocking.abstract_state()
+    truth = restore_snapshot(snap, like=like, device="cpu")
+    os.environ["GRIT_RESTORE_POSTCOPY_HOT_MB"] = inp["hot_mb"]
+    gate, patch = _hold_tail()
+    with patch:
+        handle = restore_snapshot_postcopy(snap, like=like, device="cpu")
+        hot = handle.hot_leaves()
+        out["held"] = {"placed": handle.placed, "done": handle.done,
+                       "hot": sorted(hot),
+                       "hot_dtensors": sorted(n for n, x in hot.items()
+                                              if isinstance(x, DTensor)),
+                       "total": len(flatten_with_names(like))}
+        gate.set()
+        lazy = handle.wait(60)
+    out["lazy_equal"] = {
+        name: bool(type(a) is type(b) and np.array_equal(
+            _local_np(a), _local_np(b)) and (
+            not isinstance(a, DTensor) or a.placements == b.placements))
+        for (name, a), (_, b) in zip(flatten_with_names(lazy),
+                                     flatten_with_names(truth))}
+
+    # Plain like leaves placed by the snapshot's own descriptors on the
+    # mesh (mesh=), or by the Trainer's shardings (shardings=).
+    dense_like = _llama_trainer(inp, torch.bfloat16, None).abstract_state()
+    out["placed_by"] = {}
+    for key, kw in (("mesh", {"mesh": mesh}),
+                    ("shardings", {"shardings": blocking.shardings()})):
+        got = restore_snapshot_postcopy(snap, like=dense_like, device="cpu",
+                                        **kw).wait(60)
+        placed = {}
+        for (name, a), (_, b) in zip(flatten_with_names(got),
+                                     flatten_with_names(truth)):
+            split = isinstance(b, DTensor) and not all(
+                p.is_replicate() for p in b.placements)
+            placed[name] = bool(
+                np.array_equal(_local_np(a), _local_np(b))
+                and isinstance(a, DTensor) == split
+                and (not split or a.placements == b.placements))
+        out["placed_by"][key] = placed
+
+    blocking.restore(snap)
+    out["blocking_after"] = blocking.run(2)
+    out["blocking_state"] = _state_np(blocking)
+    os.environ["GRIT_RESTORE_POSTCOPY"] = "1"
+    try:
+        lazy_tr = _llama_trainer(inp, torch.bfloat16, mesh)
+        out["lazy_step"] = lazy_tr.restore(snap)
+        out["lazy_pending"] = lazy_tr.postcopy is not None
+        out["lazy_after"] = lazy_tr.run(2)
+        out["lazy_state"] = _state_np(lazy_tr)
+    finally:
+        del os.environ["GRIT_RESTORE_POSTCOPY"]
+
+    # Both grid families: a (1,2,2) snapshot mid-flight, restored onto
+    # (1,2,2) blocking and by post-copy (the merge run before stepping).
+    rounds, cut = inp["rounds"], inp["cut"]
+    for fam in ("dense", "moe"):
+        cfg = _serving_cfg({"cfg": inp["grid_cfg"]}, fam)
+        params = _params(inp["grid_params"][fam])
+        prompts = [torch.from_numpy(p) for p in inp["prompts"]]
+
+        def grid():
+            return serving.ContinuousBatchingEngine(
+                cfg, params, serving.BatchingConfig(
+                    n_slots=4, max_seq_len=inp["max_len"], temperature=1.0,
+                    seed=7, prefill_buckets=(16, 32)),
+                device="cpu", mesh=mesh)
+
+        eng = grid()
+        _drive(eng, prompts, cut)
+        gsnap = os.path.join(work, f"grid-{fam}")
+        eng.snapshot(gsnap)
+        res = {"source_after": [eng.step() for _ in range(rounds - cut)]}
+        dst = grid()
+        dst.restore(gsnap)
+        res["blocking_after"] = [dst.step() for _ in range(rounds - cut)]
+        res["blocking_cache"] = _written_np(dst.state)
+        for label, hot_mb in (("parked", inp["grid_hot_mb"]), ("blocked", "0")):
+            os.environ["GRIT_RESTORE_POSTCOPY_HOT_MB"] = hot_mb
+            dst = grid()
+            dst.restore_postcopy(gsnap)
+            res[label] = {"parked": not dst.resumed_all,
+                          "free": dst.free_slots()}
+            dst.absorb_restored()
+            res[label]["after"] = [dst.step() for _ in range(rounds - cut)]
+            res[label]["cache"] = _written_np(dst.state)
+        out[fam] = res
+    return out
+
+
+def stage_sharding_cases(inp: dict) -> dict:
+    """The pipe axis on four ranks, one stage a rank: the descriptors of
+    ``stage_shardings`` (on the pipe mesh) and ``pp_stage_shardings`` (on
+    a (pipe 2, expert 2) mesh); a pipelined Trainer of the tiny llama (f32,
+    four layers) on the pipe mesh takes two steps, snapshots one manifest
+    and steps on; a fresh one restores it and steps on; another restores
+    the JAX package's pipelined snapshot."""
+    from torch.distributed.device_mesh import init_device_mesh  # noqa: PLC0415
+
+    from grit_tpu_torch.device.snapshot import restore_snapshot  # noqa: PLC0415
+    from grit_tpu_torch.parallel.mesh import build_pipe_mesh  # noqa: PLC0415
+    from grit_tpu_torch.train.trainer import Trainer, TrainerConfig  # noqa: PLC0415
+
+    work, rank, n = inp["work"], dist.get_rank(), dist.get_world_size()
+    out: dict = {"foreign": foreign_modules(), "rank": rank}
+    cfg = replace(llama.LlamaConfig.tiny(**inp["cfg"]), dtype=torch.float32,
+                  param_dtype=torch.float32)
+    pipe = build_pipe_mesh("cpu")
+    params = _params(inp["params"])
+    staged = pipeline_llama.to_stage_params(cfg, params, n)
+    out["stage_shardings"] = {
+        name: s.descriptor() for name, s in flatten_with_names(
+            pipeline_llama.stage_shardings(pipe, staged))}
+    mcfg = replace(moe_llama.MoeLlamaConfig.tiny(**inp["cfg"]),
+                   dtype=torch.float32, param_dtype=torch.float32)
+    mstaged = pipeline_llama.to_stage_params(
+        mcfg, moe_llama.init_params(mcfg, None, "meta"), 2)
+    ppe = init_device_mesh("cpu", (2, 2), mesh_dim_names=("pipe", "expert"))
+    out["pp_stage_shardings"] = {
+        name: s.descriptor() for name, s in flatten_with_names(
+            moe_llama.pp_stage_shardings(ppe, mstaged))}
+    toks = torch.from_numpy(inp["tokens"])
+
+    def trainer():
+        def init(_gen, device):
+            if torch.device(device).type == "meta":
+                return tree_map(lambda a: torch.empty_like(a, device="meta"),
+                                staged)
+            return tree_map(torch.clone, staged)
+
+        return Trainer(
+            loss_fn=lambda p, b: pipeline_llama.loss_fn_pp(
+                cfg, p, b[0], b[1], n_microbatches=2),
+            init_params=init,
+            batch_fn=lambda _gen: (toks[:, :-1], toks[:, 1:]),
+            cfg=TrainerConfig(learning_rate=1e-2), device="cpu", mesh=pipe,
+            rules=pipeline_llama.STAGE_RULES)
+
+    src = trainer()
+    src.run(2)
+    snap = os.path.join(work, "pipe-snap")
+    src.snapshot(snap)
+    out["cut_state"] = _state_np(src)
+    out["source_after"] = src.run(2)
+    fresh = trainer()
+    out["restored_step"] = fresh.restore(snap)
+    out["restored_state"] = _state_np(fresh)
+    out["restored_after"] = fresh.run(2)
+    # The JAX package's pipelined snapshot (rng aside), each rank its stage.
+    jt = trainer()
+    like = jt.abstract_state()
+    like.pop("rng")
+    shardings = jt.shardings()
+    shardings.pop("rng")
+    got = restore_snapshot(inp["jax_dir"], like=like, device="cpu",
+                           shardings=shardings)
+    out["jax_restored"] = {name: _local_np(x)
+                           for name, x in flatten_with_names(got)}
     return out
