@@ -30,10 +30,11 @@ non-zero without the final result line:
    phase 9's frozen-trunk optimizer, timed the same way: losses finite,
    the forward launched layers × steps times, the backward kernels never.
 5. migrate — the system's path: ``python -m grit_tpu_torch.workload``
-   trains, is quiesced and dumped through its agentlet, and a fresh
-   process restores from the snapshot while the source stays parked;
-   its losses after the cut must equal the source's own run, resumed
-   once the destination is done, bit for bit. The dump's and the
+   trains, is quiesced and dumped through its agentlet, SIGKILLed, and a
+   fresh process restores from the snapshot; its losses after the cut
+   must equal an uninterrupted run's bit for bit (that run starts beside
+   the source, which waits parked at its first step until the run is
+   done, so nothing timed overlaps it). The dump's and the
    restore's data path (pinned staging ring, restore readers) and their
    legs are printed.
 6. serve   — the serving path at the flagship widths: a continuous-
@@ -140,10 +141,10 @@ non-zero without the final result line:
    layers, 8 heads of 128, hidden 3584, 8 experts, top-2, bf16, about
    0.82 B params) at batch 16 x seq 512: the bench's forward tokens/s,
    then ``--model moe`` trained with Adam and migrated as phase 11 is,
-   bitwise, each kernel launched 12 times a step; the source stays
-   parked while the destination runs and then resumes to the end as
-   the reference (two such models fit on the card; LoRA-7B's do not).
-   ``[moe]`` lines.
+   bitwise, each kernel launched 12 times a step; its uninterrupted
+   run starts beside the source, as phase 5's does (two such models fit
+   on the card; LoRA-7B's do not), and the step times are the
+   destination's. ``[moe]`` lines.
 14. moe_serve — phase 6's serving path for the same MoE model (both
    engines dispatch on ``MoeLlamaConfig``): a continuous-batching engine
    of 4 slots x 1024 positions at temperature 1.0, Zipf prompts of 700,
@@ -884,10 +885,32 @@ DUMP_LEGS = ("copy_wait", "crc", "sha256", "compare", "write", "tee", "wall")
 RESTORE_LEGS = ("pin", "stage_wait", "read", "place", "wall")
 
 
+def start_beside_reference(n_steps: int, env: dict, socks: str,
+                           procs: list, args: list[str] | None = None):
+    """The uninterrupted reference run of ``n_steps`` and a source of the
+    same workload started together, so that their process starts overlap;
+    the source parks at its first checkpoint point until the reference
+    has finished, then resumes. Nothing here is timed, and once the
+    reference is done the source has the card to itself. Returns the
+    finished reference, the source and its ``ToggleClient``."""
+    from grit_tpu_torch.device.agentlet import ToggleClient  # noqa: PLC0415
+
+    ref = Workload(n_steps, env, args=args)
+    procs.append(ref)
+    src = Workload(1000, env, args=args)
+    procs.append(src)
+    src.wait_for("READY")
+    client = ToggleClient(
+        src.proc.pid, path=os.path.join(socks, f"grit-tpu-{src.proc.pid}.sock"))
+    client.quiesce()
+    ref.finish()
+    client.resume()
+    return ref, src, client
+
+
 def phase_migrate(work: str, card: str) -> dict:
     """Returns the uninterrupted run's losses (``ref_losses``) beside the
     migration's numbers; the snapshot is removed."""
-    from grit_tpu_torch.device.agentlet import ToggleClient  # noqa: PLC0415
     from grit_tpu_torch.device.snapshot import snapshot_nbytes  # noqa: PLC0415
 
     socks = os.path.join(work, "socks")
@@ -896,17 +919,17 @@ def phase_migrate(work: str, card: str) -> dict:
     env = {"GRIT_TPU_SOCKET_DIR": socks}
     procs: list[Workload] = []
     try:
-        src = Workload(1000, env)
-        procs.append(src)
-        src.wait_for("READY")
+        ref, src, client = start_beside_reference(MIGRATE_STEPS, env, socks,
+                                                  procs)
+        ref_losses = ref.losses()
         src.wait_for(rf"STEP {MIGRATE_CUT} ")
-        client = ToggleClient(src.proc.pid,
-                              path=os.path.join(socks, f"grit-tpu-{src.proc.pid}.sock"))
         t_quiesce = time.perf_counter()
         cut = client.quiesce()
         t_dump = time.perf_counter()
         dump_legs = client.dump(snap)["legs"]
         t_dumped = time.perf_counter()
+        client.close()
+        src.kill()
         nbytes = snapshot_nbytes(snap)
 
         dst = Workload(MIGRATE_STEPS, {**env, "GRIT_TPU_RESTORE_DIR": snap})
@@ -921,15 +944,6 @@ def phase_migrate(work: str, card: str) -> dict:
         dst.wait_for(r"STEP \d+ ")
         t_first = time.perf_counter()
         dst.finish()
-        # The source, parked (idle) while the destination ran, resumes to
-        # the destination's last step: its own run is the uninterrupted
-        # reference.
-        client.resume()
-        client.close()
-        src.wait_for(rf"STEP {MIGRATE_STEPS} ")
-        src.kill()
-        ref_losses = {k: v for k, v in src.losses().items()
-                      if k <= MIGRATE_STEPS}
     finally:
         for p in procs:
             p.kill()
@@ -940,11 +954,10 @@ def phase_migrate(work: str, card: str) -> dict:
     want = {s: x for s, x in ref_losses.items() if s > cut}
     if got != want or len(want) != MIGRATE_STEPS - cut:
         raise AssertionError(f"losses after the cut differ from the "
-                             f"source's resumed run: {got} vs {want}")
+                             f"uninterrupted run: {got} vs {want}")
     quiesce_s, dump_s = t_dump - t_quiesce, t_dumped - t_dump
     log("migrate", f"cut at step {cut}; losses after the cut bitwise equal "
-                   f"to the source's own run, resumed once the destination "
-                   f"was done: {got}")
+                   f"to the uninterrupted run: {got}")
     log("migrate", f"snapshot {nbytes} bytes; quiesce {quiesce_s:.4f} s; "
                    f"dump {dump_s:.3f} s = {nbytes / dump_s / 1e9:.3f} GB/s; "
                    f"restore {restore_s:.3f} s = "
@@ -956,7 +969,7 @@ def phase_migrate(work: str, card: str) -> dict:
                    f"through {pipe['staging']} with {pipe['workers']} "
                    f"readers, seconds {fmt_legs(pipe, RESTORE_LEGS)}, "
                    f"overlap fraction {pipe['overlap_fraction']:.3f} [{card}]")
-    log("migrate", f"restart: spawn {dst.started - t_dumped:.3f} s; "
+    log("migrate", f"restart: kill + spawn {dst.started - t_dumped:.3f} s; "
                    f"spawn → RESTORED {t_restored - dst.started:.3f} s = "
                    f"interpreter and imports "
                    f"{t_restored - dst.started - init_s - restore_s:.3f} s + "
@@ -2864,7 +2877,7 @@ def step_seconds(w: Workload) -> list[float]:
 
 def migrate_model(work: str, card: str, label: str, args: list[str], *,
                   n_steps: int, cut: int, layers: int, tokens: int,
-                  want_per_step: dict, parked_reference: bool = False) -> dict:
+                  want_per_step: dict, beside: bool = False) -> dict:
     """An uninterrupted run of ``n_steps`` of the workload ``args``, then a
     run quiesced after step ``cut`` through its agentlet, dumped, killed,
     and a fresh process restored from the snapshot that continues to
@@ -2873,11 +2886,11 @@ def migrate_model(work: str, card: str, label: str, args: list[str], *,
     be ``want_per_step``. ``tokens``: a step's tokens. Returns the numbers
     phases 11 and 13 print.
 
-    ``parked_reference`` (a model of which two fit on the card at once):
-    no separate uninterrupted run; the source stays parked (idle) while
-    the destination runs, then resumes to ``n_steps`` as the reference:
-    step times come from its steps after the resume, launches a step and
-    the peak memory from the destination."""
+    ``beside`` (a model of which two fit on the card at once): the
+    uninterrupted run starts beside the source
+    (:func:`start_beside_reference`), and the step times are the
+    destination's, which has the card to itself; otherwise they are the
+    uninterrupted run's, which runs alone before the source starts."""
     from grit_tpu_torch.device.agentlet import ToggleClient  # noqa: PLC0415
     from grit_tpu_torch.device.snapshot import snapshot_nbytes  # noqa: PLC0415
 
@@ -2887,30 +2900,30 @@ def migrate_model(work: str, card: str, label: str, args: list[str], *,
     env = {"GRIT_TPU_SOCKET_DIR": socks}
     procs: list[Workload] = []
     try:
-        if not parked_reference:
+        if beside:
+            ref, src, client = start_beside_reference(n_steps, env, socks,
+                                                      procs, args=args)
+        else:
             ref = Workload(n_steps, env, args=args)
             procs.append(ref)
             ref.finish()
-            ref_losses = ref.losses()
-            launches = ref.kernels()["launches"]
-            m = ref.find(r"MEMORY (\d+)")  # printed on the card only
-            peak = int(m.group(1)) if m else None
-            steps_s = step_seconds(ref)
-
-        src = Workload(1000, env, args=args)
-        procs.append(src)
-        src.wait_for("READY")
+            src = Workload(1000, env, args=args)
+            procs.append(src)
+            src.wait_for("READY")
+            client = ToggleClient(src.proc.pid, path=os.path.join(
+                socks, f"grit-tpu-{src.proc.pid}.sock"))
+        ref_losses = ref.losses()
+        launches = ref.kernels()["launches"]
+        m = ref.find(r"MEMORY (\d+)")  # printed on the card only
+        peak = int(m.group(1)) if m else None
         src.wait_for(rf"STEP {cut} ")
-        client = ToggleClient(
-            src.proc.pid, path=os.path.join(socks, f"grit-tpu-{src.proc.pid}.sock"))
         t_quiesce = time.perf_counter()
         got_cut = client.quiesce()
         t_dump = time.perf_counter()
         client.dump(snap)
         t_dumped = time.perf_counter()
-        if not parked_reference:
-            client.close()
-            src.kill()
+        client.close()
+        src.kill()
         nbytes = snapshot_nbytes(snap)
 
         dst = Workload(n_steps, {**env, "GRIT_TPU_RESTORE_DIR": snap}, args=args)
@@ -2932,18 +2945,7 @@ def migrate_model(work: str, card: str, label: str, args: list[str], *,
         dst.wait_for(r"STEP \d+ ")
         t_first = time.perf_counter()
         dst.finish()
-        if parked_reference:
-            client.resume()
-            client.close()
-            src.wait_for(rf"STEP {n_steps} ")
-            src.kill()
-            ref_losses = {k: v for k, v in src.losses().items()
-                          if k <= n_steps}
-            # The steps after the resume (the park spans the one before).
-            steps_s = step_seconds(src)[got_cut:n_steps - 1]
-            launches = dst.kernels()["launches"]
-            m = dst.find(r"MEMORY (\d+)")  # printed on the card only
-            peak = int(m.group(1)) if m else None
+        steps_s = step_seconds(dst if beside else ref)
     finally:
         for p in procs:
             p.kill()
@@ -2958,28 +2960,25 @@ def migrate_model(work: str, card: str, label: str, args: list[str], *,
                              f"uninterrupted run: {got} vs {want}")
     if not all(math.isfinite(x) for x in ref_losses.values()):
         raise AssertionError(f"{label}: non-finite loss {ref_losses}")
-    # The uninterrupted run's launches, or the destination's steps'.
-    counted = n_steps - got_cut if parked_reference else n_steps
-    per_step = {n: launches[n] / counted for n in KERNELS}
+    per_step = {n: launches[n] / n_steps for n in KERNELS}
     if per_step != want_per_step:
         raise AssertionError(f"{label}: launches a step {per_step}, want "
                              f"{want_per_step}")
     steady = median_after_first(steps_s)
     start_s = t_restored - dst.started - init_s - restore_s
     blackout = t_first - t_quiesce
-    reference = ("the source's own run, resumed once the destination was "
-                 "done" if parked_reference else "the uninterrupted run")
     log(label, f"cut at step {got_cut}; losses after the cut bitwise equal to "
-               f"{reference}: {got}")
-    log(label, f"{layers} layers; step seconds {[round(x, 4) for x in steps_s]}"
-               f"; median after the first {steady:.4f} s = "
+               f"the uninterrupted run: {got}")
+    log(label, f"{layers} layers; step seconds "
+               f"({'the destination' if beside else 'the uninterrupted run'}"
+               f") {[round(x, 4) for x in steps_s]}; median after the "
+               f"first {steady:.4f} s = "
                f"{tokens / steady:.0f} tokens/s; max_memory_allocated "
                f"{peak} B; launches a step "
                f"{per_step} [{card}]")
     log(label, f"snapshot {nbytes} bytes; quiesce {t_dump - t_quiesce:.4f} s; "
                f"dump {t_dumped - t_dump:.3f} s; blackout (quiesce → first "
-               f"post-restore step) {blackout:.3f} s = "
-               f"{'spawn' if parked_reference else 'kill + spawn'} "
+               f"post-restore step) {blackout:.3f} s = kill + spawn "
                f"{dst.started - t_dumped:.3f} + process start (interpreter "
                f"and imports) {start_s:.3f} + base rebuild {base_s:.3f} + "
                f"other set-up {init_s - base_s:.3f} + restore {restore_s:.3f} "
@@ -3136,7 +3135,7 @@ def phase_moe(torch, fa, work: str, card: str) -> dict:
                         cut=MOE_CUT, layers=MOE_LAYERS,
                         tokens=MOE_BATCH * MOE_SEQ,
                         want_per_step={n: MOE_LAYERS for n in KERNELS},
-                        parked_reference=True)
+                        beside=True)
     return {**out, **fwd}
 
 

@@ -42,7 +42,11 @@ Per-host legs (``write_snapshot(leg=True)``, a sharded job cut by the
 gang): each rank commits its own tree of every shard it holds into
 ``data-h<k>.bin``, so the leg restores alone onto the same mesh; a
 restore onto another layout reads :func:`merge_legs`, a manifest over
-the legs of one cut whose chunks reference the legs' bytes. Chunk checksums are ``zlib.crc32`` (``"algo": "crc32"``). A
+the legs of one cut whose chunks reference the legs' bytes; it refuses
+trees that are not legs of one cut, or legs whose copies of a shard
+differ.
+
+Chunk checksums are ``zlib.crc32`` (``"algo": "crc32"``). A
 JAX-written snapshot whose chunks carry ``crc32c`` (the JAX package's
 native IO plane) is verified with the port's crc32c library
 (:mod:`grit_tpu_torch.checksum`); where that cannot be built, its chunks
@@ -1157,24 +1161,45 @@ def _derived_layout(leaves: list[tuple[str, Any]]) -> dict:
 def merge_legs(directory: str, legs: list[str]) -> str:
     """One committed snapshot at ``directory`` over the legs of one
     per-host cut (each a process's own tree, ``write_snapshot(leg=True)``):
-    every leg's records joined by name, each distinct shard once (the
-    first leg's chunk of that index), every chunk referencing its leg's
-    bytes (``ref_dir``), so it holds no data file of its own. A restore
-    onto another mesh, into one device, or by the JAX package reads it as
-    any snapshot. The legs must be committed and agree on the meta and on
-    every array's dtype, shape and descriptor, and together cover every
-    array; otherwise this raises :class:`SnapshotIntegrityError`."""
+    every leg's records joined by name, each distinct shard once, every
+    chunk referencing its leg's bytes (``ref_dir``), so it holds no data
+    file of its own. A restore onto another mesh, into one device, or by
+    the JAX package reads it as any snapshot. Raises
+    :class:`SnapshotIntegrityError` unless every leg is committed and a
+    leg of this cut (``process_count`` the number of legs, its chunks in
+    its own ``data-h<k>.bin``, each ``k`` once), the legs agree on the
+    meta, on every array's dtype, shape and descriptor and on the crc
+    (and sha256) of a shard that several hold, and together cover every
+    array."""
     if not legs:
         raise ValueError("merge_legs needs at least one leg")
     target = os.path.abspath(directory)
     merged: dict[str, dict] = {}
-    seen: dict[str, set] = {}
+    # (array name, shard index) -> the first leg's chunk and its leg.
+    held: dict[tuple, tuple[dict, str]] = {}
+    owners: dict[int, str] = {}
     meta = None
     for leg_dir in legs:
         if not snapshot_exists(leg_dir):
             raise SnapshotIntegrityError(f"leg {leg_dir} is not a committed "
                                          "snapshot")
         m = SnapshotManifest.load(leg_dir)
+        if m.process_count != len(legs):
+            raise SnapshotIntegrityError(
+                f"{leg_dir} is not a leg of a cut of {len(legs)} hosts: it "
+                f"records {m.process_count} process(es)")
+        files = {c["file"] for rec in m.arrays for c in rec["chunks"]}
+        own = [k for k in range(len(legs)) if files == {data_file(k)}]
+        if files and not own:
+            raise SnapshotIntegrityError(
+                f"{leg_dir} is not one process's leg: its chunks are in "
+                f"{sorted(files)}")
+        if own and own[0] in owners:
+            raise SnapshotIntegrityError(
+                f"{leg_dir} and {owners[own[0]]} are both process "
+                f"{own[0]}'s leg")
+        if own:
+            owners[own[0]] = leg_dir
         if meta is None:
             meta = m.meta
         elif m.meta != meta:
@@ -1188,20 +1213,24 @@ def merge_legs(directory: str, legs: list[str]) -> str:
                 mine = merged[name] = {k: v for k, v in rec.items()
                                        if k != "chunks"}
                 mine["chunks"] = []
-                seen[name] = set()
             elif any(mine[k] != rec[k] for k in ("dtype", "shape",
                                                   "sharding")):
                 raise SnapshotIntegrityError(
                     f"{name}: leg {leg_dir} records another array")
             for c in rec["chunks"]:
-                key = tuple(map(tuple, c["index"]))
-                if key in seen[name]:
+                key = (name, tuple(map(tuple, c["index"])))
+                if key in held:
+                    first, first_leg = held[key]
+                    if not _same_chunk(first, c):
+                        raise SnapshotIntegrityError(
+                            f"{name}: the shard {c['index']} differs "
+                            f"between legs {first_leg} and {leg_dir}")
                     continue
-                seen[name].add(key)
-                held = os.path.normpath(os.path.join(
+                held[key] = (c, leg_dir)
+                data_dir = os.path.normpath(os.path.join(
                     os.path.abspath(leg_dir), c.get("ref_dir") or ""))
                 mine["chunks"].append(
-                    {**c, "ref_dir": os.path.relpath(held, target)})
+                    {**c, "ref_dir": os.path.relpath(data_dir, target)})
     for rec in merged.values():
         if not _coverage_complete(rec["shape"],
                                   [c["index"] for c in rec["chunks"]]):
@@ -1214,6 +1243,16 @@ def merge_legs(directory: str, legs: list[str]) -> str:
     _commit(directory, work, directory + ".old", list(merged.values()),
             len(legs), meta, None)
     return directory
+
+
+def _same_chunk(a: dict, b: dict) -> bool:
+    """Whether two legs' chunks of one shard record the same bytes: the
+    same size and checksum, and the same sha256 where both have one."""
+    if (a["nbytes"], a.get("algo"), a["crc"]) != \
+            (b["nbytes"], b.get("algo"), b["crc"]):
+        return False
+    return not ("sha256" in a and "sha256" in b) or \
+        a["sha256"] == b["sha256"]
 
 
 def _merge_indexes(work: str, own: list[dict], pcount: int) -> list[dict]:

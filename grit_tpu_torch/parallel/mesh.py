@@ -97,33 +97,14 @@ def is_pipe_mesh(mesh: DeviceMesh) -> bool:
     return PIPE_AXIS in (mesh.mesh_dim_names or ())
 
 
-# The sub-mesh -> its full mesh, for a DTensor whose descriptor names the
-# full mesh (set by active_mesh on the sub-mesh it hands out).
-_FULL_MESH = "_grit_full_mesh"
-
-
 def active_mesh(mesh: DeviceMesh) -> DeviceMesh:
     """The sub-mesh of ``mesh``'s axes larger than 1 (its innermost axis
-    when every one is 1): where the DTensors of a sharded state live. It
-    remembers ``mesh`` (:func:`full_mesh`)."""
+    when every one is 1): where the DTensors of a sharded state live."""
     names = [n for n, k in zip(mesh.mesh_dim_names, mesh.shape) if k > 1]
     names = names or [mesh.mesh_dim_names[-1]]
     if len(names) == mesh.ndim:
-        sub = mesh
-    else:
-        sub = mesh[tuple(names)] if len(names) > 1 else mesh[names[0]]
-    setattr(sub, _FULL_MESH, mesh)
-    return sub
-
-
-def full_mesh(mesh: DeviceMesh) -> DeviceMesh | None:
-    """The (data, fsdp, model) mesh whose :func:`active_mesh` ``mesh`` is
-    (``mesh`` itself when it is such a mesh), else None: a mesh the port
-    did not build cannot name its axes of size 1."""
-    full = getattr(mesh, _FULL_MESH, None)
-    if full is not None:
-        return full
-    return mesh if tuple(mesh.mesh_dim_names or ()) == AXES else None
+        return mesh
+    return mesh[tuple(names)] if len(names) > 1 else mesh[names[0]]
 
 
 def axis_groups(mesh: DeviceMesh, names) -> list:

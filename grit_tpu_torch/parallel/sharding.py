@@ -27,9 +27,8 @@ A DTensor carries the :class:`NamedSharding` that placed it (:func:`tag`;
 :func:`sharding_of` reads it back, as the JAX package reads
 ``arr.sharding``: a snapshot needs no ``shardings=`` to describe a
 sharded leaf, axes of size 1 included, which placements alone cannot
-name. A DTensor without one is described from its placements on the full
-mesh its own is the active sub-mesh of; one that neither can describe (a
-pending reduction, a mesh the port did not build) raises.
+name. A DTensor without one (a pending reduction, a mesh the port did
+not build, a copy) raises.
 
 The pipe axis (:data:`~grit_tpu_torch.parallel.mesh.PIPE_AXIS`, a
 pipeline's one-axis mesh) holds no DTensor: a leaf whose spec starts
@@ -53,7 +52,6 @@ from torch.distributed.device_mesh import DeviceMesh
 from grit_tpu_torch.parallel.mesh import (
     PIPE_AXIS,
     active_mesh,
-    full_mesh,
     is_pipe_mesh,
 )
 
@@ -214,39 +212,18 @@ def tag(x: torch.Tensor, sharding: "NamedSharding") -> torch.Tensor:
 def sharding_of(x: DTensor) -> "NamedSharding":
     """The :class:`NamedSharding` of the DTensor ``x``, as the JAX package
     takes a leaf's from ``arr.sharding``: the one that placed it
-    (:func:`tag`), else its placements read as a spec on the full mesh
-    whose active sub-mesh ``x`` lives on (each dim sharded by the axes
-    whose placement is ``Shard`` of it, in mesh order). Raises
-    ``ValueError`` for a DTensor no spec describes: a pending reduction
-    (``Partial``), a strided shard, or a mesh the port did not build."""
+    (:func:`tag`). Raises ``ValueError`` for a DTensor that carries none
+    (a pending reduction, a mesh the port did not build, a copy such as
+    ``detach()`` or an operator's result): its placements alone cannot
+    name the axes of size 1."""
     held = getattr(x, _TAG, None)
-    if held is not None:
-        return held
-    from torch.distributed.tensor import Replicate, Shard  # noqa: PLC0415
-
-    mesh = x.device_mesh
-    full = full_mesh(mesh)
-    if full is None or mesh.mesh_dim_names is None:
+    if held is None:
         raise ValueError(
-            f"cannot describe a DTensor on mesh {mesh}: it is not a "
-            "(data, fsdp, model) mesh of build_mesh nor its active sub-mesh")
-    entries: list[list[str]] = [[] for _ in range(x.dim())]
-    for name, p in zip(mesh.mesh_dim_names, x.placements):
-        if type(p) is Shard:
-            entries[p.dim % max(1, x.dim())].append(name)
-        elif type(p) is not Replicate:
-            raise ValueError(f"cannot describe a DTensor placed {p} on "
-                             f"axis {name!r}: no spec names it")
-    spec = [None if not a else a[0] if len(a) == 1 else tuple(a)
-            for a in entries]
-    while spec and spec[-1] is None:
-        spec.pop()
-    out = NamedSharding(full, tuple(spec))
-    if tuple(out.active.mesh_dim_names) != tuple(mesh.mesh_dim_names):
-        raise ValueError(f"cannot describe a DTensor on the sub-mesh "
-                         f"{mesh.mesh_dim_names} of {full.mesh_dim_names}: "
-                         "the port's DTensors live on the active sub-mesh")
-    return out
+            f"cannot describe a DTensor placed {tuple(x.placements)} on "
+            f"{x.device_mesh}: it carries no sharding (distribute, zeros "
+            "and like_dtensor give one; a copy or an operator's result "
+            "does not)")
+    return held
 
 
 def spec_from_descriptor(desc: dict) -> tuple:

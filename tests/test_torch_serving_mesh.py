@@ -261,8 +261,9 @@ def test_grid_descriptors_are_jax_engines(world, fam):
 
 
 def test_postcopy_onto_a_mesh_raises(world):
-    """Post-copy onto a mesh is ported: it no longer raises, and the
-    restored grid continues as the blocking restore's does."""
+    """Post-copy onto a mesh no longer raises (the test keeps the name it
+    had while it did): the grid restored by post-copy holds the blocking
+    restore's cache and continues with its tokens."""
     for r in world["ranks"]:
         for fam in FAMILIES:
             got, want = r[fam]["postcopy"], r[fam]["122"]

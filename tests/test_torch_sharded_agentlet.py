@@ -10,24 +10,28 @@ steps; then, with no ``shardings=`` passed anywhere:
 - the port's node hook cuts each rank's ``Agentlet(lambda: tr.state)``
   into its own leg (process k of 4, ``data-h<k>.bin``), through the
   speculative pass (a hashed ``-spec`` leg) and the delta against it,
-  and a second cut's leg teed into a mirror; the legs and their merged
+  a second cut's leg teed into a mirror and a third's over the wire
+  into the JAX package's receiver; the legs and their merged
   view carry ``Trainer.snapshot``'s descriptor for every leaf, and the
   merged view its shards with the same bytes;
 - a fresh (1,2,2) Trainer restores each rank's leg bitwise and continues
-  bitwise; a (2,1,2) one restores the merged view byte for byte and
+  bitwise, and the leg received over the wire bitwise; a (2,1,2) one restores the merged view byte for byte and
   continues within 1e-2 (the JAX Trainer's re-layout bound);
 - the JAX package restores the merged view onto (2,2,2) and (4,1,2) byte
   for byte, and the JAX Trainer's (2,2,2) snapshot reloads into every
   rank through the hook's re-attach, byte for byte (``rng`` differs by
   design);
 - a (2,1,2) state described by its leaves names its size-1 axis as the
-  rule table does, and a DTensor no sharding describes raises.
+  rule table does, and a DTensor that carries no sharding (a pending
+  reduction, a foreign mesh, a detached copy) raises.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import threading
+import time
 from functools import partial
 from unittest import mock
 
@@ -39,6 +43,8 @@ import pytest
 import torch
 
 import torch_ranks
+from grit_tpu.agent.copy import StageJournal, WireReceiver
+from grit_tpu.agent.copy import WireSender as RefSender
 from grit_tpu.device import snapshot as jsnap
 from grit_tpu.models import llama as jllama
 from grit_tpu.parallel.mesh import MeshSpec, build_mesh
@@ -115,11 +121,65 @@ def world(tmp_path_factory):
         jt.snapshot(os.path.join(jax_parent, "hbm"))
     jax_state = {jax.tree_util.keystr(p): np.asarray(x) for p, x in
                  jax.tree_util.tree_flatten_with_path(jt.state)[0]}
-    ranks = run_ranks(torch_ranks.sharded_agentlet_cases, N,
-                      {"work": work, "cfg": CFG, "params": params_np,
-                       "tokens": tokens, "jax_parent": jax_parent},
-                      backend="gloo", timeout=600)
-    return {"work": work, "ranks": ranks, "jax_state": jax_state}
+    wire_dst = os.path.join(work, "wire-dst")
+    recv = WireReceiver(wire_dst, host="127.0.0.1",
+                        journal=StageJournal(wire_dst))
+    agent = RefSender(recv.endpoint, streams=1)  # dialled first, as the agent
+    shipped: dict = {}
+    shipper = threading.Thread(target=_ship_legs, args=(
+        agent, recv, os.path.join(work, "wlegs"),
+        os.path.join(work, "wire-received"), shipped))
+    shipper.start()
+    try:
+        ranks = run_ranks(torch_ranks.sharded_agentlet_cases, N,
+                          {"work": work, "cfg": CFG, "params": params_np,
+                           "tokens": tokens, "jax_parent": jax_parent,
+                           "wire_endpoint": recv.endpoint,
+                           "wire_dst": wire_dst},
+                          backend="gloo", timeout=600)
+    finally:
+        shipper.join(180)
+        agent.close()
+        recv.close()
+    return {"work": work, "ranks": ranks, "jax_state": jax_state,
+            "wire_dst": wire_dst, "shipped": shipped}
+
+
+def _ship_legs(agent, recv, legs: str, done: str, shipped: dict) -> None:
+    """The source agent's half of a wire migration of the ranks' legs:
+    once every rank's dump has teed its data file, the rest of each
+    ``host-<k>`` tree over the agent's own session, then the commit
+    listing every file; the receiver's verdict goes to ``done``."""
+    status = "ok"
+    try:
+        deadline = time.monotonic() + 300
+        while not all(os.path.exists(os.path.join(legs, f"host-{k}.sent"))
+                      for k in range(N)):
+            if time.monotonic() > deadline:
+                raise TimeoutError("the ranks' wire cuts did not finish")
+            time.sleep(0.05)
+        files: dict = {}
+        for k in range(N):
+            with open(os.path.join(legs, f"host-{k}.sent")) as f:
+                files.update(json.load(f).get("files", {}))
+        teed = dict(files)
+        for k in range(N):
+            top = os.path.join(legs, f"host-{k}")
+            for root, _, names in os.walk(top):
+                for name in sorted(names):
+                    path = os.path.join(root, name)
+                    rel = os.path.relpath(path, legs).replace(os.sep, "/")
+                    if rel not in files:
+                        files[rel] = agent.send_file(rel, path)
+        agent.commit(files)
+        recv.wait(timeout=60)
+        shipped.update(teed=teed, files=files)
+    except Exception as exc:  # noqa: BLE001 — the ranks and the test read it
+        status = f"{type(exc).__name__}: {exc}"
+        shipped["error"] = status
+    with open(done + ".tmp", "w") as f:
+        f.write(status)
+    os.rename(done + ".tmp", done)
 
 
 def test_the_hook_cut_every_rank_into_its_own_leg(world):
@@ -183,6 +243,32 @@ def test_a_legs_mirror_is_committed_beside_it(world):
             assert a.read() == b.read()
 
 
+def test_a_legs_wire_tee_restores_bitwise_on_the_same_mesh(world):
+    """A cut with a wire spec: each rank's dump tees its own
+    ``data-h<k>.bin`` over the port's ``WireSender`` into the JAX
+    package's ``WireReceiver``, the agent ships the rest of the tree; the
+    received leg equals the rank's own, and a fresh (1,2,2) Trainer
+    restores it bitwise."""
+    assert "error" not in world["shipped"], world["shipped"]
+    for k, r in enumerate(world["ranks"]):
+        rel = f"host-{k}/hbm/data-h{k:04d}.bin"
+        leg = os.path.join(world["work"], "wlegs", f"host-{k}", "hbm")
+        size = os.path.getsize(os.path.join(leg, f"data-h{k:04d}.bin"))
+        assert r["wire"]["ok"], r["wire"]
+        assert r["wire"]["files"] == {rel: size} and size > 0
+        assert world["shipped"]["teed"][rel] == size
+        received = os.path.join(world["wire_dst"], f"host-{k}", "hbm")
+        assert _manifest(received) == _manifest(leg)
+        with open(os.path.join(received, f"data-h{k:04d}.bin"), "rb") as a, \
+                open(os.path.join(leg, f"data-h{k:04d}.bin"), "rb") as b:
+            assert a.read() == b.read()
+        assert r["wire_step"] == 2
+        assert r["wire_state"].keys() == r["cut_state"].keys()
+        for name, (index, a) in r["wire_state"].items():
+            want_index, b = r["cut_state"][name]
+            assert index == want_index and np.array_equal(a, b), name
+
+
 def test_a_leg_restores_bitwise_on_the_same_mesh(world):
     for r in world["ranks"]:
         assert r["leg_step"] == 2
@@ -235,11 +321,11 @@ def test_derived_descriptors_name_size_one_axes(world):
         wq = r["leg212"]["['params']['layers']['attn']['wq']"]
         assert wq["mesh_shape"] == [2, 1, 2]
         assert wq["spec"] == [None, "fsdp", "model"]  # fsdp has size 1
-        assert r["derived_wq"] == _descriptors(_leg(world, 0))[
+        assert r["wq_descriptor"] == _descriptors(_leg(world, 0))[
             "['params']['layers']['attn']['wq']"]
 
 
-@pytest.mark.parametrize("key", ["partial", "foreign_mesh"])
+@pytest.mark.parametrize("key", ["partial", "foreign_mesh", "detached"])
 def test_an_undescribable_dtensor_raises(world, key):
     for r in world["ranks"]:
         msg, written = r["undescribable"][key]

@@ -25,9 +25,16 @@ import threading
 import time
 
 import pytest
+import torch
 
 from grit_tpu_torch.device.hook import HBM_SUBDIR, TpuDeviceCheckpointHook
-from grit_tpu_torch.device.snapshot import SnapshotManifest, merge_legs
+from grit_tpu_torch.device.snapshot import (
+    SnapshotIntegrityError,
+    SnapshotManifest,
+    merge_legs,
+    restore_snapshot,
+    write_snapshot,
+)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N = 4
@@ -191,3 +198,52 @@ def test_chip_smoke_gang_mesh_phase_rehearsal(tmp_path):
     assert len(got["postcopy"]["tail_s"]) == chip_smoke.N_RANKS
     assert max(max(g) for g in got["other_gaps"]) < \
         chip_smoke.MESH_RELAYOUT_BOUND
+
+
+def _stage(seed: int) -> dict:
+    """A pipeline rank's stage tree: the same names, dtypes and shapes on
+    every rank, its own layers' values."""
+    gen = torch.Generator().manual_seed(seed)
+    return {"layers": {"wq": torch.randn(2, 8, 8, generator=gen)},
+            "norm": torch.ones(8)}
+
+
+def _legs(tmp_path, states: list, *, leg: bool = True) -> list[str]:
+    """Each state written as its rank's leg of one cut (``leg=False``: as
+    a rank's own single-process tree, the pipelined gang's layout)."""
+    out = []
+    for k, state in enumerate(states):
+        d = str(tmp_path / f"host-{k}" / "hbm")
+        kw = (dict(process_index=k, process_count=len(states), leg=True)
+              if leg else {})
+        write_snapshot(d, state, meta={"step": 3}, **kw)
+        out.append(d)
+    return out
+
+
+def test_merge_legs_joins_legs_that_agree(tmp_path):
+    legs = _legs(tmp_path, [_stage(0), _stage(0)])
+    merged = merge_legs(str(tmp_path / "merged"), legs)
+    got = restore_snapshot(merged, device="cpu")
+    assert torch.equal(got["['layers']['wq']"], _stage(0)["layers"]["wq"])
+    assert SnapshotManifest.load(merged).process_count == 2
+
+
+@pytest.mark.parametrize("case", ["pipelined_trees", "legs_that_differ",
+                                  "one_process_twice"])
+def test_merge_legs_refuses_what_is_not_one_cut(tmp_path, case):
+    """Per-rank trees of a pipelined gang (each a whole single-process
+    tree, same names, different layers), legs whose copies of a
+    replicated shard differ, and one process's leg given twice raise;
+    nothing is committed."""
+    if case == "pipelined_trees":
+        legs = _legs(tmp_path, [_stage(0), _stage(1)], leg=False)
+    elif case == "legs_that_differ":
+        legs = _legs(tmp_path, [_stage(0), _stage(1)])
+    else:
+        legs = _legs(tmp_path, [_stage(0), _stage(0)])
+        legs[1] = legs[0]
+    target = str(tmp_path / "merged")
+    with pytest.raises(SnapshotIntegrityError):
+        merge_legs(target, legs)
+    assert not os.path.exists(target)

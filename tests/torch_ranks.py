@@ -743,6 +743,43 @@ def _drive_hook(agentlet, steps) -> list[str]:
     return errors
 
 
+def _wire_cut(agentlet, hook, dest: str, endpoint: str, prefix: str,
+              errors: list[str]) -> dict:
+    """One cut of this rank through the hook with its leg teed to the
+    wire receiver at ``endpoint`` under ``prefix``; returns the dump's
+    wire outcome, also written to ``<dest>.sent`` once the dump is done
+    (the agent's signal to ship the rest of the tree)."""
+    got: dict = {}
+    os.environ["GRIT_SNAP_SPECULATE"] = "0"
+    try:
+        errors += _drive_hook(agentlet, [
+            lambda: got.update(hook.dump(os.getpid(), dest, wire={
+                "endpoint": endpoint, "prefix": prefix, "streams": 2})),
+            lambda: hook.resume(os.getpid())])
+    finally:
+        os.environ.pop("GRIT_SNAP_SPECULATE")
+    with open(dest + ".sent.tmp", "w") as f:
+        json.dump(got, f)
+    os.rename(dest + ".sent.tmp", dest + ".sent")
+    return got
+
+
+def _wait_for_file(path: str, timeout: float = 120.0) -> None:
+    """Wait for ``path``, written by the test process; raises on its
+    timeout or if it holds an error."""
+    import time  # noqa: PLC0415
+
+    deadline = time.monotonic() + timeout
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{path} did not appear in {timeout} s")
+        time.sleep(0.05)
+    with open(path) as f:
+        status = f.read()
+    if status != "ok":
+        raise RuntimeError(f"{path}: {status}")
+
+
 def _descriptors(d: str) -> dict:
     with open(os.path.join(d, "MANIFEST.json")) as f:
         return {rec["name"]: rec["sharding"] for rec in json.load(f)["arrays"]}
@@ -783,7 +820,7 @@ def sharded_agentlet_cases(inp: dict) -> dict:
     out["cut_state"] = _state_np(tr)
     out["cut_full"] = _full_np(tr)
     wq = tr.state["params"]["layers"]["attn"]["wq"]
-    out["derived_wq"] = sharding_of(wq.detach()).descriptor()
+    out["wq_descriptor"] = sharding_of(wq).descriptor()
 
     reloaded: dict = {}
 
@@ -809,6 +846,11 @@ def sharded_agentlet_cases(inp: dict) -> dict:
             lambda: hook.dump(os.getpid(), mirrored,
                               mirror=mirrored + "-mirror"),
             lambda: hook.resume(os.getpid())])
+        # A third, its leg teed over the wire (no speculative pass, so the
+        # leg's own data file holds every byte and the wire carries it).
+        out["wire"] = _wire_cut(agentlet, hook, os.path.join(
+            work, "wlegs", f"host-{rank}"), inp["wire_endpoint"],
+            f"host-{rank}/hbm", out["hook_errors"])
     finally:
         agentlet.stop()
     out["reloaded"] = reloaded
@@ -824,6 +866,12 @@ def sharded_agentlet_cases(inp: dict) -> dict:
     out["leg_step"] = same.restore(os.path.join(leg, "hbm"))
     out["leg_state"] = _state_np(same)
     out["leg_after"] = same.run(2)
+    # The wire's receiver holds each rank's leg once the agent commits.
+    received = os.path.join(inp["wire_dst"], f"host-{rank}", "hbm")
+    _wait_for_file(os.path.join(work, "wire-received"))
+    wired = _llama_trainer(inp, torch.bfloat16, meshes["122"])
+    out["wire_step"] = wired.restore(received)
+    out["wire_state"] = _state_np(wired)
     other = _llama_trainer(inp, torch.bfloat16, meshes["212"])
     other.restore(merged)
     out["merged_full"] = _full_np(other)
@@ -848,6 +896,8 @@ def sharded_agentlet_cases(inp: dict) -> dict:
             torch.ones(4, 4), init_device_mesh("cpu", (4,),
                                                mesh_dim_names=("x",)),
             [dt.Shard(0)]),
+        # A copy of a placed leaf: its sharding stays with the original.
+        "detached": wq.detach(),
     }
     out["undescribable"] = {}
     for key, x in bad.items():
