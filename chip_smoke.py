@@ -36,7 +36,18 @@ non-zero without the final result line:
    the source, which waits parked at its first step until the run is
    done, so nothing timed overlaps it). The dump's and the
    restore's data path (pinned staging ring, restore readers) and their
-   legs are printed.
+   legs are printed. The observability and fault seams ride along: the
+   script plays the node and configures the migration's flight log; the
+   source runs with the flight recorder, a trace sink, its ``/metrics``
+   server and ``GRIT_FAULT_POINTS=device.agentlet.dump:raise:x1`` (the
+   first dump must fail with the injected fault, the agentlet's status
+   still answer, the retry commit; the blackout includes the failed
+   request); ``/metrics``' snapshot bytes must equal the snapshot's; the
+   flight log must hold the source's dump bracket with its chunks and
+   the destination's ``restart.end`` and place bracket, from the right
+   pids in wall-clock order; the trace must hold ``snapshot.write`` and
+   ``snapshot.restore`` with no orphan span. An ``obs`` line, printed
+   before the kernels record, splits the blackout by the flight log.
 6. serve   — the serving path at the flagship widths: a continuous-
    batching engine (4 slots of 4096 positions, temperature 1.0) serves
    Zipf prompts of 1000, 700, 230 and 40 tokens and a fifth of 500 in a
@@ -62,7 +73,7 @@ non-zero without the final result line:
    its paths, and timed against ``zlib.crc32``; zlib level 1, the codec
    stage's, on one 64 MiB piece.
 8. precopy — the reference agent's pre-copy and streamed-stage migration
-   of phase 5's flagship cut to 4 layers (the widths stay the
+   of phase 5's flagship cut to 2 layers (the widths stay the
    flagship's), driven as the agent drives it: a live pass at
    step 2 (quiesce, hashed dump mirrored to a PVC directory, resume), the
    blackout at step 3 (quiesce with a dump spec: a boundary clone written
@@ -104,7 +115,7 @@ non-zero without the final result line:
    uninterrupted frozen-trunk run (the launch counts' run) and the
    post-copy destination start together after the MNIST dump (so the
    post-copy numbers are taken beside them). ``[frozen]`` lines.
-10. wire   — phase 5's flagship at 4 layers migrated over the wire into
+10. wire   — phase 5's flagship at 2 layers migrated over the wire into
    this script's own receiver (the reference's frames and journal: frame
    crc, codec records decoded and checked against their crc of the raw
    bytes, waterline lines, eof): the dump carries a wire spec and a PVC
@@ -198,7 +209,7 @@ non-zero without the final result line:
    (``from_stage_params``) whose loss on that step's batch must be the
    pipeline's within 1e-3.
 
-18. mesh   — the flagship at 4 layers (phase 8's depth) sharded by
+18. mesh   — the flagship at 2 layers (phase 8's depth) sharded by
    ``LLAMA_RULES`` over a (data 1, fsdp 2, model 2) mesh of four ranks
    on the card, over ``LOCAL_GLOO`` (gloo's own CUDA path crashes under
    DTensor's functional collectives): B 2 x S 2048, Adam
@@ -224,7 +235,7 @@ non-zero without the final result line:
    (2,1,2) and one device (within 1e-2), every restored leaf the
    source's at the cut, each kernel launched 12 times a step on every
    rank. Then the serving grids sharded by ``KV_CACHE_RULES`` (slots over
-   fsdp, kv heads over model): phase 6's flagship grid at 4 layers (4
+   fsdp, kv heads over model): phase 6's flagship grid at 2 layers (4
    slots x 4096, temperature 1.0) and phase 14's MoE grid (4 x 1024,
    greedy); each decodes 8 rounds with the single-device engine's tokens
    (rank 0, same process), is snapshotted after round 4, and the fresh
@@ -886,18 +897,20 @@ RESTORE_LEGS = ("pin", "stage_wait", "read", "place", "wall")
 
 
 def start_beside_reference(n_steps: int, env: dict, socks: str,
-                           procs: list, args: list[str] | None = None):
+                           procs: list, args: list[str] | None = None,
+                           src_env: dict | None = None):
     """The uninterrupted reference run of ``n_steps`` and a source of the
     same workload started together, so that their process starts overlap;
     the source parks at its first checkpoint point until the reference
     has finished, then resumes. Nothing here is timed, and once the
-    reference is done the source has the card to itself. Returns the
-    finished reference, the source and its ``ToggleClient``."""
+    reference is done the source has the card to itself. ``src_env``: the
+    source's environment where it differs from the reference's. Returns
+    the finished reference, the source and its ``ToggleClient``."""
     from grit_tpu_torch.device.agentlet import ToggleClient  # noqa: PLC0415
 
     ref = Workload(n_steps, env, args=args)
     procs.append(ref)
-    src = Workload(1000, env, args=args)
+    src = Workload(1000, env if src_env is None else src_env, args=args)
     procs.append(src)
     src.wait_for("READY")
     client = ToggleClient(
@@ -908,31 +921,170 @@ def start_beside_reference(n_steps: int, env: dict, socks: str,
     return ref, src, client
 
 
+# The source's armed fault: its first dump request must fail, and the
+# retry commit.
+MIGRATE_FAULT = "device.agentlet.dump:raise:x1"
+
+
+def free_port() -> int:
+    import socket  # noqa: PLC0415
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def scrape_metric(port: int, line_prefix: str) -> float:
+    """The value of the first ``/metrics`` sample line on ``port`` that
+    starts with ``line_prefix``."""
+    import urllib.request  # noqa: PLC0415
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                timeout=30) as resp:
+        text = resp.read().decode()
+    for line in text.splitlines():
+        if line.startswith(line_prefix + " "):
+            return float(line.rsplit(" ", 1)[1])
+    raise AssertionError(f"/metrics on port {port} has no {line_prefix!r}")
+
+
+def flight_checks(events: list[dict], src_pid: int, dst_pid: int,
+                  nbytes: int) -> dict:
+    """The migration's flight log holds the source's dump bracket with its
+    chunks, ``dump.end``'s bytes the snapshot's, and the destination's
+    ``restart.end`` and place bracket, each from the right pid and in
+    wall-clock order. Returns those events by name."""
+    def one(ev: str, pid: int) -> dict:
+        got = [e for e in events if e["ev"] == ev and e["pid"] == pid]
+        if len(got) != 1:
+            raise AssertionError(f"flight log: {len(got)} {ev} from pid "
+                                 f"{pid}, want 1")
+        return got[0]
+
+    ev = {"dump.start": one("dump.start", src_pid),
+          "dump.end": one("dump.end", src_pid),
+          "restart.end": one("restart.end", dst_pid),
+          "place.start": one("place.start", dst_pid),
+          "place.end": one("place.end", dst_pid)}
+    chunks = [e for e in events if e["ev"] == "dump.chunk"
+              and e["pid"] == src_pid]
+    if not chunks:
+        raise AssertionError("flight log: no dump.chunk from the source")
+    if ev["dump.end"].get("bytes") != nbytes or \
+            chunks[-1]["bytes"] != nbytes:
+        raise AssertionError(f"flight log: dump.end bytes "
+                             f"{ev['dump.end'].get('bytes')}, last chunk "
+                             f"{chunks[-1]['bytes']}, snapshot {nbytes}")
+    order = ([ev["dump.start"]] + chunks
+             + [ev[k] for k in ("dump.end", "restart.end", "place.start",
+                                "place.end")])
+    walls = [e["wall"] for e in order]
+    if walls != sorted(walls):
+        raise AssertionError("flight log: events out of wall-clock order: "
+                             f"{[(e['ev'], e['wall']) for e in order]}")
+    if not (ev["place.end"].get("ok") and ev["dump.end"].get("ok", True)):
+        raise AssertionError("flight log: a bracket closed with ok=false")
+    ev["chunks"] = len(chunks)
+    return ev
+
+
+def trace_checks(spans: list[dict]) -> dict:
+    """The trace sink holds the dump's and the restore's spans, and every
+    span's parent is in it."""
+    names = {x["name"] for x in spans}
+    for want in ("snapshot.write", "snapshot.restore"):
+        if want not in names:
+            raise AssertionError(f"trace: no {want} span in {sorted(names)}")
+    ids = {x["spanId"] for x in spans}
+    orphans = [x["name"] for x in spans
+               if x["parentSpanId"] and x["parentSpanId"] not in ids]
+    if orphans:
+        raise AssertionError(f"trace: orphan spans {orphans}")
+    return {"spans": len(spans), "names": sorted(names)}
+
+
 def phase_migrate(work: str, card: str) -> dict:
     """Returns the uninterrupted run's losses (``ref_losses``) beside the
-    migration's numbers; the snapshot is removed."""
+    migration's numbers and its ``obs`` record; the snapshot is removed.
+
+    The script plays the node: it configures the migration's flight log
+    in ``ckpt`` (role ``node``) and brackets the quiesce and each dump
+    request there, as the agent's hook does. The source runs with the
+    flight recorder, a trace sink, its ``/metrics`` server and an armed
+    fault (:data:`MIGRATE_FAULT`); the destination with the recorder and
+    the sink; the uninterrupted run with none of them."""
+    from unittest import mock  # noqa: PLC0415
+
     from grit_tpu_torch.device.snapshot import snapshot_nbytes  # noqa: PLC0415
+    from grit_tpu_torch.obs import flight, trace  # noqa: PLC0415
 
     socks = os.path.join(work, "socks")
-    snap = os.path.join(work, "ckpt", "hbm")
+    ckpt = os.path.join(work, "ckpt")
+    snap = os.path.join(ckpt, "hbm")
+    trace_file = os.path.join(work, "trace.jsonl")
     os.makedirs(socks)
     env = {"GRIT_TPU_SOCKET_DIR": socks}
+    obs_env = {"GRIT_FLIGHT": "1", "GRIT_TPU_TRACE_FILE": trace_file}
+    port = free_port()
+    src_env = {**env, **obs_env, "GRIT_WORKLOAD_METRICS_PORT": str(port),
+               "GRIT_FAULT_POINTS": MIGRATE_FAULT}
+    wall_of = time.time() - time.perf_counter()  # host clock → wall clock
+
+    def node(ev: str, **fields) -> None:
+        # Only the script's own calls see GRIT_FLIGHT: the processes it
+        # starts get their environment from their own dicts.
+        with mock.patch.dict(os.environ, {"GRIT_FLIGHT": "1"}):
+            if ev == "configure":
+                flight.configure(ckpt, "node")
+            else:
+                flight.emit(ev, **fields)
+
     procs: list[Workload] = []
     try:
-        ref, src, client = start_beside_reference(MIGRATE_STEPS, env, socks,
-                                                  procs)
+        node("configure")
+        log_path = flight.current().path
+        ref, src, client = start_beside_reference(
+            MIGRATE_STEPS, env, socks, procs, src_env=src_env)
         ref_losses = ref.losses()
+        pid = src.proc.pid
         src.wait_for(rf"STEP {MIGRATE_CUT} ")
         t_quiesce = time.perf_counter()
+        node("quiesce.start", dir=ckpt, workload_pid=pid)
         cut = client.quiesce()
+        node("quiesce.end", dir=ckpt, workload_pid=pid, ok=True)
+        # The armed fault fails the first request; the agentlet must
+        # answer after it and the retry must commit.
+        node("dump.start", dir=ckpt, workload_pid=pid)
+        t_fail = time.perf_counter()
+        try:
+            client.dump(snap)
+            raise AssertionError(f"{MIGRATE_FAULT} did not fire")
+        except RuntimeError as exc:
+            if "injected fault at device.agentlet.dump" not in str(exc):
+                raise
+            fault_error = str(exc)
+        node("dump.end", dir=ckpt, workload_pid=pid, ok=False)
+        failed_s = time.perf_counter() - t_fail
+        status = client.status()
+        if not (status["ok"] and status["paused"]):
+            raise AssertionError(f"agentlet after the fault: {status}")
+        node("dump.start", dir=ckpt, workload_pid=pid)
         t_dump = time.perf_counter()
         dump_legs = client.dump(snap)["legs"]
         t_dumped = time.perf_counter()
+        node("dump.end", dir=ckpt, workload_pid=pid, ok=True)
+        nbytes = snapshot_nbytes(snap)
+        scraped = scrape_metric(port,
+                                'grit_snapshot_bytes_total{op="write"}')
+        if scraped != nbytes:
+            raise AssertionError(f"/metrics snapshot bytes {scraped}, "
+                                 f"snapshot {nbytes}")
         client.close()
         src.kill()
-        nbytes = snapshot_nbytes(snap)
+        t_kill = time.perf_counter()
 
-        dst = Workload(MIGRATE_STEPS, {**env, "GRIT_TPU_RESTORE_DIR": snap})
+        dst = Workload(MIGRATE_STEPS,
+                       {**env, **obs_env, "GRIT_TPU_RESTORE_DIR": snap})
         procs.append(dst)
         restored = int(dst.wait_for(r"RESTORED (\d+)").group(1))
         t_restored = time.perf_counter()
@@ -944,10 +1096,14 @@ def phase_migrate(work: str, card: str) -> dict:
         dst.wait_for(r"STEP \d+ ")
         t_first = time.perf_counter()
         dst.finish()
+        events = flight.read_flight_file(log_path)
+        spans = trace.read_trace_file(trace_file)
     finally:
+        flight.reset()
+        trace.close_export()
         for p in procs:
             p.kill()
-        shutil.rmtree(os.path.dirname(snap), ignore_errors=True)
+        shutil.rmtree(ckpt, ignore_errors=True)
     got = dst.losses()
     if restored != cut:
         raise AssertionError(f"restored step {restored}, quiesced at {cut}")
@@ -955,21 +1111,48 @@ def phase_migrate(work: str, card: str) -> dict:
     if got != want or len(want) != MIGRATE_STEPS - cut:
         raise AssertionError(f"losses after the cut differ from the "
                              f"uninterrupted run: {got} vs {want}")
-    quiesce_s, dump_s = t_dump - t_quiesce, t_dumped - t_dump
+    fl = flight_checks(events, pid, dst.proc.pid, nbytes)
+    tr = trace_checks(spans)
+    node = [e for e in events if e["pid"] == os.getpid()]
+    q0 = next(e["wall"] for e in node if e["ev"] == "quiesce.start")
+    q1 = next(e["wall"] for e in node if e["ev"] == "quiesce.end")
+    d0 = next(e["wall"] for e in node if e["ev"] == "dump.start")
+    d1 = [e["wall"] for e in node if e["ev"] == "dump.end"][-1]
+    kill, first = wall_of + t_kill, wall_of + t_first
+    obs = {"card": card,
+           "blackout_s": t_first - t_quiesce,
+           "quiesce_s": q1 - q0,
+           "dump_s": d1 - d0,
+           "failed_request_s": failed_s,
+           "source_dump_s": fl["dump.end"]["wall"] - fl["dump.start"]["wall"],
+           "dump_to_kill_s": kill - d1,
+           "kill_to_place_s": fl["place.start"]["wall"] - kill,
+           "place_s": fl["place.end"]["wall"] - fl["place.start"]["wall"],
+           "rest_s": first - fl["place.end"]["wall"],
+           "flight_events": len(events), "dump_chunks": fl["chunks"],
+           "trace_spans": tr["spans"], "metrics_snapshot_bytes": scraped,
+           "fault": MIGRATE_FAULT}
+    obs["flight_sum_s"] = (obs["quiesce_s"] + (d0 - q1) + obs["dump_s"]
+                           + obs["dump_to_kill_s"] + obs["kill_to_place_s"]
+                           + obs["place_s"] + obs["rest_s"])
+    quiesce_s, dump_s = t_fail - t_quiesce, t_dumped - t_dump
     log("migrate", f"cut at step {cut}; losses after the cut bitwise equal "
                    f"to the uninterrupted run: {got}")
+    log("migrate", f"armed {MIGRATE_FAULT}: the first dump failed in "
+                   f"{failed_s:.4f} s ({fault_error}); status answered; the "
+                   f"retry committed")
     log("migrate", f"snapshot {nbytes} bytes; quiesce {quiesce_s:.4f} s; "
                    f"dump {dump_s:.3f} s = {nbytes / dump_s / 1e9:.3f} GB/s; "
                    f"restore {restore_s:.3f} s = "
                    f"{nbytes / restore_s / 1e9:.3f} GB/s; blackout (quiesce → "
-                   f"first post-restore step) {t_first - t_quiesce:.3f} s "
-                   f"[{card}]")
+                   f"first post-restore step, the failed request included) "
+                   f"{t_first - t_quiesce:.3f} s [{card}]")
     log("migrate", f"data path: dump through {dump_legs['staging']}, "
                    f"seconds {fmt_legs(dump_legs, DUMP_LEGS)}; restore "
                    f"through {pipe['staging']} with {pipe['workers']} "
                    f"readers, seconds {fmt_legs(pipe, RESTORE_LEGS)}, "
                    f"overlap fraction {pipe['overlap_fraction']:.3f} [{card}]")
-    log("migrate", f"restart: kill + spawn {dst.started - t_dumped:.3f} s; "
+    log("migrate", f"restart: kill + spawn {dst.started - t_kill:.3f} s; "
                    f"spawn → RESTORED {t_restored - dst.started:.3f} s = "
                    f"interpreter and imports "
                    f"{t_restored - dst.started - init_s - restore_s:.3f} s + "
@@ -977,10 +1160,22 @@ def phase_migrate(work: str, card: str) -> dict:
                    f"{restore_s:.3f} s; RESTORED → READY "
                    f"{t_ready - t_restored:.3f} s; READY → first step "
                    f"{t_first - t_ready:.3f} s")
+    log("migrate", f"flight log: {len(events)} events, the source's dump "
+                   f"bracket with {fl['chunks']} chunks and "
+                   f"{fl['dump.end']['bytes']} bytes, the destination's "
+                   f"restart.end and place bracket, in wall-clock order; "
+                   f"trace: {tr['spans']} spans {tr['names']}, no orphan; "
+                   f"/metrics snapshot bytes {scraped:.0f} = the snapshot's")
+    log("migrate", "blackout by the flight log: " + ", ".join(
+        f"{k} {obs[k]:.3f}" for k in ("quiesce_s", "dump_s",
+                                      "failed_request_s", "source_dump_s",
+                                      "dump_to_kill_s", "kill_to_place_s",
+                                      "place_s", "rest_s", "flight_sum_s",
+                                      "blackout_s")) + f" s [{card}]")
     return {"cut": cut, "bytes": nbytes, "ref_losses": ref_losses,
             "dump_s": dump_s, "restore_s": restore_s,
             "dump_legs": dump_legs, "restore_legs": pipe,
-            "blackout_s": t_first - t_quiesce}
+            "blackout_s": t_first - t_quiesce, "obs": obs}
 
 
 # -- phase 6 -------------------------------------------------------------------
@@ -1570,7 +1765,7 @@ STAGE_PIECE = 64 << 20    # bytes of each streamed piece of a data file
 # migrations of the whole Adam state and two dumps of it are the
 # script's longest phase at 13 layers; this depth keeps the script
 # within its time. Its reference is an uninterrupted run at this depth.
-PRECOPY_LAYERS = 4
+PRECOPY_LAYERS = 2
 PRECOPY_ARGS = ["--layers", str(PRECOPY_LAYERS), "--seq", str(SEQ),
                 "--batch", str(BATCH)]
 
@@ -2385,7 +2580,7 @@ WIRE_STREAMS = 2
 # The wire runs' depth (their widths are the flagship's): the codec
 # compresses nearly every bf16 block on the host's cores, so its dump
 # grows with the state; this depth keeps the script within its time.
-WIRE_LAYERS = 4
+WIRE_LAYERS = 2
 
 
 class Receiver:
@@ -4282,7 +4477,7 @@ def gang_checks(sources: list[dict], restored: list[dict], times: dict,
 
 MESH_SOURCE = (1, 2, 2)   # (data, fsdp, model): the source's mesh
 MESH_OTHER = (2, 1, 2)    # the re-layout a fresh launch restores onto
-MESH_LAYERS = 4           # the flagship's widths at phase 8's depth
+MESH_LAYERS = 2           # the flagship's widths at phase 8's depth
 MESH_STEPS = 3            # sharded steps before the snapshot
 MESH_AFTER = 2            # steps after it: the source's and each restore's
 MESH_LR = 1e-4
@@ -5690,6 +5885,8 @@ def main(argv: list[str] | None = None) -> int:
         # axis (under "gang", phase 17's launch).
         "gang_mesh": {k: v for k, v in gang_mesh.items() if k != "launches"}}
     log("total", f"chip_smoke.py took {time.perf_counter() - _T0:.1f} s")
+    # Phase 5's blackout split by the migration's flight log.
+    print(json.dumps({"obs": migrate["obs"]}), flush=True)
     print(json.dumps(record), flush=True)
     print(device["smi"], flush=True)
     print(json.dumps({"ok": True, "device": {

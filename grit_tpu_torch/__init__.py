@@ -14,5 +14,8 @@ continuous-batching engines (``models.serving``) and the request-drain
 serving agentlet (``serving``) — and the snapshot's transport: the
 migration wire's source half (``wire``), the codec stage and its
 container format (``codec``), and a crc32c verifier (``checksum``) for
-the JAX package's native-plane chunks.
+the JAX package's native-plane chunks — and the observability and fault
+seams: the fault registry (``faults``), the flight recorder, trace spans,
+metrics, the workload's ``/metrics`` server and log correlation
+(``obs``), each with the reference's names and file formats.
 """

@@ -168,3 +168,31 @@ SLICE_NONCE = Knob(
     "stamps the attempt count into every per-host agent Job), so a "
     "retried gang never meets a failed attempt's leftover arrivals. "
     "Empty = attempt 0.")
+
+# -- observability and fault injection --------------------------------------------
+
+TPU_TRACE_FILE = Knob(
+    "GRIT_TPU_TRACE_FILE", "",
+    "JSONL span sink enabling the tracing layer (unset: tracing off).")
+FLIGHT = Knob(
+    "GRIT_FLIGHT", "0",
+    "Per-migration flight recorder (grit_tpu_torch.obs.flight): "
+    "phase-boundary events appended crash-safe to .grit-flight.jsonl in the "
+    "agent work/stage dir, analyzed by tools/gritscope. Default off.")
+FLIGHT_DIR = Knob(
+    "GRIT_FLIGHT_DIR", "",
+    "Optional artifact tee for flight events: every event is also appended "
+    "to <dir>/flight-<host>-<pid>.jsonl.")
+FLIGHT_CLOCK = Knob(
+    "GRIT_FLIGHT_CLOCK", "",
+    "Manager-stamped wall/monotonic clock pair (JSON) in the agent Job env; "
+    "echoed as a clock.manager flight event.")
+WORKLOAD_METRICS_PORT = Knob(
+    "GRIT_WORKLOAD_METRICS_PORT", "0",
+    "Opt-in workload-side /metrics server: when set, the workload process "
+    "(the agentlet's start) serves its own registry. 0 (default) serves "
+    "nothing.")
+FAULT_POINTS = Knob(
+    "GRIT_FAULT_POINTS", "",
+    "Fault-injection spec <point>:<mode>[:<arg>][:xN][,...] — see "
+    "grit_tpu_torch.faults.")

@@ -18,10 +18,14 @@ mirror the other wrote.
 - Every block carries the zlib crc32 of its raw bytes, checked after
   decode (:func:`decompress_block`).
 - The bounded worker pool (``GRIT_CODEC_WORKERS``) compresses blocks in
-  parallel: zlib releases the GIL.
+  parallel: zlib releases the GIL. A submission carries the caller's
+  trace context into the worker (:func:`pool_submit`).
+- The reference's seams: the ``codec.compress`` and ``codec.decompress``
+  fault points (an injected raise travels as :class:`CodecError`) and the
+  ``CODEC_BYTES``, ``CODEC_SECONDS`` and ``CODEC_QUEUE_DEPTH`` metrics.
 
-Not here: the reference's codec metrics and fault points, and its native
-container read (``native_container_range``), which is ``libgritio``'s.
+Not here: the reference's native container read
+(``native_container_range``), which is ``libgritio``'s.
 """
 
 from __future__ import annotations
@@ -30,11 +34,15 @@ import json
 import logging
 import os
 import threading
+import time
 import zlib
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 
+from grit_tpu_torch import faults
 from grit_tpu_torch.api import config
+from grit_tpu_torch.obs import trace
+from grit_tpu_torch.obs.metrics import CODEC_BYTES, CODEC_QUEUE_DEPTH, CODEC_SECONDS
 
 log = logging.getLogger(__name__)
 
@@ -153,11 +161,16 @@ def decide_codec(view, codec: str, *, min_ratio: float | None = None,
     if sample_kb is None:
         sample_kb = config.CODEC_SAMPLE_KB.get_int()
     sample_n = min(len(view), max(1, sample_kb) * 1024)
+    t0 = time.monotonic()
+    ok = True
     for start in {0, max(0, (len(view) - sample_n) // 2)}:
         sample = _compress(codec, view[start:start + sample_n])
         if len(sample) / sample_n > min_ratio:
-            return CODEC_NONE
-    return codec
+            ok = False
+            break
+    CODEC_SECONDS.inc(time.monotonic() - t0, dir="compress")
+    # Raw-shipped bytes are counted per block, in compress_block.
+    return codec if ok else CODEC_NONE
 
 
 def compress_block(view, codec: str, *, min_ratio: float | None = None,
@@ -169,24 +182,37 @@ def compress_block(view, codec: str, *, min_ratio: float | None = None,
     payload when the codec is off, the head sample (skipped when
     ``presampled``) or the whole block does not compress enough.
     ``crc_raw`` is the zlib crc32 of the raw bytes."""
+    faults.fault_point("codec.compress", wrap=CodecError)
     raw_n = len(view)
     crc_raw = zlib.crc32(view) & 0xFFFFFFFF
     if raw_n and (codec != CODEC_NONE or elide_zeros) and _all_zero(view):
+        CODEC_BYTES.inc(raw_n, dir="compress_in", codec=CODEC_ZERO)
         return CODEC_ZERO, b"", raw_n, crc_raw
     if codec == CODEC_NONE or raw_n == 0:
+        if elide_zeros and raw_n:
+            # A raw-decided block of a codec stream.
+            CODEC_BYTES.inc(raw_n, dir="compress_raw_shipped",
+                            codec=CODEC_NONE)
         return CODEC_NONE, view, raw_n, crc_raw
     if min_ratio is None:
         min_ratio = config.CODEC_MIN_RATIO.get_float()
     if sample_kb is None:
         sample_kb = config.CODEC_SAMPLE_KB.get_int()
+    t0 = time.monotonic()
     sample_n = min(raw_n, max(1, sample_kb) * 1024)
     if not presampled and sample_n < raw_n:
         sample = _compress(codec, view[:sample_n])
         if len(sample) / sample_n > min_ratio:
+            CODEC_SECONDS.inc(time.monotonic() - t0, dir="compress")
+            CODEC_BYTES.inc(raw_n, dir="compress_raw_shipped", codec=codec)
             return CODEC_NONE, view, raw_n, crc_raw
     payload = _compress(codec, view)
+    CODEC_SECONDS.inc(time.monotonic() - t0, dir="compress")
     if len(payload) / raw_n > min_ratio:
+        CODEC_BYTES.inc(raw_n, dir="compress_raw_shipped", codec=codec)
         return CODEC_NONE, view, raw_n, crc_raw
+    CODEC_BYTES.inc(raw_n, dir="compress_in", codec=codec)
+    CODEC_BYTES.inc(len(payload), dir="compress_out", codec=codec)
     return codec, payload, raw_n, crc_raw
 
 
@@ -195,9 +221,11 @@ def decompress_block(codec: str, payload, raw_n: int,
     """Inverse of :func:`compress_block`: checks the codec id, the raw
     size and (when given) the CRC of the raw bytes; raises
     :class:`CodecError` on any mismatch."""
+    faults.fault_point("codec.decompress", wrap=CodecError)
     if codec == CODEC_NONE:
         raw = payload
     else:
+        t0 = time.monotonic()
         try:
             raw = _decompress(codec, payload, raw_n)
         except (zlib.error, ValueError, MemoryError) as exc:
@@ -206,6 +234,9 @@ def decompress_block(codec: str, payload, raw_n: int,
             if type(exc).__name__ != "ZstdError":
                 raise
             raise CodecError(f"decompress({codec}) failed: {exc}") from exc
+        CODEC_SECONDS.inc(time.monotonic() - t0, dir="decompress")
+        CODEC_BYTES.inc(len(payload), dir="decompress_in", codec=codec)
+        CODEC_BYTES.inc(len(raw), dir="decompress_out", codec=codec)
     if len(raw) != raw_n:
         raise CodecError(f"decompressed size mismatch: got {len(raw)}, "
                          f"header says {raw_n} ({codec})")
@@ -247,8 +278,16 @@ def shared_pool() -> ThreadPoolExecutor:
 
 
 def pool_submit(fn, *args, **kwargs):
-    """Submit ``fn`` to the shared pool."""
-    return shared_pool().submit(fn, *args, **kwargs)
+    """Submit ``fn`` to the shared pool, bound to the submitting thread's
+    trace context (spans inside the worker join the caller's trace), and
+    sample the pool's backlog into ``CODEC_QUEUE_DEPTH``."""
+    pool = shared_pool()
+    fut = pool.submit(trace.wrap_parented(fn), *args, **kwargs)
+    try:
+        CODEC_QUEUE_DEPTH.set(pool._work_queue.qsize())
+    except AttributeError:  # executor internals changed: the gauge is optional
+        pass
+    return fut
 
 
 # -- container format ------------------------------------------------------------

@@ -88,8 +88,18 @@ loop is parked, so the state tree is stable. A speculative clone is taken
 by the loop thread itself at a boundary: the port's steps update tensors
 in place, so no other thread reads the live state while a step is queued.
 
-The reference's speculation and wire metrics, flight events and fault
-points have no counterpart here yet.
+Observability and faults, at the reference's seams: the fault points
+``device.agentlet.quiesce``, ``device.agentlet.dump`` and
+``device.agentlet.resume`` fire inside the dispatch, so an injected raise
+comes back as an ``{"ok": false}`` response and the agentlet serves on;
+``snap.speculate`` fires at a speculative pass's launch (a raise degrades
+the round to the parked dump, bit-identical) and at the probe's start (a
+raise fails the probe, and the hook falls back to the parked pass). The
+flight events ``snap.speculative.start`` and ``snap.speculative.validated``
+bracket a pass, and ``SNAP_SPECULATIVE_{BYTES,SECONDS,ROUNDS}`` account
+it. :meth:`Agentlet.start` starts the workload's ``/metrics`` server
+(``GRIT_WORKLOAD_METRICS_PORT``) and log correlation, as the reference's
+does.
 """
 
 from __future__ import annotations
@@ -105,6 +115,7 @@ from typing import Any, Callable
 
 import torch
 
+from grit_tpu_torch import faults
 from grit_tpu_torch.api import config
 from grit_tpu_torch.device.quiesce import clone_generation, quiesce
 from grit_tpu_torch.ops import build
@@ -118,6 +129,14 @@ from grit_tpu_torch.device.snapshot import (
     validated_clean_names,
     write_snapshot,
 )
+from grit_tpu_torch.obs import flight
+from grit_tpu_torch.obs.logctx import install_log_correlation
+from grit_tpu_torch.obs.metrics import (
+    SNAP_SPECULATIVE_BYTES,
+    SNAP_SPECULATIVE_ROUNDS,
+    SNAP_SPECULATIVE_SECONDS,
+)
+from grit_tpu_torch.obs.server import start_workload_metrics_server
 from grit_tpu_torch.parallel.sharding import is_dtensor
 from grit_tpu_torch.tree import flatten_with_names
 from grit_tpu_torch.wire import WireDumpSink, WireSender
@@ -243,6 +262,11 @@ class Agentlet:
         self._thread = threading.Thread(target=self._serve,
                                         name="grit-agentlet", daemon=True)
         self._thread.start()
+        # The workload's own /metrics (a no-op unless the knob is set) and
+        # log lines stamped with the migration's uid: the agentlet lives
+        # in every managed workload process. Neither ever raises.
+        start_workload_metrics_server()
+        install_log_correlation()
         return self
 
     def stop(self) -> None:
@@ -402,13 +426,18 @@ class Agentlet:
     def _dispatch(self, req: dict) -> dict:
         op = req.get("op")
         try:
+            # The toggle's chaos seams fire inside this try: an injected
+            # raise travels as a real failure does, an error response.
             if op == "quiesce":
+                faults.fault_point("device.agentlet.quiesce")
                 return self._quiesce(req)
             if op == "dump":
+                faults.fault_point("device.agentlet.dump")
                 if req.get("speculative"):
                     return self._speculative_probe(req)
                 return self._dump(req)
             if op == "resume":
+                faults.fault_point("device.agentlet.resume")
                 return self._resume(req)
             if op == "status":
                 resp = {"ok": True, "step": int(self.step_fn()),
@@ -476,12 +505,17 @@ class Agentlet:
         written from this thread while the loop keeps stepping. No pause
         is ever requested. The committed snapshot has the parked dump's
         format (hashed when asked), so a delta base it feeds stays valid."""
+        faults.fault_point("snap.speculate")
         directory = req["dir"]
         with self._cond:
             self._dumps_in_flight += 1
         try:
+            t0 = time.monotonic()
             clone, at_step, at_meta = self._harvest_boundary_clone(
                 config.SNAP_SPECULATE_WAIT_S.get_float())
+            flight.emit_near(directory, "snap.speculative.start",
+                             dir=os.path.basename(directory), probe=True,
+                             delta=req.get("base") is not None)
             hbm = _hbm(clone)
             with self._dump_lock:
                 write_snapshot(directory, clone,
@@ -494,6 +528,11 @@ class Agentlet:
             if hbm is not None:
                 hbm["peak_after"] = _hbm(clone)["peak"]
             del clone
+            SNAP_SPECULATIVE_SECONDS.inc(time.monotonic() - t0,
+                                         phase="concurrent")
+            SNAP_SPECULATIVE_ROUNDS.inc(outcome="probe")
+            flight.emit_near(directory, "snap.speculative.validated",
+                             outcome="probe")
         finally:
             with self._cond:
                 self._dumps_in_flight -= 1
@@ -516,6 +555,7 @@ class Agentlet:
         if stale is not None:
             stale.release()
         try:
+            faults.fault_point("snap.speculate")
             clone, at_step, at_meta = self._harvest_boundary_clone(
                 min(timeout_s, config.SNAP_SPECULATE_WAIT_S.get_float()))
             spec = start_speculative_dump(
@@ -534,20 +574,22 @@ class Agentlet:
 
     def _consume_speculation(self, directory: str, req_base: str | None
                              ) -> tuple[str | None, frozenset | None,
-                                        dict | None]:
+                                        dict | None, bool]:
         """Join and validate this round's speculative pass for the parked
-        dump: ``(base, clean_names, spec_info)``. Validated: the base is
-        the committed ``-spec`` pass and ``clean_names`` the leaves proved
-        untouched. Any failure: the request's own base and no clean set,
-        the parked dump without speculation, and a warning. ``spec_info``
-        is None when the round asked for no speculation. Runs before the
-        dump lock is taken: the pass writes under it."""
+        dump: ``(base, clean_names, spec_info, spec_started)``. Validated:
+        the base is the committed ``-spec`` pass and ``clean_names`` the
+        leaves proved untouched. Any failure: the request's own base and
+        no clean set, the parked dump without speculation, and a warning.
+        ``spec_info`` is None when the round asked for no speculation;
+        ``spec_started``, whether a pass was launched (and so bracketed by
+        ``snap.speculative.start``). Runs before the dump lock is taken:
+        the pass writes under it."""
         with self._cond:
             spec, self._speculative = self._speculative, None
             requested, self._spec_requested = self._spec_requested, False
             why, self._spec_error = self._spec_error or "", None
         if not requested:
-            return req_base, None, None
+            return req_base, None, None, False
         outcome, overlap_s, validate_s = "degraded", 0.0, 0.0
         base, clean = req_base, None
         if spec is not None:
@@ -566,6 +608,7 @@ class Agentlet:
                     tv = time.monotonic()
                     names = validated_clean_names(self.state_fn(), spec.clone)
                     validate_s = time.monotonic() - tv
+                    SNAP_SPECULATIVE_SECONDS.inc(validate_s, phase="validate")
                     if names is None:
                         why = "state generations structurally incomparable"
                     else:
@@ -583,22 +626,34 @@ class Agentlet:
             info["error"] = why or "launch failed"
             log.warning("speculative dump degraded to the parked full "
                         "path: %s", info["error"])
-        return base, clean, info
+        return base, clean, info, spec is not None
 
     @staticmethod
-    def _account_speculation(directory: str, info: dict) -> None:
-        """Bytes of a validated re-ship: ``clean_bytes`` it referenced from
+    def _account_speculation(directory: str, info: dict,
+                             spec_started: bool) -> None:
+        """A round's outcome (``SNAP_SPECULATIVE_ROUNDS``) and, for a
+        validated re-ship, its bytes: ``clean_bytes`` it referenced from
         the speculative pass with no device read, ``dirty_bytes`` the
-        steps since the clone touched."""
-        if info["outcome"] != "validated":
-            return
-        try:
-            total = snapshot_nbytes(directory)
-            dirty = snapshot_delta_nbytes(directory)
-        except (OSError, ValueError, KeyError):
-            total = dirty = 0
-        info["clean_bytes"] = max(0, total - dirty)
-        info["dirty_bytes"] = dirty
+        steps since the clone touched; then the ``snap.speculative.validated``
+        event, only where a ``start`` opened the bracket."""
+        if info["outcome"] == "validated":
+            try:
+                total = snapshot_nbytes(directory)
+                dirty = snapshot_delta_nbytes(directory)
+            except (OSError, ValueError, KeyError):
+                total = dirty = 0
+            info["clean_bytes"] = max(0, total - dirty)
+            info["dirty_bytes"] = dirty
+            SNAP_SPECULATIVE_BYTES.inc(info["clean_bytes"], outcome="clean")
+            SNAP_SPECULATIVE_BYTES.inc(dirty, outcome="dirty")
+        SNAP_SPECULATIVE_ROUNDS.inc(outcome=info["outcome"])
+        if spec_started:
+            flight.emit_near(directory, "snap.speculative.validated",
+                             outcome=info["outcome"],
+                             overlap_s=info["overlap_s"],
+                             validate_s=info["validate_s"],
+                             clean_bytes=info.get("clean_bytes", 0),
+                             dirty_bytes=info.get("dirty_bytes", 0))
 
     # -- the protocol ---------------------------------------------------------------
 
@@ -671,8 +726,8 @@ class Agentlet:
             sink, sender, wire_result = self._wire_sink(
                 req.get("wire"), data_file(leg.get("process_index", 0)))
             try:
-                base, clean, spec_info = self._consume_speculation(
-                    directory, req.get("base"))
+                base, clean, spec_info, spec_started = \
+                    self._consume_speculation(directory, req.get("base"))
                 with self._dump_lock:
                     write_snapshot(directory, state,
                                    meta={"step": int(self.step_fn()),
@@ -685,7 +740,7 @@ class Agentlet:
                 if sender is not None:
                     sender.close()  # sends what is queued, then closes
             if spec_info is not None:
-                self._account_speculation(directory, spec_info)
+                self._account_speculation(directory, spec_info, spec_started)
             if sink is not None:
                 wire_result = (
                     {"ok": True, "files": {sink.rel: sink.nbytes},

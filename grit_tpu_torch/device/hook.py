@@ -19,7 +19,11 @@ node's agent can take a device hook without importing jax:
   The snapshot carries the kernel libraries and its restore seeds them
   (:mod:`grit_tpu_torch.ops.build`); the hook has no part in that.
 
-The reference hook's flight-recorder events have no counterpart here.
+The hook brackets the blackout's quiesce and dump on the migration's
+flight log, as the reference's does: ``quiesce.start``/``quiesce.end`` and
+``dump.start``/``dump.end`` with ``dir=dest_dir`` (the log governing the
+checkpoint's work dir, so in the agent's process they land where the agent
+configured it), closed on failure too.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import os
 from grit_tpu_torch.api import config
 from grit_tpu_torch.device.agentlet import ToggleClient, socket_path
 from grit_tpu_torch.device.snapshot import snapshot_exists
+from grit_tpu_torch.obs import flight
 
 # Subdirectory of a container checkpoint that holds the device snapshot.
 HBM_SUBDIR = "hbm"
@@ -119,13 +124,29 @@ class TpuDeviceCheckpointHook:
             if hbm_mirror is not None:
                 dump_spec["mirror"] = hbm_mirror
         c = self._client(pid)
-        if config.SLICE_HOSTS.get_int() > 1:
-            c.quiesce(slice_cut=True, flight_dir=dest_dir,
-                      slice_nonce=config.SLICE_NONCE.get() or "0",
-                      dump_spec=dump_spec)
-        else:
-            c.quiesce(dump_spec=dump_spec)
-        resp = c.dump(hbm_dir, base=base, mirror=hbm_mirror, wire=wire)
+        flight.emit("quiesce.start", dir=dest_dir, workload_pid=pid)
+        ok = False
+        try:
+            if config.SLICE_HOSTS.get_int() > 1:
+                c.quiesce(slice_cut=True, flight_dir=dest_dir,
+                          slice_nonce=config.SLICE_NONCE.get() or "0",
+                          dump_spec=dump_spec)
+            else:
+                c.quiesce(dump_spec=dump_spec)
+            ok = True
+        finally:
+            # Closed on failure too: an open quiesce would stretch over
+            # the recovery that follows.
+            flight.emit("quiesce.end", dir=dest_dir, workload_pid=pid, ok=ok)
+        # The request and response windows around the workload's own
+        # dump bracket are blackout too.
+        flight.emit("dump.start", dir=dest_dir, workload_pid=pid)
+        resp = None
+        try:
+            resp = c.dump(hbm_dir, base=base, mirror=hbm_mirror, wire=wire)
+        finally:
+            flight.emit("dump.end", dir=dest_dir, workload_pid=pid,
+                        ok=resp is not None)
         return resp.get("wire") if wire is not None else None
 
     def predump(self, pid: int, dest_dir: str,

@@ -110,9 +110,27 @@ tail in the order its bytes are staged; :meth:`PostcopyRestore.wait`
 hands over the whole tree. On a mesh each rank's hot set and tail place
 its own shards.
 
-Not in this package yet: the reference's native drain and native container read (``libgritio``), and the
-reference's metrics, flight events and fault points of speculation,
-post-copy, the codec and the wire.
+Observability and faults, at the reference's seams: the fault points
+``device.snapshot.dump`` (a parked dump; the speculative pass has
+``snap.speculate``, the agentlet's), ``device.snapshot.mirror`` (the tee
+abandons itself, never the dump), ``device.snapshot.place`` (a restore's
+start) and ``restore.postcopy_fault`` (a post-copy tail's first touch of
+an array; the handle falls back to the blocking restore); the flight
+events ``dump.start``/``dump.chunk``/``dump.end`` (not for the speculative
+pass, which brackets ``snap.speculative.start``), ``codec.wait``,
+``restart.end``, ``place.start``/``place.waterline``/``place.end`` and
+``postcopy.tail.start``/``end``, on the log that governs the directory
+(:func:`~grit_tpu_torch.obs.flight.emit_near`); the spans
+``snapshot.write`` (or ``snapshot.write.speculative``),
+``snapshot.mirror``, ``snapshot.restore`` and ``restore_pipeline``, with
+the trace context carried into the mirror's writer, the codec pool, the
+restore's readers and the post-copy tail; the ``SNAPSHOT_*``,
+``SNAP_SPECULATIVE_SECONDS``, ``RESTORE_*``, ``PLACE_CHUNK_SECONDS``,
+``CODEC_*`` and ``CODEC_WAIT_SECONDS`` metrics.
+
+Not in this package: the reference's native drain and native container
+read (``libgritio``), and so the ``io.drain``/``io.place`` fault points and
+events of that plane, and its progress tracker.
 """
 
 from __future__ import annotations
@@ -137,6 +155,7 @@ import torch
 
 from grit_tpu_torch import checksum
 from grit_tpu_torch import codec as transport_codec
+from grit_tpu_torch import faults
 from grit_tpu_torch.api import config
 from grit_tpu_torch.device.placement import resolve_device
 from grit_tpu_torch.ops import build
@@ -147,6 +166,17 @@ from grit_tpu_torch.metadata import (
     atomic_write_text,
     chunk_stream_signature,
     crc32_file,
+)
+from grit_tpu_torch.obs import flight, trace
+from grit_tpu_torch.obs.metrics import (
+    CODEC_RATIO,
+    CODEC_WAIT_SECONDS,
+    PLACE_CHUNK_SECONDS,
+    RESTORE_OVERLAP_FRACTION,
+    RESTORE_PIPELINE_SECONDS,
+    SNAP_SPECULATIVE_SECONDS,
+    SNAPSHOT_BYTES,
+    SNAPSHOT_SECONDS,
 )
 from grit_tpu_torch.parallel.sharding import (
     NamedSharding,
@@ -604,7 +634,8 @@ class _MirrorWriter:
     bytes, and the wire's ``ok`` turns false (a dead tee leaves a hole in
     the stream). It never fails or hangs the dump."""
 
-    def __init__(self, path: str | None, wire=None) -> None:
+    def __init__(self, path: str | None, wire=None,
+                 flight_dir: str | None = None) -> None:
         self._q = _ByteBoundedQueue(config.MIRROR_MAX_INFLIGHT_MB.get_int() << 20)
         self._ok = True
         self._err: str | None = None
@@ -618,12 +649,21 @@ class _MirrorWriter:
         self.raw_written = 0    # raw bytes drained by the writer
         self.comp_written = 0   # bytes of the file (raw when the codec is off)
         self.codec_wait_s = 0.0  # the writer blocked on the pool
+        self._flight_dir = flight_dir  # where codec.wait lands (None: nowhere)
+        # The dump thread's trace context: the writer thread's spans, and
+        # the pool jobs it submits, join the dump's trace.
+        self._trace_ctx = trace.current_context()
+        self._started_ns = time.time_ns()
         self._spare: queue.SimpleQueue = queue.SimpleQueue()
         self._thread = threading.Thread(target=self._run,
                                         name="grit-snapshot-mirror", daemon=True)
         self._thread.start()
 
     def _run(self) -> None:
+        with trace.parented(self._trace_ctx):
+            self._run_parented()
+
+    def _run_parented(self) -> None:
         sidecar = None
         try:
             f = open(self._path, "wb") if self._path is not None else None
@@ -687,7 +727,9 @@ class _MirrorWriter:
             # Bounded: a wedged pool worker must surface as a dead tee
             # within finish()'s join budget.
             used, payload, raw_n, crc_raw = fut.result(timeout=600.0)
-            self.codec_wait_s += time.perf_counter() - t0
+            wait = time.perf_counter() - t0
+            self.codec_wait_s += wait
+            CODEC_WAIT_SECONDS.observe(wait)
         if f is not None:
             f.write(payload)
             if sidecar is not None:
@@ -707,7 +749,15 @@ class _MirrorWriter:
 
     def put(self, buf: np.ndarray, *, borrowed: bool = False) -> None:
         """Queue ``buf``, which the caller does not write again; a
-        ``borrowed`` one, whose memory the caller reuses, as a copy."""
+        ``borrowed`` one, whose memory the caller reuses, as a copy. An
+        armed ``device.snapshot.mirror`` abandons the tee, as a dead tee
+        does, and never fails the dump."""
+        try:
+            faults.fault_point("device.snapshot.mirror")
+        except faults.FaultInjected as exc:
+            self._ok = False
+            self._err = self._err or str(exc)
+            return
         if not self._ok:
             return
         view = buf.reshape(-1).view(np.uint8)
@@ -781,14 +831,30 @@ class _MirrorWriter:
             self._err = self._err or "mirror writer wedged at finish"
         if self._wire is not None:
             self._wire.finish(dump_ok and self._ok)
+        if self._pool is not None and self._ok and self.raw_written:
+            self._codec_accounting()
         if not self._ok:
             log.warning("snapshot mirror %s failed (%s); the upload pass "
                         "ships the bytes instead", self._path, self._err)
         return self._ok and dump_ok
 
+    def _codec_accounting(self) -> None:
+        """A healthy codec tee's ratio, its ``codec.wait`` event (the
+        writer's seconds blocked on the pool) and its span."""
+        CODEC_RATIO.set(self.comp_written / self.raw_written)
+        if self._flight_dir is not None:
+            flight.emit_near(self._flight_dir, "codec.wait",
+                             wait_s=round(self.codec_wait_s, 4),
+                             raw_bytes=self.raw_written,
+                             comp_bytes=self.comp_written)
+        trace.record_span("snapshot.mirror", self._started_ns,
+                          parent=self._trace_ctx, raw_bytes=self.raw_written,
+                          comp_bytes=self.comp_written,
+                          codec_wait=round(self.codec_wait_s, 4))
+
 
 def _open_mirror(mirror: str | None, wire=None, pidx: int = 0,
-                 shared: bool = False
+                 shared: bool = False, flight_dir: str | None = None
                  ) -> tuple[str | None, _MirrorWriter | None]:
     """The mirror's work dir and the dump's tee into process ``pidx``'s
     data file there and onto ``wire`` (a wire-only tee without a mirror,
@@ -808,7 +874,7 @@ def _open_mirror(mirror: str | None, wire=None, pidx: int = 0,
     if work is None and wire is None:
         return None, None
     path = os.path.join(work, data_file(pidx)) if work is not None else None
-    return work, _MirrorWriter(path, wire=wire)
+    return work, _MirrorWriter(path, wire=wire, flight_dir=flight_dir)
 
 
 def _mark_mirror(mirror_work: str, work: str,
@@ -968,6 +1034,9 @@ def write_snapshot(directory: str, state: Any, *, meta: dict | None = None,
     in the JAX package's default: every chunk is crc-verified on restore,
     and the upload to the checkpoint volume is the durability boundary.
     The manifest and COMMIT are fsynced before the rename that commits."""
+    if not speculative:
+        # The speculative pass has its own point (snap.speculate).
+        faults.fault_point("device.snapshot.dump")
     t_start = time.perf_counter()
     pidx = 0 if process_index is None else int(process_index)
     pcount = 1 if process_count is None else int(process_count)
@@ -1017,7 +1086,8 @@ def write_snapshot(directory: str, state: Any, *, meta: dict | None = None,
             f"a sharded state on {mesh.size()} ranks dumped as {pcount} "
             "process(es): every rank of the mesh writes its shards "
             "(process_index/process_count), or each its own leg (leg=True)")
-    mirror_work, tee = _open_mirror(mirror, wire, pidx=pidx, shared=shared)
+    mirror_work, tee = _open_mirror(mirror, wire, pidx=pidx, shared=shared,
+                                    flight_dir=work)
     clean = clean_names or frozenset()
     d2h = _DeviceToHost(settled=speculative)
     legs = _DumpLegs()
@@ -1026,6 +1096,10 @@ def write_snapshot(directory: str, state: Any, *, meta: dict | None = None,
     # the byte stream the mirror tees, folded into its COMMIT signature.
     written_pairs: list[tuple[int, int]] = []
     offset = 0
+    # On the log governing the directory, from this process (the pid that
+    # drained the device); the speculative pass stays off the bracket.
+    if not speculative:
+        flight.emit_near(work, "dump.start", delta=base is not None)
     try:
         with open(os.path.join(work, data_file(pidx)), "wb") as f, \
                 ThreadPoolExecutor(max_workers=1) as hasher:
@@ -1059,6 +1133,9 @@ def write_snapshot(directory: str, state: Any, *, meta: dict | None = None,
                                     fname=data_file(pidx))
                     written_pairs.append((chunk["crc"], nbytes))
                     offset += nbytes
+                    if not speculative:
+                        # The waterline: physical bytes drained so far.
+                        flight.emit_near(work, "dump.chunk", bytes=offset)
                 record["chunks"].append(chunk)
     except BaseException:
         # The tee must never be left blocked, nor its work dir survive.
@@ -1066,6 +1143,8 @@ def write_snapshot(directory: str, state: Any, *, meta: dict | None = None,
             tee.finish(dump_ok=False)
             if mirror_work is not None:
                 shutil.rmtree(mirror_work, ignore_errors=True)
+        if not speculative:
+            flight.emit_near(work, "dump.end", bytes=offset, ok=False)
         raise
 
     with open(os.path.join(work, index_file(pidx)), "w") as f:
@@ -1090,11 +1169,20 @@ def write_snapshot(directory: str, state: Any, *, meta: dict | None = None,
         barrier()
     if not speculative:
         _carry_kernels(directory)
+    wall = time.perf_counter() - t_start
+    op = "speculate" if speculative else "write"
+    SNAPSHOT_BYTES.inc(offset, op=op)
+    SNAPSHOT_SECONDS.inc(wall, op=op)
+    trace.record_span(
+        "snapshot.write.speculative" if speculative else "snapshot.write",
+        time.time_ns() - int(wall * 1e9), bytes=offset, delta=base is not None)
+    if not speculative:
+        # The commit tail (mirror seal, merge, rename, carry) is the dump's.
+        flight.emit_near(directory, "dump.end", bytes=offset)
     with _RECORD_LOCK:
         _LAST_WRITE.clear()
         _LAST_WRITE.update(
-            wall=time.perf_counter() - t_start, copy_wait=d2h.wait_s,
-            **legs.s, bytes=sum(n for _, n in written_pairs),
+            wall=wall, copy_wait=d2h.wait_s, **legs.s, bytes=offset,
             total_bytes=sum(c["nbytes"] for rec in records
                             for c in rec["chunks"]),
             staging=(f"pinned ring {_RING_SLOTS} x {_PIECE_BYTES >> 20} MiB, "
@@ -1404,6 +1492,10 @@ def start_speculative_dump(directory: str, state: Any, *,
         clone = clone_generation(state)
     handle = SpeculativeDump(directory + SPEC_SUFFIX, directory, clone)
     lock = dump_lock if dump_lock is not None else threading.Lock()
+    flight.emit_near(os.path.dirname(directory) or ".",
+                     "snap.speculative.start",
+                     dir=os.path.basename(handle.directory),
+                     delta=base is not None)
 
     def run(state_ref: Any) -> None:
         # The clone is pinned by this thread (its argument), not by the
@@ -1421,6 +1513,7 @@ def start_speculative_dump(directory: str, state: Any, *,
             handle.error = exc
         finally:
             handle.seconds = time.monotonic() - t0
+            SNAP_SPECULATIVE_SECONDS.inc(handle.seconds, phase="concurrent")
 
     handle._thread = threading.Thread(target=run, args=(clone,),
                                       name="grit-spec-dump", daemon=True)
@@ -1857,7 +1950,11 @@ def _begin_restore(directory: str) -> tuple[_StageMonitor | None,
     libraries the snapshot carries (returning their count), load the
     manifest, and fail fast, naming it, on a referenced base that is
     missing or uncommitted — waiting first on its COMMIT when a journal
-    governs it."""
+    governs it. An armed ``device.snapshot.place`` raises first."""
+    faults.fault_point("device.snapshot.place")
+    # Closes the restored process's start window (restart.start, where a
+    # migration's restore opened one; an unmatched end builds nothing).
+    flight.emit_near(directory, "restart.end")
     monitor = _StageMonitor.find(directory)
     if monitor is not None:
         monitor.wait_ready(os.path.join(directory, COMMIT_FILE))
@@ -1910,20 +2007,36 @@ def restore_snapshot(directory: str, *, like: Any = None,
     Reader threads (``GRIT_TPU_RESTORE_WORKERS``; ``GRIT_RESTORE_PIPELINE=0``
     reads serially) read and checksum arrays ahead of the in-order place on
     this thread; under a streamed stage each read waits for its bytes."""
+    t0 = time.monotonic()
     monitor, manifest, seeded = _begin_restore(directory)
     by_name = {rec["name"]: rec for rec in manifest.arrays}
     if like is None:
         names = list(by_name)
         recs = [by_name[n] for n in names]
-        return dict(zip(names, _restore_leaves(
+        out = dict(zip(names, _restore_leaves(
             directory, _Placer(recs, [None] * len(recs), None),
             verify=verify, monitor=monitor, seeded=seeded)))
+        _record_restore(recs, t0)
+        return out
     recs, leaves, layouts, device = _like_plan(directory, by_name, like,
                                                device, mesh, shardings)
-    out = iter(_restore_leaves(directory,
-                               _Placer(recs, leaves, device, layouts),
-                               verify=verify, monitor=monitor, seeded=seeded))
-    return map_with_names(lambda _name, _leaf: next(out), like)
+    placed = iter(_restore_leaves(directory,
+                                  _Placer(recs, leaves, device, layouts),
+                                  verify=verify, monitor=monitor,
+                                  seeded=seeded))
+    _record_restore(recs, t0)
+    return map_with_names(lambda _name, _leaf: next(placed), like)
+
+
+def _record_restore(recs: list[dict], started: float) -> None:
+    """A finished restore's ``SNAPSHOT_*{op="restore"}`` and its
+    ``snapshot.restore`` span."""
+    nbytes = sum(c["nbytes"] for rec in recs for c in rec["chunks"])
+    elapsed = time.monotonic() - started
+    SNAPSHOT_BYTES.inc(nbytes, op="restore")
+    SNAPSHOT_SECONDS.inc(elapsed, op="restore")
+    trace.record_span("snapshot.restore", time.time_ns() - int(elapsed * 1e9),
+                      bytes=nbytes)
 
 
 def _placed_like(name: str, leaf, rec: dict, sharding):
@@ -1985,6 +2098,8 @@ def _like_plan(directory: str, by_name: dict, like: Any,
     if any(isinstance(x, torch.Tensor) and x.device.type == "meta"
            for x in leaves):
         device = resolve_device(device)
+    elif isinstance(device, str):
+        device = torch.device(device)
     return [by_name[n] for n, _ in named], leaves, layouts, device
 
 
@@ -2029,6 +2144,7 @@ def restore_snapshot_postcopy(directory: str, *, like: Any,
         results=dict(zip(hot, placed)), cold=cold,
         meta=dict(manifest.meta), mesh=mesh, shardings=shardings)
     handle.hot_s = time.monotonic() - t0
+    handle._t0 = t0
     handle.start()
     return handle
 
@@ -2076,6 +2192,9 @@ class PostcopyRestore:
         self._err: BaseException | None = None
         self._done = not self._cold
         self._thread: threading.Thread | None = None
+        self._t0 = time.monotonic()  # set to the restore call's start
+        # The tail's spans join the restoring thread's trace.
+        self._trace_ctx = trace.current_context()
 
     def start(self) -> None:
         self._thread = threading.Thread(target=self._tail,
@@ -2107,7 +2226,14 @@ class PostcopyRestore:
             return {self._names[i]: v for i, v in self._results.items()}
 
     def _tail(self) -> None:
+        with trace.parented(self._trace_ctx):
+            self._tail_parented()
+
+    def _tail_parented(self) -> None:
         t0 = time.monotonic()
+        ok = False
+        flight.emit_near(self.directory, "postcopy.tail.start",
+                         arrays=len(self._cold))
         try:
             placer = _Placer([self._recs[i] for i in self._cold],
                              [self._leaves[i] for i in self._cold],
@@ -2118,21 +2244,36 @@ class PostcopyRestore:
                       if self._device is not None
                       and self._device.type == "cuda" else None)
             pending = list(range(len(self._cold)))
+            placed_bytes = 0
             for order in range(len(pending)):
                 j = self._pick_ready(pending)
+                # The tail's first touch of an array: an armed raise is a
+                # cold array whose bytes never arrive, and wait() falls
+                # back to the blocking restore.
+                faults.fault_point("restore.postcopy_fault")
                 got = placer.read(j, self.directory, verify=self._verify,
                                   monitor=self._monitor, order=order)
                 leaf = placer.place(j, got, stream=stream)
                 pending.remove(j)
+                placed_bytes += sum(c["nbytes"]
+                                    for c in self._recs[self._cold[j]]["chunks"])
                 with self._cond:
                     self._results[self._cold[j]] = leaf
                     self._cond.notify_all()
+                flight.emit_near(self.directory, "place.waterline",
+                                 array=len(self._results),
+                                 arrays=len(self._recs), bytes=placed_bytes,
+                                 tail=True)
+            ok = True
         except BaseException as exc:  # noqa: BLE001 — surfaced by wait()
             with self._cond:
                 self._err = exc
                 self._cond.notify_all()
         finally:
             self.tail_s = time.monotonic() - t0
+            flight.emit_near(self.directory, "postcopy.tail.end",
+                             arrays=len(self._cold), ok=ok,
+                             tail_s=round(self.tail_s, 4))
             with self._cond:
                 self._done = True
                 self._cond.notify_all()
@@ -2170,9 +2311,10 @@ class PostcopyRestore:
         """Block until every cold array is placed; returns the restored
         tree, leaf types as :func:`restore_snapshot` gives them. A tail
         that failed on the snapshot's bytes (a failed or torn stage, an
-        OSError) falls back, with a warning, to a bounded loop of the
-        blocking restore: after a stage failure the agent re-stages the
-        tree underneath it. Any other error is raised."""
+        OSError, an injected ``restore.postcopy_fault``) falls back, with
+        a warning, to a bounded loop of the blocking restore: after a
+        stage failure the agent re-stages the tree underneath it. Any
+        other error is raised."""
         if timeout is None:
             timeout = _stage_timeout()
         deadline = time.monotonic() + timeout
@@ -2186,11 +2328,13 @@ class PostcopyRestore:
                 self._cond.wait(min(1.0, remaining))
             err = self._err
         if err is not None:
-            if isinstance(err, (SnapshotIntegrityError, OSError)):
+            if isinstance(err, (SnapshotIntegrityError, OSError,
+                                faults.FaultInjected)):
                 log.warning("post-copy tail failed (%s: %s); falling back to "
                             "the blocking restore", type(err).__name__, err)
                 return self._blocking_fallback(deadline)
             raise err
+        _record_restore(self._recs, self._t0)
         out = iter([self._results[i] for i in range(len(self._recs))])
         return map_with_names(lambda _name, _leaf: next(out), self._like)
 
@@ -2392,6 +2536,7 @@ def _restore_leaves(directory: str, placer: _Placer, *, verify: bool,
     workers = _restore_workers() if config.RESTORE_PIPELINE.get_flag() else 0
     placer.open_pool(workers + 1)
     wall_t0 = time.monotonic()
+    wall_unix_ns = time.time_ns()
     # Journal waits before this point (COMMIT/MANIFEST gating) are serial
     # blocking, not a leg of the pipeline.
     stage_wait0 = monitor.stage_wait_s if monitor is not None else 0.0
@@ -2406,15 +2551,34 @@ def _restore_leaves(directory: str, placer: _Placer, *, verify: bool,
             with leg_lock:
                 legs["read"] += time.monotonic() - t0
 
+    n = len(placer.recs)
+    placed_bytes = 0
+
     def timed_place(i: int, got):
+        nonlocal placed_bytes
         t0 = time.monotonic()
         try:
-            return placer.place(i, got)
+            out = placer.place(i, got)
         finally:
-            legs["place"] += time.monotonic() - t0
+            dt = time.monotonic() - t0
+            legs["place"] += dt
+            PLACE_CHUNK_SECONDS.observe(dt)
+        # The place waterline: bytes resident on the device so far.
+        placed_bytes += sum(c["nbytes"] for c in placer.recs[i]["chunks"])
+        flight.emit_near(directory, "place.waterline", array=i + 1,
+                         arrays=n, bytes=placed_bytes)
+        return out
 
-    out = _run_place(workers, len(placer.recs), timed_read, timed_place,
-                     placer.abort)
+    flight.emit_near(directory, "place.start", arrays=n)
+    place_ok = False
+    try:
+        out = _run_place(workers, n, timed_read, timed_place, placer.abort)
+        place_ok = True
+    finally:
+        # Closed on a failed restore too, or the open interval swallows
+        # the rest of the window.
+        flight.emit_near(directory, "place.end", arrays=n,
+                         bytes=placed_bytes, ok=place_ok)
     wall = time.monotonic() - wall_t0
     stage_wait = (max(0.0, monitor.stage_wait_s - stage_wait0)
                   if monitor is not None else 0.0)
@@ -2423,13 +2587,22 @@ def _restore_leaves(directory: str, placer: _Placer, *, verify: bool,
     # Reads include their stage waits and the pinning of their blocks.
     read = max(0.0, legs["read"] - stage_wait - pin)
     serial = stage_wait + pin + read + legs["place"]
+    overlap = max(0.0, min(1.0, 1.0 - wall / serial)) if serial > 0 else 0.0
+    # The reference's legs: its read holds what the port times as pin.
+    RESTORE_PIPELINE_SECONDS.inc(stage_wait, phase="stage_wait")
+    RESTORE_PIPELINE_SECONDS.inc(read + pin, phase="read")
+    RESTORE_PIPELINE_SECONDS.inc(legs["place"], phase="place")
+    RESTORE_OVERLAP_FRACTION.set(overlap)
+    trace.record_span("restore_pipeline", wall_unix_ns,
+                      stage_wait=round(stage_wait, 4), read=round(read + pin, 4),
+                      place=round(legs["place"], 4), wall=round(wall, 4),
+                      overlap_fraction=round(overlap, 4),
+                      pipelined=workers > 0, streamed=monitor is not None)
     with _RECORD_LOCK:
         _LAST_RESTORE.clear()
         _LAST_RESTORE.update(
             stage_wait=stage_wait, pin=pin, read=read, place=legs["place"],
-            wall=wall,
-            overlap_fraction=(max(0.0, min(1.0, 1.0 - wall / serial))
-                              if serial > 0 else 0.0),
+            wall=wall, overlap_fraction=overlap,
             pipelined=workers > 0, workers=workers,
             streamed=monitor is not None,
             bytes=sum(c["nbytes"] for rec in placer.recs
@@ -2455,13 +2628,15 @@ def _run_place(workers: int, n: int, timed_read, timed_place, abort) -> list:
             out.append(timed_place(i, timed_read(i)))
         return out
     window = workers + 1
+    # The readers join the restore's trace.
+    read = trace.wrap_parented(timed_read)
     with ThreadPoolExecutor(max_workers=workers) as pool:
         futures: dict[int, Any] = {}
         try:
             for i in range(n):
                 for j in range(i, min(i + window, n)):
                     if j not in futures:
-                        futures[j] = pool.submit(timed_read, j)
+                        futures[j] = pool.submit(read, j)
                 out.append(timed_place(i, futures.pop(i).result()))
         except BaseException:
             abort()

@@ -3,7 +3,7 @@
 Counterpart of the parts of ``grit_tpu/metadata.py`` the device snapshot
 needs: the format tag, the streamed-staging journal's name, the
 crash-atomic small-file write, the whole-file crc32 and the chunk-stream
-signature a mirror COMMIT records.
+signature a mirror COMMIT records, and the flight log's name.
 """
 
 from __future__ import annotations
@@ -79,3 +79,10 @@ def manifest_data_file_signature(manifest: dict, filename: str) -> int:
                     (c["offset"], c.get("crc", c.get("crc32")), c["nbytes"]))
     pairs.sort(key=lambda t: t[0])
     return chunk_stream_signature((crc, n) for _, crc, n in pairs)
+
+
+# Per-migration flight-recorder log (grit_tpu_torch.obs.flight): one JSONL
+# phase-boundary event per line, appended by every process on the
+# migration path, in the agent work/stage dir. Node-local: never shipped
+# with the checkpoint.
+FLIGHT_LOG_FILE = ".grit-flight.jsonl"

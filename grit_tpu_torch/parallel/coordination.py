@@ -37,9 +37,12 @@ whose own request has not arrived then holds there (bounded) instead of
 stepping into a collective its requested peer will not join. See
 :class:`SliceQuiesceGate`.
 
-The reference's ``slice.barrier`` fault point, its flight events and its
-``SLICE_BARRIER_SECONDS`` metric have no counterpart yet; the barrier's
-wait is the gate's ``wait_s``.
+The barrier carries the reference's seams: the ``slice.barrier`` fault
+point (an injected raise latches the gate failed, as a real barrier
+failure does), the ``slice.barrier.start``/``slice.barrier.end`` flight
+events on the log that the request's ``flight_dir`` names, and
+``SLICE_BARRIER_SECONDS``; the gate also keeps the last wait as
+``wait_s``.
 """
 
 from __future__ import annotations
@@ -53,9 +56,12 @@ import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Protocol
 
+from grit_tpu_torch import faults
 from grit_tpu_torch.api import config
 from grit_tpu_torch.device.quiesce import quiesce
 from grit_tpu_torch.device.snapshot import restore_snapshot, write_snapshot
+from grit_tpu_torch.obs import flight
+from grit_tpu_torch.obs.metrics import SLICE_BARRIER_SECONDS
 
 log = logging.getLogger(__name__)
 
@@ -376,6 +382,7 @@ class SliceQuiesceGate:
         self._gen = 0
         self.wait_s: float | None = None
         self.request_step: int | None = None
+        self._flight_dir: str | None = None
 
     def timeout_s(self) -> float:
         if self._timeout_s is not None:
@@ -391,11 +398,12 @@ class SliceQuiesceGate:
                 nonce: str | None = None, step: int | None = None) -> None:
         """Arm for one quiesce round (the agentlet calls it when a slice
         quiesce arrives). ``nonce`` scopes this attempt's rendezvous names;
-        a new one clears a latched failure and the cut. ``flight_dir`` is
-        accepted for the protocol's sake (the port has no flight recorder
-        yet). ``step``: the step the request arrived at."""
-        del flight_dir
+        a new one clears a latched failure and the cut. ``flight_dir``:
+        the checkpoint's dir, whose flight log the barrier's events join.
+        ``step``: the step the request arrived at."""
         with self._lock:
+            if flight_dir:
+                self._flight_dir = flight_dir
             self.request_step = step
             if nonce is not None and nonce != self._nonce:
                 self._nonce = str(nonce)
@@ -414,6 +422,7 @@ class SliceQuiesceGate:
             self._passed = False
             self.failed = None
             self._settled = False
+            self._flight_dir = None
 
     def latch(self, why: str) -> None:
         """Latch the gate failed: the loop trains on and the quiesce
@@ -449,6 +458,7 @@ class SliceQuiesceGate:
                 return True
             cut = self._cut
             nonce = f"{self._nonce}.g{self._gen}"
+            flight_dir = self._flight_dir
         rdv = self.coordinator.rendezvous
         try:
             if cut is None:
@@ -461,11 +471,21 @@ class SliceQuiesceGate:
             if int(step) < cut:
                 return False  # run forward to the agreed boundary
             t0 = time.monotonic()
+            if flight_dir:
+                flight.emit_near(flight_dir, "slice.barrier.start",
+                                 step=int(step), cut=cut)
+            ok = False
             try:
+                faults.fault_point("slice.barrier")
                 rdv.barrier(f"grit/q{nonce}/barrier-{cut}",
                             timeout=self.timeout_s())
+                ok = True
             finally:
                 self.wait_s = time.monotonic() - t0
+                if flight_dir:
+                    flight.emit_near(flight_dir, "slice.barrier.end", cut=cut,
+                                     ok=ok, wait_s=round(self.wait_s, 4))
+                SLICE_BARRIER_SECONDS.set(self.wait_s)
         except Exception as exc:  # noqa: BLE001 — latch, never kill the loop
             self.latch(f"{type(exc).__name__}: {exc}")
             return False

@@ -21,8 +21,10 @@ serving-specific: the quiesce takes the drain detour before the park, and
 the dump reads the engine's tagged state
 (:meth:`~grit_tpu_torch.models.serving.ContinuousBatchingEngine.snapshot_state`).
 
-The reference's flight events, drain metrics and ``serve.drain`` fault
-point are not ported yet: the port has no obs or faults module.
+The drain carries the reference's seams: the ``serve.drain`` fault point
+(an injected raise fails the drain, and with it the quiesce, while the
+engine keeps serving), the ``serve.drain.start``/``serve.drain.end``
+flight events, and ``SERVE_DRAIN_SECONDS`` and ``SERVE_DRAINED_SLOTS``.
 """
 
 from __future__ import annotations
@@ -32,8 +34,11 @@ import threading
 import time
 from typing import Callable
 
+from grit_tpu_torch import faults
 from grit_tpu_torch.api import config
 from grit_tpu_torch.device.agentlet import Agentlet
+from grit_tpu_torch.obs import flight
+from grit_tpu_torch.obs.metrics import SERVE_DRAIN_SECONDS, SERVE_DRAINED_SLOTS
 
 log = logging.getLogger(__name__)
 
@@ -195,9 +200,11 @@ class ServingAgentlet:
                     f"{self.drain_timeout_s:.0f}s "
                     f"({config.SERVE_DRAIN_TIMEOUT_S.name}): {exc}") from exc
         in_flight = int(self.engine.state["active"].sum())
+        flight.emit("serve.drain.start", mode=self.drain_mode, slots=in_flight)
         ok = False
         drained_tokens = 0
         try:
+            faults.fault_point("serve.drain")
             if self.drain_mode == DRAIN_COMPLETE and in_flight:
                 deadline = t0 + self.drain_timeout_s
                 while True:
@@ -214,10 +221,17 @@ class ServingAgentlet:
                             f"{int(self.engine.state['active'].sum())} slots "
                             f"in flight after {self.drain_timeout_s:.0f}s "
                             f"({config.SERVE_DRAIN_TIMEOUT_S.name})")
+                SERVE_DRAINED_SLOTS.inc(in_flight, how="drained")
+            else:
+                SERVE_DRAINED_SLOTS.inc(in_flight, how="serialized")
             ok = True
         finally:
+            dt = time.monotonic() - t0
+            SERVE_DRAIN_SECONDS.set(dt)
             self.last_drain = {
                 "mode": self.drain_mode, "slots": in_flight,
                 "drained_tokens": drained_tokens,
-                "seconds": round(time.monotonic() - t0, 4), "ok": ok,
+                "seconds": round(dt, 4), "ok": ok,
             }
+            flight.emit("serve.drain.end", mode=self.drain_mode,
+                        slots=in_flight, drained_tokens=drained_tokens, ok=ok)

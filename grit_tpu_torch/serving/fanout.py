@@ -6,8 +6,10 @@ shared rather than multiplied by the replica count.
 :func:`fan_out_clones` runs the engines' post-copy restores in parallel
 threads: each clone's hot set is placed before it returns, the clone
 serves new traffic at once, and its cold KV cache lands behind that
-traffic. The reference's ``serve.clone.*`` flight events are not ported
-yet (the port has no flight recorder).
+traffic. Each leg's ``serve.clone.start``, ``serve.clone.ready`` or
+``serve.clone.abort`` lands on the flight log governing the snapshot, and
+a first served token emits ``serve.clone.served``, as the reference's
+legs do.
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ from __future__ import annotations
 import threading
 import time
 from dataclasses import dataclass, field
+
+from grit_tpu_torch.obs import flight
 
 
 @dataclass
@@ -43,6 +47,9 @@ class CloneLeg:
                 self.served_before_tail = (self.handle is not None
                                            and not self.handle.done)
                 self.first_token_s = time.monotonic() - self._t0
+                flight.emit("serve.clone.served", ordinal=self.ordinal,
+                            first_token_s=round(self.first_token_s, 4),
+                            tail_in_flight=self.served_before_tail)
                 return emitted[slot]
         raise RuntimeError(f"clone {self.ordinal} never emitted a token")
 
@@ -61,11 +68,16 @@ def fan_out_clones(directory: str, engines, *,
 
     def one(leg: CloneLeg) -> None:
         leg._t0 = time.monotonic()
+        flight.emit_near(directory, "serve.clone.start", ordinal=leg.ordinal,
+                         clone=f"clone-{leg.ordinal}")
         try:
             leg.handle = leg.engine.restore_postcopy(directory)
             leg.hot_placed_s = time.monotonic() - leg._t0
         except BaseException as exc:  # noqa: BLE001 — sibling isolation
             leg.error = exc
+            flight.emit_near(directory, "serve.clone.abort",
+                             ordinal=leg.ordinal,
+                             reason=f"{type(exc).__name__}: {exc}")
 
     if parallel:
         threads = [threading.Thread(target=one, args=(leg,),
@@ -78,4 +90,9 @@ def fan_out_clones(directory: str, engines, *,
     else:
         for leg in legs:
             one(leg)
+    for leg in legs:
+        if leg.error is None:
+            flight.emit_near(directory, "serve.clone.ready",
+                             ordinal=leg.ordinal,
+                             hot_placed_s=round(leg.hot_placed_s, 4))
     return legs

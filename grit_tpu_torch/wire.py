@@ -21,10 +21,16 @@ poisons the sender. :class:`WireDumpSink` is what the snapshot writer's tee
 hands each drained chunk (or codec block) to; a wire failure only flips
 its ``ok``, never fails the dump.
 
+The sender carries the reference's seams: the ``wire.send`` fault point at
+every frame (an injected raise travels as :class:`WireError`, so the tee
+takes the path a dead wire takes), the ``wire.open`` and ``wire.close``
+flight events, the ``wire_stream`` span, and ``WIRE_BYTES``,
+``WIRE_SECONDS``, ``WIRE_STALL_SECONDS`` (one observation a stall episode)
+and ``WIRE_FRAME_SEND_SECONDS`` (one a frame).
+
 Not here: the reference's native send plane and its pacer (``libgritio``),
 ``send_file``/``send_tree``/``commit`` (the agent ships the rest of the
-checkpoint and commits), the receiver, and the wire's flight events,
-metrics and fault points.
+checkpoint and commits) and the receiver.
 """
 
 from __future__ import annotations
@@ -38,8 +44,16 @@ import threading
 import time
 import zlib
 
+from grit_tpu_torch import faults
 from grit_tpu_torch.api import config
 from grit_tpu_torch.codec import CODEC_NONE
+from grit_tpu_torch.obs import flight, trace
+from grit_tpu_torch.obs.metrics import (
+    WIRE_BYTES,
+    WIRE_FRAME_SEND_SECONDS,
+    WIRE_SECONDS,
+    WIRE_STALL_SECONDS,
+)
 
 log = logging.getLogger(__name__)
 
@@ -126,6 +140,7 @@ class WireSender:
                 s.close()
             raise WireError(f"wire connect to {endpoint} failed: {exc}") \
                 from exc
+        flight.emit("wire.open", endpoint=endpoint, streams=len(self._socks))
         for k in range(len(self._socks)):
             q: queue.Queue = queue.Queue(maxsize=_WIRE_QUEUE_FRAMES)
             t = threading.Thread(target=self._worker, args=(k, q),
@@ -161,9 +176,11 @@ class WireSender:
                     sock.sendall(header)
                     if len(payload):
                         sock.sendall(payload)
+                    frame_s = time.monotonic() - t0
                     with self._lock:
-                        self._send_s += time.monotonic() - t0
+                        self._send_s += frame_s
                         self._sent_bytes += len(header) + len(payload)
+                    WIRE_FRAME_SEND_SECONDS.observe(frame_s)
                 # A dead sender drains its queue so producers never block.
             except OSError as exc:
                 self._dead = self._dead or f"{type(exc).__name__}: {exc}"
@@ -186,6 +203,7 @@ class WireSender:
         return self._stall_s
 
     def _enqueue(self, header: dict, payload=b"", done=None) -> None:
+        faults.fault_point("wire.send", wrap=WireError)
         if self._dead is not None:
             raise WireError(f"wire send failed: {self._dead}")
         raw = json.dumps(header, separators=(",", ":")).encode()
@@ -194,6 +212,7 @@ class WireSender:
             q = self._queues[self._rr % len(self._queues)]
             self._rr += 1
         t0 = time.monotonic()
+        episode = 0.0  # this frame's whole backpressure block
         while True:
             try:
                 q.put(frame, timeout=0.5)
@@ -203,11 +222,18 @@ class WireSender:
                 now = time.monotonic()
                 with self._lock:
                     self._stall_s += now - t0
+                episode += now - t0
                 t0 = now
                 if self._dead is not None:
                     raise WireError(f"wire send failed: {self._dead}")
+        tail = time.monotonic() - t0
         with self._lock:
-            self._stall_s += time.monotonic() - t0
+            self._stall_s += tail
+        episode += tail
+        if episode > 0.005:
+            # Episodes, not their sum: many short blocks are pacing, a
+            # few long ones a wedged consumer.
+            WIRE_STALL_SECONDS.observe(episode)
 
     def send_chunk(self, rel: str, offset: int, data, done=None) -> None:
         """A raw piece of a dump-fed file at ``offset``; ``done`` (if any)
@@ -256,6 +282,16 @@ class WireSender:
                 s.close()
             except OSError:
                 pass
+        WIRE_BYTES.inc(self.sent_bytes, role="send")
+        WIRE_SECONDS.inc(self.send_s, phase="send")
+        WIRE_SECONDS.inc(self.stall_s, phase="stall")
+        trace.record_span("wire_stream", time.time_ns(),
+                          bytes=self.sent_bytes, streams=len(self._socks),
+                          send=round(self.send_s, 4),
+                          stall=round(self.stall_s, 4))
+        flight.emit("wire.close", bytes=self.sent_bytes,
+                    streams=len(self._socks), send_s=round(self.send_s, 4),
+                    stall_s=round(self.stall_s, 4))
 
 
 class Countdown:

@@ -2,7 +2,8 @@
 every knob of ``grit_tpu_torch.api.config`` under an unset, an empty, a
 malformed and a valid value gives the value ``grit_tpu.api.config``
 gives (an empty value counts as unset, a malformed number warns and
-reads the default, a flag is on unless it is ``"0"``)."""
+reads the default, a flag is on unless it is ``"0"``); and the flight
+log's file name is the reference's."""
 
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ VALUES = {"unset": lambda t: None, "empty": lambda t: "",
 
 
 def test_every_port_knob_is_a_reference_knob():
-    assert len(KNOBS) >= 19
+    assert len(KNOBS) >= 25
     for knob in KNOBS:
         assert knob.name in ref.REGISTRY, knob.name
         assert ref.REGISTRY[knob.name].type in READ
@@ -70,6 +71,27 @@ def test_codec_and_wire_knobs_are_declared(name, monkeypatch):
     knob = next(k for k in KNOBS if k.name == name)
     want = ref.REGISTRY[name]
     assert getattr(knob, READ[want.type])() == want.get()
+
+
+@pytest.mark.parametrize("name", ["GRIT_FLIGHT", "GRIT_FLIGHT_DIR",
+                                  "GRIT_FLIGHT_CLOCK", "GRIT_TPU_TRACE_FILE",
+                                  "GRIT_WORKLOAD_METRICS_PORT",
+                                  "GRIT_FAULT_POINTS"])
+def test_obs_and_fault_knobs_are_declared(name, monkeypatch):
+    """The knobs the flight recorder, the trace sink, the workload's
+    ``/metrics`` and the fault registry read are the port's own, with the
+    reference's names and defaults."""
+    monkeypatch.delenv(name, raising=False)
+    knob = next(k for k in KNOBS if k.name == name)
+    want = ref.REGISTRY[name]
+    assert getattr(knob, READ[want.type])() == want.get()
+
+
+def test_flight_log_name_is_the_reference_metadata():
+    from grit_tpu import metadata as ref_metadata
+    from grit_tpu_torch import metadata
+
+    assert metadata.FLIGHT_LOG_FILE == ref_metadata.FLIGHT_LOG_FILE
 
 
 def test_empty_socket_dir_is_the_default_for_both_packages(monkeypatch):

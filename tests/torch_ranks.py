@@ -360,6 +360,39 @@ def group_any_cases(inp: dict) -> dict:
             for name, fn in fns.items()}
 
 
+
+def slice_barrier_fault(inp: dict) -> dict:
+    """A :class:`~grit_tpu_torch.parallel.coordination.SliceQuiesceGate`
+    over the group's store, its request naming ``inp["dir"]``'s flight
+    log, run to its cut under the ``GRIT_FAULT_POINTS`` the test armed:
+    whether the loop parked within a few steps, the gate's latched
+    failure, the point's hits, ``SLICE_BARRIER_SECONDS`` and this pid."""
+    from grit_tpu_torch import faults  # noqa: PLC0415
+    from grit_tpu_torch.obs.metrics import SLICE_BARRIER_SECONDS  # noqa: PLC0415
+    from grit_tpu_torch.parallel.coordination import (  # noqa: PLC0415
+        SliceCoordinator,
+        SliceQuiesceGate,
+        StoreRendezvous,
+    )
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    rdv = StoreRendezvous(dist.distributed_c10d._get_default_store(), rank,
+                          world)
+    gate = SliceQuiesceGate(SliceCoordinator(rdv, process_index=rank,
+                                             process_count=world),
+                            timeout_s=60.0)
+    gate.request(flight_dir=inp["dir"], nonce="1", step=rank)
+    parked = False
+    for step in range(rank, rank + 4):  # a few more training steps
+        if gate.ready_to_park(step):
+            parked = True
+            break
+        if gate.failed is not None:
+            break
+    return {"parked": parked, "failed": gate.failed,
+            "hits": faults.hits("slice.barrier"),
+            "barrier_s": SLICE_BARRIER_SECONDS.value(), "pid": os.getpid()}
+
 # -- the mesh, the sharding rules and sharded state -----------------------------------
 
 
