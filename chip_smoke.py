@@ -44,10 +44,17 @@ non-zero without the final result line:
    still answer, the retry commit; the blackout includes the failed
    request); ``/metrics``' snapshot bytes must equal the snapshot's; the
    flight log must hold the source's dump bracket with its chunks and
-   the destination's ``restart.end`` and place bracket, from the right
+   the destination's one ``restart.start`` (its prefetch, before
+   ``import torch``), ``restart.end`` and place bracket, from the right
    pids in wall-clock order; the trace must hold ``snapshot.write`` and
-   ``snapshot.restore`` with no orphan span. An ``obs`` line, printed
-   before the kernels record, splits the blackout by the flight log.
+   ``snapshot.restore`` with no orphan span. The phase profiler's folded
+   stacks of the source's dump and the destination's place must lie
+   beside the flight log, every stack under a category; the
+   destination's ``/metrics``, up from its prefetch, must read the
+   snapshot's bytes as its place progress (shipped and total), profiler
+   ticks, and answer ``/debug/threadz`` and ``/version``. An ``obs`` line,
+   printed before the kernels record, splits the blackout by the flight
+   log, kill to ``place.start`` at ``restart.start``.
 6. serve   — the serving path at the flagship widths: a continuous-
    batching engine (4 slots of 4096 positions, temperature 1.0) serves
    Zipf prompts of 1000, 700, 230 and 40 tokens and a fifth of 500 in a
@@ -116,7 +123,9 @@ non-zero without the final result line:
    post-copy destination start together after the MNIST dump (so the
    post-copy numbers are taken beside them). ``[frozen]`` lines.
 10. wire   — phase 5's flagship at 2 layers migrated over the wire into
-   this script's own receiver (the reference's frames and journal: frame
+   this script's own receiver (both runs' sources start together and
+   wait parked at their first step, so their process starts overlap;
+   the reference's frames and journal: frame
    crc, codec records decoded and checked against their crc of the raw
    bytes, waterline lines, eof): the dump carries a wire spec and a PVC
    mirror, the rest of the tree is staged after it and a destination
@@ -817,6 +826,7 @@ class Workload:
             if stderr is not None:
                 stderr.close()
         self.started = time.perf_counter()
+        self.args = WORKLOAD_ARGS if args is None else args
         self.lines: list[str] = []
         self.times: list[float] = []  # host clock at each line's arrival
         self._drain = None
@@ -926,12 +936,23 @@ def start_beside_reference(n_steps: int, env: dict, socks: str,
 MIGRATE_FAULT = "device.agentlet.dump:raise:x1"
 
 
-def free_port() -> int:
+def free_ports(n: int) -> list[int]:
+    """``n`` distinct free ports (held open together while they are
+    picked, so the kernel cannot hand out one twice)."""
     import socket  # noqa: PLC0415
 
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for s in socks:
+            s.bind(("127.0.0.1", 0))
+        return [s.getsockname()[1] for s in socks]
+    finally:
+        for s in socks:
+            s.close()
+
+
+def free_port() -> int:
+    return free_ports(1)[0]
 
 
 def scrape_metric(port: int, line_prefix: str) -> float:
@@ -949,11 +970,12 @@ def scrape_metric(port: int, line_prefix: str) -> float:
 
 
 def flight_checks(events: list[dict], src_pid: int, dst_pid: int,
-                  nbytes: int) -> dict:
+                  nbytes: int, kill_wall: float) -> dict:
     """The migration's flight log holds the source's dump bracket with its
     chunks, ``dump.end``'s bytes the snapshot's, and the destination's
-    ``restart.end`` and place bracket, each from the right pid and in
-    wall-clock order. Returns those events by name."""
+    ``restart.start`` (after the kill at ``kill_wall``), ``restart.end``
+    and place bracket, each once from the right pid and in wall-clock
+    order. Returns those events by name."""
     def one(ev: str, pid: int) -> dict:
         got = [e for e in events if e["ev"] == ev and e["pid"] == pid]
         if len(got) != 1:
@@ -963,6 +985,7 @@ def flight_checks(events: list[dict], src_pid: int, dst_pid: int,
 
     ev = {"dump.start": one("dump.start", src_pid),
           "dump.end": one("dump.end", src_pid),
+          "restart.start": one("restart.start", dst_pid),
           "restart.end": one("restart.end", dst_pid),
           "place.start": one("place.start", dst_pid),
           "place.end": one("place.end", dst_pid)}
@@ -976,8 +999,10 @@ def flight_checks(events: list[dict], src_pid: int, dst_pid: int,
                              f"{ev['dump.end'].get('bytes')}, last chunk "
                              f"{chunks[-1]['bytes']}, snapshot {nbytes}")
     order = ([ev["dump.start"]] + chunks
-             + [ev[k] for k in ("dump.end", "restart.end", "place.start",
-                                "place.end")])
+             + [ev[k] for k in ("dump.end", "restart.start", "restart.end",
+                                "place.start", "place.end")])
+    if ev["restart.start"]["wall"] <= kill_wall:
+        raise AssertionError("flight log: restart.start before the kill")
     walls = [e["wall"] for e in order]
     if walls != sorted(walls):
         raise AssertionError("flight log: events out of wall-clock order: "
@@ -1003,6 +1028,75 @@ def trace_checks(spans: list[dict]) -> dict:
     return {"spans": len(spans), "names": sorted(names)}
 
 
+def read_folded(path: str) -> dict:
+    """A phase profiler's folded file: its ``# grit-prof`` header and its
+    ``category;frame;... count`` lines. Fails on a file with no stack or
+    a stack whose first segment is not a category. Returns the samples
+    by category and the header's ticks."""
+    from grit_tpu_torch.obs.profile import CATEGORIES  # noqa: PLC0415
+
+    with open(path, encoding="utf-8") as f:
+        lines = f.read().splitlines()
+    if not lines or not lines[0].startswith("# grit-prof "):
+        raise AssertionError(f"{path}: no '# grit-prof' header")
+    header = json.loads(lines[0][len("# grit-prof "):])
+    by_cat: dict[str, int] = {}
+    for line in lines[1:]:
+        body, _, count = line.rpartition(" ")
+        cat = body.split(";", 1)[0]
+        if cat not in CATEGORIES:
+            raise AssertionError(f"{path}: stack under {cat!r}, not a "
+                                 f"category of {CATEGORIES}")
+        by_cat[cat] = by_cat.get(cat, 0) + int(count)
+    if not by_cat:
+        raise AssertionError(f"{path}: no stack ({header})")
+    return {"samples": by_cat, "ticks": header["ticks"]}
+
+
+def scrape_destination(port: int, nbytes: int, timeout: float = 10.0) -> dict:
+    """Poll the restored process's ``/metrics`` (bounded by ``timeout``)
+    until its place progress reads the snapshot's bytes, shipped and
+    total, and its profiler has ticked; then ``/debug/threadz`` and
+    ``/version`` must answer. Returns what it read."""
+    import urllib.request  # noqa: PLC0415
+
+    def get(path: str) -> tuple[int, str]:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=5) as resp:
+            return resp.status, resp.read().decode()
+
+    deadline = time.perf_counter() + timeout
+    seen = None
+    while True:
+        try:
+            vals = {}
+            for line in get("/metrics")[1].splitlines():
+                if line and not line.startswith("#"):
+                    key, _, value = line.rpartition(" ")
+                    vals[key] = float(value)
+            seen = {
+                "shipped": vals.get('grit_progress_bytes_shipped{role="workload"}'),
+                "total": vals.get('grit_progress_total_bytes{role="workload"}'),
+                "prof_ticks": sum(v for k, v in vals.items() if k.startswith(
+                    "grit_prof_sample_ticks_total{"))}
+            if seen["shipped"] == seen["total"] == nbytes \
+                    and seen["prof_ticks"] > 0:
+                break
+        except OSError as exc:
+            seen = repr(exc)
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"destination /metrics after {timeout} s: "
+                                 f"{seen}, snapshot {nbytes} bytes")
+        time.sleep(0.05)
+    threadz, threads = get("/debug/threadz")
+    version, stamp = get("/version")
+    if (threadz, version) != (200, 200) or "--- thread" not in threads \
+            or not stamp.startswith("grit-tpu "):
+        raise AssertionError(f"destination /debug/threadz {threadz}, "
+                             f"/version {version}")
+    return {**seen, "version": stamp.strip()}
+
+
 def phase_migrate(work: str, card: str) -> dict:
     """Returns the uninterrupted run's losses (``ref_losses``) beside the
     migration's numbers and its ``obs`` record; the snapshot is removed.
@@ -1011,8 +1105,11 @@ def phase_migrate(work: str, card: str) -> dict:
     in ``ckpt`` (role ``node``) and brackets the quiesce and each dump
     request there, as the agent's hook does. The source runs with the
     flight recorder, a trace sink, its ``/metrics`` server and an armed
-    fault (:data:`MIGRATE_FAULT`); the destination with the recorder and
-    the sink; the uninterrupted run with none of them."""
+    fault (:data:`MIGRATE_FAULT`); the destination with the recorder, the
+    sink and its ``/metrics`` server with a short sampler period, which
+    its prefetch starts before ``import torch``; the uninterrupted run
+    with none of them. No process is started for the new checks."""
+    from concurrent.futures import ThreadPoolExecutor  # noqa: PLC0415
     from unittest import mock  # noqa: PLC0415
 
     from grit_tpu_torch.device.snapshot import snapshot_nbytes  # noqa: PLC0415
@@ -1025,7 +1122,7 @@ def phase_migrate(work: str, card: str) -> dict:
     os.makedirs(socks)
     env = {"GRIT_TPU_SOCKET_DIR": socks}
     obs_env = {"GRIT_FLIGHT": "1", "GRIT_TPU_TRACE_FILE": trace_file}
-    port = free_port()
+    port, dst_port = free_ports(2)
     src_env = {**env, **obs_env, "GRIT_WORKLOAD_METRICS_PORT": str(port),
                "GRIT_FAULT_POINTS": MIGRATE_FAULT}
     wall_of = time.time() - time.perf_counter()  # host clock → wall clock
@@ -1084,10 +1181,16 @@ def phase_migrate(work: str, card: str) -> dict:
         t_kill = time.perf_counter()
 
         dst = Workload(MIGRATE_STEPS,
-                       {**env, **obs_env, "GRIT_TPU_RESTORE_DIR": snap})
+                       {**env, **obs_env, "GRIT_TPU_RESTORE_DIR": snap,
+                        "GRIT_WORKLOAD_METRICS_PORT": str(dst_port),
+                        "GRIT_OBS_SAMPLE_S": "0.1"})
         procs.append(dst)
         restored = int(dst.wait_for(r"RESTORED (\d+)").group(1))
         t_restored = time.perf_counter()
+        # Scraped from a thread while the destination trains on, so the
+        # host clock's reading of its first step is not held up.
+        scraper = ThreadPoolExecutor(1)
+        scraping = scraper.submit(scrape_destination, dst_port, nbytes)
         restore_s = float(dst.wait_for(r"RESTORE_SECONDS (\S+)").group(1))
         pipe = json.loads(dst.wait_for(r"RESTORE_PIPELINE (.+)").group(1))
         init_s = float(dst.wait_for(r"INIT_SECONDS (\S+)").group(1))
@@ -1096,8 +1199,14 @@ def phase_migrate(work: str, card: str) -> dict:
         dst.wait_for(r"STEP \d+ ")
         t_first = time.perf_counter()
         dst.finish()
+        scraped_dst = scraping.result()
+        scraper.shutdown()
         events = flight.read_flight_file(log_path)
         spans = trace.read_trace_file(trace_file)
+        profiled = {
+            phase: read_folded(os.path.join(
+                ckpt, f".grit-prof-{phase}-p{p.proc.pid}.folded"))
+            for phase, p in (("dump", src), ("place", dst))}
     finally:
         flight.reset()
         trace.close_export()
@@ -1111,7 +1220,7 @@ def phase_migrate(work: str, card: str) -> dict:
     if got != want or len(want) != MIGRATE_STEPS - cut:
         raise AssertionError(f"losses after the cut differ from the "
                              f"uninterrupted run: {got} vs {want}")
-    fl = flight_checks(events, pid, dst.proc.pid, nbytes)
+    fl = flight_checks(events, pid, dst.proc.pid, nbytes, wall_of + t_kill)
     tr = trace_checks(spans)
     node = [e for e in events if e["pid"] == os.getpid()]
     q0 = next(e["wall"] for e in node if e["ev"] == "quiesce.start")
@@ -1127,11 +1236,19 @@ def phase_migrate(work: str, card: str) -> dict:
            "source_dump_s": fl["dump.end"]["wall"] - fl["dump.start"]["wall"],
            "dump_to_kill_s": kill - d1,
            "kill_to_place_s": fl["place.start"]["wall"] - kill,
+           "kill_to_restart_s": fl["restart.start"]["wall"] - kill,
+           "restart_to_place_s": (fl["place.start"]["wall"]
+                                  - fl["restart.start"]["wall"]),
            "place_s": fl["place.end"]["wall"] - fl["place.start"]["wall"],
            "rest_s": first - fl["place.end"]["wall"],
            "flight_events": len(events), "dump_chunks": fl["chunks"],
            "trace_spans": tr["spans"], "metrics_snapshot_bytes": scraped,
-           "fault": MIGRATE_FAULT}
+           "fault": MIGRATE_FAULT, "destination_metrics": scraped_dst,
+           "profile": profiled}
+    if abs(obs["kill_to_restart_s"] + obs["restart_to_place_s"]
+           - obs["kill_to_place_s"]) > 1e-3:
+        raise AssertionError(f"kill → restart.start → place.start does not "
+                             f"sum to kill → place.start: {obs}")
     obs["flight_sum_s"] = (obs["quiesce_s"] + (d0 - q1) + obs["dump_s"]
                            + obs["dump_to_kill_s"] + obs["kill_to_place_s"]
                            + obs["place_s"] + obs["rest_s"])
@@ -1163,15 +1280,26 @@ def phase_migrate(work: str, card: str) -> dict:
     log("migrate", f"flight log: {len(events)} events, the source's dump "
                    f"bracket with {fl['chunks']} chunks and "
                    f"{fl['dump.end']['bytes']} bytes, the destination's "
-                   f"restart.end and place bracket, in wall-clock order; "
+                   f"restart.start, restart.end and place bracket, in "
+                   f"wall-clock order; "
                    f"trace: {tr['spans']} spans {tr['names']}, no orphan; "
                    f"/metrics snapshot bytes {scraped:.0f} = the snapshot's")
     log("migrate", "blackout by the flight log: " + ", ".join(
         f"{k} {obs[k]:.3f}" for k in ("quiesce_s", "dump_s",
                                       "failed_request_s", "source_dump_s",
                                       "dump_to_kill_s", "kill_to_place_s",
-                                      "place_s", "rest_s", "flight_sum_s",
+                                      "kill_to_restart_s",
+                                      "restart_to_place_s", "place_s",
+                                      "rest_s", "flight_sum_s",
                                       "blackout_s")) + f" s [{card}]")
+    log("migrate", "phase profiler samples by category: " + "; ".join(
+        f"{phase} ({profiled[phase]['ticks']} ticks) " + ", ".join(
+            f"{c} {n}" for c, n in sorted(profiled[phase]["samples"].items()))
+        for phase in ("dump", "place")) + f"; destination /metrics: place "
+        f"progress {scraped_dst['shipped']:.0f} of "
+        f"{scraped_dst['total']:.0f} bytes, profiler ticks "
+        f"{scraped_dst['prof_ticks']:.0f}, /debug/threadz and /version "
+        f"({scraped_dst['version']}) answered [{card}]")
     return {"cut": cut, "bytes": nbytes, "ref_losses": ref_losses,
             "dump_s": dump_s, "restore_s": restore_s,
             "dump_legs": dump_legs, "restore_legs": pipe,
@@ -2796,8 +2924,39 @@ class Receiver:
         self.journal.close()
 
 
+def wire_sources(work: str, runs: tuple) -> dict:
+    """Start the sources of the :func:`wire_run` ``runs`` (``(label,
+    codec)`` pairs) together, so their process starts overlap: each is
+    phase 5's flagship at :data:`WIRE_LAYERS` layers under
+    ``GRIT_SNAPSHOT_CODEC=codec``, parked at its first checkpoint point.
+    Returns ``{label: (source, ToggleClient, environment)}``."""
+    from grit_tpu_torch.device.agentlet import ToggleClient  # noqa: PLC0415
+
+    args = WORKLOAD_ARGS[:]
+    args[args.index("--layers") + 1] = str(WIRE_LAYERS)
+    started = {}
+    try:
+        for label, codec in runs:
+            socks = os.path.join(work, f"socks-wire-{label}")
+            os.makedirs(socks)
+            env = {"GRIT_TPU_SOCKET_DIR": socks, "GRIT_SNAPSHOT_CODEC": codec}
+            started[label] = (Workload(1000, env, args=args), env, socks)
+        out = {}
+        for label, (src, env, socks) in started.items():
+            src.wait_for("READY")
+            client = ToggleClient(src.proc.pid, path=os.path.join(
+                socks, f"grit-tpu-{src.proc.pid}.sock"), timeout=600)
+            client.quiesce()
+            out[label] = (src, client, env)
+        return out
+    except BaseException:
+        for src, _env, _socks in started.values():
+            src.kill()
+        raise
+
+
 def wire_run(work: str, card: str, label: str, codec: str, *,
-             hang_up_check: bool) -> dict:
+             hang_up_check: bool, source: tuple) -> dict:
     """One wire migration of phase 5's flagship (Adam) at
     :data:`WIRE_LAYERS` layers: the source quiesced and dumped with a
     wire spec and a PVC mirror under ``GRIT_SNAPSHOT_CODEC=codec``, the
@@ -2808,29 +2967,24 @@ def wire_run(work: str, card: str, label: str, codec: str, *,
     on the PVC), spawned once the first has taken its first step.
     ``hang_up_check``: before the source resumes, a second dump of its
     parked state into a receiver that hangs up mid-stream must answer
-    ``ok`` with a failed wire block and a committed mirror."""
-    from grit_tpu_torch.device.agentlet import ToggleClient  # noqa: PLC0415
+    ``ok`` with a failed wire block and a committed mirror. ``source``:
+    the parked source :func:`wire_sources` started for it, its client and
+    its environment."""
     from grit_tpu_torch.device.snapshot import (  # noqa: PLC0415
         DATA_FILE, INDEX_FILE, MANIFEST_FILE, snapshot_exists, snapshot_nbytes)
 
-    socks = os.path.join(work, f"socks-wire-{label}")
     host, pvc, dst_root = (os.path.join(work, f"{n}-wire-{label}")
                            for n in ("host", "pvc", "dst"))
-    os.makedirs(socks)
-    env = {"GRIT_TPU_SOCKET_DIR": socks, "GRIT_SNAPSHOT_CODEC": codec}
     snap, mirror = os.path.join(host, "hbm"), os.path.join(pvc, "hbm")
     procs: list[Workload] = []
-    recv = Receiver(dst_root)
     out: dict = {"codec": codec}
+    src, client, env = source
+    procs.append(src)
+    args = src.args
+    recv = Receiver(dst_root)
     try:
-        args = WORKLOAD_ARGS[:]
-        args[args.index("--layers") + 1] = str(WIRE_LAYERS)
-        src = Workload(1000, env, args=args)
-        procs.append(src)
-        src.wait_for("READY")
+        client.resume()
         src.wait_for(rf"STEP {MIGRATE_CUT} ")
-        client = ToggleClient(src.proc.pid, path=os.path.join(
-            socks, f"grit-tpu-{src.proc.pid}.sock"), timeout=600)
         t_quiesce = time.perf_counter()
         cut = client.quiesce()
         t_dump = time.perf_counter()
@@ -3030,8 +3184,17 @@ def phase_wire(torch, work: str, card: str, dev=None) -> dict:
     compressed (zlib, with the receiver that hangs up), and the planted
     faults (``dev``: the card by default; a rehearsal on the CPU passes
     the CPU)."""
-    runs = {"raw": wire_run(work, card, "raw", "none", hang_up_check=False),
-            "zlib": wire_run(work, card, "zlib", "zlib", hang_up_check=True)}
+    # Both sources start together, so their process starts overlap, and
+    # wait parked at their first step until their run comes.
+    sources = wire_sources(work, (("raw", "none"), ("zlib", "zlib")))
+    try:
+        runs = {"raw": wire_run(work, card, "raw", "none",
+                                hang_up_check=False, source=sources["raw"]),
+                "zlib": wire_run(work, card, "zlib", "zlib",
+                                 hang_up_check=True, source=sources["zlib"])}
+    finally:
+        for src, _client, _env in sources.values():
+            src.kill()
     runs["flip"] = planted_flip(torch, work, card,
                                 dev if dev is not None else torch.device("cuda", 0))
     runs["launches"] = {n: runs["raw"]["launches"][n]

@@ -16,6 +16,16 @@ migration wire's source half (``wire``), the codec stage and its
 container format (``codec``), and a crc32c verifier (``checksum``) for
 the JAX package's native-plane chunks — and the observability and fault
 seams: the fault registry (``faults``), the flight recorder, trace spans,
-metrics, the workload's ``/metrics`` server and log correlation
-(``obs``), each with the reference's names and file formats.
+metrics, the workload's metrics and debug server, log correlation, the
+live progress tracker, the periodic sampler and the phase profiler
+(``obs``), the build stamp (``version``) and the restored process's
+prefetch (``prefetch``, which opens the flight log's restart window
+before ``import torch``), each with the reference's names and file
+formats.
+
+This file imports nothing: ``python -m grit_tpu_torch.workload`` runs it
+before the workload's prefetch, which must come before ``import torch``.
 """
+
+__version__ = "0.1.0"
+

@@ -190,8 +190,28 @@ FLIGHT_CLOCK = Knob(
 WORKLOAD_METRICS_PORT = Knob(
     "GRIT_WORKLOAD_METRICS_PORT", "0",
     "Opt-in workload-side /metrics server: when set, the workload process "
-    "(the agentlet's start) serves its own registry. 0 (default) serves "
-    "nothing.")
+    "(the agentlet's start, the restored process's prefetch) serves its own "
+    "registry and starts the sampler. 0 (default) serves nothing.")
+PROF_HZ = Knob(
+    "GRIT_PROF_HZ", "25.0",
+    "Sampling rate of the phase-scoped profiler (grit_tpu_torch.obs.profile): "
+    "while a flight-recorded phase bracket is open, all threads are sampled "
+    "at this rate and each sample is classified python/native/syscall/lock/"
+    "idle; collapsed stacks land next to the flight log as "
+    ".grit-prof-<phase>-p<pid>.folded. 0 disables sampling entirely.")
+PROF_MAX_STACKS = Knob(
+    "GRIT_PROF_MAX_STACKS", "512",
+    "Unique-stack cardinality cap per profiled phase: beyond it, new stacks "
+    "fold into one [overflow] bucket.")
+OBS_SAMPLE_S = Knob(
+    "GRIT_OBS_SAMPLE_S", "5.0",
+    "Period of the observability sampler thread (grit_tpu_torch.obs.sampler): "
+    "refreshes the codec queue depth, the resource ledger and the live "
+    "migration progress gauges between events.")
+TPU_GIT_SHA = Knob(
+    "GRIT_TPU_GIT_SHA", "",
+    "Build-time git sha override for the /version stamp (container images "
+    "have no .git).")
 FAULT_POINTS = Knob(
     "GRIT_FAULT_POINTS", "",
     "Fault-injection spec <point>:<mode>[:<arg>][:xN][,...] — see "

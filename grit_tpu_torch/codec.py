@@ -19,7 +19,10 @@ mirror the other wrote.
   decode (:func:`decompress_block`).
 - The bounded worker pool (``GRIT_CODEC_WORKERS``) compresses blocks in
   parallel: zlib releases the GIL. A submission carries the caller's
-  trace context into the worker (:func:`pool_submit`).
+  trace context into the worker (:func:`pool_submit`). The sampler and
+  the resource ledger read its backlog and saturation
+  (:func:`queue_depth`, :func:`active_jobs`, :func:`pool_saturation`,
+  :func:`sample_queue_depth`), which never creates the pool.
 - The reference's seams: the ``codec.compress`` and ``codec.decompress``
   fault points (an injected raise travels as :class:`CodecError`) and the
   ``CODEC_BYTES``, ``CODEC_SECONDS`` and ``CODEC_QUEUE_DEPTH`` metrics.
@@ -251,6 +254,11 @@ def decompress_block(codec: str, payload, raw_n: int,
 _pool_lock = threading.Lock()
 _pool: ThreadPoolExecutor | None = None
 _pool_workers = 0
+# Jobs a worker has picked up and not finished: with the queue depth,
+# the pool's saturation (the resource ledger's "is the codec the
+# bottleneck" number).
+_active_lock = threading.Lock()
+_active_jobs = 0
 
 
 def workers() -> int:
@@ -277,12 +285,68 @@ def shared_pool() -> ThreadPoolExecutor:
         return _pool
 
 
+def queue_depth() -> int | None:
+    """Jobs queued, not yet picked up, in the shared pool; None when no
+    pool exists (a read never creates one)."""
+    with _pool_lock:
+        pool = _pool
+    if pool is None:
+        return None
+    try:
+        return pool._work_queue.qsize()
+    except AttributeError:  # executor internals changed
+        return None
+
+
+def active_jobs() -> int:
+    """Jobs submitted through :func:`pool_submit` that a worker is
+    running now."""
+    with _active_lock:
+        return _active_jobs
+
+
+def pool_saturation() -> float | None:
+    """(running + queued jobs) / the pool's workers, or None when no pool
+    exists: 0 idle, 1 every worker busy, above 1 a backlog behind them
+    (the codec, not the transport, paces the data path)."""
+    with _pool_lock:
+        pool, nworkers = _pool, _pool_workers
+    if pool is None:
+        return None
+    try:
+        queued = pool._work_queue.qsize()
+    except AttributeError:  # executor internals changed
+        queued = 0
+    return (active_jobs() + queued) / max(1, nworkers)
+
+
+def sample_queue_depth() -> None:
+    """The sampler's refresh of ``CODEC_QUEUE_DEPTH`` from the live queue
+    (the write at submission goes stale as the workers drain it)."""
+    depth = queue_depth()
+    if depth is not None:
+        CODEC_QUEUE_DEPTH.set(depth)
+
+
 def pool_submit(fn, *args, **kwargs):
     """Submit ``fn`` to the shared pool, bound to the submitting thread's
-    trace context (spans inside the worker join the caller's trace), and
-    sample the pool's backlog into ``CODEC_QUEUE_DEPTH``."""
+    trace context (spans inside the worker join the caller's trace) and
+    counted in :func:`active_jobs` while it runs, and sample the pool's
+    backlog into ``CODEC_QUEUE_DEPTH``."""
     pool = shared_pool()
-    fut = pool.submit(trace.wrap_parented(fn), *args, **kwargs)
+    wrapped = trace.wrap_parented(fn)
+
+    def _counted(*a, **k):
+        global _active_jobs
+        with _active_lock:
+            _active_jobs += 1
+        try:
+            return wrapped(*a, **k)
+        finally:
+            with _active_lock:
+                _active_jobs -= 1
+
+    fut = pool.submit(_counted, *args, **kwargs)
     try:
         CODEC_QUEUE_DEPTH.set(pool._work_queue.qsize())
     except AttributeError:  # executor internals changed: the gauge is optional

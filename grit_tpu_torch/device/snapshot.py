@@ -124,13 +124,18 @@ pass, which brackets ``snap.speculative.start``), ``codec.wait``,
 ``snapshot.write`` (or ``snapshot.write.speculative``),
 ``snapshot.mirror``, ``snapshot.restore`` and ``restore_pipeline``, with
 the trace context carried into the mirror's writer, the codec pool, the
-restore's readers and the post-copy tail; the ``SNAPSHOT_*``,
+restore's readers and the post-copy tail; the live progress
+(:mod:`~grit_tpu_torch.obs.progress`): the mirror's drained raw bytes on
+the ``source`` tracker (stream ``mirror``, only with no wire, whose sender
+counts the same bytes), and the place loop's and the post-copy tail's
+placed bytes on the ``workload`` tracker (stream ``place``, its total
+accumulated over the hot set and the tail); the ``SNAPSHOT_*``,
 ``SNAP_SPECULATIVE_SECONDS``, ``RESTORE_*``, ``PLACE_CHUNK_SECONDS``,
 ``CODEC_*`` and ``CODEC_WAIT_SECONDS`` metrics.
 
 Not in this package: the reference's native drain and native container
 read (``libgritio``), and so the ``io.drain``/``io.place`` fault points and
-events of that plane, and its progress tracker.
+events of that plane.
 """
 
 from __future__ import annotations
@@ -167,7 +172,7 @@ from grit_tpu_torch.metadata import (
     chunk_stream_signature,
     crc32_file,
 )
-from grit_tpu_torch.obs import flight, trace
+from grit_tpu_torch.obs import flight, progress, trace
 from grit_tpu_torch.obs.metrics import (
     CODEC_RATIO,
     CODEC_WAIT_SECONDS,
@@ -737,6 +742,7 @@ class _MirrorWriter:
                                len(payload), crc_raw)
         self.raw_written += raw_n
         self.comp_written += len(payload)
+        self._note_progress(raw_n)
         done = lease.tick if lease is not None else None
         if self._wire is None:
             if done is not None:
@@ -746,6 +752,14 @@ class _MirrorWriter:
         else:
             self._wire.put_record(used, payload, raw_off, raw_n, crc_raw,
                                   done=done)
+
+    def _note_progress(self, raw_n: int) -> None:
+        """Count drained raw bytes toward the source leg's progress, only
+        for the file tee (``wire`` None): with a wire, its sender counts
+        the same bytes as they reach the sockets, and counting both would
+        push the shipped bytes past the total."""
+        if self._wire is None and self._path is not None:
+            progress.add_bytes(progress.ROLE_SOURCE, raw_n, stream="mirror")
 
     def put(self, buf: np.ndarray, *, borrowed: bool = False) -> None:
         """Queue ``buf``, which the caller does not write again; a
@@ -2245,6 +2259,9 @@ class PostcopyRestore:
                       and self._device.type == "cuda" else None)
             pending = list(range(len(self._cold)))
             placed_bytes = 0
+            place_tracker = _place_tracker(self.directory)
+            place_tracker.add_total(sum(
+                c["nbytes"] for i in self._cold for c in self._recs[i]["chunks"]))
             for order in range(len(pending)):
                 j = self._pick_ready(pending)
                 # The tail's first touch of an array: an armed raise is a
@@ -2255,8 +2272,10 @@ class PostcopyRestore:
                                   monitor=self._monitor, order=order)
                 leaf = placer.place(j, got, stream=stream)
                 pending.remove(j)
-                placed_bytes += sum(c["nbytes"]
-                                    for c in self._recs[self._cold[j]]["chunks"])
+                chunk_bytes = sum(c["nbytes"]
+                                  for c in self._recs[self._cold[j]]["chunks"])
+                placed_bytes += chunk_bytes
+                place_tracker.add_bytes(chunk_bytes, stream="place")
                 with self._cond:
                     self._results[self._cold[j]] = leaf
                     self._cond.notify_all()
@@ -2517,6 +2536,16 @@ class _Placer:
             self.pool.abort()
 
 
+def _place_tracker(directory: str) -> progress.ProgressTracker:
+    """The ``workload`` progress tracker of a restore from ``directory``
+    (the reference's key: the directory's absolute path), in its
+    ``place`` phase."""
+    tracker = progress.ensure(progress.ROLE_WORKLOAD,
+                              uid=os.path.abspath(directory))
+    tracker.set_phase("place")
+    return tracker
+
+
 def _restore_workers() -> int:
     """Reader threads of the restore: ``GRIT_TPU_RESTORE_WORKERS`` when
     set (negative clamps to 0, serial), else one per spare core up to
@@ -2553,6 +2582,14 @@ def _restore_leaves(directory: str, placer: _Placer, *, verify: bool,
 
     n = len(placer.recs)
     placed_bytes = 0
+    # The place loop runs in the workload process: its own tracker makes
+    # the waterline scrapeable from the workload's /metrics. Keyed by the
+    # snapshot directory (another restore in this process starts from
+    # zero); the total accumulates, since post-copy places the hot set and
+    # the tail in separate calls, each knowing only its own arrays.
+    place_tracker = _place_tracker(directory)
+    place_tracker.add_total(sum(c["nbytes"] for rec in placer.recs
+                                for c in rec["chunks"]))
 
     def timed_place(i: int, got):
         nonlocal placed_bytes
@@ -2564,7 +2601,9 @@ def _restore_leaves(directory: str, placer: _Placer, *, verify: bool,
             legs["place"] += dt
             PLACE_CHUNK_SECONDS.observe(dt)
         # The place waterline: bytes resident on the device so far.
-        placed_bytes += sum(c["nbytes"] for c in placer.recs[i]["chunks"])
+        chunk_bytes = sum(c["nbytes"] for c in placer.recs[i]["chunks"])
+        placed_bytes += chunk_bytes
+        place_tracker.add_bytes(chunk_bytes, stream="place")
         flight.emit_near(directory, "place.waterline", array=i + 1,
                          arrays=n, bytes=placed_bytes)
         return out

@@ -86,3 +86,14 @@ def manifest_data_file_signature(manifest: dict, filename: str) -> int:
 # migration path, in the agent work/stage dir. Node-local: never shipped
 # with the checkpoint.
 FLIGHT_LOG_FILE = ".grit-flight.jsonl"
+
+# Per-migration live-progress snapshot (grit_tpu_torch.obs.progress): one
+# JSON object, atomically replaced on the sampler's cadence, next to the
+# flight log. Node-local like the flight log: never shipped.
+PROGRESS_FILE = ".grit-progress.json"
+
+# Per-phase profiler artifacts (grit_tpu_torch.obs.profile): the collapsed
+# stacks of one flight-bracketed phase, written as
+# ``.grit-prof-<phase>-p<pid>.folded`` next to the flight log when the
+# phase closes. Node-local like the flight log: never shipped.
+PROF_FILE_PREFIX = ".grit-prof-"

@@ -1,3 +1,4 @@
 """Observability of a port workload: the flight recorder, trace spans,
-the metrics registry and the workload's ``/metrics`` server, and log
-correlation (counterparts of ``grit_tpu/obs``)."""
+the metrics registry and the workload's metrics and debug server, log
+correlation, the live progress tracker, the periodic sampler and the
+phase profiler (counterparts of ``grit_tpu/obs``)."""

@@ -24,8 +24,9 @@ phases:
 process's place loop) is not gated on it: it walks up from a directory to
 the log the agent created there, so a workload whose environment predates
 the migration still joins it, and a directory with no such log is left
-untouched. The reference's phase profiler, armed by these events, is not
-part of the port.
+untouched. Every recorded event also goes to the phase profiler
+(:func:`~grit_tpu_torch.obs.profile.on_flight_event`), which arms and
+disarms on the phase brackets it names.
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ from typing import Any
 
 from grit_tpu_torch.api import config
 from grit_tpu_torch.metadata import FLIGHT_LOG_FILE
+from grit_tpu_torch.obs import profile
 from grit_tpu_torch.obs.metrics import FLIGHT_EVENTS
 
 log = logging.getLogger(__name__)
@@ -358,6 +360,9 @@ def emit(event: str, dir: str | None = None, **fields: object) -> None:  # noqa:
     family = event.split(".", 1)[0]
     FLIGHT_EVENTS.inc(phase=family)
     rec.write(event, event not in _NO_FSYNC, fields)
+    # Phase brackets arm/disarm the phase profiler (a dict miss for every
+    # other event; it guards itself and never raises).
+    profile.on_flight_event(rec, event)
 
 
 def emit_near(dir_path: str, event: str, **fields: object) -> None:
@@ -400,6 +405,7 @@ def emit_on(rec: Recorder, event: str, **fields: object) -> None:
     family = event.split(".", 1)[0]
     FLIGHT_EVENTS.inc(phase=family)
     rec.write(event, event not in _NO_FSYNC, fields)
+    profile.on_flight_event(rec, event)
 
 
 def _resolve(dir_path: str | None) -> Recorder | None:

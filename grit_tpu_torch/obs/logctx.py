@@ -6,8 +6,10 @@ the configured one, or the log the last :func:`~grit_tpu_torch.obs.flight.emit_n
 found) onto every record, whichever logger made it, and a formatter
 wrapper appends ``[uid=... role=...]`` to a rendered line when a
 migration context exists, so a workload's log lines join the gritscope
-timeline with one grep. The agentlet's start installs it
-(:func:`install_log_correlation` is idempotent and never raises).
+timeline with one grep. The agentlet's start and the restored process's
+prefetch install it (:func:`install_log_correlation` is idempotent and
+never raises); :class:`MigrationLogFilter` stamps the same attributes from
+a handler.
 """
 
 from __future__ import annotations
@@ -30,6 +32,18 @@ def _context() -> tuple[str, str]:
     if rec is None:
         return "", ""
     return rec.uid, rec.role
+
+
+class MigrationLogFilter(logging.Filter):
+    """Stamps ``grit_uid``/``grit_role`` and always passes the record:
+    attach it to a handler where the record-factory route is not
+    available (tests, logging trees a user's workload manages)."""
+
+    def filter(self, record: logging.LogRecord) -> bool:
+        uid, role = _context()
+        record.grit_uid = uid
+        record.grit_role = role
+        return True
 
 
 class CorrelationFormatter(logging.Formatter):

@@ -1,12 +1,20 @@
-"""The workload's ``/metrics`` server.
+"""The workload's metrics and debug HTTP server.
 
-Counterpart of the workload side of ``grit_tpu/obs/server.py``: a port
-workload serves its own registry (:data:`grit_tpu_torch.obs.metrics.REGISTRY`)
-when ``GRIT_WORKLOAD_METRICS_PORT`` is set, so the dump's, the place
-loop's and the codec's metrics are scrapeable during the blackout, when
-only this process has them, on ``/metrics`` (prometheus text). The
-reference's debug and manager endpoints (thread stacks, CPU profile,
-version) and its periodic sampler are not ported.
+Counterpart of ``grit_tpu/obs/server.py``: a port workload serves its own
+registry (:data:`grit_tpu_torch.obs.metrics.REGISTRY`) when
+``GRIT_WORKLOAD_METRICS_PORT`` is set, so the dump's, the place loop's,
+the codec's and the progress tracker's metrics are scrapeable during the
+blackout, when only this process has them. Endpoints, the reference's:
+
+- ``/metrics`` — prometheus text exposition of the registry
+- ``/debug/threadz`` — every thread's stack
+- ``/debug/pprof/profile?seconds=N`` — a sampled CPU profile in
+  collapsed-stack format (only when ``profiling=True``)
+- ``/version`` — the build stamp (:mod:`grit_tpu_torch.version`)
+
+The workload's server starts the periodic sampler beside it
+(:mod:`grit_tpu_torch.obs.sampler`), so the progress and codec gauges
+stay fresh between events.
 """
 
 from __future__ import annotations
@@ -14,36 +22,66 @@ from __future__ import annotations
 import logging
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from urllib.parse import urlparse
+from urllib.parse import parse_qs, urlparse
 
 from grit_tpu_torch.api import config
-from grit_tpu_torch.obs.metrics import REGISTRY
+from grit_tpu_torch.obs.metrics import REGISTRY, Registry, render_threadz
 
 log = logging.getLogger(__name__)
 
 
-class _Handler(BaseHTTPRequestHandler):
-    def do_GET(self) -> None:  # noqa: N802 - http.server API
-        if urlparse(self.path).path != "/metrics":
-            self.send_response(404)
+def start_metrics_server(
+    port: int, host: str = "0.0.0.0", registry: Registry | None = None,
+    *, profiling: bool = False,
+) -> ThreadingHTTPServer:
+    """Serve the endpoints above on ``host:port`` from a daemon thread.
+    Returns the server (``.server_address[1]`` is the bound port when
+    ``port`` is 0; ``.shutdown()`` stops it)."""
+    reg = registry or REGISTRY
+
+    class Handler(BaseHTTPRequestHandler):
+        def _text(self, code: int, body: str,
+                  content_type: str = "text/plain") -> None:
+            data = body.encode()
+            self.send_response(code)
+            self.send_header("Content-Type", content_type)
+            self.send_header("Content-Length", str(len(data)))
             self.end_headers()
+            self.wfile.write(data)
+
+        def do_GET(self) -> None:  # noqa: N802 - http.server API
+            url = urlparse(self.path)
+            if url.path == "/metrics":
+                self._text(200, reg.render(),
+                           "text/plain; version=0.0.4; charset=utf-8")
+            elif url.path == "/debug/threadz":
+                self._text(200, render_threadz())
+            elif url.path == "/debug/pprof/profile" and profiling:
+                from grit_tpu_torch.obs.profile import (  # noqa: PLC0415
+                    sample_profile,
+                )
+
+                try:
+                    seconds = float(
+                        (parse_qs(url.query).get("seconds") or ["5"])[0])
+                except ValueError:
+                    self._text(400, "bad seconds\n")
+                    return
+                self._text(200, sample_profile(seconds))
+            elif url.path == "/version":
+                from grit_tpu_torch.version import (  # noqa: PLC0415
+                    version_string,
+                )
+
+                self._text(200, version_string() + "\n")
+            else:
+                self.send_response(404)
+                self.end_headers()
+
+        def log_message(self, *args: object) -> None:  # quiet
             return
-        data = REGISTRY.render().encode()
-        self.send_response(200)
-        self.send_header("Content-Type",
-                         "text/plain; version=0.0.4; charset=utf-8")
-        self.send_header("Content-Length", str(len(data)))
-        self.end_headers()
-        self.wfile.write(data)
 
-    def log_message(self, *args: object) -> None:  # quiet
-        return
-
-
-def start_metrics_server(port: int) -> ThreadingHTTPServer:
-    """Serve ``/metrics`` on every interface's ``port`` from a daemon
-    thread. Returns the server (``.shutdown()`` stops it)."""
-    srv = ThreadingHTTPServer(("0.0.0.0", port), _Handler)
+    srv = ThreadingHTTPServer((host, port), Handler)
     threading.Thread(target=srv.serve_forever, name="grit-metrics",
                      daemon=True).start()
     return srv
@@ -54,10 +92,10 @@ _workload_srv: ThreadingHTTPServer | None = None
 
 
 def start_workload_metrics_server() -> ThreadingHTTPServer | None:
-    """The workload's ``/metrics`` on ``GRIT_WORKLOAD_METRICS_PORT``: one
-    server a process (a second call returns the first), nothing at port
-    0 (the default), and never a raise — a busy port logs and the
-    metrics stay process-local."""
+    """The workload's server on ``GRIT_WORKLOAD_METRICS_PORT``, and the
+    sampler beside it: one server a process (a second call returns the
+    first), nothing at port 0 (the default), and never a raise — a busy
+    port logs and the metrics stay process-local."""
     global _workload_srv
     port = config.WORKLOAD_METRICS_PORT.get_int()
     if port <= 0:
@@ -71,4 +109,7 @@ def start_workload_metrics_server() -> ThreadingHTTPServer | None:
             log.warning("workload metrics server on port %d failed: %s "
                         "(metrics stay process-local)", port, exc)
             return None
-        return _workload_srv
+    from grit_tpu_torch.obs import sampler  # noqa: PLC0415
+
+    sampler.start()
+    return _workload_srv

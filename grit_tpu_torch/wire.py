@@ -24,7 +24,9 @@ its ``ok``, never fails the dump.
 The sender carries the reference's seams: the ``wire.send`` fault point at
 every frame (an injected raise travels as :class:`WireError`, so the tee
 takes the path a dead wire takes), the ``wire.open`` and ``wire.close``
-flight events, the ``wire_stream`` span, and ``WIRE_BYTES``,
+flight events, the ``wire_stream`` span, the source leg's live progress
+(each frame's raw bytes once on its socket, stream ``wire-<k>``), and
+``WIRE_BYTES``,
 ``WIRE_SECONDS``, ``WIRE_STALL_SECONDS`` (one observation a stall episode)
 and ``WIRE_FRAME_SEND_SECONDS`` (one a frame).
 
@@ -47,7 +49,7 @@ import zlib
 from grit_tpu_torch import faults
 from grit_tpu_torch.api import config
 from grit_tpu_torch.codec import CODEC_NONE
-from grit_tpu_torch.obs import flight, trace
+from grit_tpu_torch.obs import flight, progress, trace
 from grit_tpu_torch.obs.metrics import (
     WIRE_BYTES,
     WIRE_FRAME_SEND_SECONDS,
@@ -167,7 +169,7 @@ class WireSender:
             if frame is None:
                 q.task_done()
                 return
-            header, payload, done = frame
+            header, payload, raw_n, done = frame
             try:
                 if self._dead is None:
                     t0 = time.monotonic()
@@ -181,6 +183,11 @@ class WireSender:
                         self._send_s += frame_s
                         self._sent_bytes += len(header) + len(payload)
                     WIRE_FRAME_SEND_SECONDS.observe(frame_s)
+                    # Raw bytes count toward the source leg's progress,
+                    # per stream: the total is raw, so a zlib session
+                    # must not read as short of it.
+                    progress.add_bytes(progress.ROLE_SOURCE, raw_n,
+                                       stream=f"wire-{k}")
                 # A dead sender drains its queue so producers never block.
             except OSError as exc:
                 self._dead = self._dead or f"{type(exc).__name__}: {exc}"
@@ -202,12 +209,13 @@ class WireSender:
     def stall_s(self) -> float:
         return self._stall_s
 
-    def _enqueue(self, header: dict, payload=b"", done=None) -> None:
+    def _enqueue(self, header: dict, payload=b"", done=None,
+                 raw_n: int = 0) -> None:
         faults.fault_point("wire.send", wrap=WireError)
         if self._dead is not None:
             raise WireError(f"wire send failed: {self._dead}")
         raw = json.dumps(header, separators=(",", ":")).encode()
-        frame = (struct.pack(">I", len(raw)) + raw, payload, done)
+        frame = (struct.pack(">I", len(raw)) + raw, payload, raw_n, done)
         with self._lock:
             q = self._queues[self._rr % len(self._queues)]
             self._rr += 1
@@ -241,7 +249,7 @@ class WireSender:
         when this raises: the frame was never queued."""
         self._enqueue({"t": "chunk", "rel": rel, "off": offset,
                        "n": len(data), "crc": zlib.crc32(data) & 0xFFFFFFFF},
-                      data, done)
+                      data, done, raw_n=len(data))
 
     def send_record(self, rel: str, raw_off: int, payload, codec_name: str,
                     raw_n: int, crc_raw: int, done=None) -> None:
@@ -253,7 +261,7 @@ class WireSender:
         if codec_name != CODEC_NONE:
             header["c"] = codec_name
             header["rn"] = raw_n
-        self._enqueue(header, payload, done)
+        self._enqueue(header, payload, done, raw_n=raw_n)
 
     def eof(self, rel: str, total: int) -> None:
         """Terminate the dump-fed stream of ``rel`` at ``total`` raw bytes."""

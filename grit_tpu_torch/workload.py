@@ -13,11 +13,15 @@ with ``--model mnist``, the harness's MNIST trainer (``grit_tpu/harness.py``
 ``WORKLOAD``: hidden 16, batch 16, Adam). ``--remat`` turns on llama's
 per-layer rematerialization for the llama-based models. It builds a
 :class:`~grit_tpu_torch.train.trainer.Trainer`; when the shim injected
-``GRIT_TPU_RESTORE_DIR``, it restores (printing ``RESTORE_BEGIN`` just
-before the restore, then ``RESTORED <step>``, ``RESTORE_SECONDS <s>``,
-``RESTORE_PIPELINE <json>`` with the restore's legs and ``seeded``, the
-kernel libraries seeded from the snapshot, and ``INIT_SECONDS <s>``, the
-set-up before the restore). With ``GRIT_RESTORE_POSTCOPY=1`` the restore
+``GRIT_TPU_RESTORE_DIR``, it first, run as a program and before it
+imports torch, starts
+:func:`~grit_tpu_torch.prefetch.start_restore_prefetch` (the flight log's
+``restart.start``, the workload's ``/metrics`` and its sampler, the
+snapshot's files warmed on a thread), then restores (printing
+``RESTORE_BEGIN`` just before the restore, then ``RESTORED <step>``,
+``RESTORE_SECONDS <s>``, ``RESTORE_PIPELINE <json>`` with the restore's
+legs and ``seeded``, the kernel libraries seeded from the snapshot, and
+``INIT_SECONDS <s>``, the set-up before the restore). With ``GRIT_RESTORE_POSTCOPY=1`` the restore
 places only the hot set (``RESTORE_SECONDS`` is its time, and
 ``RESTORE_PIPELINE`` carries ``"postcopy": true`` and ``hot_s``), ``READY``
 follows it, the first step joins the cold tail, and
@@ -54,8 +58,9 @@ hooks of a gang (``GRIT_SLICE_HOSTS``) cut every rank at one step; each
 hook's dump is its rank's own leg. Every rank prints ``PID <rank>
 <pid>`` before ``READY``; rank 0 alone prints the lines above. A
 ``GRIT_TPU_RESTORE_DIR`` holding ``{rank}`` names each rank's leg (its
-rank substituted: the same mesh); otherwise every rank restores the one
-snapshot there (any layout: a ``Trainer.snapshot``, or
+rank substituted: the same mesh; the parent's prefetch finds no such
+directory and the spawned ranks run none); otherwise every rank restores
+the one snapshot there (any layout: a ``Trainer.snapshot``, or
 :func:`~grit_tpu_torch.device.snapshot.merge_legs` of a gang's legs)::
 
     N_STEPS=8 python -m grit_tpu_torch.workload --config tiny \\
@@ -74,7 +79,15 @@ import tempfile
 import time
 from dataclasses import replace
 
-import torch
+if __name__ == "__main__":
+    # The restored process's first statement: open the flight log's
+    # restart window, start /metrics and warm the snapshot's files while
+    # torch imports (the module and its imports are stdlib-only).
+    from grit_tpu_torch.prefetch import start_restore_prefetch
+
+    start_restore_prefetch()
+
+import torch  # noqa: E402
 
 from grit_tpu_torch.device.placement import resolve_device
 from grit_tpu_torch.models import llama, lora, mnist, moe_llama

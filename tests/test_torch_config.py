@@ -87,6 +87,17 @@ def test_obs_and_fault_knobs_are_declared(name, monkeypatch):
     assert getattr(knob, READ[want.type])() == want.get()
 
 
+@pytest.mark.parametrize("name", ["GRIT_PROF_HZ", "GRIT_PROF_MAX_STACKS",
+                                  "GRIT_OBS_SAMPLE_S", "GRIT_TPU_GIT_SHA"])
+def test_profiler_sampler_and_version_knobs_are_declared(name, monkeypatch):
+    """The knobs the phase profiler, the sampler and the ``/version`` stamp
+    read are the port's own, with the reference's names and defaults."""
+    monkeypatch.delenv(name, raising=False)
+    knob = next(k for k in KNOBS if k.name == name)
+    want = ref.REGISTRY[name]
+    assert getattr(knob, READ[want.type])() == want.get()
+
+
 def test_flight_log_name_is_the_reference_metadata():
     from grit_tpu import metadata as ref_metadata
     from grit_tpu_torch import metadata

@@ -349,6 +349,47 @@ def test_port_wire_migration_zero_orphan_spans(tmp_path, monkeypatch):
     assert report.get("trace_spans")
 
 
+# -- the phase profiler rides the recorder --------------------------------------
+
+
+@pytest.mark.parametrize("via", ["emit", "emit_near", "no-log"])
+def test_brackets_arm_the_phase_profiler(via, tmp_path):
+    """``emit`` and ``emit_on`` (through ``emit_near``) hand every recorded
+    event to the phase profiler: a bracket arms it and its end writes the
+    folded file beside the log; a directory with no log records nothing
+    and arms nothing."""
+    from grit_tpu_torch.obs import profile
+
+    profile.reset()
+    d = str(tmp_path / "ck")
+    nested = os.path.join(d, "main", "hbm")
+    os.makedirs(nested)
+    if via == "emit":
+        flight.configure(d, "source")
+
+        def emit(ev, **fields):
+            flight.emit(ev, **fields)
+    else:
+        if via == "emit_near":
+            ref_flight.configure(d, "node")  # the agent's log
+            ref_flight.reset()
+
+        def emit(ev, **fields):
+            flight.emit_near(nested, ev, **fields)
+    try:
+        emit("place.start", arrays=1)
+        armed = [] if via == "no-log" else ["place"]
+        assert profile.default_profiler().armed_phases() == armed
+        emit("place.waterline", array=1, arrays=1, bytes=4)
+        assert profile.default_profiler().armed_phases() == armed
+        emit("place.end", arrays=1, bytes=4, ok=True)
+        assert profile.default_profiler().armed_phases() == []
+        path = os.path.join(d, profile.prof_file_name("place"))
+        assert os.path.isfile(path) == (via != "no-log")
+    finally:
+        profile.reset()
+
+
 # -- every emit site of the port names a registered event ------------------------
 
 

@@ -1,15 +1,18 @@
 """The port's metrics (``grit_tpu_torch.obs.metrics``), its workload
-``/metrics`` server and log correlation, held to the reference's: each
-shared metric's name, type, help, label names and buckets, the text
+metrics and debug server and log correlation, held to the reference's:
+each shared metric's name, type, help, label names and buckets, the text
 exposition, the codec's byte accounting on the same blocks, the snapshot's
 and the wire's counters against what they moved, speculation's outcome
-counters, and nothing at all (no flight file, trace file or server) when
-no knob asks for it."""
+counters, the debug endpoints (twins of ``tests/test_obs.py``'s
+``TestProfilingEndpoints``), and nothing at all (no flight, trace,
+progress or profiler file, no server, sampler or profiler thread) when no
+knob asks for it."""
 
 from __future__ import annotations
 
 import logging
 import os
+import re
 import threading
 import urllib.request
 
@@ -34,7 +37,11 @@ def test_the_port_shares_the_issue_list_of_metrics():
         "CODEC_QUEUE_DEPTH", "CODEC_RATIO", "CODEC_WAIT_SECONDS", "WIRE_BYTES",
         "WIRE_SECONDS", "WIRE_STALL_SECONDS", "WIRE_FRAME_SEND_SECONDS",
         "SERVE_DRAIN_SECONDS", "SERVE_DRAINED_SLOTS", "SERVE_CLONES",
-        "SLICE_BARRIER_SECONDS", "FLIGHT_EVENTS"])
+        "SLICE_BARRIER_SECONDS", "FLIGHT_EVENTS",
+        "PROGRESS_BYTES_SHIPPED", "PROGRESS_TOTAL_BYTES", "PROGRESS_RATE_BPS",
+        "PROGRESS_ETA_SECONDS", "PROF_CPU_SECONDS", "PROF_IO_BYTES",
+        "PROF_RSS_BYTES", "PROF_CTX_SWITCHES", "PROF_CODEC_POOL_SATURATION",
+        "PROF_SAMPLE_TICKS", "PROF_TICK_SECONDS"])
 
 
 @pytest.mark.parametrize("name", SHARED)
@@ -177,12 +184,16 @@ def test_a_validated_round_accounts_its_bytes(tmp_path, monkeypatch):
 
 @pytest.fixture
 def no_workload_server():
+    from grit_tpu_torch.obs import sampler
+
     server._workload_srv = None
+    sampler.reset()
     yield
     if server._workload_srv is not None:
         server._workload_srv.shutdown()
         server._workload_srv.server_close()
     server._workload_srv = None
+    sampler.reset()
 
 
 def _free_port() -> int:
@@ -254,17 +265,24 @@ def test_log_correlation_stamps_uid_and_role(tmp_path, monkeypatch):
 
 
 def test_no_knob_no_file_no_server(tmp_path, monkeypatch, no_workload_server):
-    """With no obs knob set, a dump (mirror and all) and a restore through
-    an agentlet write no flight or trace file and start no server."""
+    """With no obs knob set and no flight log an agent created, a dump
+    (mirror and all) and a restore through an agentlet write no flight,
+    trace, progress or profiler file and start no server, sampler or
+    profiler thread."""
     from grit_tpu_torch.device.agentlet import Agentlet
     from grit_tpu_torch.device.snapshot import restore_snapshot, write_snapshot
-    from grit_tpu_torch.obs import flight, trace
+    from grit_tpu_torch.obs import flight, profile, sampler, trace
 
     for knob in ("GRIT_FLIGHT", "GRIT_FLIGHT_DIR", "GRIT_TPU_TRACE_FILE",
-                 "GRIT_WORKLOAD_METRICS_PORT"):
+                 "GRIT_WORKLOAD_METRICS_PORT", "GRIT_PROF_HZ",
+                 "GRIT_OBS_SAMPLE_S"):
         monkeypatch.delenv(knob, raising=False)
     flight.reset()
+    profile.reset()
     trace.close_export()
+    obs_threads = ("grit-metrics", "grit-obs-sampler", "grit-prof-sampler")
+    before = {t.ident for t in threading.enumerate()
+              if t.name in obs_threads}
     root = tmp_path / "ck"
     flight.configure(str(root), "node")  # a no-op without GRIT_FLIGHT
     with Agentlet(lambda: {}, path=str(tmp_path / "a.sock")):
@@ -272,8 +290,98 @@ def test_no_knob_no_file_no_server(tmp_path, monkeypatch, no_workload_server):
                            mirror=str(root / "mirror"))
         restore_snapshot(d, like={"w": torch.zeros(64)})
         assert server._workload_srv is None
-        assert not any(t.name == "grit-metrics"
-                       for t in threading.enumerate())
-    found = [os.path.join(dp, f) for dp, _, fs in os.walk(tmp_path)
-             for f in fs if f.endswith(".jsonl")]
+        assert [t.name for t in threading.enumerate()
+                if t.name in obs_threads and t.ident not in before] == []
+    assert sampler._sampler is None
+    assert profile._profiler is None or profile._profiler._thread is None
+    found = [f for _dp, _, fs in os.walk(tmp_path) for f in fs
+             if f.endswith(".jsonl") or f.startswith(".grit-prof-")
+             or f == ".grit-progress.json"]
     assert found == []
+
+
+# -- the debug endpoints (twins of tests/test_obs.py's TestProfilingEndpoints) ----
+
+
+def _get(srv, path: str) -> tuple[int, str]:
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", srv.server_address[1],
+                                      timeout=10)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        return resp.status, resp.read().decode()
+    finally:
+        conn.close()
+
+
+def test_pprof_profile_collapsed_stacks():
+    stop = threading.Event()
+
+    def spin():
+        while not stop.is_set():
+            sum(range(1000))
+
+    threading.Thread(target=spin, name="spinner", daemon=True).start()
+    srv = server.start_metrics_server(0, host="127.0.0.1", profiling=True)
+    try:
+        status, body = _get(srv, "/debug/pprof/profile?seconds=0.3")
+        assert status == 200
+        assert body.startswith("# wall-clock samples:")
+        assert "spin" in body
+        assert _get(srv, "/debug/pprof/profile?seconds=x")[0] == 400
+    finally:
+        stop.set()
+        srv.shutdown()
+        srv.server_close()
+
+
+def test_pprof_absent_without_flag():
+    srv = server.start_metrics_server(0, host="127.0.0.1", profiling=False)
+    try:
+        assert _get(srv, "/debug/pprof/profile")[0] == 404
+        assert _get(srv, "/nope")[0] == 404
+    finally:
+        srv.shutdown()
+        srv.server_close()
+
+
+def test_version_endpoint(monkeypatch):
+    from grit_tpu import version as ref_version
+    from grit_tpu_torch import __version__, version
+
+    monkeypatch.setenv("GRIT_TPU_GIT_SHA", "abc1234")
+    srv = server.start_metrics_server(0, host="127.0.0.1")
+    try:
+        status, body = _get(srv, "/version")
+        assert status == 200 and __version__ in body
+        assert body == f"grit-tpu {__version__} (abc1234)\n"
+        assert version.version_string() == ref_version.version_string()
+    finally:
+        srv.shutdown()
+        srv.server_close()
+
+
+def test_threadz_endpoint_is_the_reference_dump():
+    from grit_tpu.obs.metrics import render_threadz as ref_threadz
+
+    srv = server.start_metrics_server(0, host="127.0.0.1")
+    try:
+        status, body = _get(srv, "/debug/threadz")
+        assert status == 200
+        assert "--- thread grit-metrics (daemon=True) ---" in body
+        # One header line a thread, as the reference renders them, and the
+        # calling thread's stack under its own.
+        for text in (metrics.render_threadz(), ref_threadz()):
+            heads = [x for x in text.splitlines()
+                     if x.startswith("--- thread ")]
+            assert "--- thread MainThread (daemon=False) ---" in heads
+            assert all(re.fullmatch(r"--- thread .+ \(daemon=(True|False)\) ---",
+                                    x) for x in heads)
+            main = text.split("--- thread MainThread (daemon=False) ---\n")[1]
+            assert "test_threadz_endpoint_is_the_reference_dump" in \
+                main.split("--- thread ")[0]
+    finally:
+        srv.shutdown()
+        srv.server_close()
