@@ -194,8 +194,14 @@ non-zero without the final result line:
    nothing drops) at B 16 x S 512: logits and cross-entropy gradients of
    each stage against the dense model (for the MoE model microbatch by
    microbatch, as the pipeline routes), every rank's tick time and
-   launches (each stage's layers a tick, bubbles included).
-   ``[pipeline]`` lines.
+   launches (each stage's layers a tick, bubbles included). Then pp × ep
+   in the same launch: the MoE model on a (pipe 2, expert 2) mesh of the
+   four ranks (6 layers a stage, 4 experts a rank,
+   ``moe_llama.forward_pp(mesh=)``), its logits and gradients held to the
+   ``moe`` leg's dense reference, its staged shards dumped by the four
+   ranks into one manifest (``pp_stage_shardings``' descriptors),
+   restored by every rank onto the mesh bitwise and by rank 0 densely,
+   byte for byte. ``[pipeline]`` lines.
 17. gang   — phase 16's dense pipeline at 4 layers (one a stage; 12
    until PR 12) as a training gang: four ranks
    (one stage each, Adam 1e-4, Zipf batches) whose agentlets carry a
@@ -269,6 +275,17 @@ non-zero without the final result line:
    restore launch. Gang blackout, each leg's dump, hot-set and tail
    seconds, launches: ``[gang_mesh]`` lines.
 
+21. mesh8 — one launch of eight ranks sharing the card over
+   ``LOCAL_GLOO``: ``dryrun_multichip(8)``'s three phases
+   (``grit_tpu_torch.entry``: the tiny llama's (2,2,2) step against dense
+   in bf16 and f32, the dp × pp × ep MoE step on (data 2, pipe 2,
+   expert 2) against the same stages in sequence, the ring and Ulysses
+   forwards over the eight ranks), then the flagship at 2 layers on
+   (2,2,2), B 4 x S 2048: two steps within 1e-3 of dense (rank 0), its
+   sharded snapshot restored in the same launch onto (2,2,2) bitwise;
+   each kernel launched 2 times a step on every rank; then ``entry()``
+   in this process on the card, its logits finite. ``[mesh8]`` lines.
+
 The second-to-last lines are the script's wall time, the kernels' JSON
 record (with the serving phase's numbers under ``serving``, phase 8's
 under ``precopy``, phase 9's under ``frozen_trunk``, phase 10's under
@@ -277,9 +294,9 @@ under ``lora_7b``, ``remat`` and ``moe``, and phases 14-16's under
 ``moe_serving``, ``long_context`` and ``pipeline``, phase 17's under
 ``gang`` (phase 20's pipe axis under ``gang.pipe``), phase 18's under
 ``mesh``, phase 19's under ``ep`` (phase 20's grids under
-``ep.grids.*.postcopy``), phase 20's under ``gang_mesh``; each kernel's
-``launches`` sums phases 4, 9, 10, 11, 12, 13, 15, 16, 17, 18, 19 and 20,
-every rank's)
+``ep.grids.*.postcopy``), phase 20's under ``gang_mesh``, phase 21's
+under ``mesh8``; each kernel's ``launches`` sums phases 4, 9, 10, 11, 12,
+13, 15, 16, 17, 18, 19, 20 and 21, every rank's)
 and the card's ``name, power limit``; the last line is the result JSON.
 ``--seed`` seeds the serving phases' and the parallel phases' weights
 and prompts (default 0). The script imports nothing of JAX or of the
@@ -288,6 +305,7 @@ JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import math
@@ -1978,7 +1996,14 @@ def mirror_commit_files(d: str) -> dict:
         return json.loads(f.readline())["files"]
 
 
-def phase_precopy(work: str, card: str) -> dict:
+def precopy_env(work: str) -> tuple[str, dict]:
+    """Phase 8's socket dir (made here) and its workloads' environment."""
+    socks = os.path.join(work, "socks-precopy")
+    os.makedirs(socks, exist_ok=True)
+    return socks, {"GRIT_TPU_SOCKET_DIR": socks, "GRIT_SNAP_SPECULATE": "1"}
+
+
+def phase_precopy(work: str, card: str, source: tuple) -> dict:
     """The reference agent's pre-copy and streamed-stage migration of the
     flagship trainer at :data:`PRECOPY_LAYERS` layers (an uninterrupted
     run at that depth is the reference), driven here as the agent drives
@@ -1989,7 +2014,9 @@ def phase_precopy(work: str, card: str) -> dict:
     and re-ship, mirrored, what changed), a zero-dirty re-dump, the
     mirrors' COMMIT identities, then a destination that restores while
     the three trees' data files still stream in, and a planted
-    ``failed`` journal line it must refuse."""
+    ``failed`` journal line it must refuse. ``source``: its
+    :func:`precopy_source` parked by :func:`park_all` (as
+    :func:`early_sources` parks it)."""
     from grit_tpu_torch.device.agentlet import ToggleClient  # noqa: PLC0415
     from grit_tpu_torch.device.snapshot import (  # noqa: PLC0415
         DATA_FILE, INDEX_FILE, MANIFEST_FILE, SPEC_SUFFIX, SnapshotManifest,
@@ -1998,20 +2025,19 @@ def phase_precopy(work: str, card: str) -> dict:
 
     log("precopy", f"free disk beside the trees "
                    f"{shutil.disk_usage(work).free / 1e9:.1f} GB")
-    socks = os.path.join(work, "socks-precopy")
-    os.makedirs(socks)
+    socks, env = precopy_env(work)
     host, pvc, dst_root = (os.path.join(work, n) for n in ("host", "pvc", "dst"))
     # Speculation on: the blackout's validated re-ship (delta) references
     # its concurrent pass (spec), which deltas against the live pass (base).
     trees = {"base": "main-precopy/hbm", "delta": "main/hbm",
              "spec": "main/hbm" + SPEC_SUFFIX, "redump": "main-redump/hbm"}
     at = {k: os.path.join(host, rel) for k, rel in trees.items()}
-    env = {"GRIT_TPU_SOCKET_DIR": socks, "GRIT_SNAP_SPECULATE": "1"}
     procs: list[Workload] = []
     try:
-        src = Workload(1000, env, args=PRECOPY_ARGS)
+        src, parked = source
         procs.append(src)
-        src.wait_for("READY")
+        parked.resume()
+        parked.close()
         src.wait_for(rf"STEP {PRECOPY_LIVE} ")
         client = ToggleClient(src.proc.pid, path=os.path.join(
             socks, f"grit-tpu-{src.proc.pid}.sock"), timeout=600)
@@ -2323,7 +2349,21 @@ def _chain_names(d: str, base: str) -> tuple[set, set]:
     return since, own
 
 
-def phase_frozen(work: str, card: str, *, train: dict) -> dict:
+def frozen_env(work: str) -> tuple[str, dict, list[str]]:
+    """Phase 9's socket dir (made here), its source's environment and
+    arguments."""
+    from grit_tpu_torch.ops import build  # noqa: PLC0415
+
+    socks = os.path.join(work, "socks-frozen")
+    os.makedirs(socks, exist_ok=True)
+    env = {"GRIT_TPU_SOCKET_DIR": socks,
+           "GRIT_TPU_COMPILE_CACHE": str(build.build_dir()),
+           "GRIT_SNAP_SPECULATE": "1"}
+    return socks, env, WORKLOAD_ARGS + ["--optimizer", "frozen-trunk"]
+
+
+def phase_frozen(work: str, card: str, *, train: dict,
+                 source: tuple) -> dict:
     """The bench's migrated flagship, the frozen-trunk fine-tune (sgd 0.5
     on ``final_norm`` and ``lm_head``, the trunk frozen), migrated as the
     reference agent does with pre-copy and speculation on, through the
@@ -2339,7 +2379,8 @@ def phase_frozen(work: str, card: str, *, train: dict) -> dict:
     pass the cut, and a second destination that restores the staged tree
     by post-copy (``GRIT_RESTORE_POSTCOPY=1``) run beside the MNIST
     twin's reference and destination. ``train``: phase 4's record, whose
-    step times this phase prints."""
+    step times this phase prints. ``source``: its :func:`frozen_source`
+    parked by :func:`park_all` (as :func:`early_sources` parks it)."""
     from grit_tpu_torch.device.agentlet import ToggleClient  # noqa: PLC0415
     from grit_tpu_torch.device.hook import TpuDeviceCheckpointHook  # noqa: PLC0415
     from grit_tpu_torch.device.snapshot import (  # noqa: PLC0415
@@ -2350,15 +2391,11 @@ def phase_frozen(work: str, card: str, *, train: dict) -> dict:
 
     cache_src = str(build.build_dir())
     libs = sorted(build.library_path(stem).name for stem in build.SOURCES)
-    socks = os.path.join(work, "socks-frozen")
+    socks, env, args = frozen_env(work)
     host, pvc, dst_root = (os.path.join(work, n)
                            for n in ("host-f", "pvc-f", "dst-f"))
     dst_cache = os.path.join(work, "dst-kernel-cache")
-    for d in (socks, dst_cache):
-        os.makedirs(d)
-    env = {"GRIT_TPU_SOCKET_DIR": socks, "GRIT_TPU_COMPILE_CACHE": cache_src,
-           "GRIT_SNAP_SPECULATE": "1"}
-    args = WORKLOAD_ARGS + ["--optimizer", "frozen-trunk"]
+    os.makedirs(dst_cache)
     trees = {"base": "main-precopy/hbm", "delta": "main/hbm",
              "spec": "main/hbm" + SPEC_SUFFIX}
     at = {k: os.path.join(host, rel) for k, rel in trees.items()}
@@ -2377,9 +2414,10 @@ def phase_frozen(work: str, card: str, *, train: dict) -> dict:
     ToggleClient.dump = kept_dump  # the probe's response, for its outcome
     procs: list[Workload] = []
     try:
-        src = Workload(10 ** 6, env, args=args)
+        src, parked = source
         procs.append(src)
-        src.wait_for("READY")
+        parked.resume()
+        parked.close()
         src.wait_for(rf"STEP {PRECOPY_LIVE} ")
         hook = TpuDeviceCheckpointHook(timeout=600)
         status = ToggleClient(src.proc.pid, path=os.path.join(
@@ -2709,6 +2747,7 @@ WIRE_STREAMS = 2
 # compresses nearly every bf16 block on the host's cores, so its dump
 # grows with the state; this depth keeps the script within its time.
 WIRE_LAYERS = 2
+WIRE_RUNS = (("raw", "none"), ("zlib", "zlib"))  # (label, codec)
 
 
 class Receiver:
@@ -2924,35 +2963,91 @@ class Receiver:
         self.journal.close()
 
 
-def wire_sources(work: str, runs: tuple) -> dict:
-    """Start the sources of the :func:`wire_run` ``runs`` (``(label,
-    codec)`` pairs) together, so their process starts overlap: each is
-    phase 5's flagship at :data:`WIRE_LAYERS` layers under
-    ``GRIT_SNAPSHOT_CODEC=codec``, parked at its first checkpoint point.
-    Returns ``{label: (source, ToggleClient, environment)}``."""
-    from grit_tpu_torch.device.agentlet import ToggleClient  # noqa: PLC0415
+def precopy_source(work: str) -> tuple:
+    """Phase 8's source spawned, not yet waited for: ``(source, socket
+    dir)``."""
+    socks, env = precopy_env(work)
+    return Workload(1000, env, args=PRECOPY_ARGS), socks
 
+
+def frozen_source(work: str) -> tuple:
+    """Phase 9's source spawned, not yet waited for: ``(source, socket
+    dir)``."""
+    socks, env, args = frozen_env(work)
+    return Workload(10 ** 6, env, args=args), socks
+
+
+def spawn_wire_sources(work: str, runs: tuple) -> dict:
+    """The sources of the :func:`wire_run` ``runs`` (``(label, codec)``
+    pairs) spawned, not yet waited for: each is phase 5's flagship at
+    :data:`WIRE_LAYERS` layers under ``GRIT_SNAPSHOT_CODEC=codec``.
+    Returns ``{label: (source, environment, socket dir)}``."""
     args = WORKLOAD_ARGS[:]
     args[args.index("--layers") + 1] = str(WIRE_LAYERS)
     started = {}
+    for label, codec in runs:
+        socks = os.path.join(work, f"socks-wire-{label}")
+        os.makedirs(socks)
+        env = {"GRIT_TPU_SOCKET_DIR": socks, "GRIT_SNAPSHOT_CODEC": codec}
+        started[label] = (Workload(1000, env, args=args), env, socks)
+    return started
+
+
+def park_all(started: dict) -> dict:
+    """Each spawned ``{key: (source, socket dir)}`` parked at its first
+    checkpoint point as soon as it is ready, each on a thread of its own
+    (one parked after another would leave the later ones stepping past
+    the steps their phases cut at): ``{key: (source, its ToggleClient)}``.
+    Any failure kills them all."""
+    from concurrent.futures import ThreadPoolExecutor, as_completed  # noqa: PLC0415
+
+    from grit_tpu_torch.device.agentlet import ToggleClient  # noqa: PLC0415
+
+    def park(src, socks):
+        src.wait_for("READY")
+        client = ToggleClient(src.proc.pid, path=os.path.join(
+            socks, f"grit-tpu-{src.proc.pid}.sock"), timeout=600)
+        client.quiesce()
+        return src, client
+
+    pool = ThreadPoolExecutor(len(started))
     try:
-        for label, codec in runs:
-            socks = os.path.join(work, f"socks-wire-{label}")
-            os.makedirs(socks)
-            env = {"GRIT_TPU_SOCKET_DIR": socks, "GRIT_SNAPSHOT_CODEC": codec}
-            started[label] = (Workload(1000, env, args=args), env, socks)
-        out = {}
-        for label, (src, env, socks) in started.items():
-            src.wait_for("READY")
-            client = ToggleClient(src.proc.pid, path=os.path.join(
-                socks, f"grit-tpu-{src.proc.pid}.sock"), timeout=600)
-            client.quiesce()
-            out[label] = (src, client, env)
-        return out
+        futures = {key: pool.submit(park, *v) for key, v in started.items()}
+        for f in as_completed(futures.values()):
+            f.result()  # the first failure, whichever source it is, raises
+        return {key: f.result() for key, f in futures.items()}
     except BaseException:
-        for src, _env, _socks in started.values():
+        # Killed before the pool is let go: the other threads' waits end
+        # with their sources, not at their own timeouts.
+        for src, _socks in started.values():
             src.kill()
         raise
+    finally:
+        pool.shutdown(wait=False, cancel_futures=True)
+
+
+def early_sources(work: str) -> dict:
+    """Phases 8, 9 and 10's sources spawned together, so that their four
+    process starts overlap (untimed: each phase's measures begin after
+    its source has resumed), each parked at its first checkpoint point
+    until its phase resumes it: ``{"precopy": (source, client),
+    "frozen": (source, client), "wire": {label: (source, client, env)}}``.
+    Parked, they hold their device memory and take no host time."""
+    spawned = {}
+    try:
+        spawned["precopy"] = precopy_source(work)
+        spawned["frozen"] = frozen_source(work)
+        wire = spawn_wire_sources(work, WIRE_RUNS)
+        for label, (src, _env, wsocks) in wire.items():
+            spawned[f"wire {label}"] = (src, wsocks)
+    except BaseException:
+        for src, _socks in spawned.values():
+            src.kill()
+        raise
+    parked = park_all(spawned)
+    return {"precopy": parked["precopy"], "frozen": parked["frozen"],
+            "wire": {label: (*parked[f"wire {label}"], wire[label][1])
+                     for label in wire}}
 
 
 def wire_run(work: str, card: str, label: str, codec: str, *,
@@ -2968,8 +3063,8 @@ def wire_run(work: str, card: str, label: str, codec: str, *,
     ``hang_up_check``: before the source resumes, a second dump of its
     parked state into a receiver that hangs up mid-stream must answer
     ``ok`` with a failed wire block and a committed mirror. ``source``:
-    the parked source :func:`wire_sources` started for it, its client and
-    its environment."""
+    its parked source (:func:`spawn_wire_sources`, :func:`park_all`), the
+    source's client and its environment."""
     from grit_tpu_torch.device.snapshot import (  # noqa: PLC0415
         DATA_FILE, INDEX_FILE, MANIFEST_FILE, snapshot_exists, snapshot_nbytes)
 
@@ -3178,15 +3273,15 @@ def planted_flip(torch, work: str, card: str, dev) -> str:
     return recv.error
 
 
-def phase_wire(torch, work: str, card: str, dev=None) -> dict:
+def phase_wire(torch, work: str, card: str, sources: dict,
+               dev=None) -> dict:
     """Phase 10: the wire migration of phase 5's flagship at
     :data:`WIRE_LAYERS` layers, raw (the default codec) and then
     compressed (zlib, with the receiver that hangs up), and the planted
     faults (``dev``: the card by default; a rehearsal on the CPU passes
-    the CPU)."""
-    # Both sources start together, so their process starts overlap, and
-    # wait parked at their first step until their run comes.
-    sources = wire_sources(work, (("raw", "none"), ("zlib", "zlib")))
+    the CPU). ``sources``: :func:`early_sources`' ``"wire"``: both
+    sources started together and parked at their first step until their
+    run comes."""
     try:
         runs = {"raw": wire_run(work, card, "raw", "none",
                                 hang_up_check=False, source=sources["raw"]),
@@ -3520,6 +3615,9 @@ MOE_PP_BATCH, MOE_PP_SEQ = 16, 512
 # gradient leaf's relative L2 error against the dense gradient's.
 PAR_LOGIT_BOUND = 2 ** -5
 PAR_GRAD_BOUND = 2 ** -4
+# Phase 16's pp × ep leg: the MoE model on (pipe 2, expert 2), the four
+# ranks; 6 layers a stage and 4 experts a rank at the bench MoE's depth.
+PP_EP = (2, 2)
 
 
 def moe_masked_prefill(torch, card: str, *, seed: int, cfg=None,
@@ -3797,7 +3895,7 @@ def pp_rank(torch, fa, dev, spec: dict) -> dict:
             fwd_s = time.perf_counter() - t0
         fwd_launches = dict(fa.LAUNCHES)
         err, scale = max_err(logits, dense)
-        del logits, dense
+        del logits
         named = flatten_with_names(params)
         leaves = [x.requires_grad_(True) for _, x in named]
         dense_loss = llama.token_cross_entropy(dense_forward(), tgt)
@@ -3806,7 +3904,6 @@ def pp_rank(torch, fa, dev, spec: dict) -> dict:
         want = flatten_with_names(pipeline_llama.stage_slice(
             pipeline_llama.to_stage_params(
                 cfg, map_with_names(lambda k, _: grads[k], params), n), rank))
-        del grads
         for x in leaves:
             x.requires_grad_(False)
         local_named = flatten_with_names(local)
@@ -3829,9 +3926,131 @@ def pp_rank(torch, fa, dev, spec: dict) -> dict:
             "grad_rel_l2": {k: _rel_l2(g, w) for (k, _), g, (_, w)
                             in zip(local_named, got, want)},
             "replicated_digest": _digest(torch, replicated)}
-        del params, local, got, want, loss, dense_loss, leaves, local_leaves
+        del local, got, want, loss, dense_loss, leaves, local_leaves
+        if moe:
+            # The pp × ep leg, held to this leg's dense reference.
+            out["pp_ep"] = pp_ep_leg(torch, fa, dev, spec, cfg, params, inp,
+                                     tgt, dense, grads)
+        del params, dense, grads
         if dev.type == "cuda":
             torch.cuda.empty_cache()
+    return out
+
+
+def _swap_experts(torch, x, group):
+    """``x``, this rank's expert shard, replaced by its peer's over the
+    two-rank ``group``: the planted fault of the pp × ep checks."""
+    import torch.distributed as dist  # noqa: PLC0415
+
+    parts = [torch.empty_like(x) for _ in range(2)]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return parts[1 - dist.get_rank(group)]
+
+
+def pp_ep_leg(torch, fa, dev, spec: dict, cfg, params, inp, tgt, dense,
+              grads) -> dict:
+    """Phase 16's pp × ep leg on this rank: the MoE model pipelined over
+    :data:`PP_EP`'s stages with each stage's experts split over its
+    ``expert`` axis (``build_pipe_mesh(expert=)``, the four ranks;
+    ``moe_llama.forward_pp(mesh=)``), its logits and cross-entropy
+    gradients held to the ``moe`` leg's dense reference (``dense``,
+    ``grads``: computed once, by that leg); the staged shards dumped by
+    the four ranks into one manifest by ``pp_stage_shardings``, restored
+    by every rank onto the mesh and by rank 0 densely."""
+    import torch.distributed as dist  # noqa: PLC0415
+
+    from grit_tpu_torch.device.snapshot import (  # noqa: PLC0415
+        SnapshotManifest, data_file, restore_snapshot, write_snapshot)
+    from grit_tpu_torch.models import llama, moe_llama, pipeline_llama  # noqa: PLC0415
+    from grit_tpu_torch.parallel.mesh import build_pipe_mesh  # noqa: PLC0415
+    from grit_tpu_torch.tree import flatten_with_names, map_with_names  # noqa: PLC0415
+
+    rank = dist.get_rank()
+    mesh = build_pipe_mesh(dev.type, expert=PP_EP[1])
+    n_stages = mesh.size(0)
+    staged = pipeline_llama.to_stage_params(cfg, params, n_stages)
+    shard_by = dict(flatten_with_names(
+        moe_llama.pp_stage_shardings(mesh, staged)))
+    local = map_with_names(lambda k, x: shard_by[k].distribute(x.detach()),
+                           staged)
+    if spec.get("pp_ep_fault") == "swap_expert":
+        moe = local["layers"]["moe"]
+        moe["w_in"] = _swap_experts(torch, moe["w_in"],
+                                    mesh.get_group("expert"))
+    micro = spec["pp_micro"]
+    with torch.no_grad():
+        fa.reset_launch_counts()
+        t0 = _start(torch, dev)
+        logits = moe_llama.forward_pp(cfg, local, inp, n_microbatches=micro,
+                                      mesh=mesh)
+        _sync(torch, dev)
+        fwd_s = time.perf_counter() - t0
+    fwd_launches = dict(fa.LAUNCHES)
+    err, scale = max_err(logits, dense)
+    del logits
+    named = flatten_with_names(local)
+    leaves = [x.requires_grad_(True) for _, x in named]
+    fa.reset_launch_counts()
+    _reset_peak(torch, dev)
+    t0 = _start(torch, dev)
+    loss = llama.token_cross_entropy(moe_llama.forward_pp(
+        cfg, local, inp, n_microbatches=micro, mesh=mesh), tgt)
+    got = torch.autograd.grad(loss, leaves)
+    _sync(torch, dev)
+    grad_s = time.perf_counter() - t0
+    grad_launches = dict(fa.LAUNCHES)
+    peak = _peak(torch, dev)
+    for x in leaves:
+        x.requires_grad_(False)
+    want = dict(flatten_with_names(pipeline_llama.to_stage_params(
+        cfg, map_with_names(lambda k, _: grads[k], params), n_stages)))
+    rel = {k: _rel_l2(g, shard_by[k].distribute(want[k]))
+           for (k, _), g in zip(named, got)}
+    del got, want
+
+    snap = spec["pp_ep_snap"]
+    layout = map_with_names(lambda k, _x: shard_by[k], staged)
+    dist.barrier()
+    t0 = _start(torch, dev)
+    write_snapshot(snap, local, meta={"step": 0}, barrier=dist.barrier,
+                   process_index=rank, process_count=dist.get_world_size(),
+                   shardings=layout)
+    dump_s = time.perf_counter() - t0
+    dump_bytes = os.path.getsize(os.path.join(snap, data_file(rank)))
+    like = map_with_names(lambda k, x: shard_by[k].zeros(
+        list(x.shape), x.dtype, "meta"), staged)
+    t0 = _start(torch, dev)
+    back = restore_snapshot(snap, like=like, device=dev, shardings=layout)
+    _sync(torch, dev)
+    restore_s = time.perf_counter() - t0
+    bitwise = all(_bits_equal(torch, a, b) for (_, a), (_, b) in zip(
+        flatten_with_names(back), named))
+    del back
+    out = {"mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+           "stages": n_stages, "ticks": micro + n_stages - 1,
+           "forward_s": fwd_s, "forward_launches": fwd_launches,
+           "logit_err": err, "logit_scale": scale, "grad_s": grad_s,
+           "grad_launches": grad_launches, "peak": peak,
+           "loss": loss.item(), "grad_rel_l2": rel, "dump_s": dump_s,
+           "dump_bytes": dump_bytes, "restore_s": restore_s,
+           "restore_bitwise": bitwise,
+           "held_bytes": sum(x.numel() * x.element_size() for _, x in named)}
+    if rank == 0:
+        t0 = time.perf_counter()
+        whole = pipeline_llama.from_stage_params(restore_snapshot(
+            snap, like=map_with_names(lambda _k, x: torch.empty(
+                x.shape, dtype=x.dtype, device="meta"), staged), device=dev))
+        _sync(torch, dev)
+        out["dense_restore_s"] = time.perf_counter() - t0
+        out["dense_restore_bitwise"] = all(
+            _bits_equal(torch, a, b) for (_, a), (_, b) in zip(
+                flatten_with_names(whole), flatten_with_names(params)))
+        recs = SnapshotManifest.load(snap).arrays
+        out["descriptors_ok"] = {r["name"]: r["sharding"] for r in recs} == {
+            k: sh.descriptor() for k, sh in shard_by.items()}
+        out["chunks"] = sum(len(r["chunks"]) for r in recs)
+        del whole
+    dist.barrier()
     return out
 
 
@@ -3858,10 +4077,13 @@ def phase_parallel(torch, work: str, card: str, *, seed: int,
                    device: str = "cuda", lc_cfg=None, lc_seq: int = SP_SEQ,
                    pp_cfg=None, pp_shape=(PP_BATCH, SEQ), moe_pp_cfg=None,
                    moe_pp_shape=(MOE_PP_BATCH, MOE_PP_SEQ),
-                   pp_micro: int = PP_MICRO) -> tuple[dict, dict]:
+                   pp_micro: int = PP_MICRO,
+                   pp_ep_fault: str | None = None) -> tuple[dict, dict]:
     """Phases 15 and 16: :data:`N_RANKS` ranks over ``LOCAL_GLOO`` on the one card
     (the configs and ``device`` other than the defaults only to rehearse
-    at a small size on the CPU). Returns the two phases' records."""
+    at a small size on the CPU; ``pp_ep_fault="swap_expert"`` plants a
+    fault the pp × ep leg's checks must catch). Returns the two phases'
+    records."""
     from dataclasses import replace  # noqa: PLC0415
 
     from grit_tpu_torch.models import llama, moe_llama  # noqa: PLC0415
@@ -3882,10 +4104,14 @@ def phase_parallel(torch, work: str, card: str, *, seed: int,
     spec = {"device": device, "seed": seed, "work": work, "lc_cfg": lc_cfg,
             "lc_seq": lc_seq, "pp_cfg": pp_cfg, "pp_shape": pp_shape,
             "moe_pp_cfg": moe_pp_cfg, "moe_pp_shape": moe_pp_shape,
-            "pp_micro": pp_micro}
+            "pp_micro": pp_micro, "pp_ep_fault": pp_ep_fault,
+            "pp_ep_snap": os.path.join(work, "pp-ep-snap")}
     t0 = time.perf_counter()
-    ranks = run_ranks(parallel_rank, N_RANKS, spec, backend=LOCAL_GLOO,
-                      timeout=900)
+    try:
+        ranks = run_ranks(parallel_rank, N_RANKS, spec, backend=LOCAL_GLOO,
+                          timeout=900)
+    finally:
+        shutil.rmtree(spec["pp_ep_snap"], ignore_errors=True)
     wall = time.perf_counter() - t0
     lc = long_context_checks([r["long_context"] for r in ranks], lc_cfg,
                              lc_seq, card, wall, on_card)
@@ -4049,13 +4275,93 @@ def pipeline_checks(ranks: list[dict], cfg, moe_cfg, shape, moe_shape,
                       "launches_per_rank": [{
                           k: r["forward_launches"][k] + r["grad_launches"][k]
                           for k in KERNELS} for r in recs]}
+    out["pp_ep"] = pp_ep_checks([r["pp_ep"] for r in ranks], moe_cfg,
+                                moe_shape, micro, card, on_card, failures)
     out["launches"] = {k: sum(r[label][f"{part}_launches"][k] for r in ranks
                               for label in ("dense", "moe")
                               for part in ("forward", "grad"))
+                       + sum(r["pp_ep"][f"{part}_launches"][k]
+                             for r in ranks for part in ("forward", "grad"))
                        for k in KERNELS}
     if failures:
         raise AssertionError("pipeline: " + "; ".join(failures))
     return out
+
+
+def pp_ep_checks(recs: list[dict], cfg, shape, micro: int, card: str,
+                 on_card: bool, failures: list[str]) -> dict:
+    """Phase 16's pp × ep lines and checks (misses appended to
+    ``failures``, each naming ``pp_ep``) over the ranks' records."""
+    stages, experts = PP_EP
+    per = cfg.n_layers // stages
+    ticks = recs[0]["ticks"]
+    err = max(r["logit_err"] for r in recs)
+    bound = PAR_LOGIT_BOUND * max(r["logit_scale"] for r in recs)
+    worst = [_worst(r["grad_rel_l2"]) for r in recs]
+    grad = max(w[1] for w in worst)
+    B, S = shape
+    log("pipeline", f"pp_ep: {type(cfg).__name__} dim {cfg.dim}, "
+                    f"{cfg.n_layers} layers in {stages} stages of {per}, "
+                    f"{cfg.n_experts} experts in {experts} shards of "
+                    f"{cfg.n_experts // experts} a stage (mesh "
+                    f"{recs[0]['mesh']}), B {B} x S {S} in {micro} "
+                    f"microbatches, {ticks} ticks; logits against the moe "
+                    f"leg's dense reference: max |err| {err:.5f}, bound "
+                    f"{bound:.5f}; loss {recs[0]['loss']!r}; worst gradient "
+                    f"relative L2 {grad:.5f} ({worst[0][0]} on rank 0), "
+                    f"bound {PAR_GRAD_BOUND} [{card}]")
+    log("pipeline", f"pp_ep: forward s {[round(r['forward_s'], 4) for r in recs]}"
+                    f", loss and gradients s "
+                    f"{[round(r['grad_s'], 4) for r in recs]}, peak "
+                    f"{[r['peak'] for r in recs]} B, held bytes a rank "
+                    f"{[r['held_bytes'] for r in recs]}; flash launches a rank "
+                    f"(forward; loss and gradients) "
+                    f"{recs[0]['forward_launches']}; "
+                    f"{recs[0]['grad_launches']} [{card}]")
+    log("pipeline", f"pp_ep snapshot: one manifest of {recs[0]['chunks']} "
+                    f"chunks by pp_stage_shardings (descriptors as the "
+                    f"layout's: {recs[0]['descriptors_ok']}); dump s "
+                    f"{[round(r['dump_s'], 3) for r in recs]}, bytes a rank "
+                    f"{[r['dump_bytes'] for r in recs]}; restore onto the "
+                    f"mesh s {[round(r['restore_s'], 3) for r in recs]}, "
+                    f"bitwise {[r['restore_bitwise'] for r in recs]}; rank 0's "
+                    f"dense restore {recs[0]['dense_restore_s']:.3f} s, the "
+                    f"MoE's parameters byte for byte: "
+                    f"{recs[0]['dense_restore_bitwise']} [{card}]")
+    if not err <= bound:
+        failures.append(f"pp_ep logits off by {err} > {bound}")
+    if not grad <= PAR_GRAD_BOUND:
+        failures.append(f"pp_ep gradient relative L2 {grad}")
+    if len({r["loss"] for r in recs}) != 1:
+        failures.append("pp_ep: the loss differs between ranks")
+    if not all(r["restore_bitwise"] for r in recs):
+        failures.append("pp_ep: a rank's restore onto the mesh is not "
+                        "bitwise its shards")
+    if not (recs[0]["dense_restore_bitwise"] and recs[0]["descriptors_ok"]):
+        failures.append("pp_ep: the dense restore or the descriptors differ")
+    if on_card:
+        fwd = {"flash_fwd": ticks * per, "flash_bwd_dq": 0,
+               "flash_bwd_dkv": 0}
+        grads = {"flash_fwd": 2 * ticks * per, "flash_bwd_dq": ticks * per,
+                 "flash_bwd_dkv": ticks * per}
+        for r in recs:
+            if r["forward_launches"] != fwd or r["grad_launches"] != grads:
+                failures.append(f"pp_ep launches {r['forward_launches']}, "
+                                f"{r['grad_launches']}")
+    return {"mesh": recs[0]["mesh"], "logit_err": err, "logit_bound": bound,
+            "worst_grad_rel_l2": grad,
+            "forward_s": [r["forward_s"] for r in recs],
+            "grad_s": [r["grad_s"] for r in recs],
+            "peak": [r["peak"] for r in recs],
+            "dump_s": [r["dump_s"] for r in recs],
+            "dump_bytes": [r["dump_bytes"] for r in recs],
+            "restore_s": [r["restore_s"] for r in recs],
+            "restore_bitwise": all(r["restore_bitwise"] for r in recs),
+            "dense_restore_s": recs[0]["dense_restore_s"],
+            "dense_restore_bitwise": recs[0]["dense_restore_bitwise"],
+            "launches_per_rank": [{
+                k: r["forward_launches"][k] + r["grad_launches"][k]
+                for k in KERNELS} for r in recs]}
 
 
 # -- phase 17 ------------------------------------------------------------------
@@ -5902,6 +6208,232 @@ def ep_manifest_checks(snap: str, dense_state_bytes: int) -> dict:
 # -- main ----------------------------------------------------------------------
 
 
+# -- phase 21 ------------------------------------------------------------------
+
+N8 = 8                  # phase 21: eight ranks sharing the card
+MESH8 = (2, 2, 2)       # (data, fsdp, model), dryrun_multichip(8)'s factoring
+MESH8_SHAPE = (4, SEQ)  # B 4 x S 2048: a row a rank of the data x fsdp split
+MESH8_STEPS = 2         # sharded steps before the snapshot, each against dense
+MESH8_AFTER = 1         # steps after it: the source's and the restore's
+
+
+@contextlib.contextmanager
+def _planted_pp_fault(torch, fault: str | None):
+    """With ``fault="swap_expert"``, the dryrun's pp × ep phase places
+    each rank's experts of ``w_in`` from its expert peer's half, while its
+    dense reference keeps the true weights: the fault phase 21's checks
+    must catch."""
+    from grit_tpu_torch import entry  # noqa: PLC0415
+
+    if fault != "swap_expert":
+        yield
+        return
+    real = entry.moe_stage_shardings
+
+    class Swapped:
+        def __init__(self, sharding):
+            self.sharding = sharding
+
+        def distribute(self, x):
+            return self.sharding.distribute(
+                torch.cat(x.chunk(2, dim=1)[::-1], dim=1))
+
+    def swapped(mesh):
+        out = real(mesh)
+        out["w_in"] = Swapped(out["w_in"])
+        return out
+
+    entry.moe_stage_shardings = swapped
+    try:
+        yield
+    finally:
+        entry.moe_stage_shardings = real
+
+
+def mesh8_rank(spec: dict) -> dict:
+    """Phase 21 on one rank of the eight: ``dryrun_multichip``'s three
+    phases (``entry.dryrun_phases``), then the flagship at
+    :data:`MESH_LAYERS` layers on the (2,2,2) mesh: :data:`MESH8_STEPS`
+    sharded steps, its sharded snapshot, :data:`MESH8_AFTER` more; a fresh
+    Trainer on the same mesh restores the snapshot and takes the same
+    steps; rank 0 then takes the dense Trainer's steps."""
+    import torch  # noqa: PLC0415
+    import torch.distributed as dist  # noqa: PLC0415
+
+    from grit_tpu_torch import entry  # noqa: PLC0415
+    from grit_tpu_torch.ops import flash_attention as fa  # noqa: PLC0415
+
+    dev = torch.device(spec["device"])
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+    rank = dist.get_rank()
+    out: dict = {"foreign": sorted(
+        m for m in sys.modules
+        if m.split(".")[0] in ("jax", "jaxlib", "grit_tpu"))}
+    fa.reset_launch_counts()
+    t0 = _start(torch, dev)
+    with _planted_pp_fault(torch, spec.get("fault")):
+        out["dryrun"] = entry.dryrun_phases(dev)
+    _sync(torch, dev)
+    out["dryrun_s"] = time.perf_counter() - t0
+    out["dryrun_launches"] = dict(fa.LAUNCHES)
+
+    tr = mesh_trainer(torch, spec, MESH8)
+    out["coord"] = list(tr.mesh.get_coordinate())
+    _reset_peak(torch, dev)
+    out.update(_run_steps(torch, fa, tr, dev, 1))
+    before = mesh_collectives(tr)
+    more = _run_steps(torch, fa, tr, dev, MESH8_STEPS - 1)
+    for k in ("losses", "step_s", "launches"):
+        out[k] += more[k]
+    n = MESH8_STEPS - 1
+    out["collectives"] = {
+        k: [(c - before.get(k, [0, 0])[0]) / n, (b - before.get(k, [0, 0])[1]) / n]
+        for k, (c, b) in mesh_collectives(tr).items()}
+    out["peak"] = _peak(torch, dev)
+    out["state_bytes"] = sum(x.numel() * x.element_size() for x in _locals(tr))
+    t0 = _start(torch, dev)
+    tr.snapshot(spec["snap"])
+    out["dump_s"] = time.perf_counter() - t0
+    out["after"] = _run_steps(torch, fa, tr, dev, MESH8_AFTER)
+    out["digest"] = _digest(torch, _locals(tr))
+    del tr
+    _release(torch, dev)
+    fresh = mesh_trainer(torch, spec, MESH8)
+    t0 = _start(torch, dev)
+    out["restored_step"] = fresh.restore(spec["snap"])
+    _sync(torch, dev)
+    out["restore_s"] = time.perf_counter() - t0
+    out["restored"] = _run_steps(torch, fa, fresh, dev, MESH8_AFTER)
+    out["restored"]["digest"] = _digest(torch, _locals(fresh))
+    del fresh
+    _release(torch, dev)
+    if rank == 0:
+        dense = mesh_trainer(torch, spec, None)
+        out["dense"] = _run_steps(torch, fa, dense, dev, MESH8_STEPS,
+                                  alone=True)
+        del dense
+        _release(torch, dev)
+    dist.barrier()
+    return out
+
+
+def phase_mesh8(torch, work: str, card: str, *, seed: int,
+                device: str = "cuda", cfg=None, shape: tuple = MESH8_SHAPE,
+                fault: str | None = None) -> dict:
+    """Phase 21: one launch of :data:`N8` ranks sharing the card over
+    ``LOCAL_GLOO`` (:func:`mesh8_rank`): ``dryrun_multichip(8)``'s three
+    phases and the flagship on (2,2,2), its step within
+    :data:`MESH_LOSS_BOUND` of dense and its snapshot restored bitwise in
+    the same launch; then ``entry()`` in this process on the card, its
+    logits finite. ``device``, ``cfg`` and ``shape`` other than the
+    defaults rehearse it on the CPU; ``fault="swap_expert"`` plants a
+    fault the checks must catch."""
+    from grit_tpu_torch import entry  # noqa: PLC0415
+    from grit_tpu_torch.models import llama  # noqa: PLC0415
+    from grit_tpu_torch.parallel.collectives import LOCAL_GLOO  # noqa: PLC0415
+    from grit_tpu_torch.parallel.launch import run_ranks  # noqa: PLC0415
+
+    cfg = cfg or llama.LlamaConfig.flagship(n_layers=MESH_LAYERS)
+    on_card = device == "cuda"
+    if on_card:
+        torch.cuda.empty_cache()
+    mwork = os.path.join(work, "mesh8")
+    os.makedirs(mwork)
+    spec = {"device": device, "seed": seed, "cfg": cfg, "shape": shape,
+            "snap": os.path.join(mwork, "snap"), "fault": fault}
+    t0 = time.perf_counter()
+    try:
+        ranks = run_ranks(mesh8_rank, N8, spec, backend=LOCAL_GLOO,
+                          timeout=900)
+    finally:
+        shutil.rmtree(mwork, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    failures = [f"rank {k} loaded {r['foreign']}" for k, r in enumerate(ranks)
+                if r["foreign"]]
+    dry = ranks[0]["dryrun"]
+    failures += entry.dryrun_misses(dry)
+    if len({json.dumps([r["dryrun"]["step"], r["dryrun"]["sp"],
+                        r["dryrun"]["pp"]["loss"]]) for r in ranks}) != 1:
+        failures.append("the dryrun's numbers differ between ranks")
+    log("mesh8", entry.dryrun_summary(dry, N8, card) + f"; the three phases "
+                 f"took {[round(r['dryrun_s'], 2) for r in ranks]} s a rank "
+                 f"[{card}]")
+    src0 = ranks[0]
+    dense = src0["dense"]["losses"]
+    gaps = [_rel_gap(a, b) for a, b in zip(src0["losses"], dense)]
+    if not max(gaps) <= MESH_LOSS_BOUND:
+        failures.append(f"(2,2,2) losses {src0['losses']} against dense "
+                        f"{dense}: gaps {gaps}")
+    for k, r in enumerate(ranks):
+        if r["restored_step"] != MESH8_STEPS or \
+                r["restored"]["losses"] != r["after"]["losses"] or \
+                r["restored"]["digest"] != r["digest"]:
+            failures.append(f"rank {k}: the restore onto (2,2,2) is not "
+                            f"bitwise: step {r['restored_step']}, losses "
+                            f"{r['restored']['losses']} vs "
+                            f"{r['after']['losses']}")
+    per_step = [{n: row[n] for n in KERNELS} for r in ranks
+                for row in r["launches"] + r["after"]["launches"]
+                + r["restored"]["launches"]]
+    per_step += [{n: row[n] for n in KERNELS}
+                 for row in src0["dense"]["launches"]]
+    if on_card:
+        step = {n: cfg.n_layers for n in KERNELS}
+        bad = [row for row in per_step if row != step]
+        if bad:
+            failures.append(f"launches a rank a step {bad[:3]}, want {step}")
+    t0 = time.perf_counter()
+    fn, args = entry.entry(device=device)
+    logits = fn(*args)
+    entry_s = time.perf_counter() - t0
+    if not bool(torch.isfinite(logits).all()):
+        failures.append("entry()'s logits are not finite")
+    colls = {k: [round(c, 2), int(b)] for k, (c, b) in
+             sorted(src0["collectives"].items())}
+    B, S = shape
+    step_s = [round(median_after_first(r["step_s"]), 4) for r in ranks]
+    log("mesh8", f"{N8} ranks on one card over LOCAL_GLOO, mesh (data, fsdp, "
+                 f"model) {MESH8}: dim {cfg.dim}, {cfg.n_layers} layers, B {B} "
+                 f"x S {S}, Adam {MESH_LR}; losses sharded {src0['losses']}, "
+                 f"dense {dense} (relative gaps "
+                 f"{[f'{g:.2e}' for g in gaps]}, bound {MESH_LOSS_BOUND}); a "
+                 f"sharded step {step_s} s a rank (dense "
+                 f"{median_after_first(src0['dense']['step_s']):.4f} s); "
+                 f"state a rank {[r['state_bytes'] for r in ranks]} B; peak "
+                 f"{[r['peak'] for r in ranks]} B [{card}]")
+    log("mesh8", f"collectives a sharded step on rank 0 (kind device: calls, "
+                 f"input bytes): {colls}; launches a rank a step "
+                 f"{per_step[0]} (all alike: {len({str(r) for r in per_step}) == 1})"
+                 f" [{card}]")
+    log("mesh8", f"snapshot on (2,2,2): dump s "
+                 f"{[round(r['dump_s'], 3) for r in ranks]}; restored in the "
+                 f"same launch onto (2,2,2) at step {src0['restored_step']} "
+                 f"in {[round(r['restore_s'], 3) for r in ranks]} s, next "
+                 f"step's loss and every rank's shards bitwise: "
+                 f"{not any('bitwise' in f for f in failures)}; launched and "
+                 f"run in {wall:.1f} s; entry() on {device}: logits "
+                 f"{tuple(logits.shape)} finite in {entry_s:.2f} s [{card}]")
+    if failures:
+        raise AssertionError("mesh8: " + "; ".join(failures))
+    return {"dryrun": dry, "wall_s": wall, "mesh": list(MESH8),
+            "flagship": {"losses": src0["losses"], "dense": dense,
+                         "gaps": gaps, "step_s": step_s,
+                         "dense_step_s": median_after_first(
+                             src0["dense"]["step_s"]),
+                         "peak": [r["peak"] for r in ranks],
+                         "state_bytes": [r["state_bytes"] for r in ranks],
+                         "collectives": colls,
+                         "dump_s": [r["dump_s"] for r in ranks],
+                         "restore_s": [r["restore_s"] for r in ranks],
+                         "restore_bitwise": True},
+            "launches_per_step": per_step[0],
+            "launches": {n: sum(row[n] for row in per_step)
+                         + sum(r["dryrun_launches"][n] for r in ranks)
+                         for n in KERNELS},
+            "entry": {"shape": list(logits.shape), "s": entry_s}}
+
+
 def main(argv: list[str] | None = None) -> int:
     import argparse  # noqa: PLC0415
 
@@ -5939,9 +6471,17 @@ def main(argv: list[str] | None = None) -> int:
         serve = phase_serving(torch, fa, work, device["smi"], seed=args.seed)
         torch.cuda.empty_cache()
         io = phase_io(torch, work, device["smi"])
-        precopy = phase_precopy(work, device["smi"])
-        frozen = phase_frozen(work, device["smi"], train=train)
-        wire = phase_wire(torch, work, device["smi"])
+        early = early_sources(work)
+        try:
+            precopy = phase_precopy(work, device["smi"],
+                                    source=early["precopy"])
+            frozen = phase_frozen(work, device["smi"], train=train,
+                                  source=early["frozen"])
+            wire = phase_wire(torch, work, device["smi"], early["wire"])
+        finally:
+            for src, *_rest in (early["precopy"], early["frozen"],
+                                *early["wire"].values()):
+                src.kill()
         torch.cuda.empty_cache()
         lora = phase_lora(work, device["smi"])
         remat = phase_remat(torch, fa, device["smi"])
@@ -5955,6 +6495,7 @@ def main(argv: list[str] | None = None) -> int:
                           ep=ep_config(torch), gang=True)
         ep = mesh.pop("ep")
         gang_mesh = mesh.pop("gang")
+        mesh8 = phase_mesh8(torch, work, device["smi"], seed=args.seed)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -5971,8 +6512,10 @@ def main(argv: list[str] | None = None) -> int:
         # every rank's Ulysses (15) and pipeline (16) runs, every source
         # and restored rank's steps of the gang (17, with phase 20's pipe
         # axis steps), every sharded and dense step of the mesh phase (18)
-        # and of the expert-parallel MoE (19), sources and restores, and
-        # phase 20's gang steps, sources and both restores.
+        # and of the expert-parallel MoE (19), sources and restores,
+        # phase 20's gang steps, sources and both restores, and phase 21's
+        # eight ranks (the dryrun's phases and the (2,2,2) flagship's
+        # steps, source and restored).
         "launches": (train["launches"][name] + frozen["launches_all"][name]
                      + wire["launches"][name] + lora["launches"][name]
                      + remat["launches"][name] + moe["launches"][name]
@@ -5980,7 +6523,8 @@ def main(argv: list[str] | None = None) -> int:
                      + long_context["ulysses"]["launches"][name]
                      + pipeline["launches"][name]
                      + gang["launches"][name] + mesh["launches"][name]
-                     + ep["launches"][name] + gang_mesh["launches"][name]),
+                     + ep["launches"][name] + gang_mesh["launches"][name]
+                     + mesh8["launches"][name]),
         "launches_by_path": {"adam": train["launches"][name],
                              "frozen_trunk": frozen["launches_all"][name],
                              "wire": wire["launches"][name],
@@ -5994,14 +6538,18 @@ def main(argv: list[str] | None = None) -> int:
                              "gang": gang["launches"][name],
                              "mesh": mesh["launches"][name],
                              "ep": ep["launches"][name],
-                             "gang_mesh": gang_mesh["launches"][name]},
+                             "gang_mesh": gang_mesh["launches"][name],
+                             "pp_ep": sum(r[name] for r in pipeline["pp_ep"][
+                                 "launches_per_rank"]),
+                             "mesh8": mesh8["launches"][name]},
         "launches_per_step": {"lora_7b": lora["launches_per_step"][name],
                               "moe": moe["launches_per_step"][name],
                               "gang": gang["launches_per_step"][0][0][name],
                               "mesh": mesh["launches_per_step"][name],
                               "ep": ep["launches_per_step"][name],
                               "gang_mesh":
-                                  gang_mesh["launches_per_step"][name]},
+                                  gang_mesh["launches_per_step"][name],
+                              "mesh8": mesh8["launches_per_step"][name]},
         "max_abs_err": main_shape["err"][name],
         "worst_tile_err_ratio": main_shape["tiles"][name],
         "ms": main_shape["ms"][name],
@@ -6046,7 +6594,9 @@ def main(argv: list[str] | None = None) -> int:
         # Phase 20: the sharded flagship's gang cut through the hooks, its
         # post-copy restore on a mesh (the grids' under "ep"), the pipe
         # axis (under "gang", phase 17's launch).
-        "gang_mesh": {k: v for k, v in gang_mesh.items() if k != "launches"}}
+        "gang_mesh": {k: v for k, v in gang_mesh.items() if k != "launches"},
+        # Phase 21: dryrun_multichip(8)'s phases and the (2,2,2) flagship.
+        "mesh8": {k: v for k, v in mesh8.items() if k != "launches"}}
     log("total", f"chip_smoke.py took {time.perf_counter() - _T0:.1f} s")
     # Phase 5's blackout split by the migration's flight log.
     print(json.dumps({"obs": migrate["obs"]}), flush=True)

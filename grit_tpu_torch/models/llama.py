@@ -328,7 +328,7 @@ def _attn_block(cfg: LlamaConfig, p: dict, x: torch.Tensor,
         if shard is not None and shard.group is not None:
             out = all_gather(out, 2, shard.group)
     out = out.reshape(B, S, cfg.n_heads * hd)
-    return out @ p["wo"].to(cfg.dtype)
+    return reduced(out @ p["wo"].to(cfg.dtype))
 
 
 def _rope_attend(cfg: LlamaConfig, q, k, v, positions, attn_fn=None):
@@ -361,7 +361,22 @@ def local_heads(fn, q, k, v, positions):
 def _mlp_block(cfg: LlamaConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     gate = F.silu(x @ p["w_gate"].to(cfg.dtype))
     up = x @ p["w_up"].to(cfg.dtype)
-    return (gate * up) @ p["w_down"].to(cfg.dtype)
+    return reduced((gate * up) @ p["w_down"].to(cfg.dtype))
+
+
+def reduced(y: torch.Tensor) -> torch.Tensor:
+    """A row-parallel product's pending sum over ``model`` carried out
+    (Megatron's all-reduce after ``wo`` and ``w_down``): a DTensor left
+    ``Partial`` there makes the next norm and product pick a sequence
+    split for the activations, whose strided layout DTensor's planner
+    takes minutes to redistribute on a mesh of three dims. Plain tensors
+    pass through."""
+    if not is_dtensor(y) or not any(pl.is_partial() for pl in y.placements):
+        return y
+    from torch.distributed.tensor import Replicate  # noqa: PLC0415
+
+    return y.redistribute(placements=[Replicate() if pl.is_partial() else pl
+                                      for pl in y.placements])
 
 
 def layer_body(cfg: LlamaConfig, layer_params: dict, x: torch.Tensor,

@@ -28,7 +28,9 @@ layer expert-parallel over ``EXPERT_MESH_AXIS`` with the whole batch's
 routing (:func:`grit_tpu_torch.ops.moe.moe_mlp`): the sharded Trainer's
 loss closes over its mesh, and the serving engines pass theirs.
 :func:`pp_stage_shardings` is the pipelined MoE's layout: the pipeline's,
-with the experts' dim (axis 2 of a staged leaf) over the expert axis.
+with the experts' dim (axis 2 of a staged leaf) over the expert axis;
+``forward_pp(mesh=)`` runs on it (pp × ep: each stage's experts split
+over ``expert``).
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ from grit_tpu_torch.models.llama import (  # noqa: F401  (BATCH_SPEC: re-export)
     token_cross_entropy,
 )
 from grit_tpu_torch.ops.moe import moe_mlp, moe_param_shapes
+from grit_tpu_torch.parallel.mesh import DATA_AXIS, EXPERT_AXIS, PIPE_AXIS
 from grit_tpu_torch.parallel.sharding import NamedSharding, ShardingRules
 from grit_tpu_torch.tree import map_with_names
 
@@ -113,7 +116,8 @@ def init_params(cfg: MoeLlamaConfig, generator: torch.Generator,
 
 
 def _moe_ffn(cfg: MoeLlamaConfig, mesh=None,
-             token_mask: torch.Tensor | None = None):
+             token_mask: torch.Tensor | None = None,
+             expert_axis: str = EXPERT_MESH_AXIS):
     """The FFN hook for llama's trunk: the expert layer over the (B, S)
     tokens it is given, which compete for capacity within the batch (over
     every shard of it on a ``mesh``). ``token_mask`` (B·S,) bool keeps rows
@@ -123,7 +127,7 @@ def _moe_ffn(cfg: MoeLlamaConfig, mesh=None,
     def ffn(layer_params, normed):
         y, aux = moe_mlp(layer_params["moe"], normed.reshape(-1, cfg.dim),
                          capacity_factor=cfg.capacity_factor, mesh=mesh,
-                         axis=EXPERT_MESH_AXIS, top_k=cfg.top_k,
+                         axis=expert_axis, top_k=cfg.top_k,
                          token_mask=token_mask)
         return y.reshape(normed.shape), aux
 
@@ -191,18 +195,43 @@ init_kv_cache = llama.init_kv_cache  # the same cache layout
 
 
 def forward_pp(cfg: MoeLlamaConfig, stage_params: dict, tokens: torch.Tensor,
-               *, n_microbatches: int, axis=None) -> torch.Tensor:
+               *, n_microbatches: int, axis=None, mesh=None) -> torch.Tensor:
     """The pipelined MoE forward: :func:`pipeline_llama.forward_pp` with
     the expert feed-forward per microbatch (``stage_params``: this rank's
     stage of :func:`pipeline_llama.to_stage_params` on an MoE tree). The
-    aux is dropped, as the reference's stage drops it."""
+    aux is dropped, as the reference's stage drops it.
+
+    ``mesh``: pp × ep (a :func:`~grit_tpu_torch.parallel.mesh.build_pipe_mesh`
+    mesh with an ``expert`` axis; ``axis`` is then its ``pipe`` group).
+    ``stage_params`` is this rank's shard by :func:`pp_stage_shardings`,
+    its stage's experts split over ``expert``, and each stage's expert
+    layer runs expert-parallel on the sub-mesh without ``pipe``
+    (:func:`grit_tpu_torch.ops.moe.moe_mlp` takes every other axis of the
+    mesh it is given for a token axis), the routing global over the
+    microbatch's tokens, which every rank of a stage holds. A ``data``
+    axis larger than 1 raises: the batch is not split here (the dryrun's
+    data-parallel pipeline is :func:`grit_tpu_torch.entry.pipeline_moe_loss`).
+
+    Capacity note: tokens compete for an expert's capacity within one
+    microbatch here and within the whole batch in :func:`forward`; with
+    ``capacity_factor >= n_experts`` nothing drops and the two agree."""
+    sub = None
+    if mesh is not None:
+        names = mesh.mesh_dim_names
+        if DATA_AXIS in names and mesh.size(names.index(DATA_AXIS)) > 1:
+            raise ValueError("forward_pp does not split the batch over "
+                             f"{DATA_AXIS!r}: {dict(zip(names, mesh.shape))}")
+        axis = mesh.get_group(PIPE_AXIS)
+        rest = tuple(n for n in names if n != PIPE_AXIS)
+        sub = mesh[rest] if len(rest) > 1 else mesh[rest[0]]
     return pipeline_llama.forward_pp(
         cfg, stage_params, tokens, n_microbatches=n_microbatches,
-        axis=axis, mlp_fn_builder=lambda _mb, _S: _moe_ffn(cfg))
+        axis=axis, mlp_fn_builder=lambda _mb, _S: _moe_ffn(
+            cfg, sub, expert_axis=EXPERT_AXIS))
 
 
-def pp_stage_shardings(mesh, stage_params: dict, pipe_axis: str = "pipe",
-                       expert_axis: str = "expert") -> dict:
+def pp_stage_shardings(mesh, stage_params: dict, pipe_axis: str = PIPE_AXIS,
+                       expert_axis: str = EXPERT_AXIS) -> dict:
     """The pipelined MoE's layout: :func:`pipeline_llama.stage_shardings`
     (layer leaves over ``pipe_axis``, the rest replicated) with the
     expert weights ``w_in``/``w_out``, staged (n_stages, per, E, ...),

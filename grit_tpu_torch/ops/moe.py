@@ -82,10 +82,8 @@ from grit_tpu_torch.parallel.collectives import (
     replicate,
     shard_index,
 )
-from grit_tpu_torch.parallel.mesh import axis_groups
+from grit_tpu_torch.parallel.mesh import EXPERT_AXIS, axis_groups
 from grit_tpu_torch.parallel.sharding import NamedSharding, is_dtensor
-
-EXPERT_AXIS = "expert"
 
 
 def moe_param_shapes(dim: int, hidden: int, n_experts: int) -> dict:

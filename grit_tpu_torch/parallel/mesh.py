@@ -15,11 +15,13 @@ re-laid-out: restoring a dp=8 snapshot onto a dp=4×fsdp=2 mesh is a
 sharding change, not a format change.
 
 A pipelined job runs on a mesh of its own, one ``pipe`` axis of one rank
-a stage (:func:`build_pipe_mesh`, the JAX package's ``pipe_mesh``). Its
-state is never a DTensor: each rank holds its stage of the stacked layer
-leaves, the stage dim dropped (``pipeline_llama.stage_slice``), and the
-rest whole, and the pipeline's own collectives run the step; the mesh
-gives a snapshot its descriptors and each rank its chunk
+a stage (:func:`build_pipe_mesh`, the JAX package's ``pipe_mesh``), or
+``pipe`` between ``data`` and ``expert`` (the JAX dryrun's pp × ep
+mesh). Its state is never a DTensor: each rank holds its shard of every
+leaf, a stacked layer leaf's stage dim dropped
+(``pipeline_llama.stage_slice``, and the experts over ``expert``), and
+the pipeline's and the expert layer's own collectives run the step; the
+mesh gives a snapshot its descriptors and each rank its chunk
 (:mod:`grit_tpu_torch.parallel.sharding`).
 
 The mesh is a ``DeviceMesh`` of one process per device (rank), over the
@@ -31,6 +33,7 @@ searches over every mesh dim it is given.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import torch
@@ -44,6 +47,8 @@ FSDP_AXIS = "fsdp"
 MODEL_AXIS = "model"
 AXES = (DATA_AXIS, FSDP_AXIS, MODEL_AXIS)
 PIPE_AXIS = "pipe"
+EXPERT_AXIS = "expert"
+DATA_PIPE_EXPERT = (DATA_AXIS, PIPE_AXIS, EXPERT_AXIS)  # a pp × ep mesh
 
 
 @dataclass(frozen=True)
@@ -83,12 +88,30 @@ def build_mesh(spec: MeshSpec | None = None,
                             mesh_dim_names=AXES)
 
 
-def build_pipe_mesh(device: torch.device | str | None = None) -> DeviceMesh:
+def build_pipe_mesh(device: torch.device | str | None = None, *,
+                    data: int | None = None,
+                    expert: int | None = None) -> DeviceMesh:
     """A one-axis ``DeviceMesh`` named ``pipe`` over the default process
-    group's ranks in rank order: rank ``s`` is stage ``s``."""
+    group's ranks in rank order: rank ``s`` is stage ``s``.
+
+    ``data`` and ``expert`` (sizes; 1 keeps its axis) add those axes
+    around ``pipe``, which takes the ranks left over: the axes given of
+    (data, pipe, expert), outermost first, over the ranks in rank order
+    (the JAX dryrun's ``Mesh(devices.reshape(data, pipe, expert),
+    ("data", "pipe", "expert"))``; ``expert`` alone is the JAX test's
+    (pipe, expert) mesh)."""
+    n = dist.get_world_size()
+    given = {DATA_AXIS: data, EXPERT_AXIS: expert}
+    fixed = math.prod(k for k in given.values() if k is not None)
+    if min([k for k in given.values() if k is not None], default=1) < 1 \
+            or n % fixed:
+        raise ValueError(f"{n} ranks do not split into data={data}, "
+                         f"expert={expert} and a pipe axis")
+    sizes = {DATA_AXIS: data, PIPE_AXIS: n // fixed, EXPERT_AXIS: expert}
+    names = tuple(a for a in DATA_PIPE_EXPERT if sizes[a] is not None)
     return init_device_mesh(resolve_device(device).type,
-                            (dist.get_world_size(),),
-                            mesh_dim_names=(PIPE_AXIS,))
+                            tuple(sizes[a] for a in names),
+                            mesh_dim_names=names)
 
 
 def is_pipe_mesh(mesh: DeviceMesh) -> bool:

@@ -30,12 +30,17 @@ sharded leaf, axes of size 1 included, which placements alone cannot
 name. A DTensor without one (a pending reduction, a mesh the port did
 not build, a copy) raises.
 
-The pipe axis (:data:`~grit_tpu_torch.parallel.mesh.PIPE_AXIS`, a
-pipeline's one-axis mesh) holds no DTensor: a leaf whose spec starts
-with ``pipe`` is stacked over the stages, and each rank holds its stage
-with that dim dropped (the port's one-process-a-rank ``stage_slice``);
-every other leaf is whole on every rank. The spec, the descriptor and
-the chunk index are the stacked array's, as the JAX package's.
+A mesh with the pipe axis (:data:`~grit_tpu_torch.parallel.mesh.PIPE_AXIS`,
+a pipeline's mesh: ``pipe`` alone, or with ``data`` and ``expert``)
+holds no DTensor: each rank holds its shard of every leaf as a plain
+tensor, every split its spec names cut (a staged expert weight's
+experts over ``expert``); a leaf whose spec starts with ``pipe`` is
+stacked over the stages, and the rank's shard drops that dim (the
+port's one-process-a-rank ``stage_slice``). :meth:`NamedSharding.distribute`,
+:meth:`~NamedSharding.zeros`, :meth:`~NamedSharding.held_shape` and
+:meth:`~NamedSharding.global_shape` agree on that shard. The spec, the
+descriptor and the chunk index are the stacked array's, as the JAX
+package's.
 """
 
 from __future__ import annotations
@@ -271,13 +276,20 @@ class NamedSharding:
         return bool(self.spec) and _axes_of(self.spec[0]) == (PIPE_AXIS,)
 
     def global_shape(self, local_shape) -> list[int]:
-        """The stacked array's shape of a leaf this rank holds as
-        ``local_shape`` (a plain leaf on a pipe mesh; otherwise it is its
-        own)."""
-        if not self.stage:
-            return [int(d) for d in local_shape]
-        return [int(self.mesh.size(self.mesh.mesh_dim_names.index(
-            PIPE_AXIS)))] + [int(d) for d in local_shape]
+        """The array's shape of a leaf this rank holds as ``local_shape``:
+        on a pipe mesh (a plain shard) each dim times the axes that split
+        it, a stage leaf's stacked dim restored; otherwise it is its
+        own."""
+        shape = [int(d) for d in local_shape]
+        if not is_pipe_mesh(self.mesh):
+            return shape
+        if self.stage:
+            shape = [1] + shape
+        names = self.mesh.mesh_dim_names
+        entries = [*self.spec, *[None] * (len(shape) - len(self.spec))]
+        return [d * math.prod(self.mesh.size(names.index(a))
+                              for a in _axes_of(entry))
+                for d, entry in zip(shape, entries)]
 
     def held_shape(self, index: list[list[int]]) -> list[int]:
         """The shape a rank holds of the shard at ``index``: the shard's,
@@ -332,7 +344,7 @@ class NamedSharding:
         """A DTensor of this sharding whose local shard is zeros on
         ``device`` (``"meta"``: a shape skeleton): nothing of the whole
         tensor is ever allocated. On a pipe mesh, the plain tensor a rank
-        holds (its stage of a stage leaf)."""
+        holds (:meth:`distribute`'s shard)."""
         index = self.shard_index(shape)
         if is_pipe_mesh(self.mesh):
             return torch.zeros(self.held_shape(index), dtype=dtype,
@@ -351,11 +363,15 @@ class NamedSharding:
     def distribute(self, x: torch.Tensor) -> torch.Tensor:
         """``x``, which every rank holds whole and alike, as a DTensor of
         this sharding: each rank keeps its own shard (no communication).
-        On a pipe mesh, the plain tensor a rank holds: its stage (a copy)
-        of a stage leaf, else ``x``."""
+        On a pipe mesh, the plain tensor a rank holds: a copy of its shard
+        (a stage leaf's with the stacked dim dropped), or ``x`` itself
+        when the spec splits nothing."""
         index = self.shard_index(x.shape)  # the divisibility check
         if is_pipe_mesh(self.mesh):
-            return x[index[0][0]].clone() if self.stage else x
+            if not self.shards():
+                return x
+            part = x[tuple(slice(a, b) for a, b in index)]
+            return (part[0] if self.stage else part).clone()
         from torch.distributed.tensor import distribute_tensor  # noqa: PLC0415
 
         return tag(distribute_tensor(x, self.active,

@@ -359,6 +359,17 @@ def _mesh_rank(args: argparse.Namespace, rdv: str) -> None:
     _train(args, t_main, mesh=mesh, rank=rank, gate=gate)
 
 
+def emit(line: str) -> None:
+    """Print one protocol line in one write. ``--mesh`` ranks share the
+    parent's stdout, and ``print`` writes the text and its newline apart
+    when stdout is unbuffered (``PYTHONUNBUFFERED``), so two ranks' lines
+    could interleave into one (``PID 0 …PID 2 …``) and a reader would miss
+    both; a single write of a line shorter than the pipe's atomic size
+    cannot be split."""
+    sys.stdout.write(line + "\n")
+    sys.stdout.flush()
+
+
 def _train(args: argparse.Namespace, t_main: float, *, mesh=None,
            rank: int = 0, gate=None) -> None:
     """Build, restore, serve the agentlet and train, printing the
@@ -371,7 +382,7 @@ def _train(args: argparse.Namespace, t_main: float, *, mesh=None,
 
     def say(line: str) -> None:
         if rank == 0:
-            print(line, flush=True)
+            emit(line)
 
     base = None
     if args.model == "lora":
@@ -410,7 +421,7 @@ def _train(args: argparse.Namespace, t_main: float, *, mesh=None,
     agentlet = Agentlet(lambda: tr.state, step_fn=lambda: tr.step,
                         reload_fn=tr.restore, slice_gate=gate).start()
     if mesh is not None:
-        print(f"PID {rank} {os.getpid()}", flush=True)
+        emit(f"PID {rank} {os.getpid()}")
     say("READY")
     n_steps = int(os.environ.get("N_STEPS", "10"))
     try:

@@ -19,6 +19,7 @@ manifest records it. The source resumes and runs on; then
 from __future__ import annotations
 
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -169,12 +170,34 @@ def test_same_mesh_postcopy_restore_is_bitwise(gang):
 def test_other_mesh_restore_within_the_relayout_bound(gang):
     lines, losses = gang["other"]
     cut = gang["cut"]
-    assert f"RESTORED {cut}" in lines
-    assert sorted(losses) == list(range(cut + 1, N_STEPS + 1))
+    assert f"RESTORED {cut}" in lines, (cut, lines)
+    assert sorted(losses) == list(range(cut + 1, N_STEPS + 1)), (cut, lines)
     for step, loss in losses.items():
         want = float(gang["source"][step])
         assert abs(float(loss) - want) / max(1.0, abs(want)) < \
-            RELAYOUT_BOUND, step
+            RELAYOUT_BOUND, (f"step {step} after the cut at {cut}: (2,1,2) "
+                             f"loss {loss}, the source's {want}")
+
+
+def test_ranks_protocol_lines_never_interleave():
+    """Ranks of a ``--mesh`` workload share one stdout. Under
+    ``PYTHONUNBUFFERED`` a ``print`` writes its text and its newline
+    apart, so two ranks' lines could merge (``PID 0 5104PID 2 5106``) and
+    the reader miss a ``PID``, ``RESTORED`` or ``STEP`` line: the
+    workload's :func:`emit` writes each line at once."""
+    code = ("import sys; from grit_tpu_torch.workload import emit\n"
+            "for i in range(3000): emit(f'PID {sys.argv[1]} {i}')\n")
+    env = dict(os.environ, PYTHONUNBUFFERED="1", PYTHONPATH=REPO)
+    read, write = os.pipe()
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(k)], cwd=REPO,
+                              env=env, stdout=write) for k in range(N)]
+    os.close(write)
+    with os.fdopen(read) as f:
+        lines = f.read().splitlines()
+    assert [p.wait(120) for p in procs] == [0] * N
+    bad = [x for x in lines if not re.fullmatch(r"PID \d \d+", x)]
+    assert not bad, bad[:5]
+    assert len(lines) == 3000 * N
 
 
 def test_chip_smoke_gang_mesh_phase_rehearsal(tmp_path):

@@ -183,6 +183,7 @@ def test_port_imports_nothing_of_jax():
                      "grit_tpu_torch.models.pipeline_llama",
                      "grit_tpu_torch.parallel.mesh",
                      "grit_tpu_torch.parallel.sharding",
+                     "grit_tpu_torch.entry",
                      "grit_tpu_torch.models.serving",
                      "grit_tpu_torch.faults", "grit_tpu_torch.obs.flight",
                      "grit_tpu_torch.obs.trace", "grit_tpu_torch.obs.metrics",

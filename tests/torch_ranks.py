@@ -33,7 +33,7 @@ from grit_tpu_torch.ops.ulysses import ulysses_attention
 from grit_tpu_torch.parallel import axis_index, axis_size
 from grit_tpu_torch.parallel.collectives import shift
 from grit_tpu_torch.parallel.pipeline import microbatch, pipeline_apply, pipeline_loss
-from grit_tpu_torch.tree import flatten_with_names, tree_map
+from grit_tpu_torch.tree import flatten_with_names, map_with_names, tree_map
 
 FOREIGN = ("jax", "jaxlib", "optax", "ml_dtypes", "grit_tpu")
 
@@ -1144,4 +1144,246 @@ def stage_sharding_cases(inp: dict) -> dict:
                            shardings=shardings)
     out["jax_restored"] = {name: _local_np(x)
                            for name, x in flatten_with_names(got)}
+    return out
+
+
+# -- pp × ep: experts split inside each pipeline stage ----------------------------
+
+# The three specs a pipe mesh's leaves take (a stage leaf, a staged expert
+# weight, a replicated leaf) and the staged leaf shape they split:
+# (stages, layers a stage, experts, width).
+PIPE_SPECS = {"stage": ("pipe",), "stage_expert": ("pipe", None, "expert"),
+              "replicated": ()}
+PIPE_SHAPE = (2, 3, 4, 6)
+
+
+def pipe_layouts(mesh) -> dict:
+    """Each of :data:`PIPE_SPECS` on ``mesh`` over an ``arange`` of
+    :data:`PIPE_SHAPE`: what ``distribute`` hands this rank, the shapes
+    ``zeros``, ``held_shape`` and ``global_shape`` give, the shard's index
+    and whether this rank writes it."""
+    from grit_tpu_torch.parallel.sharding import NamedSharding  # noqa: PLC0415
+
+    x = torch.arange(int(np.prod(PIPE_SHAPE)), dtype=torch.int32).reshape(
+        PIPE_SHAPE)
+    out = {}
+    for key, spec in PIPE_SPECS.items():
+        ns = NamedSharding(mesh, spec)
+        index = ns.shard_index(PIPE_SHAPE)
+        held = ns.distribute(x)
+        out[key] = {"held": _np(held), "index": index,
+                    "zeros": list(ns.zeros(PIPE_SHAPE, torch.int32,
+                                           "cpu").shape),
+                    "zeros_meta": list(ns.zeros(PIPE_SHAPE, torch.int32,
+                                                "meta").shape),
+                    "held_shape": ns.held_shape(index),
+                    "global_shape": ns.global_shape(held.shape),
+                    "writes": ns.writes()}
+    return out
+
+
+def _pp_ep_cfg(inp: dict):
+    return replace(moe_llama.MoeLlamaConfig.tiny(**inp["cfg"]),
+                   dtype=torch.float32, param_dtype=torch.float32)
+
+
+def pp_ep_cases(inp: dict) -> dict:
+    """pp × ep on four ranks, a (pipe 2, expert 2) mesh: each rank's
+    shard of the staged tiny MoE llama by ``pp_stage_shardings``, the
+    pipelined forward with each stage's experts split (``forward_pp
+    (mesh=)``) and its cross-entropy gradients, the shard layouts of the
+    three specs on (pipe, expert) and (data 1, pipe, expert), a snapshot
+    of the staged shards written by every rank into one manifest and
+    restored onto the mesh, and the JAX package's pp × ep snapshot
+    restored onto it."""
+    from grit_tpu_torch.device.snapshot import restore_snapshot, write_snapshot  # noqa: PLC0415
+    from grit_tpu_torch.parallel.mesh import build_pipe_mesh  # noqa: PLC0415
+
+    rank = dist.get_rank()
+    out: dict = {"foreign": foreign_modules(), "rank": rank}
+    cfg = _pp_ep_cfg(inp)
+    mesh = build_pipe_mesh("cpu", expert=2)
+    out["mesh"] = {"names": list(mesh.mesh_dim_names),
+                   "shape": list(mesh.shape),
+                   "coord": list(mesh.get_coordinate())}
+    out["layouts"] = {"pipe_expert": pipe_layouts(mesh),
+                      "data_pipe_expert": pipe_layouts(
+                          build_pipe_mesh("cpu", data=1, expert=2))}
+    staged = pipeline_llama.to_stage_params(cfg, _params(inp["params"]), 2)
+    shardings = dict(flatten_with_names(
+        moe_llama.pp_stage_shardings(mesh, staged)))
+    out["descriptors"] = {n: s.descriptor() for n, s in shardings.items()}
+    local = map_with_names(lambda name, x: shardings[name].distribute(x),
+                           staged)
+    out["held"] = {name: _np(x) for name, x in flatten_with_names(local)}
+    toks = torch.from_numpy(inp["tokens"])
+    micro = inp["n_microbatches"]
+    with torch.no_grad():
+        out["logits"] = _np(moe_llama.forward_pp(
+            cfg, local, toks[:, :-1], n_microbatches=micro, mesh=mesh))
+    named = flatten_with_names(local)
+    leaves = [x.clone().requires_grad_(True) for _, x in named]
+    it = iter(leaves)
+    params = map_with_names(lambda _n, _x: next(it), local)
+    loss = llama.token_cross_entropy(moe_llama.forward_pp(
+        cfg, params, toks[:, :-1], n_microbatches=micro, mesh=mesh),
+        toks[:, 1:])
+    out["loss"] = float(loss.detach())
+    out["grads"] = {name: _np(g) for (name, _), g in zip(
+        named, torch.autograd.grad(loss, leaves))}
+    # One manifest of the staged shards, every rank its (stage, expert)
+    # chunk, each distinct one once; restored onto the mesh by every rank.
+    snap = os.path.join(inp["work"], "pp-ep-snap")
+    write_snapshot(snap, local, meta={"step": 1}, barrier=dist.barrier,
+                   process_index=rank, process_count=dist.get_world_size(),
+                   shardings=map_with_names(lambda n, _x: shardings[n],
+                                            local))
+    like = map_with_names(lambda n, x: shardings[n].zeros(
+        [int(d) for d in x.shape], x.dtype, "meta"), staged)
+    shard_tree = map_with_names(lambda n, _x: shardings[n], staged)
+    got = restore_snapshot(snap, like=like, device="cpu", shardings=shard_tree)
+    out["restored"] = {name: _np(x) for name, x in flatten_with_names(got)}
+    jgot = restore_snapshot(inp["jax_dir"], like=like, device="cpu",
+                            shardings=shard_tree)
+    out["jax_restored"] = {name: _np(x) for name, x in flatten_with_names(jgot)}
+    return out
+
+
+# -- eight ranks: the (2,2,2) mesh, dp × pp × ep, sequence parallelism -------------
+
+
+def _masked_pipeline_moe(stacked: dict, x: torch.Tensor,
+                         mask: np.ndarray) -> dict:
+    """The dp × pp × ep step of ``entry`` with ``mask`` (M, mb) keeping
+    some rows of each microbatch: each data shard's kept rows' loss sum
+    and count summed over ``data``, the microbatch's loss their ratio.
+    Returns the loss and this rank's gradients."""
+    from grit_tpu_torch import entry  # noqa: PLC0415
+    from grit_tpu_torch.parallel.collectives import reduce_sum  # noqa: PLC0415
+    from grit_tpu_torch.parallel.mesh import build_pipe_mesh  # noqa: PLC0415
+
+    mesh = build_pipe_mesh("cpu", data=2, expert=2)
+    shardings = entry.moe_stage_shardings(mesh)
+    local = {k: shardings[k].distribute(v).requires_grad_(True)
+             for k, v in stacked.items()}
+    n_mb = entry.PP["n_mb"]
+    rows_of = partial(entry.data_rows, mesh)
+    out = pipeline_apply(entry._moe_stage(mesh["data", "expert"]), local,
+                         rows_of(microbatch(x, n_mb)),
+                         axis=mesh.get_group("pipe"))
+    data = mesh.get_group("data")
+    per = []
+    for o, y, keep in zip(out, rows_of(microbatch(0.5 * x, n_mb)),
+                          rows_of(torch.from_numpy(mask))):
+        rows = entry.row_mse(o, y)
+        total = torch.where(keep, rows, torch.zeros_like(rows)).sum()
+        per.append(reduce_sum(total, data)
+                   / reduce_sum(keep.sum().to(rows.dtype), data))
+    loss = torch.stack(per).mean()
+    names = list(local)
+    grads = torch.autograd.grad(loss, [local[k] for k in names])
+    return {"mesh": {"coord": list(mesh.get_coordinate())},
+            "loss": float(loss.detach()),
+            "grads": {k: _np(g) for k, g in zip(names, grads)}}
+
+
+def _dense_stage_pipeline(x: torch.Tensor) -> dict:
+    """A dense stage ``h + tanh(h @ w)``, ``w`` held whole by every rank
+    of its stage, through ``entry.global_row_mean`` on (data 2, pipe 2,
+    expert 2): the loss, this rank's gradient of its stage's ``w``, that
+    gradient summed over ``data``, and the unsharded composition's loss
+    and gradient of the same stage."""
+    from grit_tpu_torch import entry  # noqa: PLC0415
+    from grit_tpu_torch.parallel.mesh import build_pipe_mesh  # noqa: PLC0415
+    from grit_tpu_torch.parallel.sharding import NamedSharding  # noqa: PLC0415
+
+    mesh = build_pipe_mesh("cpu", data=2, expert=2)
+    dim = x.shape[1]
+    w = 0.1 * torch.randn(2, dim, dim, generator=torch.Generator().manual_seed(7))
+
+    def stage(p, h):
+        return h + torch.tanh(h @ p)
+
+    n_mb = entry.PP["n_mb"]
+    x_mb, y_mb = microbatch(x, n_mb), microbatch(0.5 * x, n_mb)
+    local = NamedSharding(mesh, ("pipe",)).distribute(w).requires_grad_(True)
+    out = pipeline_apply(stage, local, entry.data_rows(mesh, x_mb),
+                         axis=mesh.get_group("pipe"))
+    loss = entry.global_row_mean(out, entry.data_rows(mesh, y_mb),
+                                 mesh.get_group("data"))
+    (grad,) = torch.autograd.grad(loss, [local])
+    summed = grad.clone()
+    dist.all_reduce(summed, group=mesh.get_group("data"))
+    whole = w.clone().requires_grad_(True)
+    per = []
+    for xm, ym in zip(x_mb, y_mb):
+        h = xm
+        for i in range(2):
+            h = stage(whole[i], h)
+        per.append(entry.row_mse(h, ym).mean())
+    dense = torch.stack(per).mean()
+    (dense_grad,) = torch.autograd.grad(dense, [whole])
+    p = mesh.get_coordinate()[mesh.mesh_dim_names.index("pipe")]
+    return {"loss": float(loss.detach()), "dense": float(dense.detach()),
+            "grad": _np(grad), "summed": _np(summed),
+            "dense_grad": _np(dense_grad[p])}
+
+
+def mesh8_cases(inp: dict) -> dict:
+    """Eight ranks: the tiny llama's first step on the (2,2,2) mesh and
+    densely, in bf16 and f32; a (2,2,2) snapshot, its bitwise resume and
+    the JAX package's (2,2,2) snapshot restored onto it; the dp × pp × ep
+    step of the dryrun on (data 2, pipe 2, expert 2) on the JAX package's
+    weights and rows, and with a mask that leaves the data shards unequal
+    row counts; a dense stage's gradients through the same loss; the pipe
+    layouts on that mesh; the ring and Ulysses
+    sequence-parallel forwards over the eight ranks."""
+    from grit_tpu_torch import entry  # noqa: PLC0415
+    from grit_tpu_torch.device.snapshot import restore_snapshot  # noqa: PLC0415
+    from grit_tpu_torch.parallel.mesh import MeshSpec, build_mesh, build_pipe_mesh  # noqa: PLC0415
+    from grit_tpu_torch.parallel.sharding import dtensor_index  # noqa: PLC0415
+
+    rank = dist.get_rank()
+    cpu = torch.device("cpu")
+    out: dict = {"foreign": foreign_modules(), "rank": rank}
+    mesh = build_mesh(MeshSpec(2, 2, 2), "cpu")
+    out["mesh"] = {"shape": list(mesh.shape),
+                   "names": list(mesh.mesh_dim_names),
+                   "coord": list(mesh.get_coordinate())}
+    for label, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        out[label] = {"sharded": _llama_trainer(inp, dtype, mesh).run(1),
+                      "dense": _llama_trainer(inp, dtype, None).run(1)}
+    src = _llama_trainer(inp, torch.bfloat16, mesh)
+    src.run(2)
+    snap = os.path.join(inp["work"], "port-222")
+    src.snapshot(snap)
+    full = _full_np(src)
+    if rank == 0:
+        out["port_full"] = full
+    out["source_after"] = src.run(2)
+    out["source_state"] = _state_np(src)
+    fresh = _llama_trainer(inp, torch.bfloat16, mesh)
+    out["resumed"] = {"step": fresh.restore(snap), "losses": fresh.run(2),
+                      "state": _state_np(fresh)}
+    tr = _llama_trainer(inp, torch.bfloat16, mesh)
+    like = tr.abstract_state()
+    like.pop("rng")
+    got = restore_snapshot(inp["jax_dir"], like=like, device="cpu")
+    out["jax_restored"] = {
+        name: (dtensor_index(x) if isinstance(x, DTensor) else None,
+               _local_np(x)) for name, x in flatten_with_names(got)}
+
+    stacked = {k: torch.from_numpy(v) for k, v in inp["pp_stacked"].items()}
+    x = torch.from_numpy(inp["pp_x"])
+    got = entry.pipeline_moe_step(cpu, stacked, x)
+    out["pp"] = {**{k: got[k] for k in ("mesh", "loss", "dense", "err")},
+                 "grads": {k: _np(v) for k, v in got["grads"].items()},
+                 "updated": {k: _np(v) for k, v in got["updated"].items()}}
+    out["pp_masked"] = _masked_pipeline_moe(stacked, x, inp["pp_mask"])
+    out["pp_dense_stage"] = _dense_stage_pipeline(x)
+    out["layouts"] = pipe_layouts(build_pipe_mesh("cpu", data=2, expert=2))
+    sp = entry.seq_parallel(cpu, params=_params(inp["sp_params"]),
+                            tokens=torch.from_numpy(inp["sp_tokens"]))
+    out["sp"] = {"logits": {k: _np(v) for k, v in sp["logits"].items()},
+                 "err": sp["err"]}
     return out
