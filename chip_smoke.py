@@ -69,16 +69,30 @@ non-zero without the final result line:
    lands; after ``absorb_restored`` every stream's tokens equal the
    source's. Prefill and decode times, a decode-round profile, snapshot
    size, the tag's zeroed share, quiesce, dump, restore and blackout,
-   each clone's hot set and tail. The serving path launches none of the
-   three kernels (its attention is the plain one, as the reference's),
-   and the phase fails if one launched.
+   each clone's hot set and tail. The serving agentlet's drain fault seam
+   rides along: under ``GRIT_FAULT_POINTS=serve.drain:raise:x1`` a first
+   quiesce, after round 16, must fail in the drain (the injected fault
+   out of the loop's batch boundary, the quiesce timed out, its request
+   cleared by a resume), the engine serve on bitwise, and the quiesce at
+   round 24 park, dump and restore as above. The serving path launches
+   none of the three kernels (its attention is the plain one, as the
+   reference's), and the phase fails if one launched.
 7. io      — rates of the stages a dump and restore are made of
    (device-host copies, crc32, sha256, file write and read) on a buffer
    the size of the flagship's largest leaf; the port's crc32c library
    (built here with the host compiler, its path printed) held to the RFC
    3720 vectors and to its plain version at unaligned lengths on both of
    its paths, and timed against ``zlib.crc32``; zlib level 1, the codec
-   stage's, on one 64 MiB piece.
+   stage's, on one 64 MiB piece. Then, once phases 8-10's sources are
+   parked, the node's native device seams of a GPU pod, built here with
+   the host compiler (``grit_tpu_torch/device/native.py``, their paths
+   printed): the CRIU plugin's descriptor (``grit_gpu_plugin``, the
+   ext-file and device hooks wired); the ``gpu-checkpoint`` CLI's
+   ``--status``, ``--quiesce``, ``--dump`` and ``--resume`` against phase
+   9's parked standby source; and the plugin's ``DUMP_EXT_FILE`` on a real
+   open ``/dev/nvidiactl`` fd, which must refuse with a stderr line naming
+   it and an errno other than ``-ENOTSUP`` (a CUDA fd cannot be reopened:
+   the device state travels in the agentlet's snapshot).
 8. precopy — the reference agent's pre-copy and streamed-stage migration
    of phase 5's flagship cut to 2 layers (the widths stay the
    flagship's), driven as the agent drives it: a live pass at
@@ -121,7 +135,27 @@ non-zero without the final result line:
    loudly; the MNIST reference, the MNIST destination, the
    uninterrupted frozen-trunk run (the launch counts' run) and the
    post-copy destination start together after the MNIST dump (so the
-   post-copy numbers are taken beside them). ``[frozen]`` lines.
+   post-copy numbers are taken beside them). ``[frozen]`` lines. Then the
+   standby leg (``[standby]`` lines): a parked source of its own (the
+   MNIST twin's too starts among phases 8-10's) of the same fine-tune
+   armed for a preemption as the reference agent's standby loop
+   arms it, through the port's hook: round 0, a hashed full ``predump``
+   mirrored to a PVC directory, then 4 governed rounds, each the
+   non-parking speculative probe ``predump(base=)`` against the rolling
+   base while the source trains (each must answer ``probe``, park nothing
+   and see the source's step advance). Where the agent flattens the
+   rounds into its base, the leg keeps the round directories and lets the
+   port's collapsed ``ref_dir`` references stand. The source then parks
+   until the fire; the warm base (the last round) must restore, and with
+   that round's delta deleted the restore must raise. The fire, just
+   before the four processes above start: the blackout dump
+   (``validated`` against the rolling base), mirrored, the source
+   SIGKILLed, and a destination beside them
+   restoring the PVC tree, whose losses after the cut must equal the
+   uninterrupted run's (which runs past both cuts) and which must launch
+   the forward only. Per round: seconds, delta bytes, steps taken during
+   it; the final delta against the full snapshot; the blackout from the
+   fire's quiesce to the destination's first loss.
 10. wire   — phase 5's flagship at 2 layers migrated over the wire into
    this script's own receiver (both runs' sources start together and
    wait parked at their first step, so their process starts overlap;
@@ -136,8 +170,14 @@ non-zero without the final result line:
    ``.gritc`` sidecar, and a second destination restores from it,
    bitwise too; before the source resumes, a second dump of it into a
    receiver that hangs up mid-stream must answer ``ok`` with a failed
-   wire block and a committed mirror. A byte flipped in one frame must
-   fail the stream. Bytes raw and on the wire,
+   wire block and a committed mirror. The port's ``wire.send`` fault seam
+   rides on (a): its source runs under
+   ``GRIT_FAULT_POINTS=wire.send:raise:x1``, and a first dump of the
+   parked state with a wire spec and a mirror must fail its send as a
+   wire error while the mirror commits, byte for byte the dump the
+   destination continues from, and restores (that dump's seconds are
+   left out of the run's blackout). A byte flipped in one frame must fail
+   the stream. Bytes raw and on the wire,
    records compressed and raw, ``send_s``, ``stall_s``,
    ``dump_overlap_bytes``, dump and blackout print as ``[wire]`` lines.
 11. lora   — the north star's workload (the JAX package's
@@ -265,9 +305,13 @@ non-zero without the final result line:
    ``GRIT_SLICE_HOSTS=4``) started a step apart cut it into ``host-<k>``
    legs (each rank's own shards as process k of 4, through the
    speculative pass): one step in every leg, every rank parked there.
-   The sources resume to cut + 3; the fresh launch restores each rank's
-   leg onto (1,2,2) with ``GRIT_RESTORE_POSTCOPY=1`` (losses and final
-   shards bitwise the source's) and the legs' merged view
+   Rank 0's dump (the first, so its re-ship carries the steps since its
+   clone) also tees its leg over the wire into this script's receiver
+   (the rest of the leg and its ``-spec`` sibling shipped after): the
+   landed leg must equal the rank's own. The sources resume to cut + 3;
+   the fresh launch restores each rank's leg (rank 0's from the landed
+   one) onto (1,2,2) with ``GRIT_RESTORE_POSTCOPY=1`` (losses
+   and final shards bitwise the source's) and the legs' merged view
    (``merge_legs``) onto (2,1,2) (within 1e-2); each serving grid of
    phase 19 is restored onto (1,2,2) by post-copy too (the source's
    slots parked until the cache lands), its tokens and written cache
@@ -288,15 +332,18 @@ non-zero without the final result line:
 
 The second-to-last lines are the script's wall time, the kernels' JSON
 record (with the serving phase's numbers under ``serving``, phase 8's
-under ``precopy``, phase 9's under ``frozen_trunk``, phase 10's under
-``wire``, phase 7's crc32c and codec rates under ``io``, phases 11-13's
+under ``precopy``, phase 9's under ``frozen_trunk`` (its standby leg's
+under ``frozen_trunk.standby``), phase 10's under ``wire``, phase 7's
+crc32c and codec rates under ``io`` and its native seams under
+``io.native``, phases 11-13's
 under ``lora_7b``, ``remat`` and ``moe``, and phases 14-16's under
 ``moe_serving``, ``long_context`` and ``pipeline``, phase 17's under
 ``gang`` (phase 20's pipe axis under ``gang.pipe``), phase 18's under
 ``mesh``, phase 19's under ``ep`` (phase 20's grids under
 ``ep.grids.*.postcopy``), phase 20's under ``gang_mesh``, phase 21's
-under ``mesh8``; each kernel's ``launches`` sums phases 4, 9, 10, 11, 12,
-13, 15, 16, 17, 18, 19, 20 and 21, every rank's)
+under ``mesh8``; each kernel's ``launches`` sums phases 4, 9 (its
+standby leg's destination too, ``"standby"`` in ``launches_by_path``),
+10, 11, 12, 13, 15, 16, 17, 18, 19, 20 and 21, every rank's)
 and the card's ``name, power limit``; the last line is the result JSON.
 ``--seed`` seeds the serving phases' and the parallel phases' weights
 and prompts (default 0). The script imports nothing of JAX or of the
@@ -861,12 +908,14 @@ class Workload:
         return line
 
     def drain(self) -> None:
-        """Read the rest of stdout on a thread: a fast loop would otherwise
-        fill the pipe and block in a print, short of its checkpoint point."""
+        """Read the rest of stdout on a thread, each line's arrival time
+        kept: a fast loop would otherwise fill the pipe and block in a
+        print, short of its checkpoint point."""
         import threading  # noqa: PLC0415
 
         def run():
             for line in self.proc.stdout:
+                self.times.append(time.perf_counter())
                 self.lines.append(line.strip())
 
         self._drain = threading.Thread(target=run, daemon=True)
@@ -906,7 +955,14 @@ class Workload:
         return out
 
     def finish(self) -> None:
-        self.wait_for("DONE")
+        if self._drain is None:
+            self.wait_for("DONE")
+        else:  # a drained workload: its thread reads to the end
+            self._drain.join(timeout=1800)
+            if "DONE" not in self.lines:
+                rc = self.proc.wait(timeout=120)
+                raise RuntimeError(f"workload exited (rc {rc}) after "
+                                   f"{self.lines[-5:]}")
         if self.proc.wait(timeout=120) != 0:
             raise RuntimeError(f"workload rc {self.proc.returncode}")
 
@@ -1338,6 +1394,12 @@ FANOUT_CLONES = 2          # post-copy clones of the source's snapshot
 FANOUT_FREE = 2            # the source's slot whose request completes first
 FANOUT_PROMPT = 40         # tokens of the request each clone serves first
 FANOUT_ROUNDS = 8          # tokens of every stream compared after the absorb
+# The serving agentlet's drain fault seam (phase 6): armed once, it fails
+# the drain of a first quiesce sent after this round; the engine serves on
+# and the quiesce at the cut parks.
+SERVE_DRAIN_FAULT = "serve.drain:raise:x1"
+SERVE_FAULT_ROUND = 16
+SERVE_FAULT_TIMEOUT_S = 2.0  # the failed quiesce's own timeout
 
 
 def zipf_tokens(torch, n: int, vocab: int, gen) -> "torch.Tensor":
@@ -1528,7 +1590,7 @@ def phase_serving(torch, fa, work: str, card: str, *, seed: int,
                   max_len: int = SERVE_MAX_LEN,
                   prompts: tuple[int, ...] = SERVE_PROMPTS,
                   swap: tuple[int, int, int] = SERVE_SWAP,
-                  fanout: bool = True) -> dict:
+                  fanout: bool = True, drain_fault: bool = True) -> dict:
     """The serving path: a continuous-batching engine at the flagship
     widths (phase 14 passes the MoE model's ``cfg``, ``max_len``,
     ``prompts`` and ``swap``, and logs as ``label``; ``device`` other than
@@ -1542,9 +1604,15 @@ def phase_serving(torch, fa, work: str, card: str, *, seed: int,
     position one higher must not. Then a lock-step engine snapshots and
     continues in process. With ``fanout`` (phase 6; phase 14 leaves it
     to phase 6) the source's snapshot then fans out into post-copy
-    clones."""
+    clones. With ``drain_fault`` (phase 6 too) the source runs under
+    :data:`SERVE_DRAIN_FAULT`: a first quiesce, after round
+    :data:`SERVE_FAULT_ROUND`, must fail in the drain (the injected fault
+    out of the loop's batch boundary, the client's quiesce timed out and
+    its request cleared by a resume), the engine serve on, bitwise, and
+    the quiesce at the cut park, dump and restore as without it."""
     import threading  # noqa: PLC0415
 
+    from grit_tpu_torch import faults  # noqa: PLC0415
     from grit_tpu_torch.device.agentlet import ToggleClient  # noqa: PLC0415
     from grit_tpu_torch.device.snapshot import snapshot_nbytes  # noqa: PLC0415
     from grit_tpu_torch.models import llama, moe_llama  # noqa: PLC0415
@@ -1593,8 +1661,17 @@ def phase_serving(torch, fa, work: str, card: str, *, seed: int,
     prefill_ms: dict = {}
     adapter = ServingAgentlet(src, drain_mode="serialize",
                               path=os.path.join(work, "serve.sock"))
-    at_cut = threading.Event()
-    box: dict = {"error": None, "tokens": {}}
+    at_cut, at_fault, cleared = (threading.Event(), threading.Event(),
+                                 threading.Event())
+    box: dict = {"error": None, "tokens": {}, "drain_fault": None}
+    fault_at = SERVE_FAULT_ROUND if drain_fault else None
+
+    def wait_pending(what: str) -> None:
+        deadline = time.monotonic() + 300
+        while not adapter.agentlet.quiesce_pending:
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"no quiesce arrived {what}")
+            time.sleep(0.001)
 
     def serve_loop() -> None:
         try:
@@ -1603,23 +1680,59 @@ def phase_serving(torch, fa, work: str, card: str, *, seed: int,
                 box["tokens"][r] = adapter.step()
                 traffic.after_round(r, adapter.submit, src.release, s,
                                     prefill_ms)
-                if r < SERVE_CUT:
+                if r == fault_at:
+                    at_fault.set()
+                    wait_pending("after the fault round")
+                    try:
+                        adapter.batch_boundary()
+                    except faults.FaultInjected as exc:
+                        box["drain_fault"] = exc
+                    else:
+                        raise AssertionError("the armed serve.drain fault "
+                                             "did not fail the drain")
+                    if not cleared.wait(300):
+                        raise TimeoutError("the failed quiesce was never "
+                                           "cleared")
+                elif r < SERVE_CUT:
                     adapter.batch_boundary()
             at_cut.set()
-            deadline = time.monotonic() + 300
-            while not adapter.agentlet.quiesce_pending:
-                if time.monotonic() > deadline:
-                    raise TimeoutError("no quiesce arrived at the cut")
-                time.sleep(0.001)
+            wait_pending("at the cut")
             adapter.batch_boundary()  # drains (serialize), parks, resumes
         except BaseException as exc:  # noqa: BLE001 — re-raised below
             box["error"] = exc
             at_cut.set()
+            at_fault.set()
 
     snap = os.path.join(work, "serve-snap")
     loop = threading.Thread(target=serve_loop, name="serve-loop", daemon=True)
+    failed_quiesce = None
+    if drain_fault:
+        os.environ[faults.FAULT_POINTS_ENV] = SERVE_DRAIN_FAULT
+        faults.reset()
     with adapter:
         loop.start()
+        if drain_fault:
+            try:
+                if not at_fault.wait(600) or box["error"] is not None:
+                    raise RuntimeError(f"serving loop failed before the "
+                                       f"fault round: {box['error']!r}")
+                with ToggleClient(0, path=adapter.agentlet.path,
+                                  timeout=600) as client:
+                    t0 = time.perf_counter()
+                    try:
+                        client.request("quiesce",
+                                       timeout=SERVE_FAULT_TIMEOUT_S)
+                    except RuntimeError as exc:
+                        failed_quiesce = (str(exc), time.perf_counter() - t0)
+                    else:
+                        raise AssertionError("a quiesce parked under the "
+                                             "armed serve.drain fault")
+                    client.resume()  # clears the stranded request
+                hits = faults.hits("serve.drain")
+            finally:
+                os.environ.pop(faults.FAULT_POINTS_ENV, None)
+                faults.reset()
+                cleared.set()
         if not at_cut.wait(600) or box["error"] is not None:
             raise RuntimeError(f"serving loop failed: {box['error']!r}")
         # The blackout: quiesce, dump, restore into the destination, its
@@ -1643,6 +1756,11 @@ def phase_serving(torch, fa, work: str, card: str, *, seed: int,
     if cut != SERVE_CUT or box["tokens"] != {r: want[r] for r in box["tokens"]}:
         raise AssertionError(f"the source diverged from the uninterrupted "
                              f"run before the cut (cut at round {cut})")
+    if drain_fault and (box["drain_fault"] is None or hits != 1
+                        or failed_quiesce is None):
+        raise AssertionError(f"the armed serve.drain fault: raised "
+                             f"{box['drain_fault']!r}, hits {hits}, the "
+                             f"quiesce {failed_quiesce}")
     nbytes = snapshot_nbytes(snap)
     for r in range(SERVE_CUT + 2, total + 1):
         got[r] = dst.step()
@@ -1740,6 +1858,14 @@ def phase_serving(torch, fa, work: str, card: str, *, seed: int,
                 f"state (positions, RNG words, counts, the KV cache at every "
                 f"written position) torch.equal; planted fault (slot {fault_slot} one position "
                 f"on) rejected: {planted}")
+    if drain_fault:
+        log(label, f"armed {SERVE_DRAIN_FAULT}: the quiesce after round "
+                   f"{SERVE_FAULT_ROUND} failed in {failed_quiesce[1]:.3f} s "
+                   f"({failed_quiesce[0]}; the loop's batch boundary raised "
+                   f"{box['drain_fault']!r}), a resume cleared it, the engine "
+                   f"served rounds {SERVE_FAULT_ROUND + 1}..{SERVE_CUT} "
+                   f"bitwise equal to the uninterrupted run, and the retry at "
+                   f"round {SERVE_CUT} parked, dumped and restored [{card}]")
     log(label, f"lock-step: batch {B}, {S}-token prompt, {n_tok} tokens, "
                 f"snapshot after {n_tok // 2}: continues bit-identically; "
                 f"flash kernel launches on the serving path {launches}")
@@ -1762,6 +1888,9 @@ def phase_serving(torch, fa, work: str, card: str, *, seed: int,
             "snapshot_bytes": nbytes, "kv_zeroed_fraction": zeroed,
             "quiesce_s": quiesce_s, "dump_s": dump_s, "restore_s": restore_s,
             "blackout_s": t_first - t_quiesce,
+            "drain_fault": None if failed_quiesce is None else {
+                "round": SERVE_FAULT_ROUND, "quiesce_error": failed_quiesce[0],
+                "failed_quiesce_s": failed_quiesce[1]},
             "device_busy_ms": None if prof is None else prof["device_ms"]}
 
 
@@ -1901,6 +2030,140 @@ def io_codec_and_crc32c(host, card: str) -> dict:
               f"GB/s, decompress {out['zlib1_decompress_gbps']:.3f} GB/s, "
               f"ratio {out['zlib1_ratio']:.4f} [{card}]")
     return out
+
+
+def memory_dir(prefix: str) -> str:
+    """A fresh directory in memory (``/dev/shm``) where the machine has
+    one, else in the system's temp dir: for the checks' extra dumps, which
+    time nothing the script reports as a disk rate (the card's machine
+    counts every byte written to its disk, deleted or not)."""
+    return tempfile.mkdtemp(prefix=prefix, dir="/dev/shm"
+                            if os.path.isdir("/dev/shm") else None)
+
+
+# The descriptor of a CRIU plugin (criu_plugin_api.h's cr_plugin_desc_t).
+PLUGIN_HOOKS = 12
+NVIDIA_NODE = "/dev/nvidiactl"
+# Run in a child (its stderr is the plugin's): DUMP_EXT_FILE on an open
+# NVIDIA device node and on /dev/null, RESTORE_EXT_FILE; prints the three
+# return codes.
+_EXT_FILE_CHILD = """
+import ctypes, os, sys
+class Desc(ctypes.Structure):
+    _fields_ = [("name", ctypes.c_char_p), ("init", ctypes.c_void_p),
+                ("exit", ctypes.c_void_p), ("version", ctypes.c_int),
+                ("max_hooks", ctypes.c_int),
+                ("hooks", ctypes.c_void_p * {hooks})]
+desc = Desc.in_dll(ctypes.CDLL(sys.argv[1]), "CR_PLUGIN_DESC")
+dump = ctypes.CFUNCTYPE(ctypes.c_int, ctypes.c_int, ctypes.c_int)(desc.hooks[2])
+restore = ctypes.CFUNCTYPE(ctypes.c_int, ctypes.c_int)(desc.hooks[3])
+gpu = os.open(sys.argv[2], os.O_RDWR)
+null = os.open("/dev/null", os.O_RDONLY)
+print(dump(gpu, 7), dump(null, 8), restore(7))
+""".format(hooks=PLUGIN_HOOKS)
+
+
+def io_native(card: str, source: tuple) -> dict:
+    """Phase 7's native device seams of a GPU pod: the port's
+    ``gpu-checkpoint`` CLI and CRIU plugin (``grit_tpu_torch/csrc``) built
+    with the host compiler (:mod:`grit_tpu_torch.device.native`), their
+    paths printed; the plugin's descriptor; the CLI's ``--status``,
+    ``--quiesce``, ``--dump`` (into :func:`memory_dir`) and ``--resume``
+    against phase 9's standby source (``source``: parked by
+    :func:`park_all`, parked again after);
+    and ``DUMP_EXT_FILE`` on a real open ``/dev/nvidiactl`` fd, which must
+    refuse with its stderr line and an errno other than ``-ENOTSUP``
+    (while ``/dev/null`` gets ``-ENOTSUP`` and ``RESTORE_EXT_FILE``
+    reopens nothing)."""
+    import ctypes  # noqa: PLC0415
+    import errno  # noqa: PLC0415
+
+    from grit_tpu_torch.device import native  # noqa: PLC0415
+    from grit_tpu_torch.device.snapshot import (  # noqa: PLC0415
+        SnapshotManifest, snapshot_exists, snapshot_nbytes)
+
+    src, parked = source
+    socks = os.path.dirname(parked.path)
+    t0 = time.perf_counter()
+    cli, plugin = native.cli_path(), native.plugin_path()
+    build_s = time.perf_counter() - t0
+
+    class Desc(ctypes.Structure):
+        _fields_ = [("name", ctypes.c_char_p), ("init", ctypes.c_void_p),
+                    ("exit", ctypes.c_void_p), ("version", ctypes.c_int),
+                    ("max_hooks", ctypes.c_int),
+                    ("hooks", ctypes.c_void_p * PLUGIN_HOOKS)]
+
+    desc = Desc.in_dll(ctypes.CDLL(plugin), "CR_PLUGIN_DESC")
+    wired = [i for i in range(PLUGIN_HOOKS) if desc.hooks[i]]
+    if (desc.name, desc.version, desc.max_hooks, wired) != (
+            b"grit_gpu_plugin", 2, PLUGIN_HOOKS, [2, 3, 9, 10, 11]):
+        raise AssertionError(f"the plugin's descriptor: {desc.name}, version "
+                             f"{desc.version}, {desc.max_hooks} hooks, wired "
+                             f"{wired}")
+
+    pid = str(src.proc.pid)
+    env = {**os.environ, "GRIT_TPU_SOCKET_DIR": socks}
+    snap = os.path.join(memory_dir("cli-snap-"), "hbm")
+
+    def run(*args) -> tuple[dict, float]:
+        t = time.perf_counter()
+        r = subprocess.run([cli, *args, "--pid", pid], capture_output=True,
+                           text=True, env=env, timeout=600)
+        if r.returncode != 0:
+            raise AssertionError(f"gpu-checkpoint {args[0]}: rc "
+                                 f"{r.returncode}, {r.stdout} {r.stderr}")
+        return json.loads(r.stdout), time.perf_counter() - t
+
+    status, _ = run("--status")
+    step, quiesce_s = run("--quiesce")
+    dumped, dump_s = run("--dump", "--dir", snap)
+    _, resume_s = run("--resume")
+    deadline = time.monotonic() + 120
+    while (after := run("--status")[0])["step"] <= step["step"]:
+        if time.monotonic() > deadline:  # the resume did not take
+            break
+        time.sleep(0.05)
+    parked.quiesce()  # parked again until phase 9's standby leg
+    nbytes = snapshot_nbytes(snap) if snapshot_exists(snap) else 0
+    if not status["paused"] or not snapshot_exists(snap) or \
+            SnapshotManifest.load(snap).meta["step"] != step["step"] or \
+            dumped.get("dir") != snap or after["step"] <= step["step"]:
+        raise AssertionError(f"gpu-checkpoint against the parked source: "
+                             f"status {status}, quiesce {step}, dump "
+                             f"{dumped}, after the resume {after}")
+    shutil.rmtree(os.path.dirname(snap))
+
+    r = subprocess.run([sys.executable, "-c", _EXT_FILE_CHILD, plugin,
+                        NVIDIA_NODE], capture_output=True, text=True,
+                       timeout=120)
+    if r.returncode != 0:
+        raise AssertionError(f"the DUMP_EXT_FILE child failed: {r.stderr}")
+    gpu_rc, null_rc, restore_rc = map(int, r.stdout.split())
+    refusal = [x for x in r.stderr.splitlines() if NVIDIA_NODE in x]
+    if gpu_rc >= 0 or gpu_rc == -errno.ENOTSUP or len(refusal) != 1 or \
+            "agentlet's snapshot" not in refusal[0] or \
+            null_rc != -errno.ENOTSUP or restore_rc != -errno.ENOTSUP:
+        raise AssertionError(f"DUMP_EXT_FILE on {NVIDIA_NODE}: {gpu_rc}, on "
+                             f"/dev/null: {null_rc}, RESTORE_EXT_FILE: "
+                             f"{restore_rc}; stderr {r.stderr!r}")
+    log("io", f"native seams built with the host compiler in {build_s:.3f} "
+              f"s: {cli} and {plugin}; the plugin's descriptor "
+              f"grit_gpu_plugin v2, hooks {wired} wired [{card}]")
+    log("io", f"gpu-checkpoint against phase 9's parked standby source "
+              f"(pid {pid}): --status paused, --quiesce step {step['step']} "
+              f"{quiesce_s:.3f} s, --dump {nbytes} B into memory "
+              f"{dump_s:.3f} s (the CLI's process included), --resume "
+              f"{resume_s:.3f} s, then stepping again (step "
+              f"{after['step']}) [{card}]")
+    log("io", f"DUMP_EXT_FILE on an open {NVIDIA_NODE} fd: {gpu_rc} "
+              f"({errno.errorcode.get(-gpu_rc, '?')}), stderr "
+              f"{refusal[0]!r}; /dev/null {null_rc} (ENOTSUP), "
+              f"RESTORE_EXT_FILE {restore_rc} [{card}]")
+    return {"cli": cli, "plugin": plugin, "build_s": build_s,
+            "cli_quiesce_s": quiesce_s, "cli_dump_s": dump_s,
+            "cli_dump_bytes": nbytes, "cli_resume_s": resume_s,
+            "dump_ext_file_rc": gpu_rc, "refusal": refusal[0]}
 
 
 # -- phase 8 -------------------------------------------------------------------
@@ -2363,7 +2626,7 @@ def frozen_env(work: str) -> tuple[str, dict, list[str]]:
 
 
 def phase_frozen(work: str, card: str, *, train: dict,
-                 source: tuple) -> dict:
+                 source: tuple, standby: tuple, mnist: tuple) -> dict:
     """The bench's migrated flagship, the frozen-trunk fine-tune (sgd 0.5
     on ``final_norm`` and ``lm_head``, the trunk frozen), migrated as the
     reference agent does with pre-copy and speculation on, through the
@@ -2378,9 +2641,16 @@ def phase_frozen(work: str, card: str, *, train: dict,
     ``AutoDeviceHook``; the uninterrupted frozen-trunk run, long enough to
     pass the cut, and a second destination that restores the staged tree
     by post-copy (``GRIT_RESTORE_POSTCOPY=1``) run beside the MNIST
-    twin's reference and destination. ``train``: phase 4's record, whose
-    step times this phase prints. ``source``: its :func:`frozen_source`
-    parked by :func:`park_all` (as :func:`early_sources` parks it)."""
+    twin's reference and destination. The standby leg
+    (:func:`standby_arm`, ``standby``: its parked source) arms and runs
+    its governed rounds after the blocking destination; its fire
+    (:func:`standby_fire`) and its destination come just before those
+    four start, beside them, and the uninterrupted run goes on past the
+    standby cut (:func:`standby_checks`). ``train``: phase 4's record,
+    whose step times this phase prints. ``source``: its
+    :func:`frozen_source` parked by :func:`park_all` (as
+    :func:`early_sources` parks it); ``mnist``: the MNIST twin's, parked
+    likewise."""
     from grit_tpu_torch.device.agentlet import ToggleClient  # noqa: PLC0415
     from grit_tpu_torch.device.hook import TpuDeviceCheckpointHook  # noqa: PLC0415
     from grit_tpu_torch.device.snapshot import (  # noqa: PLC0415
@@ -2536,16 +2806,36 @@ def phase_frozen(work: str, card: str, *, train: dict,
             p.kill()
         shutil.rmtree(pvc, ignore_errors=True)
 
-    # The uninterrupted run, long enough to pass the cut, and the post-copy
-    # destination from the staged tree (READY follows the hot set, the
-    # first step joins the tail) start beside the MNIST twin's reference
-    # and destination, where nothing else is timed.
+    # The standby leg: armed and held warm through its governed rounds
+    # while nothing else runs; fired just before the four below start.
     try:
-        mnist, (ref, pc) = mnist_twin(work, card, beside=lambda: [
-            Workload(n_steps, env, args=args),
-            Workload(n_steps, {**dst_env, "GRIT_RESTORE_POSTCOPY": "1"},
-                     args=args)])
+        armed = standby_arm(work, card, standby)
+    except BaseException:
+        standby[0].kill()
+        raise
+    fired: dict = {}
+
+    def beside() -> list[Workload]:
+        fired.update(standby_fire(armed))
+        sdst = Workload(fired["cut"] + FROZEN_AFTER, {
+            **armed["env"], "GRIT_TPU_RESTORE_DIR": fired["restore_dir"]},
+            args=args)
+        sdst.drain()  # each line's arrival, for the blackout
+        return [sdst,
+                Workload(max(cut, fired["cut"]) + FROZEN_AFTER, env,
+                         args=args),
+                Workload(n_steps, {**dst_env, "GRIT_RESTORE_POSTCOPY": "1"},
+                         args=args)]
+
+    # The standby destination, the uninterrupted run, long enough to pass
+    # both cuts, and the post-copy destination from the staged tree (READY
+    # follows the hot set, the first step joins the tail) start beside the
+    # MNIST twin's reference and destination, where nothing else is timed.
+    try:
+        mnist, (sdst, ref, pc) = mnist_twin(work, card, beside=beside,
+                                            source=mnist)
     finally:
+        armed["source"].kill()
         shutil.rmtree(dst_root, ignore_errors=True)
     pc_restored = int(pc.find(r"RESTORED (\d+)").group(1))
     pc_hot_s = float(pc.find(r"RESTORE_SECONDS (\S+)").group(1))
@@ -2554,8 +2844,10 @@ def phase_frozen(work: str, card: str, *, train: dict,
     pc_tail = json.loads(pc.find(r"RESTORE_POSTCOPY (.+)").group(1))
     pc_kernels = pc.kernels()
     ref_losses, ref_kernels = ref.losses(), ref.kernels()
+    ref_n = max(ref_losses)
     got, pc_got = dst.losses(), pc.losses()
-    want = {s: x for s, x in ref_losses.items() if s > cut}
+    want = {s: x for s, x in ref_losses.items()
+            if cut < s <= cut + FROZEN_AFTER}
     if restored != cut or len(want) != FROZEN_AFTER or got != want:
         raise AssertionError(f"restored step {restored} (cut {cut}); losses "
                              f"after the cut {got}, uninterrupted {want}")
@@ -2570,7 +2862,7 @@ def phase_frozen(work: str, card: str, *, train: dict,
         raise AssertionError(
             f"the destination seeded {seeded} files, holds {in_cache} and "
             f"compiled {dst_kernels['built']}: want {libs} seeded, none built")
-    per_step = {n: ref_kernels["launches"][n] / n_steps for n in KERNELS}
+    per_step = {n: ref_kernels["launches"][n] / ref_n for n in KERNELS}
     if per_step != {"flash_fwd": LAYERS, "flash_bwd_dq": 0,
                     "flash_bwd_dkv": 0}:
         raise AssertionError(f"frozen-trunk launches a step {per_step}")
@@ -2593,7 +2885,7 @@ def phase_frozen(work: str, card: str, *, train: dict,
                   f"{train['step_s']:.4f} s (both phase 4's, in process, "
                   f"median after the first) [{card}]")
     log("frozen", f"launches a step, uninterrupted run: {per_step} "
-                  f"({ref_kernels['launches']} in {n_steps} steps); "
+                  f"({ref_kernels['launches']} in {ref_n} steps); "
                   f"destinations {dst_kernels['launches']} and "
                   f"{pc_kernels['launches']} in {len(got)} steps each")
     log("frozen", f"live pass (hook predump, the non-parking probe) "
@@ -2649,6 +2941,9 @@ def phase_frozen(work: str, card: str, *, train: dict,
     log("frozen", f"cut at step {cut}; losses after the cut bitwise equal to "
                   f"the uninterrupted frozen-trunk run in both destinations: "
                   f"{got}")
+    standby_rec = standby_checks(armed, fired, sdst, ref_losses, card)
+    for d in (armed["host"], armed["pvc"]):
+        shutil.rmtree(d, ignore_errors=True)
     return {"step_s": train["frozen_step_s"],
             "launches": ref_kernels["launches"],
             "launches_per_step": per_step,
@@ -2667,21 +2962,31 @@ def phase_frozen(work: str, card: str, *, train: dict,
                          "spawn_to_ready_s": pc_ready - pc.started,
                          "first_step_s": pc_first - pc_ready},
             "seeded": seeded, "built_on_destination": dst_kernels["built"],
-            "cut": cut, "mnist": mnist}
+            "cut": cut, "mnist": mnist, "standby": standby_rec}
 
 
-def mnist_twin(work: str, card: str, beside
+def mnist_source(work: str) -> tuple:
+    """The MNIST twin's source spawned, not yet waited for: ``(source,
+    socket dir)``."""
+    socks = os.path.join(work, "socks-mnist")
+    os.makedirs(socks, exist_ok=True)
+    return Workload(10 ** 9, {"GRIT_TPU_SOCKET_DIR": socks},
+                    args=MNIST_ARGS), socks
+
+
+def mnist_twin(work: str, card: str, beside, source: tuple
                ) -> tuple[dict, list[Workload]]:
     """The harness's MNIST workload migrated once through the port's
     ``AutoDeviceHook``; with no agentlet (this process), the hook skips
     loudly. After the dump, its uninterrupted reference, its destination
     and the workloads ``beside()`` starts run at once (none of the MNIST
     ones is timed); returns the twin's record and those workloads,
-    finished."""
+    finished. ``source``: :func:`mnist_source` parked by
+    :func:`park_all`."""
     from grit_tpu_torch.device.hook import HBM_SUBDIR, AutoDeviceHook  # noqa: PLC0415
 
-    socks = os.path.join(work, "socks-mnist")
-    os.makedirs(socks)
+    src, parked = source
+    socks = os.path.dirname(parked.path)
     env = {"GRIT_TPU_SOCKET_DIR": socks}
     saved = os.environ.get("GRIT_TPU_SOCKET_DIR")
     os.environ["GRIT_TPU_SOCKET_DIR"] = socks
@@ -2690,9 +2995,9 @@ def mnist_twin(work: str, card: str, beside
     try:
         hook = AutoDeviceHook(timeout=300)
         skipped = hook.dump(os.getpid(), os.path.join(work, "no-agentlet"))
-        src = Workload(10 ** 9, env, args=MNIST_ARGS)
         procs.append(src)
-        src.wait_for("READY")
+        parked.resume()
+        parked.close()
         src.wait_for(r"STEP 3 ")
         src.drain()  # an MNIST step is far shorter than a pipe's worth
         ckpt = os.path.join(work, "mnist-ckpt")
@@ -2748,6 +3053,10 @@ WIRE_STREAMS = 2
 # grows with the state; this depth keeps the script within its time.
 WIRE_LAYERS = 2
 WIRE_RUNS = (("raw", "none"), ("zlib", "zlib"))  # (label, codec)
+# The port's wire.send fault seam, on the raw run: armed once in its
+# source, it fails the first wire leg, a dump of the parked state before
+# the run's own.
+WIRE_SEND_FAULT = ("raw", "wire.send:raise:x1")
 
 
 class Receiver:
@@ -2916,7 +3225,13 @@ class Receiver:
                                      f"({self._water.get(rel, 0)}/{total})")
                 self._cond.wait(1.0)
             if self.error is None:
-                os.close(self._fds.pop(rel))
+                fd = self._fds.pop(rel, None)
+                if fd is None:  # no chunk came: an empty file (a clean delta)
+                    path = os.path.join(self.dst, rel)
+                    os.makedirs(os.path.dirname(path), exist_ok=True)
+                    open(path, "wb").close()
+                else:
+                    os.close(fd)
                 self.journal.write(json.dumps(
                     {"file": rel, "staged": total, "done": True}) + "\n")
                 self.journal.flush()
@@ -2977,6 +3292,274 @@ def frozen_source(work: str) -> tuple:
     return Workload(10 ** 6, env, args=args), socks
 
 
+# -- phase 9's standby leg -----------------------------------------------------
+
+STANDBY_ROUNDS = 4  # governed speculative probes after the arming round
+
+
+def standby_env(work: str) -> tuple[str, dict, list[str]]:
+    """The standby leg's socket dir (made here), its source's environment
+    and arguments: phase 9's frozen-trunk flagship."""
+    socks = os.path.join(work, "socks-standby")
+    os.makedirs(socks, exist_ok=True)
+    _frozen_socks, env, args = frozen_env(work)
+    return socks, {**env, "GRIT_TPU_SOCKET_DIR": socks}, args
+
+
+def standby_source(work: str) -> tuple:
+    """The standby leg's source spawned, not yet waited for: ``(source,
+    socket dir)``."""
+    socks, env, args = standby_env(work)
+    return Workload(10 ** 6, env, args=args), socks
+
+
+@contextlib.contextmanager
+def agent_env(env: dict):
+    """``env`` in this process's environment, as the node agent's, for the
+    block's length."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def standby_arm(work: str, card: str, source: tuple) -> dict:
+    """Phase 9's standby leg, armed: the frozen-trunk flagship held warm
+    for a preemption as the reference agent's standby loop
+    (``run_standby_checkpoint``, ``grit_tpu/agent/standby.py``) holds it
+    through a device hook, driven here through the port's
+    ``TpuDeviceCheckpointHook`` (this script cannot import the reference
+    agent). Round 0 is the arming pass: a hashed full ``predump`` mirrored
+    into a PVC directory. Then :data:`STANDBY_ROUNDS` governed rounds
+    while the source trains, each the non-parking speculative probe
+    ``predump(base=)`` against the rolling base, the previous round (not
+    mirrored: the fire's trees reference none of their bytes, below).
+    Where the agent folds every shipped round into its base
+    (``grit_tpu/deltachain.py``'s flatten, whose manifests the port reads:
+    ``tests/test_torch_standby.py``) and ships the flattened base, this
+    leg keeps the round directories and lets the port's collapsed
+    ``ref_dir`` references stand: a round's delta references each chunk
+    it did not rewrite where the bytes live, round 0's frozen trunk, so no
+    chain grows past one hop. Every probe must answer ``probe`` with no
+    quiesce and no fallback, and the source's step must advance through
+    it. Then the source parks until the fire, the warm base (the last
+    round) restores (into host memory, every chunk's crc32 checked), and
+    with that round's delta deleted the same restore must raise.
+    ``source``: :func:`standby_source` parked by :func:`park_all`.
+    Returns the armed state for :func:`standby_fire`."""
+    from grit_tpu_torch.device.agentlet import ToggleClient  # noqa: PLC0415
+    from grit_tpu_torch.device.hook import (  # noqa: PLC0415
+        HBM_SUBDIR, TpuDeviceCheckpointHook)
+    from grit_tpu_torch.device.snapshot import (  # noqa: PLC0415
+        DATA_FILE, SnapshotManifest, restore_snapshot, snapshot_delta_nbytes)
+
+    src, parked = source
+    _socks, env, _args = standby_env(work)
+    host, pvc = (os.path.join(work, n) for n in ("host-s", "pvc-s"))
+    src.drain()  # a frozen step prints faster than a pipe holds for long
+    probes: list[tuple[str, dict]] = []
+    client_dump, client_quiesce = ToggleClient.dump, ToggleClient.quiesce
+
+    def kept_dump(self, *a, **kw):
+        resp = client_dump(self, *a, **kw)
+        probes.append(("dump", resp))
+        return resp
+
+    def kept_quiesce(self, *a, **kw):
+        probes.append(("quiesce", {}))
+        return client_quiesce(self, *a, **kw)
+
+    warnings = HookWarnings()
+    rounds: list[dict] = []
+    with agent_env(env):
+        ToggleClient.dump, ToggleClient.quiesce = kept_dump, kept_quiesce
+        try:
+            hook = TpuDeviceCheckpointHook(timeout=600)
+            status = ToggleClient(src.proc.pid, path=parked.path,
+                                  timeout=600)
+            parked.resume()
+            parked.close()
+            base = None
+            for k in range(STANDBY_ROUNDS + 1):
+                name = "main-precopy" if k == 0 else f"main-precopy-round-{k}"
+                step0 = status.status()["step"]
+                t0 = time.perf_counter()
+                hook.predump(src.proc.pid, os.path.join(host, name),
+                             mirror=os.path.join(pvc, name) if k == 0
+                             else None, base=base)
+                seconds = time.perf_counter() - t0
+                step1 = status.status()["step"]
+                d = os.path.join(host, name, HBM_SUBDIR)
+                rounds.append({"round": k, "s": seconds,
+                               "delta_bytes": snapshot_delta_nbytes(d),
+                               "steps": step1 - step0,
+                               "cut": SnapshotManifest.load(d).meta["step"],
+                               "outcome": probes[-1][1].get(
+                                   "speculative", {}).get("outcome")})
+                base = d
+        finally:
+            ToggleClient.dump, ToggleClient.quiesce = (client_dump,
+                                                       client_quiesce)
+            warnings.close()
+    # Parked until the fire, so the uninterrupted run need not follow the
+    # source through the rest of the phase.
+    status.quiesce()
+    if warnings.messages or any(op == "quiesce" for op, _ in probes):
+        raise AssertionError(f"a standby probe parked or fell back: "
+                             f"{warnings.messages}, {[op for op, _ in probes]}")
+    if any(r["outcome"] != "probe" or r["steps"] < 1 for r in rounds):
+        raise AssertionError(f"a standby round was not a non-parking probe "
+                             f"the source stepped through: {rounds}")
+
+    # The warm base a preempted node's destination would restore: the
+    # last round; with that round's delta gone, the same restore must
+    # raise.
+    meta_step = SnapshotManifest.load(base).meta["step"]
+    t0 = time.perf_counter()
+    warm = restore_snapshot(base)
+    warm_s = time.perf_counter() - t0
+    warm_step = int(warm["['step']"])
+    del warm
+    data = os.path.join(base, DATA_FILE)
+    os.rename(data, data + ".planted")
+    try:
+        restore_snapshot(base)
+        planted = None
+    except Exception as exc:  # noqa: BLE001 — the check must raise
+        planted = f"{type(exc).__name__}: {exc}"
+    finally:
+        os.rename(data + ".planted", data)
+    if warm_step != meta_step or planted is None:
+        raise AssertionError(f"the warm base restored step {warm_step} "
+                             f"(manifest {meta_step}); with round "
+                             f"{STANDBY_ROUNDS}'s delta deleted the restore "
+                             f"raised {planted}")
+    for r in rounds:
+        log("standby", f"round {r['round']} ({'arm' if r['round'] == 0 else 'governed probe'}): "
+                       f"{r['s']:.3f} s, delta {r['delta_bytes']} B, the "
+                       f"source took {r['steps']} steps during it (cut at "
+                       f"{r['cut']}), {r['outcome']} [{card}]")
+    log("standby", f"warm base (round {STANDBY_ROUNDS}, step {meta_step}) "
+                   f"restored into host memory in {warm_s:.3f} s; with its delta "
+                   f"deleted the restore raised {planted[:160]!r} [{card}]")
+    return {"source": src, "client": status, "env": env, "host": host,
+            "pvc": pvc, "base": base, "rounds": rounds,
+            "warm_restore_s": warm_s, "planted": planted}
+
+
+def standby_fire(armed: dict) -> dict:
+    """The standby leg's fire: the source, parked since its last round,
+    resumes for a step, then the reclaim notice's blackout dump through
+    the port's hook (a quiesce with the dump spec, so a boundary clone
+    goes to ``-spec`` against the rolling base while the loop steps on to
+    its park; the dump validates it and re-ships what the last steps
+    touched; both mirrored into the PVC), then the source is SIGKILLed, as
+    a preempted node's workload is. Returns the fire's times, responses
+    and the PVC tree the destination restores."""
+    from grit_tpu_torch.device.hook import (  # noqa: PLC0415
+        HBM_SUBDIR, TpuDeviceCheckpointHook)
+    from grit_tpu_torch.device.snapshot import SnapshotManifest  # noqa: PLC0415
+
+    src, client = armed["source"], armed["client"]
+    parked_step = client.status()["step"]
+    client.resume()
+    deadline = time.monotonic() + 300
+    while client.status()["step"] <= parked_step:  # stepping again
+        if time.monotonic() > deadline:
+            raise AssertionError("standby: the source did not resume")
+        time.sleep(0.005)
+    client.close()
+    with agent_env(armed["env"]):
+        hook = TpuDeviceCheckpointHook(timeout=600)
+        calls = HookCalls(hook._client(src.proc.pid))
+        t_quiesce = time.perf_counter()
+        hook.dump(src.proc.pid, os.path.join(armed["host"], "main"),
+                  base=armed["base"], mirror=os.path.join(armed["pvc"], "main"))
+        t_dumped = time.perf_counter()
+    src.kill()
+    t_killed = time.perf_counter()
+    final = os.path.join(armed["pvc"], "main", HBM_SUBDIR)
+    return {"t_quiesce": t_quiesce, "parked_at": calls.parked_at,
+            "t_dumped": t_dumped, "t_killed": t_killed,
+            "resp": calls.dump_resp, "restore_dir": final,
+            "cut": SnapshotManifest.load(final).meta["step"]}
+
+
+def standby_checks(armed: dict, fired: dict, dst: "Workload",
+                   ref_losses: dict, card: str) -> dict:
+    """The standby leg's destination against the uninterrupted run, and
+    its lines: the fire validated, the leaves written since the arming
+    pass exactly the trainable slice and the step, the losses after the
+    cut bitwise, the blackout from the fire's quiesce to the destination's
+    first loss."""
+    from grit_tpu_torch.device.hook import HBM_SUBDIR  # noqa: PLC0415
+    from grit_tpu_torch.device.snapshot import (  # noqa: PLC0415
+        SPEC_SUFFIX, snapshot_delta_nbytes, snapshot_nbytes)
+
+    cut = fired["cut"]
+    spec = fired["resp"].get("speculative", {})
+    final = fired["restore_dir"]
+    arm_base = os.path.join(armed["pvc"], "main-precopy", HBM_SUBDIR)
+    since, _own = _chain_names(final, arm_base)
+    trainable = set(TRAINABLE) | {"['step']"}
+    full = snapshot_nbytes(final)
+    reship = snapshot_delta_nbytes(final)
+    spec_bytes = snapshot_delta_nbytes(final + SPEC_SUFFIX)
+    restored = int(dst.find(r"RESTORED (\d+)").group(1))
+    got = dst.losses()
+    want = {s: x for s, x in ref_losses.items()
+            if cut < s <= cut + FROZEN_AFTER}
+    launches = dst.kernels()["launches"]
+    if spec.get("outcome") != "validated":
+        raise AssertionError(f"standby: the fire's speculation did not "
+                             f"validate against the rolling base: {spec}")
+    if since != trainable:
+        raise AssertionError(f"standby: leaves written since the arming "
+                             f"pass {sorted(since)}")
+    if restored != cut or len(want) != FROZEN_AFTER or got != want:
+        raise AssertionError(f"standby: restored step {restored} (cut {cut}); "
+                             f"losses after the cut {got}, uninterrupted "
+                             f"{want}")
+    if launches != {"flash_fwd": LAYERS * FROZEN_AFTER, "flash_bwd_dq": 0,
+                    "flash_bwd_dkv": 0}:
+        raise AssertionError(f"standby: the destination launched {launches}")
+    t_restored = dst.arrival(r"RESTORED ")
+    t_first = dst.arrival(r"STEP \d+ ")
+    blackout_s = t_first - fired["t_quiesce"]
+    quiesce_s = fired["parked_at"] - fired["t_quiesce"]
+    dump_s = fired["t_dumped"] - fired["parked_at"]
+    log("standby", f"fire: quiesce {quiesce_s:.4f} s, dump {dump_s:.3f} s, "
+                   f"speculation {spec['outcome']} (clean_bytes "
+                   f"{spec['clean_bytes']}, dirty_bytes {spec['dirty_bytes']}, "
+                   f"overlap_s {spec['overlap_s']}); the final delta "
+                   f"{spec_bytes} B in -spec + {reship} B re-shipped of the "
+                   f"full {full} B ({(spec_bytes + reship) / full:.4f}); "
+                   f"written since the arming pass: {sorted(since)} [{card}]")
+    log("standby", f"blackout (fire's quiesce → the destination's first loss, "
+                   f"the destination started beside phase 9's uninterrupted "
+                   f"run and post-copy destination and the MNIST twin's "
+                   f"two) {blackout_s:.3f} s = quiesce {quiesce_s:.4f} + dump "
+                   f"{dump_s:.3f} + kill {fired['t_killed'] - fired['t_dumped']:.3f} "
+                   f"+ spawn {dst.started - fired['t_killed']:.3f} + spawn → "
+                   f"RESTORED {t_restored - dst.started:.3f} + first step "
+                   f"{t_first - t_restored:.3f} [{card}]")
+    log("standby", f"cut at step {cut}; losses after the cut bitwise equal to "
+                   f"the uninterrupted run: {got}; launches {launches}")
+    return {"rounds": armed["rounds"], "warm_restore_s": armed["warm_restore_s"],
+            "planted": armed["planted"], "cut": cut,
+            "speculative": {k: v for k, v in spec.items() if k != "legs"},
+            "final_bytes": {"spec": spec_bytes, "reship": reship,
+                            "full": full},
+            "quiesce_s": quiesce_s, "dump_s": dump_s,
+            "blackout_s": blackout_s, "launches": launches}
+
+
 def spawn_wire_sources(work: str, runs: tuple) -> dict:
     """The sources of the :func:`wire_run` ``runs`` (``(label, codec)``
     pairs) spawned, not yet waited for: each is phase 5's flagship at
@@ -2989,6 +3572,8 @@ def spawn_wire_sources(work: str, runs: tuple) -> dict:
         socks = os.path.join(work, f"socks-wire-{label}")
         os.makedirs(socks)
         env = {"GRIT_TPU_SOCKET_DIR": socks, "GRIT_SNAPSHOT_CODEC": codec}
+        if label == WIRE_SEND_FAULT[0]:
+            env["GRIT_FAULT_POINTS"] = WIRE_SEND_FAULT[1]
         started[label] = (Workload(1000, env, args=args), env, socks)
     return started
 
@@ -3027,16 +3612,21 @@ def park_all(started: dict) -> dict:
 
 
 def early_sources(work: str) -> dict:
-    """Phases 8, 9 and 10's sources spawned together, so that their four
+    """Phases 8, 9 and 10's sources spawned together, so that their six
     process starts overlap (untimed: each phase's measures begin after
     its source has resumed), each parked at its first checkpoint point
     until its phase resumes it: ``{"precopy": (source, client),
-    "frozen": (source, client), "wire": {label: (source, client, env)}}``.
-    Parked, they hold their device memory and take no host time."""
+    "frozen": (source, client), "standby": (source, client), "mnist":
+    (source, client), "wire": {label: (source, client, env)}}``
+    (``standby``: phase 9's standby leg, which phase 7's native seams
+    drive first; ``mnist``: phase 9's MNIST twin). Parked, they hold
+    their device memory and take no host time."""
     spawned = {}
     try:
         spawned["precopy"] = precopy_source(work)
         spawned["frozen"] = frozen_source(work)
+        spawned["standby"] = standby_source(work)
+        spawned["mnist"] = mnist_source(work)
         wire = spawn_wire_sources(work, WIRE_RUNS)
         for label, (src, _env, wsocks) in wire.items():
             spawned[f"wire {label}"] = (src, wsocks)
@@ -3046,7 +3636,7 @@ def early_sources(work: str) -> dict:
         raise
     parked = park_all(spawned)
     return {"precopy": parked["precopy"], "frozen": parked["frozen"],
-            "wire": {label: (*parked[f"wire {label}"], wire[label][1])
+            "standby": parked["standby"], "mnist": parked["mnist"], "wire": {label: (*parked[f"wire {label}"], wire[label][1])
                      for label in wire}}
 
 
@@ -3062,11 +3652,18 @@ def wire_run(work: str, card: str, label: str, codec: str, *,
     on the PVC), spawned once the first has taken its first step.
     ``hang_up_check``: before the source resumes, a second dump of its
     parked state into a receiver that hangs up mid-stream must answer
-    ``ok`` with a failed wire block and a committed mirror. ``source``:
+    ``ok`` with a failed wire block and a committed mirror. A source
+    armed with :data:`WIRE_SEND_FAULT` first dumps its parked state with a
+    wire spec and a mirror, both in :func:`memory_dir`: the send must
+    fail as a wire error (``wire.ok`` false, the injected fault named),
+    the mirror commit, equal the dump the destination continued from byte
+    for byte, and restore; that leg's seconds are left out of the run's
+    blackout. ``source``:
     its parked source (:func:`spawn_wire_sources`, :func:`park_all`), the
     source's client and its environment."""
     from grit_tpu_torch.device.snapshot import (  # noqa: PLC0415
-        DATA_FILE, INDEX_FILE, MANIFEST_FILE, snapshot_exists, snapshot_nbytes)
+        DATA_FILE, INDEX_FILE, MANIFEST_FILE, SnapshotManifest,
+        restore_snapshot, snapshot_exists, snapshot_nbytes)
 
     host, pvc, dst_root = (os.path.join(work, f"{n}-wire-{label}")
                            for n in ("host", "pvc", "dst"))
@@ -3076,6 +3673,10 @@ def wire_run(work: str, card: str, label: str, codec: str, *,
     src, client, env = source
     procs.append(src)
     args = src.args
+    send_fault = env.get("GRIT_FAULT_POINTS") == WIRE_SEND_FAULT[1]
+    dst_env = {k: v for k, v in env.items() if k != "GRIT_FAULT_POINTS"}
+    fault_dir = memory_dir(f"fault-{label}-") if send_fault else None
+    fault_mirror = os.path.join(fault_dir or work, "pvc", "hbm")
     recv = Receiver(dst_root)
     try:
         client.resume()
@@ -3083,6 +3684,17 @@ def wire_run(work: str, card: str, label: str, codec: str, *,
         t_quiesce = time.perf_counter()
         cut = client.quiesce()
         t_dump = time.perf_counter()
+        if send_fault:
+            frecv = Receiver(os.path.join(work, f"fault-{label}"))
+            try:
+                fault_resp = client.dump(
+                    os.path.join(fault_dir, "host", "hbm"), mirror=fault_mirror,
+                    wire={"endpoint": frecv.endpoint, "prefix": "hbm",
+                          "streams": WIRE_STREAMS})
+            finally:
+                frecv.close()
+                shutil.rmtree(frecv.dst, ignore_errors=True)
+        t_main = time.perf_counter()
         resp = client.dump(snap, mirror=mirror, wire={
             "endpoint": recv.endpoint, "prefix": "hbm",
             "streams": WIRE_STREAMS})
@@ -3093,7 +3705,7 @@ def wire_run(work: str, card: str, label: str, codec: str, *,
         # The restored container is created once the tree has landed (the
         # shim injects the restore env only for a committed snapshot).
         dst = Workload(MIGRATE_STEPS, {
-            **env, "GRIT_TPU_RESTORE_DIR": os.path.join(dst_root, "hbm")},
+            **dst_env, "GRIT_TPU_RESTORE_DIR": os.path.join(dst_root, "hbm")},
             args=args)
         procs.append(dst)
         restored = int(dst.wait_for(r"RESTORED (\d+)").group(1))
@@ -3105,10 +3717,24 @@ def wire_run(work: str, card: str, label: str, codec: str, *,
         t_first = time.perf_counter()
         mdst = None
         if codec != "none":  # the mirror's destination, beside the first
-            mdst = Workload(MIGRATE_STEPS, {**env,
+            mdst = Workload(MIGRATE_STEPS, {**dst_env,
                                             "GRIT_TPU_RESTORE_DIR": mirror},
                             args=args)
             procs.append(mdst)
+        if send_fault:
+            # The failed wire leg's mirror holds the same parked state as
+            # the dump the destination continued from: its manifest (every
+            # chunk's crc32) equals that dump's, and it restores, every
+            # chunk's crc32 checked against its bytes.
+            t_fault_check = time.perf_counter()
+            same = (SnapshotManifest.load(fault_mirror).arrays ==
+                    SnapshotManifest.load(snap).arrays)
+            restored_leaves = len(restore_snapshot(fault_mirror))
+            out["send_fault"] = {
+                "wire": fault_resp.get("wire"), "same_as_dump": same,
+                "mirror_committed": snapshot_exists(fault_mirror),
+                "restored_leaves": restored_leaves,
+                "check_s": time.perf_counter() - t_fault_check}
         dst.finish()
         if hang_up_check:
             hang = Receiver(os.path.join(work, f"hang-{label}"),
@@ -3158,8 +3784,9 @@ def wire_run(work: str, card: str, label: str, codec: str, *,
         for p in procs:
             p.kill()
         recv.close()
-        for d in (host, pvc, dst_root):
-            shutil.rmtree(d, ignore_errors=True)
+        for d in (host, pvc, dst_root, fault_dir):
+            if d is not None:
+                shutil.rmtree(d, ignore_errors=True)
 
     wire = resp.get("wire", {})
     want = {s: x for s, x in ref_losses.items() if cut < s <= MIGRATE_STEPS}
@@ -3194,9 +3821,24 @@ def wire_run(work: str, card: str, label: str, codec: str, *,
                                  f"{m['restored']} (cut {cut}) with losses "
                                  f"{m['losses']}, uninterrupted {want}")
         launches = {n: launches[n] + m["launches"][n] for n in KERNELS}
+    if send_fault:
+        f = out["send_fault"]
+        fwire = f["wire"] or {}
+        if fwire.get("ok") is not False or \
+                "wire.send" not in str(fwire.get("error")) or \
+                not f["mirror_committed"]:
+            raise AssertionError(f"{label}: the armed wire.send fault: wire "
+                                 f"{fwire}, mirror committed "
+                                 f"{f['mirror_committed']}")
+        if not f["same_as_dump"] or not f["restored_leaves"]:
+            raise AssertionError(f"{label}: the failed wire leg's mirror "
+                                 f"differs from the dump the destination "
+                                 f"continued from bitwise: {f}")
     if not all(launches[n] > 0 for n in KERNELS):
         raise AssertionError(f"{label}: a kernel never launched: {launches}")
-    dump_s = t_dumped - t_dump
+    dump_s = t_dumped - t_main
+    fault_s = t_main - t_dump  # the failed wire leg's dump, left out
+    blackout_s = t_first - t_quiesce - fault_s
     legs = resp["legs"]
     out.update(cut=cut, bytes=nbytes, wire=wire, records=dict(recv.records),
                wire_payload_bytes=recv.wire_bytes, dump_s=dump_s,
@@ -3204,7 +3846,7 @@ def wire_run(work: str, card: str, label: str, codec: str, *,
                init_s=init_s, stage_and_spawn_s=dst.started - t_dumped,
                spawn_to_restored_s=t_restored - dst.started,
                first_step_s=t_first - t_restored,
-               blackout_s=t_first - t_quiesce, dump_legs=legs,
+               blackout_s=blackout_s, dump_legs=legs,
                restore_legs=pipe, launches=launches)
     log("wire", f"{label}: cut at step {cut}; {nbytes} raw bytes streamed "
                 f"over {WIRE_STREAMS} streams as {recv.wire_bytes} payload "
@@ -3220,7 +3862,7 @@ def wire_run(work: str, card: str, label: str, codec: str, *,
                 f"{legs.get('mirror')}, writer blocked on the codec "
                 f"{legs.get('codec_wait', 0.0):.3f} s; legs "
                 f"{fmt_legs(legs, DUMP_LEGS)}); blackout (quiesce → first "
-                f"post-restore step) {t_first - t_quiesce:.3f} s = quiesce "
+                f"post-restore step) {blackout_s:.3f} s = quiesce "
                 f"{t_dump - t_quiesce:.4f} + dump {dump_s:.3f} + metadata "
                 f"staged and spawn {dst.started - t_dumped:.3f} + spawn → "
                 f"RESTORED {t_restored - dst.started:.3f} (set-up "
@@ -3234,6 +3876,14 @@ def wire_run(work: str, card: str, label: str, codec: str, *,
         msg += (f"; the mirror ({side} beside the container) restored "
                 f"on the card in {out['mirror_restore']['restore_s']:.3f} s, "
                 f"losses bitwise equal too")
+    if "send_fault" in out:
+        msg += (f"; the armed {WIRE_SEND_FAULT[1]} failed the first wire leg "
+                f"({out['send_fault']['wire'].get('error')}, its dump "
+                f"{fault_s:.3f} s, left out of the blackout), its mirror "
+                f"committed, byte for byte the dump the destination "
+                f"continued from, and restored ("
+                f"{out['send_fault']['restored_leaves']} leaves, every crc "
+                f"checked)")
     if "hang_up" in out:
         msg += (f"; a receiver that hung up after "
                 f"{out['hang_up']['received_bytes']} bytes: dump ok, wire "
@@ -3683,7 +4333,7 @@ def phase_moe_serving(torch, fa, work: str, card: str, *, seed: int,
     out = phase_serving(torch, fa, work, card, seed=seed, cfg=cfg,
                         device=device, label="moe_serve",
                         max_len=MOE_SERVE_MAX_LEN, prompts=MOE_SERVE_PROMPTS,
-                        swap=MOE_SERVE_SWAP, fanout=False)
+                        swap=MOE_SERVE_SWAP, fanout=False, drain_fault=False)
     out["masked_prefill"] = moe_masked_prefill(torch, card, seed=seed,
                                                cfg=cfg, device=device)
     return out
@@ -4581,6 +5231,15 @@ def pipe_axis_round(torch, fa, spec: dict, tr, rank: int, n: int,
     return out
 
 
+def _file_digest(path: str) -> str:
+    """sha256 of a file's bytes."""
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for block in iter(lambda: f.read(64 << 20), b""):
+            h.update(block)
+    return h.hexdigest()
+
+
 def _write_atomic(path: str, text: str) -> None:
     with open(path + ".tmp", "w") as f:
         f.write(text)
@@ -4698,10 +5357,12 @@ class GangSources:
 
 
 def gang_dumps(hook, pids: list[int], gwork: str, order, stagger_s: float,
-               prefix: str = "host") -> dict:
+               prefix: str = "host", wires: dict | None = None) -> dict:
     """The per-host hooks' dumps of ``pids[k]`` into
     ``<gwork>/<prefix>-<k>``, from one thread each, started in ``order``
-    ``stagger_s`` apart: ``{k: (start, end, error or None)}``."""
+    ``stagger_s`` apart: ``{k: (start, end, error or None)}``. ``wires``:
+    ``{k: {"spec": wire spec}}``, the hosts whose dump also streams its
+    leg to a destination; each entry gains the hook's ``"outcome"``."""
     import threading  # noqa: PLC0415
 
     order = list(order)
@@ -4710,8 +5371,12 @@ def gang_dumps(hook, pids: list[int], gwork: str, order, stagger_s: float,
     def dump(k):
         time.sleep(stagger_s * order.index(k))
         t0 = time.perf_counter()
+        wire = (wires or {}).get(k)
         try:
-            hook.dump(pids[k], os.path.join(gwork, f"{prefix}-{k}"))
+            out = hook.dump(pids[k], os.path.join(gwork, f"{prefix}-{k}"),
+                            wire=None if wire is None else wire["spec"])
+            if wire is not None:
+                wire["outcome"] = out
             times[k] = (t0, time.perf_counter(), None)
         except Exception as exc:  # noqa: BLE001 — the caller judges it
             times[k] = (t0, time.perf_counter(), exc)
@@ -4954,6 +5619,9 @@ MESH_LOSS_BOUND = 1e-3      # sharded against dense, bf16 (__graft_entry__.py:17
 MESH_RELAYOUT_BOUND = 1e-2  # another layout (the JAX package's tests/test_trainer.py:80-96)
 GANG_MESH_READY = MESH_STEPS + MESH_AFTER + 1  # phase 20: the sources' step
 GANG_MESH_AFTER = 3  # before the hooks; sources and restores run to cut + 3
+# The rank whose leg also streams over the wire: the first to request,
+# whose clone precedes the cut, so its re-ship carries bytes.
+GANG_MESH_WIRE_RANK = 0
 
 
 def mesh_collectives(tr) -> dict:
@@ -5244,9 +5912,10 @@ def gang_mesh_source(torch, fa, spec: dict, dev, rank: int, tr) -> dict:
 def gang_mesh_restore(torch, fa, spec: dict, dev, rank: int) -> dict:
     """Phase 20 on a fresh rank: its own leg restored onto
     :data:`MESH_SOURCE` by post-copy (``GRIT_RESTORE_POSTCOPY``: the hot
-    set, then the tail joined by the first step), and the legs' merged
-    view onto :data:`MESH_OTHER` blocking; each steps to the sources'
-    stop."""
+    set, then the tail joined by the first step; rank
+    :data:`GANG_MESH_WIRE_RANK` from the leg the wire landed), and the
+    legs' merged view onto :data:`MESH_OTHER` blocking; each steps to the
+    sources' stop."""
     t_gang = time.perf_counter()
     g = spec["gang"]
     out: dict = {}
@@ -5257,8 +5926,9 @@ def gang_mesh_restore(torch, fa, spec: dict, dev, rank: int) -> dict:
             os.environ["GRIT_RESTORE_POSTCOPY"] = "1"
         try:
             t0 = _start(torch, dev)
-            step = tr.restore(os.path.join(g["work"], f"host-{rank}", "hbm")
-                              if postcopy else g["merged"])
+            leg = (g["wire_leg"]["dir"] if rank == g["wire_leg"]["rank"]
+                   else os.path.join(g["work"], f"host-{rank}", "hbm"))
+            step = tr.restore(leg if postcopy else g["merged"])
             _sync(torch, dev)
             res = {"step": step, "restore_s": time.perf_counter() - t0}
         finally:
@@ -5420,12 +6090,19 @@ def gang_mesh_cut(spec: dict, mwork: str) -> tuple[list[dict], dict]:
     thread): once every rank is past :data:`GANG_MESH_READY`, four port
     hooks under ``GRIT_SLICE_HOSTS`` dump one rank each into
     ``host-<k>`` from four threads started a step apart; every leg must
-    record one step and every rank be parked there. The sources then
-    resume to the cut + :data:`GANG_MESH_AFTER`, and the legs are merged
-    for the restore launch (``spec["gang"]`` gains ``stop`` and
-    ``merged``). Returns the source ranks' records and the cut's."""
+    record one step and every rank be parked there. Rank
+    :data:`GANG_MESH_WIRE_RANK`'s dump also tees its leg's data file over
+    the wire into this script's :class:`Receiver`, and the rest of the
+    leg is staged there as the agent ships it: the landed leg must equal
+    the rank's own, and the restore launch restores that rank from it.
+    The sources then resume to the cut + :data:`GANG_MESH_AFTER`, and the
+    legs are merged for the restore launch (``spec["gang"]`` gains
+    ``stop``, ``merged`` and ``wire_leg``). Returns the source ranks'
+    records and the cut's."""
     from grit_tpu_torch.device.hook import HBM_SUBDIR, TpuDeviceCheckpointHook  # noqa: PLC0415
-    from grit_tpu_torch.device.snapshot import SnapshotManifest, merge_legs  # noqa: PLC0415
+    from grit_tpu_torch.device.snapshot import (  # noqa: PLC0415
+        MANIFEST_FILE, SPEC_SUFFIX, SnapshotManifest, data_file, index_file,
+        merge_legs)
 
     gwork = os.path.join(mwork, "gang")
     sockdir = os.path.join(gwork, "s")
@@ -5442,10 +6119,42 @@ def gang_mesh_cut(spec: dict, mwork: str) -> tuple[list[dict], dict]:
         src.wait_steps(GANG_MESH_READY + 1)
         step_s = src.t_step[GANG_MESH_READY + 1] - src.t_step[GANG_MESH_READY]
         hook = TpuDeviceCheckpointHook(timeout=600)
-        times = gang_dumps(hook, pids, gwork, range(N_RANKS), step_s)
+        wk = GANG_MESH_WIRE_RANK
+        recv = Receiver(os.path.join(gwork, "wire-dst"))
+        try:
+            wires = {wk: {"spec": {"endpoint": recv.endpoint,
+                                   "prefix": "hbm", "streams": WIRE_STREAMS}}}
+            times = gang_dumps(hook, pids, gwork, range(N_RANKS), step_s,
+                               wires=wires)
+            wleg = os.path.join(gwork, f"host-{wk}", HBM_SUBDIR)
+            if times.get(wk, (0, 0, None))[2] is None:
+                # The rest of the leg and its -spec sibling, which the
+                # parked re-ship references, as the agent ships them.
+                for name in (index_file(wk), MANIFEST_FILE, "COMMIT"):
+                    recv.stage_file(os.path.join(wleg, name), f"hbm/{name}")
+                spec_dir = wleg + SPEC_SUFFIX
+                for name in sorted(os.listdir(spec_dir)
+                                   if os.path.isdir(spec_dir) else ()):
+                    recv.stage_file(os.path.join(spec_dir, name),
+                                    f"hbm{SPEC_SUFFIX}/{name}")
+                recv.complete()
+        finally:
+            recv.close()
         bad = {k: v[2] for k, v in times.items() if v[2] is not None}
         if bad or len(times) != N_RANKS:
             raise AssertionError(f"gang_mesh: dumps failed: {bad}")
+        landed = os.path.join(recv.dst, "hbm")
+        data = data_file(wk)
+        outcome = wires[wk].get("outcome") or {}
+        size = os.path.getsize(os.path.join(wleg, data))
+        if recv.error is not None or not outcome.get("ok") or \
+                outcome.get("files") != {f"hbm/{data}": size} or \
+                _file_digest(os.path.join(landed, data)) != \
+                _file_digest(os.path.join(wleg, data)) or \
+                SnapshotManifest.load(landed).arrays != \
+                SnapshotManifest.load(wleg).arrays:
+            raise AssertionError(f"gang_mesh: rank {wk}'s wire tee: outcome "
+                                 f"{outcome}, receiver {recv.error}")
         legs = [os.path.join(gwork, f"host-{k}", HBM_SUBDIR)
                 for k in range(N_RANKS)]
         manifests = [SnapshotManifest.load(d) for d in legs]
@@ -5478,10 +6187,14 @@ def gang_mesh_cut(spec: dict, mwork: str) -> tuple[list[dict], dict]:
                                for r in m.arrays)} for m in manifests]
     t0 = time.perf_counter()
     merged = merge_legs(os.path.join(gwork, "merged"), legs)
-    spec["gang"].update(stop=cut + GANG_MESH_AFTER, merged=merged)
+    spec["gang"].update(stop=cut + GANG_MESH_AFTER, merged=merged,
+                        wire_leg={"rank": wk, "dir": landed})
     return sources, {"cut": cut, "times": times, "blackout": blackout,
                      "step_s": step_s, "legs": legs_info,
-                     "merge_s": time.perf_counter() - t0}
+                     "merge_s": time.perf_counter() - t0,
+                     "wire_leg": {"rank": wk, "bytes": size,
+                                  "outcome": outcome,
+                                  "payload_bytes": recv.wire_bytes}}
 
 
 def gang_mesh_checks(sources: list[dict], restored: list[dict], rec: dict,
@@ -5550,6 +6263,14 @@ def gang_mesh_checks(sources: list[dict], restored: list[dict], rec: dict,
                      f"(first request to the last leg's commit) "
                      f"{rec['blackout']:.3f} s; legs merged in "
                      f"{rec['merge_s']:.3f} s [{card}]")
+    wl = rec["wire_leg"]
+    log("gang_mesh", f"rank {wl['rank']}'s leg teed over the wire: "
+                     f"{wl['bytes']} B of data-h{wl['rank']:04d}.bin as "
+                     f"{wl['payload_bytes']} payload bytes (sent_bytes "
+                     f"{wl['outcome'].get('sent_bytes')}, send_s "
+                     f"{wl['outcome'].get('send_s')}), landed equal to the "
+                     f"rank's own leg; that rank restored from the landed "
+                     f"leg below [{card}]")
     log("gang_mesh", f"fresh ranks: own leg onto {MESH_SOURCE} by post-copy: "
                      f"hot s {[round(r['same']['hot_s'], 4) for r in dst]}, "
                      f"tail s {[round(r['same']['tail_s'], 4) for r in dst]}"
@@ -5574,6 +6295,7 @@ def gang_mesh_checks(sources: list[dict], restored: list[dict], rec: dict,
             "dump_bytes": [d["bytes"] for d in dumps],
             "total_bytes": [d["total_bytes"] for d in dumps],
             "merge_s": rec["merge_s"],
+            "wire_leg": {k: wl[k] for k in ("rank", "bytes", "payload_bytes")},
             "postcopy": {k: [r["same"][k] for r in dst]
                          for k in ("restore_s", "hot_s", "tail_s")},
             "other_restore_s": [r["other"]["restore_s"] for r in dst],
@@ -6473,13 +7195,17 @@ def main(argv: list[str] | None = None) -> int:
         io = phase_io(torch, work, device["smi"])
         early = early_sources(work)
         try:
+            io["native"] = io_native(device["smi"], early["standby"])
             precopy = phase_precopy(work, device["smi"],
                                     source=early["precopy"])
             frozen = phase_frozen(work, device["smi"], train=train,
-                                  source=early["frozen"])
+                                  source=early["frozen"],
+                                  standby=early["standby"],
+                                  mnist=early["mnist"])
             wire = phase_wire(torch, work, device["smi"], early["wire"])
         finally:
             for src, *_rest in (early["precopy"], early["frozen"],
+                                early["standby"], early["mnist"],
                                 *early["wire"].values()):
                 src.kill()
         torch.cuda.empty_cache()
@@ -6506,7 +7232,8 @@ def main(argv: list[str] | None = None) -> int:
         "source": src,
         "replaces": replaces,
         # Phase 4's steps, phase 9's frozen-trunk runs (the uninterrupted
-        # one and the restored ones), phase 10's wire destinations, the
+        # one and the restored ones, the standby leg's destination among
+        # them), phase 10's wire destinations, the
         # uninterrupted run of phase 11, phase 13's destination, phase
         # 12's two steps,
         # every rank's Ulysses (15) and pipeline (16) runs, every source
@@ -6517,6 +7244,7 @@ def main(argv: list[str] | None = None) -> int:
         # eight ranks (the dryrun's phases and the (2,2,2) flagship's
         # steps, source and restored).
         "launches": (train["launches"][name] + frozen["launches_all"][name]
+                     + frozen["standby"]["launches"][name]
                      + wire["launches"][name] + lora["launches"][name]
                      + remat["launches"][name] + moe["launches"][name]
                      + long_context["ring"]["launches"][name]
@@ -6527,6 +7255,7 @@ def main(argv: list[str] | None = None) -> int:
                      + mesh8["launches"][name]),
         "launches_by_path": {"adam": train["launches"][name],
                              "frozen_trunk": frozen["launches_all"][name],
+                             "standby": frozen["standby"]["launches"][name],
                              "wire": wire["launches"][name],
                              "lora_7b": lora["launches"][name],
                              "remat": remat["launches"][name],

@@ -121,6 +121,16 @@ TPU_COMPILE_CACHE = Knob(
     "snapshot carries its libraries under compile-cache/, and a restore "
     "seeds this directory from the snapshot before the first kernel "
     "build.")
+TPU_IMAGE_DIR = Knob(
+    "GRIT_TPU_IMAGE_DIR", "",
+    "Where the port's CRIU GPU plugin (csrc/criu_gpu_plugin.c) writes the "
+    "device snapshot during a criu dump (its tpu/ subdirectory); unset, "
+    "CRIU's image dir. Read by native code.")
+TPU_CHECKPOINT_BIN = Knob(
+    "GRIT_TPU_CHECKPOINT_BIN", "",
+    "Path to the gpu-checkpoint toggle CLI (csrc/gpu_checkpoint.c, "
+    "device/native.py's cli_path) the port's CRIU GPU plugin execs; unset, "
+    "gpu-checkpoint on the PATH. Read by native code.")
 SNAP_SPECULATE = Knob(
     "GRIT_SNAP_SPECULATE", "1",
     "Quiesce-free concurrent dump: a quiesce request that carries a dump "

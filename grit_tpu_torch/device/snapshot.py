@@ -60,7 +60,14 @@ again. Identity is a sha256 match against a hashed base (``hashes=True``
 on the base's dump), else a crc32 match confirmed by a byte compare
 against the base's file — a crc mismatch alone proves a change. The
 manifest then carries ``"base"`` and the ``"dirty"`` accounting the
-agent's pre-copy governors read.
+agent's pre-copy governors read. The reference agent's pre-copy rounds
+and standby loop fold each shipped delta into the rolling base
+(``grit_tpu/deltachain.py``): the flattened manifest keeps only
+``format``, ``process_count``, ``meta`` and ``arrays``, its chunks name
+data files ``data-h<k>.r<j>.bin``, and its ``index-h<k>.json`` is left
+stale. Every reader here goes by the manifest's chunks alone, so such a
+base restores, is matched by the next delta (sha256 against the folded
+chunks) and merges as a leg (:func:`data_file_process`).
 
 Mirror (``mirror=``): a writer thread tees every physically written chunk
 into a second committed snapshot (the agent's upload destination), whose
@@ -146,6 +153,7 @@ import json
 import logging
 import os
 import queue
+import re
 import shutil
 import threading
 import time
@@ -206,6 +214,18 @@ WORK_SUFFIX = ".work"
 def data_file(k: int) -> str:
     """Process ``k``'s data file."""
     return f"data-h{k:04d}.bin"
+
+
+_DATA_FILE_RE = re.compile(r"data-h(\d{4,})(?:\.r\d+)?\.bin")
+
+
+def data_file_process(name: str) -> int | None:
+    """The process whose bytes a data file holds: ``data-h<k>.bin``, or
+    ``data-h<k>.r<j>.bin``, the name the agent's delta-chain flatten and a
+    standby rebase give it (``grit_tpu/deltachain.py``); None for any
+    other name."""
+    m = _DATA_FILE_RE.fullmatch(name)
+    return int(m.group(1)) if m else None
 
 
 def index_file(k: int) -> str:
@@ -1269,7 +1289,8 @@ def merge_legs(directory: str, legs: list[str]) -> str:
     the JAX package reads it as any snapshot. Raises
     :class:`SnapshotIntegrityError` unless every leg is committed and a
     leg of this cut (``process_count`` the number of legs, its chunks in
-    its own ``data-h<k>.bin``, each ``k`` once), the legs agree on the
+    its own ``data-h<k>.bin`` (or the ``data-h<k>.r<j>.bin`` a flattened
+    leg holds), each ``k`` once), the legs agree on the
     meta, on every array's dtype, shape and descriptor and on the crc
     (and sha256) of a shard that several hold, and together cover every
     array."""
@@ -1291,7 +1312,8 @@ def merge_legs(directory: str, legs: list[str]) -> str:
                 f"{leg_dir} is not a leg of a cut of {len(legs)} hosts: it "
                 f"records {m.process_count} process(es)")
         files = {c["file"] for rec in m.arrays for c in rec["chunks"]}
-        own = [k for k in range(len(legs)) if files == {data_file(k)}]
+        procs = {data_file_process(f) for f in files}
+        own = [k for k in range(len(legs)) if procs == {k}]
         if files and not own:
             raise SnapshotIntegrityError(
                 f"{leg_dir} is not one process's leg: its chunks are in "
